@@ -4,6 +4,9 @@
     net, qstate = quantize("vit_base_patch16_384", calib_images,
                            config="PTQ4ViT", device="cuda")
     logits = net.apply(x, qstate=qstate)      # fake-quant forward
+
+Any MODEL_ZOO row works the same way, the Swin rows included
+("swin_base_patch4_window12_384").
 """
 from __future__ import annotations
 

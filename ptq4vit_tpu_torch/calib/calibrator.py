@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..configs.policy import QuantConfig
+from ..ops import search_kernels as K
 from ..utils.convert import qp_from_fields
 from . import search as S
 from .capture import capture
@@ -35,19 +36,42 @@ def params_for_op(params: Dict[str, Any], name: str):
 def tap_bytes(net, calib_n: int, need_grad: bool, store_raw_out: bool,
               elem_bytes: int) -> Dict[str, int]:
     """Bytes of each op's full-calibration-set caches, from the static
-    op shapes."""
+    op shapes (a window matmul holds ``windows`` samples per image)."""
     sizes = {}
     for name, info in net.op_shapes.items():
         if info["kind"] == "matmul":
             h, r, i, c = (info["heads"], info["rows"], info["inner"],
                           info["cols"])
-            ins, out = h * r * i + h * i * c, h * r * c
+            nw = info.get("windows", 1)
+            ins, out = nw * (h * r * i + h * i * c), nw * h * r * c
         else:
             t = info["tokens"]
             ins, out = t * info["in_features"], t * info["out_features"]
         n = ins + (out if store_raw_out else 0) + (out if need_grad else 0)
         sizes[name] = n * elem_bytes * calib_n
     return sizes
+
+
+def kernel_scratch_bytes(info, calib_n: int, policy) -> int:
+    """Device bytes of the int8 level buffers that one call of the op's
+    search kernel allocates (``ops/search_kernels.py``): B1 or B2 for a
+    linear (B2's per-candidate input levels dominate), B3 / B3f for a
+    matmul (mode "a" only without the SoS quantizer); 0 for the conv, whose
+    search is plain tensor code."""
+    P = policy.eq_n
+    if info["kind"] == "linear":
+        M, kp = info["tokens"] * calib_n, K.k_pad(info["in_features"])
+        oc = info["out_features"]
+        return max(P * M * kp + M * kp + oc * kp,              # B2
+                   P * oc * kp + 2 * M * kp)                   # B1
+    if info["kind"] == "matmul":
+        Z = info["heads"] * info.get("windows", 1) * calib_n
+        R, C, kp = info["rows"], info["cols"], K.k_pad(info["inner"])
+        mode_b = 2 * Z * R * kp + P * Z * C * kp               # b, b_sos
+        if policy.quantizer == "sos_matmul":
+            return mode_b
+        return max(P * Z * R * kp + Z * C * kp, mode_b)        # a, b
+    return 0
 
 
 def resolve_cache_dtype(cache_dtype, device: torch.device):
@@ -68,6 +92,8 @@ class CalibReport:
     model: str
     config: str
     capture_seconds: float = 0.0
+    capture_peak_bytes: int = 0     # CUDA: peak allocated by the end of a
+                                    # capture pass (0 on the CPU)
     num_groups: int = 0
     search_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
 
@@ -97,16 +123,20 @@ class HessianQuantCalibrator:
         self.use_kernels = use_kernels
         self.report = CalibReport(model=net.name, config=quant_cfg.name)
 
-    def _group_budget(self, need_grad: bool) -> int:
+    def _group_budget(self, need_grad: bool, policies) -> int:
         """Cache bytes one capture group may hold: the free device memory
-        less the largest search working set (its caches in fp32 plus the
-        candidate-chunk scratch) and 1 GiB for the capture forward and
-        backward."""
+        less the largest search working set (its caches in fp32, its
+        kernel's level buffers, the candidate-chunk scratch) and 1 GiB for
+        the capture forward and backward."""
         if self.device.type != "cuda":
             return 8 << 30
         free, _ = torch.cuda.mem_get_info(self.device)
-        work = tap_bytes(self.net, len(self.calib_x), need_grad, True, 4)
-        reserve = max(work.values()) + S.DEFAULT_BUDGET + (1 << 30)
+        n = len(self.calib_x)
+        work = tap_bytes(self.net, n, need_grad, True, 4)
+        reserve = max(work[name] + kernel_scratch_bytes(
+            info, n, policies[name])
+            for name, info in self.net.op_shapes.items()) \
+            + S.DEFAULT_BUDGET + (1 << 30)
         return max(1 << 30, int(0.85 * free) - reserve)
 
     def batching_quant_calib(self, verbose: bool = False) -> Dict[str, Any]:
@@ -116,7 +146,7 @@ class HessianQuantCalibrator:
         need_grad = any(p.metric == "hessian" for p in policies.values())
         elem = torch.tensor([], dtype=self.cache_dtype).element_size()
         sizes = tap_bytes(net, len(self.calib_x), need_grad, False, elem)
-        budget = self._group_budget(need_grad)
+        budget = self._group_budget(need_grad, policies)
         groups: List[List[str]] = [[]]
         acc = 0
         for name, _ in net.op_inventory:
@@ -137,6 +167,10 @@ class HessianQuantCalibrator:
                           cache_dtype=self.cache_dtype, device=self.device)
             self._sync()
             self.report.capture_seconds += time.time() - t0
+            if self.device.type == "cuda":
+                self.report.capture_peak_bytes = max(
+                    self.report.capture_peak_bytes,
+                    torch.cuda.max_memory_allocated(self.device))
             for name in group:
                 t0 = time.time()
                 qstate[name] = self._search_one(name, mtypes[name],

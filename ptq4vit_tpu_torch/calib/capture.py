@@ -60,7 +60,8 @@ def capture(net, calib_x, *, batch_size: int = 8, need_grad: bool = True,
     Returns {op name: OpCapture} with every cache on ``device`` (the net's
     params' device by default), concatenated over the micro-batches, in
     ``cache_dtype`` (default: float32).  ``store_raw_out=False`` drops the
-    op outputs (the searches recompute them)."""
+    op outputs (the searches recompute them).  Swin's window-matmul caches
+    are (images x windows)-major, since the forward emits them so."""
     params, cfg, fwd = net.params, net.cfg, net.forward
     if device is None:
         device = net.params["head"]["weight"].device

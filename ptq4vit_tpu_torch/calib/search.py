@@ -1,10 +1,11 @@
 """Scale-factor candidate search — the calibration hot path.
 
 The counterpart of ``ptq4vit_tpu/calib/search.py`` for the cases of the
-main path: the linear search (qkv with n_V = 3, proj, fc1, the post-GELU
-fc2 and the head), the head-wise attention-matmul search (with the
-split-of-softmax split search for matmul2) and the channelwise
-patch-embedding conv search.
+main path of ViT and Swin: the linear search (qkv with n_V = 3, proj, fc1,
+the post-GELU fc2, Swin's bias-free patch-merging reduction and the head),
+the head-wise attention-matmul search (with the split-of-softmax split
+search for matmul2; Swin's window matmuls hold images x windows samples)
+and the channelwise patch-embedding conv search.
 
 Scoring mode follows the device, as the JAX package's follows the backend
 (search.py:51-76), but as explicit parameters:

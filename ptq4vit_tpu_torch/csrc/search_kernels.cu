@@ -8,8 +8,11 @@
 //       (body _a_kernel_i8_ploop): linear input-interval search
 //   B3  ptq4vit_tpu/ops/pallas_search.py  matmul_hessian_sims
 //       (body _mm_kernel, F = 1): per-head attention-matmul search
+//   B3f ptq4vit_tpu/ops/pallas_search.py  matmul_hessian_sims
+//       (body _mm_kernel_folded, F > 1): the same search at the window
+//       shapes of Swin (see the B3f section below)
 //
-// All three score P candidate scales Δ_p with the hessian similarity
+// All four score P candidate scales Δ_p with the hessian similarity
 //     sims[p] = -Σ (g · (raw - out_p))²
 // where out_p is an int8 x int8 -> int32 product of quantization levels
 // rescaled once in fp32.  Each call runs three kernels:
@@ -74,22 +77,33 @@ __device__ __forceinline__ int8_t qlevel(float v, float d, int lo, int hi) {
 
 // ---------------------------------------------------------------------------
 // pre-pass: out[((p * Z + z) * rows + r) * Kp + k] = src.level(p, z, r, k)
-// for k < K, 0 in the padding
+// for k < K, 0 in the padding.  One thread per 4-byte word of the output:
+// the index decode is shared by four levels and a warp writes 128
+// consecutive bytes.
 // ---------------------------------------------------------------------------
 
 template <class Src>
 __global__ void levels_kernel(Src src, int8_t* __restrict__ out, int P,
                               int Z, int rows, int K, int Kp) {
-  const size_t total = (size_t)P * Z * rows * Kp;
+  const int KW = Kp / 4;
+  const size_t total = (size_t)P * Z * rows * KW;
+  int* out32 = reinterpret_cast<int*>(out);
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
        i += (size_t)gridDim.x * blockDim.x) {
-    const int k = (int)(i % Kp);
-    size_t t = i / Kp;
+    const int kw = (int)(i % KW);
+    size_t t = i / KW;
     const int r = (int)(t % rows);
     t /= rows;
     const int z = (int)(t % Z);
     const int p = (int)(t / Z);
-    out[i] = k < K ? src.level(p, z, r, k) : (int8_t)0;
+    unsigned word = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int k = 4 * kw + b;
+      const int8_t v = k < K ? src.level(p, z, r, k) : (int8_t)0;
+      word |= (unsigned)(uint8_t)v << (8 * b);
+    }
+    out32[i] = (int)word;
   }
 }
 
@@ -234,8 +248,28 @@ struct LinearA : OpBase {
   __device__ int bin(int) const { return 0; }
 };
 
-// B3 epilogue.  MODE 0 ("a"): candidates on A; 1 ("b"): on B; 2 ("b_sos"):
-// on B with the softmax side as SoS hi/lo levels.  raw = A @ B in fp32.
+// B3 / B3f squared error of one output.  MODE 0 ("a"): candidates on A;
+// 1 ("b"): on B; 2 ("b_sos"): on B with the softmax side as SoS hi/lo
+// levels.  d = cands[p, g], f = fixed_int[g].
+template <int MODE>
+__device__ __forceinline__ float mm_term(int acc0, int acc1, float d,
+                                         float f, float s_hi, float s_lo,
+                                         float r, float g2) {
+  float out;
+  if (MODE == 0) {
+    out = __fmul_rn(__int2float_rn(acc0), __fmul_rn(d, f));
+  } else if (MODE == 1) {
+    out = __fmul_rn(__int2float_rn(acc0), __fmul_rn(f, d));
+  } else {
+    out = __fmul_rn(__fadd_rn(__fmul_rn(__int2float_rn(acc0), s_hi),
+                              __fmul_rn(__int2float_rn(acc1), s_lo)),
+                    d);
+  }
+  const float diff = __fsub_rn(r, out);
+  return __fmul_rn(__fmul_rn(g2, diff), diff);
+}
+
+// B3 epilogue; raw = A @ B in fp32.
 template <class T, int MODE>
 struct MatmulOp : OpBase {
   static constexpr int NL = MODE == 2 ? 2 : 1;
@@ -272,19 +306,8 @@ struct MatmulOp : OpBase {
   __device__ float gprep(float v) const { return __fmul_rn(v, v); }
   __device__ float term(int p, int, int acc0, int acc1, float, float r,
                         float g2) const {
-    const float d = cands[p * Gh + g];
-    float out;
-    if (MODE == 0) {
-      out = __fmul_rn(__int2float_rn(acc0), __fmul_rn(d, fixed_int[g]));
-    } else if (MODE == 1) {
-      out = __fmul_rn(__int2float_rn(acc0), __fmul_rn(fixed_int[g], d));
-    } else {
-      out = __fmul_rn(__fadd_rn(__fmul_rn(__int2float_rn(acc0), s_hi),
-                                __fmul_rn(__int2float_rn(acc1), s_lo)),
-                      d);
-    }
-    const float diff = __fsub_rn(r, out);
-    return __fmul_rn(__fmul_rn(g2, diff), diff);
+    return mm_term<MODE>(acc0, acc1, cands[p * Gh + g], fixed_int[g], s_hi,
+                         s_lo, r, g2);
   }
   __device__ int bin(int) const { return 0; }
 };
@@ -491,8 +514,8 @@ int kpad(int K) { return cdiv(K, TK) * TK; }
 template <class Src>
 int fill_levels(const Src& src, int8_t* out, int P, int Z, int rows, int K,
                 cudaStream_t st) {
-  const size_t total = (size_t)P * Z * rows * kpad(K);
-  const int blocks = (int)((total + 255) / 256 < 65536 ? (total + 255) / 256
+  const size_t words = (size_t)P * Z * rows * (kpad(K) / 4);
+  const int blocks = (int)((words + 255) / 256 < 65536 ? (words + 255) / 256
                                                        : 65536);
   levels_kernel<Src><<<blocks, 256, 0, st>>>(src, out, P, Z, rows, K,
                                              kpad(K));
@@ -513,13 +536,14 @@ int launch(const Op& op, const Levels& lev, int M, int N, int Z, int ngroups,
   return (int)cudaGetLastError();
 }
 
+// Fills the level buffers of a B3 / B3f call: la (P | 1, Z, R, Kp) and
+// la2 (Z, R, Kp) from A, lb (1 | P, Z, Co, Kp) from B transposed.
 template <class T, int MODE>
-int launch_mm(const void* A, const void* B, const void* grad,
-              const float* cands, const float* fixed_int, float split,
-              float a_int, float s_hi, float s_lo, int S, int G, int R,
-              int Ci, int Co, int P, int cq, int fq, int8_t* la, int8_t* la2,
-              int8_t* lb, float* partial, float* out, cudaStream_t st) {
-  const int Z = G * S, Kp = kpad(Ci);
+int fill_mm_levels(const void* A, const void* B, const float* cands,
+                   const float* fixed_int, float split, float a_int, int S,
+                   int G, int R, int Ci, int Co, int P, int cq, int fq,
+                   int8_t* la, int8_t* la2, int8_t* lb, cudaStream_t st) {
+  const int Z = G * S;
   MatmulLevels<T> src;
   src.cands = cands; src.fixed = fixed_int; src.split = split;
   src.a_int = a_int; src.S = S; src.G = G; src.R = R; src.Ci = Ci;
@@ -539,7 +563,18 @@ int launch_mm(const void* A, const void* B, const void* grad,
   src.X = (const T*)B; src.which = 1;
   src.kind = MODE == 0 ? 1 : 0;
   src.qmax = MODE == 0 ? fq : cq;
-  err = fill_levels(src, lb, MODE == 0 ? 1 : P, Z, Co, Ci, st);
+  return fill_levels(src, lb, MODE == 0 ? 1 : P, Z, Co, Ci, st);
+}
+
+template <class T, int MODE>
+int launch_mm(const void* A, const void* B, const void* grad,
+              const float* cands, const float* fixed_int, float split,
+              float a_int, float s_hi, float s_lo, int S, int G, int R,
+              int Ci, int Co, int P, int cq, int fq, int8_t* la, int8_t* la2,
+              int8_t* lb, float* partial, float* out, cudaStream_t st) {
+  const int Z = G * S, Kp = kpad(Ci);
+  int err = fill_mm_levels<T, MODE>(A, B, cands, fixed_int, split, a_int, S,
+                                    G, R, Ci, Co, P, cq, fq, la, la2, lb, st);
   if (err) return err;
 
   Levels lev;
@@ -555,6 +590,319 @@ int launch_mm(const void* A, const void* B, const void* grad,
   op.S = S; op.Gh = G; op.M = R; op.N = Co; op.K = Ci; op.P = P;
   op.nbins = 1; op.g = 0; op.Ab = op.A; op.Bb = op.B; op.Gb = op.Gr;
   return launch(op, lev, R, Co, Z, G, P, 1, partial, out, st);
+}
+
+// ---------------------------------------------------------------------------
+// B3f: the per-head matmul scorer at window shapes
+// ---------------------------------------------------------------------------
+//
+// The TPU folds F heads into one block-diagonal dense-K dot because its
+// lanes pad Ci / Co below 128.  The card pads differently: B3's 64 x 64
+// output tile is mostly padding at Swin's window shapes (R = 144 rows and
+// Co = 32 columns fill 38% of three tiles; R = Co = 144 fill 56% of nine),
+// and B3 pays a block-wide reduction per candidate for every small tile.
+// So B3f does not fold heads.  A block owns whole (window, head) problems
+// -- a chunk of consecutive windows of one head, taken one after the other
+// -- with an output tile fitted to R x Co: 16 x 16 threads, each with
+// mi <= 9 rows and NJ columns (R = 144 -> 144 rows in one tile; Co = 32
+// -> 32 columns, Co = 144 -> three 48-column tiles).  Per problem the block
+// computes raw = A @ B and g² of its tile into registers and loads the
+// fixed operand's levels into shared memory once; then, for each
+// candidate, it streams only the candidate operand's level tile
+// (double-buffered, one __syncthreads per candidate), takes the __dp4a
+// products over all of K from 16-byte shared-memory loads, and adds the
+// squared errors to a per-warp, per-candidate accumulator in shared
+// memory (a shuffle reduction inside the warp, no block-wide reduction per
+// candidate).  The chunk length is picked so that a call has about 1024
+// blocks; the grid is one-dimensional (no S·G on grid.z).  Every block
+// writes, per candidate, one partial in a fixed order, and
+// reduce_partials sums them in double: no atomics, the same sims from run
+// to run.  The levels come from the same pre-pass as B3's, and the rescale
+// is B3's mm_term, bit for bit.
+
+constexpr int FMI = 9;    // rows per thread at most: tiles of <= 144 rows
+constexpr int FTK = 16;   // K chunk of the fp32 raw product
+constexpr int NWARP = NT / 32;
+
+struct FoldGeom {
+  int S, G, R, Ci, Co, P;
+  int Kp, KWS;        // level row bytes; shared-memory row stride in words
+                      // (K words + 4: 16-byte aligned, no bank conflicts)
+  int mi, nj;         // rows, columns per thread
+  int TMr, TNr;       // tile rows (16 mi), tile columns (16 nj)
+  int nrt, nct;       // row and column tiles per problem
+  int SB, nchunk;     // windows per block, window chunks per head
+  int nper;           // partials per head
+  int nblocks;
+  int nLbuf, nRbuf;   // level tiles held per side
+  size_t smem;
+};
+
+FoldGeom fold_geom(int S, int G, int R, int Ci, int Co, int P, int mode) {
+  FoldGeom q;
+  q.S = S; q.G = G; q.R = R; q.Ci = Ci; q.Co = Co; q.P = P;
+  q.Kp = kpad(Ci);
+  q.KWS = q.Kp / 4 + 4;
+  q.nrt = cdiv(R, 16 * FMI);
+  q.mi = cdiv(R, 16 * q.nrt);
+  q.nct = cdiv(Co, 48);
+  q.nj = cdiv(Co, 16 * q.nct) <= 2 ? 2 : 3;
+  q.TMr = 16 * q.mi;
+  q.TNr = 16 * q.nj;
+  const long long tiles = (long long)S * G * q.nrt * q.nct;
+  q.SB = tiles / 1024 > 1 ? (int)(tiles / 1024) : 1;   // ~1024 blocks
+  q.nchunk = cdiv(S, q.SB);
+  q.nper = q.nchunk * q.nrt * q.nct;
+  q.nblocks = G * q.nper;
+  q.nLbuf = mode == 0 ? 2 : (mode == 2 ? 2 : 1);
+  q.nRbuf = mode == 0 ? 1 : 2;
+  q.smem = sizeof(int) * (size_t)(q.nLbuf * q.TMr + q.nRbuf * q.TNr) * q.KWS
+           + sizeof(float) * ((size_t)q.TMr * (FTK + 1)
+                              + (size_t)FTK * (q.TNr + 1)
+                              + (size_t)NWARP * P);
+  return q;
+}
+
+template <class T>
+struct FoldArgs {
+  const T* A;
+  const T* B;
+  const T* Gr;
+  const float* cands;      // (P, G)
+  const float* fixed_int;  // (G,)
+  float s_hi, s_lo;
+  const int8_t* la;        // levels, as B3 (z = g * S + s)
+  const int8_t* la2;
+  const int8_t* lb;
+  FoldGeom q;
+};
+
+// rows [r0, r0 + nrows) of a (rows, Kp) level matrix into shared memory
+// (row stride KWS words); rows at or past nvalid are zero
+__device__ __forceinline__ void load_level_rows(int* dst, const int8_t* src,
+                                                int r0, int nrows,
+                                                int nvalid, int Kp,
+                                                int KWS) {
+  const int per_row = Kp / 16;
+  const int4 zero = make_int4(0, 0, 0, 0);
+  for (int idx = threadIdx.x; idx < nrows * per_row; idx += NT) {
+    const int r = idx / per_row, c = idx % per_row;
+    *reinterpret_cast<int4*>(dst + r * KWS + c * 4) =
+        r0 + r < nvalid ? *reinterpret_cast<const int4*>(
+                              src + (size_t)(r0 + r) * Kp + c * 16)
+                        : zero;
+  }
+}
+
+__device__ __forceinline__ int dp4a4(int4 a, int4 b, int c) {
+  c = __dp4a(a.x, b.x, c);
+  c = __dp4a(a.y, b.y, c);
+  c = __dp4a(a.z, b.z, c);
+  return __dp4a(a.w, b.w, c);
+}
+
+template <class T, int MODE, int NJ>
+__global__ void __launch_bounds__(NT)
+    folded_mm_kernel(FoldArgs<T> a, float* __restrict__ partial) {
+  constexpr int NL = MODE == 2 ? 2 : 1;
+  extern __shared__ int4 smem4[];
+  const FoldGeom& q = a.q;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int KWS = q.KWS, KW = q.Kp / 4, R = q.R, Co = q.Co, Ci = q.Ci;
+  const int P = q.P, mi = q.mi;
+  int* Lbuf = reinterpret_cast<int*>(smem4);          // nLbuf x TMr x KWS
+  int* Rbuf = Lbuf + q.nLbuf * q.TMr * KWS;           // nRbuf x TNr x KWS
+  float* As = reinterpret_cast<float*>(Rbuf + q.nRbuf * q.TNr * KWS);
+  float* Bs = As + q.TMr * (FTK + 1);                 // FTK x (TNr + 1)
+  float* wacc = Bs + FTK * (q.TNr + 1);               // NWARP x P
+
+  // block -> (head, window chunk, row tile, column tile)
+  int b = blockIdx.x;
+  const int ct = b % q.nct;
+  b /= q.nct;
+  const int rt = b % q.nrt;
+  b /= q.nrt;
+  const int chunk = b % q.nchunk;
+  const int g = b / q.nchunk;
+  const int m0 = rt * q.TMr, n0 = ct * q.TNr;
+  const int slot = (chunk * q.nrt + rt) * q.nct + ct;
+  const int s_lo = chunk * q.SB;
+  const int s_hi = s_lo + q.SB < q.S ? s_lo + q.SB : q.S;
+  const int Z = q.G * q.S;
+  const size_t Lz = (size_t)R * q.Kp, Rz = (size_t)Co * q.Kp;
+  const float fix = a.fixed_int[g];
+
+  for (int i = tid; i < NWARP * P; i += NT) wacc[i] = 0.f;
+  for (int s = s_lo; s < s_hi; ++s) {
+    const size_t sg = (size_t)s * q.G + g;            // operand index
+    const size_t z = (size_t)g * q.S + s;             // level index
+    const T* Ab = a.A + sg * R * Ci;
+    const T* Bb = a.B + sg * Ci * Co;
+    const T* Gb = a.Gr + sg * R * Co;
+
+    // raw = A @ B in fp32 for this tile (B3's order), and g²
+    float rawv[FMI][NJ], g2v[FMI][NJ];
+#pragma unroll
+    for (int i = 0; i < FMI; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) rawv[i][j] = 0.f;
+    for (int k0 = 0; k0 < Ci; k0 += FTK) {
+      for (int idx = tid; idx < q.TMr * FTK; idx += NT) {
+        const int mm = idx / FTK, kk = idx % FTK;
+        const int m = m0 + mm, k = k0 + kk;
+        As[mm * (FTK + 1) + kk] =
+            (m < R && k < Ci) ? to_f(Ab[(size_t)m * Ci + k]) : 0.f;
+      }
+      for (int idx = tid; idx < FTK * q.TNr; idx += NT) {
+        const int kk = idx / q.TNr, nn = idx % q.TNr;
+        const int k = k0 + kk, n = n0 + nn;
+        Bs[kk * (q.TNr + 1) + nn] =
+            (k < Ci && n < Co) ? to_f(Bb[(size_t)k * Co + n]) : 0.f;
+      }
+      __syncthreads();
+      for (int kk = 0; kk < FTK; ++kk) {
+        float bv[NJ];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) bv[j] = Bs[kk * (q.TNr + 1) + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < FMI; ++i) {
+          if (i < mi) {
+            const float av = As[(ty + 16 * i) * (FTK + 1) + kk];
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+              rawv[i][j] = __fmaf_rn(av, bv[j], rawv[i][j]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < FMI; ++i) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
+        float gv = 0.f;
+        if (i < mi && m < R && n < Co) gv = to_f(Gb[(size_t)m * Co + n]);
+        g2v[i][j] = __fmul_rn(gv, gv);
+      }
+    }
+
+    // the fixed operand's levels, once per problem; candidate 0's tile
+    if (MODE == 0) {
+      load_level_rows(Rbuf, a.lb + z * Rz, n0, q.TNr, Co, q.Kp, KWS);
+      load_level_rows(Lbuf, a.la + z * Lz, m0, q.TMr, R, q.Kp, KWS);
+    } else {
+      load_level_rows(Lbuf, a.la + z * Lz, m0, q.TMr, R, q.Kp, KWS);
+      if (MODE == 2)
+        load_level_rows(Lbuf + q.TMr * KWS, a.la2 + z * Lz, m0, q.TMr, R,
+                        q.Kp, KWS);
+      load_level_rows(Rbuf, a.lb + z * Rz, n0, q.TNr, Co, q.Kp, KWS);
+    }
+    __syncthreads();
+
+    for (int p = 0; p < P; ++p) {
+      const int cur = p & 1;
+      if (p + 1 < P) {     // prefetch the next candidate's tile
+        const size_t off = (size_t)(p + 1) * Z + z;
+        if (MODE == 0)
+          load_level_rows(Lbuf + (1 - cur) * q.TMr * KWS, a.la + off * Lz,
+                          m0, q.TMr, R, q.Kp, KWS);
+        else
+          load_level_rows(Rbuf + (1 - cur) * q.TNr * KWS, a.lb + off * Rz,
+                          n0, q.TNr, Co, q.Kp, KWS);
+      }
+      const int* Lc = MODE == 0 ? Lbuf + cur * q.TMr * KWS : Lbuf;
+      const int* Rc = MODE == 0 ? Rbuf : Rbuf + cur * q.TNr * KWS;
+      int acc[NL][FMI][NJ];
+#pragma unroll
+      for (int l = 0; l < NL; ++l)
+#pragma unroll
+        for (int i = 0; i < FMI; ++i)
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) acc[l][i][j] = 0;
+      for (int kw = 0; kw < KW; kw += 4) {
+        int4 bw[NJ];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          bw[j] = *reinterpret_cast<const int4*>(
+              Rc + (tx + 16 * j) * KWS + kw);
+#pragma unroll
+        for (int l = 0; l < NL; ++l) {
+#pragma unroll
+          for (int i = 0; i < FMI; ++i) {
+            if (i < mi) {
+              const int4 aw = *reinterpret_cast<const int4*>(
+                  Lc + (l * q.TMr + ty + 16 * i) * KWS + kw);
+#pragma unroll
+              for (int j = 0; j < NJ; ++j)
+                acc[l][i][j] = dp4a4(aw, bw[j], acc[l][i][j]);
+            }
+          }
+        }
+      }
+      const float d = a.cands[p * q.G + g];
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < FMI; ++i) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
+          if (i < mi && m < R && n < Co)
+            sum = __fadd_rn(sum, mm_term<MODE>(acc[0][i][j],
+                                               acc[NL - 1][i][j], d, fix,
+                                               a.s_hi, a.s_lo, rawv[i][j],
+                                               g2v[i][j]));
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
+      if (lane == 0) wacc[warp * P + p] = __fadd_rn(wacc[warp * P + p], sum);
+      __syncthreads();     // the next tile may now overwrite this one
+    }
+  }
+  for (int p = tid; p < P; p += NT) {
+    float s = 0.f;
+    for (int w = 0; w < NWARP; ++w) s = __fadd_rn(s, wacc[w * P + p]);
+    partial[((size_t)g * q.nper + slot) * P + p] = s;
+  }
+}
+
+template <class T, int MODE, int NJ>
+int launch_folded(const FoldArgs<T>& a, float* partial, float* out,
+                  cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      folded_mm_kernel<T, MODE, NJ>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.q.smem);
+  if (err != cudaSuccess) return (int)err;
+  folded_mm_kernel<T, MODE, NJ><<<a.q.nblocks, NT, a.q.smem, st>>>(a,
+                                                                 partial);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int total = a.q.P * a.q.G;
+  reduce_partials<<<cdiv(total, 128), 128, 0, st>>>(partial, out, a.q.G,
+                                                   a.q.nper, a.q.P, 1);
+  return (int)cudaGetLastError();
+}
+
+template <class T, int MODE>
+int launch_mm_folded(const void* A, const void* B, const void* grad,
+                     const float* cands, const float* fixed_int, float split,
+                     float a_int, float s_hi, float s_lo, int S, int G,
+                     int R, int Ci, int Co, int P, int cq, int fq,
+                     int8_t* la, int8_t* la2, int8_t* lb, float* partial,
+                     float* out, cudaStream_t st) {
+  int err = fill_mm_levels<T, MODE>(A, B, cands, fixed_int, split, a_int, S,
+                                    G, R, Ci, Co, P, cq, fq, la, la2, lb, st);
+  if (err) return err;
+  FoldArgs<T> a;
+  a.A = (const T*)A; a.B = (const T*)B; a.Gr = (const T*)grad;
+  a.cands = cands; a.fixed_int = fixed_int; a.s_hi = s_hi; a.s_lo = s_lo;
+  a.la = la; a.la2 = la2; a.lb = lb;
+  a.q = fold_geom(S, G, R, Ci, Co, P, MODE);
+  if (a.q.nj == 2) return launch_folded<T, MODE, 2>(a, partial, out, st);
+  return launch_folded<T, MODE, 3>(a, partial, out, st);
 }
 
 }  // namespace
@@ -645,6 +993,13 @@ int ptq_linear_a_sims(const float* x, const int8_t* w_lv, const float* w_scale,
   return launch(op, lev, M, N, 1, 1, P, 1, partial, out, st);
 }
 
+// B3f: the partial-sum count per candidate (the wrapper sizes the
+// partial scratch as this times P floats).
+int ptq_fold_num_partials(int S, int G, int R, int Ci, int Co, int P,
+                          int mode) {
+  return G * fold_geom(S, G, R, Ci, Co, P, mode).nper;
+}
+
 // B3.  A (S, G, R, Ci), B (S, G, Ci, Co), grad (S, G, R, Co), all f32
 // (bf16 = 0) or all bf16 (bf16 = 1); cands (P, G); fixed_int (G,);
 // mode 0 "a", 1 "b", 2 "b_sos" -> out (P, G).
@@ -671,6 +1026,34 @@ int ptq_matmul_sims(const void* A, const void* B, const void* grad, int bf16,
   if (mode == 1) PTQ_MM(float, 1);
   PTQ_MM(float, 2);
 #undef PTQ_MM
+}
+
+// B3f.  Arguments, scratch and result as B3; partial holds
+// ptq_fold_num_partials(...) * P floats.  A shape whose block needs more
+// shared memory than the card has fails with the launch's CUDA error.
+int ptq_matmul_sims_folded(const void* A, const void* B, const void* grad,
+                           int bf16, const float* cands,
+                           const float* fixed_int, float split, float a_int,
+                           float s_hi, float s_lo, int S, int G, int R,
+                           int Ci, int Co, int P, int mode, int cand_qmax,
+                           int fixed_qmax, int8_t* la, int8_t* la2,
+                           int8_t* lb, float* partial, float* out,
+                           void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+#define PTQ_MMF(T, MODE)                                                     \
+  return launch_mm_folded<T, MODE>(A, B, grad, cands, fixed_int, split,     \
+                                   a_int, s_hi, s_lo, S, G, R, Ci, Co, P,   \
+                                   cand_qmax, fixed_qmax, la, la2, lb,      \
+                                   partial, out, st)
+  if (bf16) {
+    if (mode == 0) PTQ_MMF(__nv_bfloat16, 0);
+    if (mode == 1) PTQ_MMF(__nv_bfloat16, 1);
+    PTQ_MMF(__nv_bfloat16, 2);
+  }
+  if (mode == 0) PTQ_MMF(float, 0);
+  if (mode == 1) PTQ_MMF(float, 1);
+  PTQ_MMF(float, 2);
+#undef PTQ_MMF
 }
 
 }  // extern "C"

@@ -1,2 +1,2 @@
-from . import vit
+from . import swin, vit
 from .registry import MODEL_ZOO, Net, get_net, model_config, net_from_config

@@ -1,4 +1,4 @@
-"""Functional building blocks of the ViT / DeiT forward.
+"""Functional building blocks of the ViT / DeiT and Swin forwards.
 
 The counterpart of ``ptq4vit_tpu/models/common.py``.  A :class:`QuantCtx`
 is threaded through every quantizable op call-site:

@@ -2,7 +2,7 @@
 architecture and input-preprocessing metadata.
 
 The counterpart of ``ptq4vit_tpu/models/registry.py``; ``MODEL_ZOO`` is the
-same data.  The Swin rows are listed but not built yet.
+same data.
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 
 from ..utils.convert import params_from_numpy
+from . import swin as swin_mod
 from . import vit as vit_mod
 
 IMAGENET_DEFAULT_MEAN = (0.485, 0.456, 0.406)
@@ -112,24 +113,34 @@ class Net:
 
 
 def model_config(name: str):
+    """The ViTConfig or SwinConfig of a MODEL_ZOO row."""
     z = MODEL_ZOO[name]
-    if z["kind"] != "vit":
-        raise NotImplementedError(f"{name}: Swin is not ported yet")
-    return vit_mod.ViTConfig(name=name, img_size=z["img"],
-                             patch_size=z["patch"], embed_dim=z["dim"],
-                             depth=z["depth"], num_heads=z["heads"],
-                             distilled=z.get("distilled", False))
+    if z["kind"] == "vit":
+        return vit_mod.ViTConfig(name=name, img_size=z["img"],
+                                 patch_size=z["patch"], embed_dim=z["dim"],
+                                 depth=z["depth"], num_heads=z["heads"],
+                                 distilled=z.get("distilled", False))
+    return swin_mod.SwinConfig(name=name, img_size=z["img"],
+                               patch_size=z["patch"], embed_dim=z["dim"],
+                               depths=z["depths"], num_heads=z["heads"],
+                               window_size=z["window"])
+
+
+def _model_module(cfg):
+    return swin_mod if isinstance(cfg, swin_mod.SwinConfig) else vit_mod
 
 
 def net_from_config(cfg, params: Dict[str, Any],
                     data_config: Optional[DataConfig] = None) -> Net:
-    """Bundle a ViT config and its params (used for custom-size nets)."""
+    """Bundle a ViT or Swin config and its params (also for custom-size
+    nets); the forward and op metadata follow the config's type."""
     if data_config is None:
         data_config = DataConfig(cfg.img_size, 1.0, IMAGENET_INCEPTION_MEAN,
                                  IMAGENET_INCEPTION_STD)
-    return Net(name=cfg.name, cfg=cfg, params=params, forward=vit_mod.forward,
-               op_inventory=vit_mod.op_inventory(cfg),
-               op_shapes=vit_mod.op_shapes(cfg), data_config=data_config)
+    mod = _model_module(cfg)
+    return Net(name=cfg.name, cfg=cfg, params=params, forward=mod.forward,
+               op_inventory=mod.op_inventory(cfg),
+               op_shapes=mod.op_shapes(cfg), data_config=data_config)
 
 
 def get_net(name: str, params: Optional[Dict[str, Any]] = None,
@@ -142,8 +153,8 @@ def get_net(name: str, params: Optional[Dict[str, Any]] = None,
     z = MODEL_ZOO[name]
     cfg = model_config(name)
     if params is None:
-        params = vit_mod.init_params(cfg, np.random.default_rng(seed),
-                                     device=device)
+        params = _model_module(cfg).init_params(
+            cfg, np.random.default_rng(seed), device=device)
     else:
         params = params_from_numpy(params, device)
     return net_from_config(cfg, params, DataConfig(

@@ -1,4 +1,4 @@
-"""The three int8-scored candidate scorers of the calibration search.
+"""The int8-scored candidate scorers of the calibration search.
 
 Each public function takes the arguments of its JAX counterpart in
 ``ptq4vit_tpu/ops/pallas_search.py`` and returns the same un-normalized
@@ -6,14 +6,19 @@ hessian similarity sums ``-Σ (g·(raw − out))²`` per candidate:
 
   linear_w_hessian_sims_i8  <- linear_w_hessian_sims_i8 (B1)
   linear_a_hessian_sims_i8  <- linear_a_hessian_sims_i8 (B2)
-  matmul_hessian_sims       <- matmul_hessian_sims, F = 1 (B3)
+  matmul_hessian_sims       <- matmul_hessian_sims: B3 (body _mm_kernel)
+                               where ``mm_fold_factor`` is 1, B3f (body
+                               _mm_kernel_folded) where it is > 1, as the
+                               JAX function picks its body
 
-For CUDA tensors the function launches the hand-written kernel of
-``csrc/search_kernels.cu`` (or raises); for CPU tensors it runs the plain
-PyTorch version beside it (``*_ref``), which follows the same formulas: the
-int8 dot is a float64 matmul of the levels, exact because every sum stays
-far below 2**53, and the fp32 rescale keeps the kernels' operation order.
-Each wrapper counts its kernel launches in ``<function>.launches``.
+For CUDA tensors the kernel wrappers launch the hand-written kernels of
+``csrc/search_kernels.cu`` (or raise); for CPU tensors they run the plain
+PyTorch version beside them (``*_ref``), which follows the same formulas:
+the int8 dot is a float64 matmul of the levels, exact because every sum
+stays far below 2**53, and the fp32 rescale keeps the kernels' operation
+order.  B3 and B3f compute the same function, so both have
+``matmul_hessian_sims_ref`` as their plain version.  Each kernel wrapper
+counts its kernel launches in ``<function>.launches``.
 """
 from __future__ import annotations
 
@@ -22,6 +27,31 @@ from typing import Optional, Sequence
 import torch
 
 from ..quant.fakequant import exact_div
+
+K_PAD = 32   # level rows are K-padded to this many bytes (csrc TK)
+
+
+def k_pad(K: int) -> int:
+    """K rounded up to the level buffers' row length."""
+    return -(-K // K_PAD) * K_PAD
+
+
+def mm_fold_factor(G: int, Ci: int, Co: int) -> int:
+    """The head fold F of the JAX matmul scorer (pallas_search.py
+    ``_mm_fold_factor``, without its environment override): the largest F
+    in (8, 4, 2) dividing G that strictly cuts the 128-padded MACs per
+    head.  F > 1 at Swin window shapes, 1 at ViT's; the port launches B3f
+    exactly where it is > 1."""
+    def up(n):
+        return -(-n // 128) * 128
+    best_cost, best = up(Ci) * up(Co), 1
+    for f in (8, 4, 2):
+        if G % f:
+            continue
+        cost = up(f * Ci) * up(f * Co) / f
+        if cost < best_cost:
+            best_cost, best = cost, f
+    return best
 
 
 # ---------------------------------------------------------------------------
@@ -92,7 +122,9 @@ def linear_a_hessian_sims_i8_ref(x, w_lv, w_scale, cands, raw_minus_bias,
 def matmul_hessian_sims_ref(A, B, grad, cands, fixed_int, mode: str,
                             cand_qmax: int, fixed_qmax: int,
                             sos: Optional[Sequence] = None):
-    """Plain version of B3 (body ``_mm_kernel``).  A (S, G, R, Ci),
+    """Plain version of B3 and B3f (bodies ``_mm_kernel`` and
+    ``_mm_kernel_folded``: the fold changes the order of the sums, not the
+    function).  A (S, G, R, Ci),
     B (S, G, Ci, Co), grad (S, G, R, Co) in fp32 or bf16; cands (P, G);
     fixed_int (G,); sos = (split, a_int, s_hi, s_lo) for mode "b_sos".
     Returns (P, G)."""
@@ -261,20 +293,9 @@ def linear_a_hessian_sims_i8(x, w_lv, w_scale, cands, raw_minus_bias, grad,
 _MODES = {"a": 0, "b": 1, "b_sos": 2}
 
 
-def matmul_hessian_sims(A, B, grad, cands, fixed_int, mode: str,
-                        cand_qmax: int, fixed_qmax: int,
-                        sos: Optional[Sequence] = None):
-    """B3: per-head attention-matmul scorer.
-
-    A (S, G, R, Ci), B (S, G, Ci, Co), grad (S, G, R, Co): all fp32 or all
-    bf16 (the calibration caches' stored dtype); cands (P, G) fp32;
-    fixed_int (G,); mode "a" | "b" | "b_sos"; sos = (split, a_int, s_hi,
-    s_lo) scalars for "b_sos".  Returns (P, G)."""
-    if not A.is_cuda:
-        return matmul_hessian_sims_ref(A, B, grad, cands, fixed_int, mode,
-                                       cand_qmax, fixed_qmax, sos)
-    from .build import load
-    lib = load()
+def _matmul_args(A, B, grad, cands, fixed_int, mode, sos):
+    """Checks of the B3 / B3f wrappers; returns (dims, fixed_int, sos
+    scalars)."""
     dev = A.device
     S, G, R, Ci = A.shape
     Co = B.shape[-1]
@@ -291,24 +312,98 @@ def matmul_hessian_sims(A, B, grad, cands, fixed_int, mode: str,
         raise ValueError(f"unknown mode {mode}")
     sv = [float(v) for v in (sos if sos is not None
                              else (0.0, 1.0, 1.0, 1.0))]
+    return (S, G, R, Ci, Co, P), fixed_int, sv
+
+
+def _matmul_scratch(lib, dims, mode, dev):
+    """The level buffers of the shared B3 / B3f pre-pass."""
+    S, G, R, Ci, Co, P = dims
     kp, Z = lib.ptq_k_pad(Ci), S * G
     la = _levels_scratch((P if mode == "a" else 1, Z, R, kp), dev)
     la2 = _levels_scratch((Z, R, kp), dev) if mode == "b_sos" else None
     lb = _levels_scratch((1 if mode == "a" else P, Z, Co, kp), dev)
+    return la, la2, lb
+
+
+def matmul_hessian_sims(A, B, grad, cands, fixed_int, mode: str,
+                        cand_qmax: int, fixed_qmax: int,
+                        sos: Optional[Sequence] = None):
+    """Per-head attention-matmul scorer (the JAX ``matmul_hessian_sims``).
+
+    A (S, G, R, Ci), B (S, G, Ci, Co), grad (S, G, R, Co): all fp32 or all
+    bf16 (the calibration caches' stored dtype); cands (P, G) fp32;
+    fixed_int (G,); mode "a" | "b" | "b_sos"; sos = (split, a_int, s_hi,
+    s_lo) scalars for "b_sos".  Returns (P, G).  On the card it launches
+    B3f where ``mm_fold_factor(G, Ci, Co) > 1`` (Swin windows) and B3
+    elsewhere."""
+    if not A.is_cuda:
+        return matmul_hessian_sims_ref(A, B, grad, cands, fixed_int, mode,
+                                       cand_qmax, fixed_qmax, sos)
+    G, Ci, Co = A.shape[1], A.shape[3], B.shape[-1]
+    F = mm_fold_factor(G, Ci, Co)
+    kern = matmul_hessian_sims_b3f if F > 1 else matmul_hessian_sims_b3
+    return kern(A, B, grad, cands, fixed_int, mode, cand_qmax, fixed_qmax,
+                sos)
+
+
+def matmul_hessian_sims_b3(A, B, grad, cands, fixed_int, mode: str,
+                           cand_qmax: int, fixed_qmax: int,
+                           sos: Optional[Sequence] = None):
+    """B3: the per-head scorer with 64 x 64 output tiles (body
+    ``_mm_kernel``); arguments as ``matmul_hessian_sims``."""
+    if not A.is_cuda:
+        return matmul_hessian_sims_ref(A, B, grad, cands, fixed_int, mode,
+                                       cand_qmax, fixed_qmax, sos)
+    from .build import load
+    lib = load()
+    dims, fixed_int, sv = _matmul_args(A, B, grad, cands, fixed_int, mode,
+                                       sos)
+    S, G, R, Ci, Co, P = dims
+    la, la2, lb = _matmul_scratch(lib, dims, mode, A.device)
     partial = torch.empty(lib.ptq_num_tiles(R, Co) * S * G * P,
-                          dtype=torch.float32, device=dev)
-    out = torch.empty(P, G, dtype=torch.float32, device=dev)
+                          dtype=torch.float32, device=A.device)
+    out = torch.empty(P, G, dtype=torch.float32, device=A.device)
     _launch(lib.ptq_matmul_sims, _ptr(A), _ptr(B), _ptr(grad),
             int(A.dtype == torch.bfloat16), _ptr(cands), _ptr(fixed_int),
             *sv, S, G, R, Ci, Co, P, _MODES[mode], cand_qmax, fixed_qmax,
             _ptr(la), _ptr(la2), _ptr(lb), _ptr(partial), _ptr(out),
             _stream())
-    matmul_hessian_sims.launches += 1
+    matmul_hessian_sims_b3.launches += 1
+    return out
+
+
+def matmul_hessian_sims_b3f(A, B, grad, cands, fixed_int, mode: str,
+                            cand_qmax: int, fixed_qmax: int,
+                            sos: Optional[Sequence] = None):
+    """B3f: the per-head scorer at window shapes (body
+    ``_mm_kernel_folded``).  It does not fold heads: a block owns whole
+    (window, head) problems, a chunk of windows of one head, with an output
+    tile fitted to R x Co (see csrc/search_kernels.cu).  Arguments and
+    result as ``matmul_hessian_sims``."""
+    if not A.is_cuda:
+        return matmul_hessian_sims_ref(A, B, grad, cands, fixed_int, mode,
+                                       cand_qmax, fixed_qmax, sos)
+    from .build import load
+    lib = load()
+    dims, fixed_int, sv = _matmul_args(A, B, grad, cands, fixed_int, mode,
+                                       sos)
+    S, G, R, Ci, Co, P = dims
+    la, la2, lb = _matmul_scratch(lib, dims, mode, A.device)
+    partial = torch.empty(lib.ptq_fold_num_partials(
+        S, G, R, Ci, Co, P, _MODES[mode]) * P,
+                          dtype=torch.float32, device=A.device)
+    out = torch.empty(P, G, dtype=torch.float32, device=A.device)
+    _launch(lib.ptq_matmul_sims_folded, _ptr(A), _ptr(B), _ptr(grad),
+            int(A.dtype == torch.bfloat16), _ptr(cands), _ptr(fixed_int),
+            *sv, S, G, R, Ci, Co, P, _MODES[mode], cand_qmax, fixed_qmax,
+            _ptr(la), _ptr(la2), _ptr(lb), _ptr(partial), _ptr(out),
+            _stream())
+    matmul_hessian_sims_b3f.launches += 1
     return out
 
 
 KERNELS = (linear_w_hessian_sims_i8, linear_a_hessian_sims_i8,
-           matmul_hessian_sims)
+           matmul_hessian_sims_b3, matmul_hessian_sims_b3f)
 
 
 def reset_launch_counts() -> None:

@@ -38,11 +38,20 @@ def T(a, dtype=torch.float32):
     return torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
 
 
-def matmul_case(rng, mode, dtype):
-    # G = 3 keeps the JAX scorer on its unfolded body (_mm_fold_factor = 1)
-    S, G, R, Ci, Co, P = 2, 3, 17, 8, 17, 6
+# (S, G, R, Ci, Co, P) of matmul1; matmul2 (b_sos) swaps Ci and Co.
+# G = 3 keeps the JAX scorer on its unfolded body (_mm_fold_factor = 1)
+UNFOLDED = (2, 3, 17, 8, 17, 6)
+# fold shapes (B3f): window-7 (R = 49) and window-12 (R = 144) attention
+# with head dim 32, and enough small windows (S = 2100) that a B3f block
+# walks a chunk of several windows
+FOLDED = [(3, 4, 49, 32, 49, 5), (2, 8, 144, 32, 144, 4),
+          (2100, 2, 16, 16, 8, 3)]
+
+
+def matmul_case(rng, mode, dtype, shape=UNFOLDED):
+    S, G, R, Ci, Co, P = shape
     if mode == "b_sos":
-        Ci, Co = 17, 8
+        Ci, Co = Co, Ci
     A = rng.standard_normal((S, G, R, Ci)).astype(np.float32)
     if mode == "b_sos":
         A = np.exp(A)
@@ -108,7 +117,44 @@ def test_kernels_match_plain_versions_on_the_card():
                                    rtol=1e-4, atol=0)
     assert sk.launch_counts() == {"linear_w_hessian_sims_i8": 2,
                                   "linear_a_hessian_sims_i8": 2,
-                                  "matmul_hessian_sims": 3}
+                                  "matmul_hessian_sims_b3": 3,
+                                  "matmul_hessian_sims_b3f": 0}
+
+
+@pytest.mark.cuda
+def test_folded_kernel_matches_plain_version_on_the_card():
+    """At fold shapes matmul_hessian_sims launches B3f (never B3 or the
+    plain version); B3f agrees with the plain version in every mode and
+    dtype, and its geometry stays inside a block's shared memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from ptq4vit_tpu_torch.ops.build import load
+    lib = load()
+    for K in (8, 32, 49, 144, 3072):
+        assert lib.ptq_k_pad(K) == sk.k_pad(K)
+    rng = np.random.default_rng(41)
+    dev = "cuda"
+    n = 0
+    for shape in FOLDED:
+        for mode in ("a", "b", "b_sos"):
+            for dtype in ("f32", "bf16"):
+                td = torch.bfloat16 if dtype == "bf16" else torch.float32
+                A, B, g, cands, fixed, sos = matmul_case(rng, mode, dtype,
+                                                         shape)
+                assert sk.mm_fold_factor(A.shape[1], A.shape[3],
+                                         B.shape[3]) > 1
+                args = (T(A, td).to(dev), T(B, td).to(dev), T(g, td).to(dev),
+                        T(cands).to(dev), T(fixed).to(dev), mode, Q, Q,
+                        None if sos is None else [float(v) for v in sos])
+                sk.reset_launch_counts()
+                got = sk.matmul_hessian_sims(*args)
+                assert sk.launch_counts()["matmul_hessian_sims_b3f"] == 1
+                assert sk.launch_counts()["matmul_hessian_sims_b3"] == 0
+                torch.testing.assert_close(
+                    got, sk.matmul_hessian_sims_ref(*args), rtol=1e-4,
+                    atol=0, msg=f"{shape} {mode} {dtype}")
+                n += 1
+    assert n == 3 * 3 * 2
 
 
 def test_wrapper_checks_reject_bad_inputs():

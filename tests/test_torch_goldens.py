@@ -1,11 +1,13 @@
 """The port against the literal reference's goldens.
 
-For ``ref_tinyvit_PTQ4ViT_w8a8_hessian`` the port searches every op on the
-golden's own ``raw::<op>::*`` caches (no probe RNG involved) and must land
-on the reference's calibrated ``mod::*`` intervals, exactly or as a tie
-proven by the f64 oracles of tests/test_reference_goldens.py.  A JAX qstate
-saved with the JAX package's ``save_qstate`` must load into the port and
-give the same fake-quant logits as in JAX.
+For ``ref_tinyvit_PTQ4ViT_w8a8_hessian`` and the Swin cells
+``ref_tinyswin_PTQ4ViT_w8a8_hessian`` and ``ref_tinyswin3_...`` (odd
+heads) the port searches every op on the golden's own ``raw::<op>::*``
+caches (no probe RNG involved) and must land on the reference's calibrated
+``mod::*`` intervals, exactly or as a tie proven by the f64 oracles of
+tests/test_reference_goldens.py.  A JAX qstate saved with the JAX package's
+``save_qstate`` must load into the port and give the same fake-quant logits
+as in JAX.
 """
 import os
 
@@ -92,25 +94,52 @@ def test_policy_matches_reference(golden):
             G.REF_CLASS_TO_QUANTIZER[ref_cls], name
 
 
-def test_port_search_reproduces_reference_intervals(golden):
-    z, meta, jnet, mods = golden
+def search_golden(z, meta, jnet, **kw):
+    """Every op of the golden searched by the port on the golden's
+    caches."""
     cfg = port_cfg(meta)
     caps = port_caps(z, jnet)
     pq = {}
     for name, mtype in jnet.op_inventory:
         pol = cfg.op_policy(mtype)
         cap = caps[name]
+        b = (t(z[f"sd::{name}.bias"]) if f"sd::{name}.bias" in z.files
+             else None)
         if mtype == "qconv":
-            pq[name] = psearch.search_conv(t(z[f"sd::{name}.weight"]),
-                                           t(z[f"sd::{name}.bias"]), cap, pol)
+            pq[name] = psearch.search_conv(t(z[f"sd::{name}.weight"]), b, cap,
+                                           pol)
         elif "qmatmul" in mtype:
-            pq[name] = psearch.search_matmul(cap, pol)
+            pq[name] = psearch.search_matmul(cap, pol, **kw)
         else:
-            pq[name] = psearch.search_linear(t(z[f"sd::{name}.weight"]),
-                                             t(z[f"sd::{name}.bias"]), cap,
-                                             pol)
+            pq[name] = psearch.search_linear(t(z[f"sd::{name}.weight"]), b,
+                                             cap, pol, **kw)
+    return pq
+
+
+def test_port_search_reproduces_reference_intervals(golden):
+    z, meta, jnet, mods = golden
+    pq = search_golden(z, meta, jnet)
     kws = meta["ref_kwargs"]
     assert_qstate_matches(pq, mods, z, meta, jnet.op_inventory, kws)
+
+
+@pytest.mark.parametrize("cell", ["ref_tinyswin_PTQ4ViT_w8a8_hessian",
+                                  "ref_tinyswin3_PTQ4ViT_w8a8_hessian"])
+@pytest.mark.parametrize("scoring", ["fp32", "int8"])
+def test_port_search_reproduces_swin_golden(cell, scoring):
+    """The Swin cells (window attention with shifts, patch-merging
+    reduction, 2-D head input; tinyswin3 has odd heads), scored in fp32 (the
+    CPU default) and in int8 through the kernels' plain versions (B1, B2
+    and, at these fold shapes, B3f's)."""
+    z, meta, sd, mods = G._load(os.path.join(G.GOLDEN_DIR, f"{cell}.npz"))
+    jnet = G._build_net(meta, sd)
+    for name, m in meta["modules"].items():
+        if "a_neg_interval" in m:
+            mods[name]["a_neg_interval"] = np.float32(m["a_neg_interval"])
+    int8 = scoring == "int8"
+    pq = search_golden(z, meta, jnet, int8_score=int8, use_kernels=int8)
+    assert_qstate_matches(pq, mods, z, meta, jnet.op_inventory,
+                          meta["ref_kwargs"])
 
 
 def jax_qstate_from_golden(jnet, mods):

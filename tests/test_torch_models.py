@@ -106,5 +106,12 @@ def test_registry_matches_jax_zoo():
     net = get_net("vit_tiny_patch16_224", seed=0)
     assert net.op_inventory == port_inventory(net.cfg)
     assert net.params["blocks"][0]["mlp"]["fc1"]["weight"].shape == (768, 192)
+    # the Swin rows build Swin nets (tests/test_torch_swin.py holds them
+    # against JAX); unknown names still raise
+    swin = get_net("swin_tiny_patch4_window7_224")
+    assert swin.op_inventory == jreg.swin_mod.op_inventory(
+        jreg.model_config("swin_tiny_patch4_window7_224"))
+    assert swin.params["layers"][0]["downsample"]["reduction"]["weight"] \
+        .shape == (192, 384)
     with pytest.raises(NotImplementedError):
-        get_net("swin_tiny_patch4_window7_224")
+        get_net("swin_huge")

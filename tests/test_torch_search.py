@@ -62,8 +62,8 @@ def test_search_matches_jax(setup, monkeypatch, mode, kind):
     flag = "1" if int8 else "0"
     monkeypatch.setenv("PTQ4VIT_TPU_PALLAS", flag)
     monkeypatch.setenv("PTQ4VIT_TPU_INT8_SCORE", flag)
-    # the unfolded _mm_kernel body (B3); the folded Swin variant is not
-    # ported yet
+    # the unfolded _mm_kernel body (B3) at this shape; the folded body
+    # (B3f) is held in tests/test_torch_swin_search.py
     monkeypatch.setenv("PTQ4VIT_TPU_MM_FOLD", "1")
     jcfg = shrink(jptq4vit())
     pcfg = shrink(pptq4vit())

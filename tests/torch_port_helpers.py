@@ -13,13 +13,20 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from ptq4vit_tpu.models import swin as jswin
 from ptq4vit_tpu.models import vit as jvit
 from ptq4vit_tpu.models.registry import DataConfig, Net as JNet
 from ptq4vit_tpu_torch.calib.calibrator import params_for_op
 from ptq4vit_tpu_torch.models import net_from_config
+from ptq4vit_tpu_torch.models import swin as pswin
 from ptq4vit_tpu_torch.models import vit as pvit
 from ptq4vit_tpu_torch.utils.convert import params_from_numpy
 from tests import test_reference_goldens as G
+
+# One intra-op thread per process: the suite runs in several pytest-xdist
+# workers at once, and PyTorch's OpenMP threads (one per core in every
+# worker) oversubscribe the cores and slow the CPU searches several-fold.
+torch.set_num_threads(1)
 
 # tests/test_capture.py CFG (the JAX package's tiny test net)
 TINY = dict(img_size=32, patch_size=8, embed_dim=24, depth=2, num_heads=3,
@@ -28,6 +35,12 @@ TINY = dict(img_size=32, patch_size=8, embed_dim=24, depth=2, num_heads=3,
 # (pallas_tile_ok: (oc / n_V) % 128 == 0 for qkv)
 WIDE = dict(img_size=32, patch_size=8, embed_dim=128, depth=1, num_heads=2,
             num_classes=10)
+# tests/test_models.py tiny Swin: 32 px, patch 2 -> res 16, window 4
+# (shifted windows in layer 0; layer 1 at res 8 keeps its shift), heads
+# 2 and 4 (fold shapes); SWIN3 has odd heads, as the tinyswin3 golden
+TINY_SWIN = dict(img_size=32, patch_size=2, embed_dim=12, depths=(2, 2),
+                 num_heads=(2, 4), window_size=4, num_classes=7)
+SWIN3 = dict(TINY_SWIN, num_heads=(3, 6))
 
 
 def jax_net(shape, seed=0):
@@ -40,10 +53,23 @@ def jax_net(shape, seed=0):
                                        (0.5,) * 3))
 
 
+def jax_swin_net(shape, seed=1):
+    cfg = jswin.SwinConfig(name="test_swin", **shape)
+    params = jswin.init_params(jax.random.PRNGKey(seed), cfg)
+    return JNet(name=cfg.name, cfg=cfg, params=params, forward=jswin.forward,
+                op_inventory=jswin.op_inventory(cfg),
+                op_shapes=jswin.op_shapes(cfg),
+                data_config=DataConfig(cfg.img_size, 1.0, (0.5,) * 3,
+                                       (0.5,) * 3))
+
+
 def port_net(jnet, device="cpu"):
-    """The port's net with the JAX net's config and params."""
-    cfg = pvit.ViTConfig(**{f.name: getattr(jnet.cfg, f.name)
-                            for f in dataclasses.fields(jnet.cfg)})
+    """The port's net with the JAX net's config (ViT or Swin) and
+    params."""
+    cls = (pswin.SwinConfig if isinstance(jnet.cfg, jswin.SwinConfig)
+           else pvit.ViTConfig)
+    cfg = cls(**{f.name: getattr(jnet.cfg, f.name)
+                 for f in dataclasses.fields(jnet.cfg)})
     return net_from_config(cfg, params_from_numpy(
         jax.tree.map(np.asarray, jnet.params), device))
 
