@@ -1,11 +1,21 @@
-"""Calibration orchestration, parallel paradigm.
+"""Calibration orchestration.
 
 The counterpart of ``ptq4vit_tpu/calib/calibrator.py``
-``HessianQuantCalibrator.batching_quant_calib``: every op is calibrated
-against the FP32 net's own inputs, outputs and probe gradients.  Ops are
-grouped so that each group's capture caches fit the device memory that
+``HessianQuantCalibrator.batching_quant_calib``.
+
+Parallel paradigm (the default): every op is calibrated against the FP32
+net's own inputs, outputs and probe gradients.  Ops are grouped so that
+each group's capture caches fit the device memory that
 ``torch.cuda.mem_get_info()`` reports; one capture pass per group collects
 the caches, then each op's search runs on them and its caches are freed.
+
+Sequential paradigm (``sequential=True``, reference quant_calib.py:369):
+the ops are walked in the reference's module order
+(``models/net_wrap.reference_wrap_order``) and each is captured with every
+op before it already in fake-quant, then searched.  The probe target comes
+from the raw net, once (calibrator.py:267-279).  The JAX package shares
+one compiled capture between the steps (``SequentialCapturePlan``,
+``GatedQP``) only to avoid recompiles; eager PyTorch needs a plain loop.
 """
 from __future__ import annotations
 
@@ -19,10 +29,11 @@ import numpy as np
 import torch
 
 from ..configs.policy import QuantConfig
+from ..models.net_wrap import reference_wrap_order
 from ..ops import search_kernels as K
 from ..utils.convert import qp_from_fields
 from . import search as S
-from .capture import capture
+from .capture import capture, draw_probe_u, probe_target
 
 
 def params_for_op(params: Dict[str, Any], name: str):
@@ -53,17 +64,21 @@ def tap_bytes(net, calib_n: int, need_grad: bool, store_raw_out: bool,
 
 
 def kernel_scratch_bytes(info, calib_n: int, policy) -> int:
-    """Device bytes of the int8 level buffers that one call of the op's
-    search kernel allocates (``ops/search_kernels.py``): B1 or B2 for a
-    linear (B2's per-candidate input levels dominate), B3 / B3f for a
-    matmul (mode "a" only without the SoS quantizer); 0 for the conv, whose
-    search is plain tensor code."""
+    """Device bytes that one call of the op's search kernel allocates
+    beyond its caches (``ops/search_kernels.py``): the int8 level buffers
+    of B1, B2, B4w or B4a for a linear (B2's and B4a's per-candidate input
+    levels dominate) with the fp32 operand B4w / B4a take (the fake-quant
+    input, the fake-quant weight), B3 / B3f for a matmul (mode "a" only
+    without the SoS quantizer); 0 for the conv, whose search is plain
+    tensor code."""
     P = policy.eq_n
     if info["kind"] == "linear":
-        M, kp = info["tokens"] * calib_n, K.k_pad(info["in_features"])
-        oc = info["out_features"]
+        ic, oc = info["in_features"], info["out_features"]
+        M, kp = info["tokens"] * calib_n, K.k_pad(ic)
         return max(P * M * kp + M * kp + oc * kp,              # B2
-                   P * oc * kp + 2 * M * kp)                   # B1
+                   P * oc * kp + 2 * M * kp,                   # B1
+                   P * oc * kp + 4 * M * ic,                   # B4w
+                   P * M * kp + M * kp + 4 * oc * ic)          # B4a
     if info["kind"] == "matmul":
         Z = info["heads"] * info.get("windows", 1) * calib_n
         R, C, kp = info["rows"], info["cols"], K.k_pad(info["inner"])
@@ -94,16 +109,17 @@ class CalibReport:
     capture_seconds: float = 0.0
     capture_peak_bytes: int = 0     # CUDA: peak allocated by the end of a
                                     # capture pass (0 on the CPU)
-    num_groups: int = 0
+    num_groups: int = 0             # capture passes (one per op when
+                                    # sequential)
     search_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
 
 
 class HessianQuantCalibrator:
-    """Parallel-paradigm calibrator; ``batching_quant_calib`` returns the
-    calibrated qstate dict."""
+    """Calibrator of the parallel (default) or the sequential paradigm;
+    ``batching_quant_calib`` returns the calibrated qstate dict."""
 
     def __init__(self, net, quant_cfg: QuantConfig, calib_x, *,
-                 batch_size: int = 4, device=None,
+                 sequential: bool = False, batch_size: int = 4, device=None,
                  probe_seed: int = 3, probe_sigma: float = 1e-3,
                  probe_u=None, cache_dtype=None,
                  int8_score: Optional[bool] = None,
@@ -111,6 +127,7 @@ class HessianQuantCalibrator:
         self.net = net
         self.cfg = quant_cfg
         self.calib_x = np.asarray(calib_x, np.float32)
+        self.sequential = sequential
         self.batch_size = batch_size
         self.device = torch.device(
             device if device is not None
@@ -144,6 +161,8 @@ class HessianQuantCalibrator:
         mtypes = dict(net.op_inventory)
         policies = {n: cfg.op_policy(t) for n, t in net.op_inventory}
         need_grad = any(p.metric == "hessian" for p in policies.values())
+        if self.sequential:
+            return self._sequential_calib(policies, need_grad, verbose)
         elem = torch.tensor([], dtype=self.cache_dtype).element_size()
         sizes = tap_bytes(net, len(self.calib_x), need_grad, False, elem)
         budget = self._group_budget(need_grad, policies)
@@ -159,43 +178,83 @@ class HessianQuantCalibrator:
 
         qstate: Dict[str, Any] = {}
         for group in groups:
-            t0 = time.time()
-            raw = capture(net, self.calib_x, batch_size=self.batch_size,
-                          need_grad=need_grad, probe_seed=self.probe_seed,
-                          probe_sigma=self.probe_sigma, probe_u=self.probe_u,
-                          ops=group, store_raw_out=False,
-                          cache_dtype=self.cache_dtype, device=self.device)
-            self._sync()
-            self.report.capture_seconds += time.time() - t0
-            if self.device.type == "cuda":
-                self.report.capture_peak_bytes = max(
-                    self.report.capture_peak_bytes,
-                    torch.cuda.max_memory_allocated(self.device))
+            raw = self._capture(group, need_grad, probe_seed=self.probe_seed,
+                                probe_u=self.probe_u)
             for name in group:
-                t0 = time.time()
                 qstate[name] = self._search_one(name, mtypes[name],
-                                                policies[name], raw.pop(name))
-                self._sync()
-                self.report.search_seconds[name] = time.time() - t0
-                if verbose:
-                    print(f"[calib] {name}: "
-                          f"{self.report.search_seconds[name]:.2f}s",
-                          flush=True)
+                                                policies[name], raw.pop(name),
+                                                verbose)
         return qstate
+
+    def _sequential_calib(self, policies, need_grad: bool, verbose: bool):
+        """One capture and one search per op, in the reference's module
+        order, each capture with the ops before it in fake-quant."""
+        net = self.net
+        target = None
+        if need_grad:
+            # the probe target from the RAW net, once, in chunks of 8
+            # (calibrator.py:267-279)
+            x = torch.from_numpy(self.calib_x).to(self.device)
+            with torch.no_grad():
+                logits = torch.cat([net.forward(net.params, x[s0:s0 + 8],
+                                                net.cfg)
+                                    for s0 in range(0, len(x), 8)])
+            u = (self.probe_u if self.probe_u is not None else
+                 draw_probe_u(len(x), logits.shape[-1], self.probe_seed))
+            target = probe_target(
+                logits, torch.as_tensor(np.array(u, np.float32),
+                                        device=self.device),
+                self.probe_sigma)
+        qstate: Dict[str, Any] = {}
+        for name, mtype in reference_wrap_order(net.op_inventory):
+            raw = self._capture([name], need_grad, qstate=dict(qstate),
+                                target_probs=target)
+            qstate[name] = self._search_one(name, mtype, policies[name],
+                                            raw.pop(name), verbose)
+        self.report.num_groups = len(qstate)
+        return qstate
+
+    def _capture(self, ops, need_grad: bool, **kw):
+        """One capture pass over ``ops``; its seconds and the peak device
+        memory by its end go to the report."""
+        t0 = time.time()
+        raw = capture(self.net, self.calib_x, batch_size=self.batch_size,
+                      need_grad=need_grad, probe_sigma=self.probe_sigma,
+                      ops=ops, store_raw_out=False,
+                      cache_dtype=self.cache_dtype, device=self.device, **kw)
+        self._sync()
+        self.report.capture_seconds += time.time() - t0
+        if self.device.type == "cuda":
+            self.report.capture_peak_bytes = max(
+                self.report.capture_peak_bytes,
+                torch.cuda.max_memory_allocated(self.device))
+        return raw
 
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _search_one(self, name: str, mtype: str, policy, cap):
+    def _search_one(self, name: str, mtype: str, policy, cap, verbose: bool):
+        """Search one op; its seconds go to the report."""
+        t0 = time.time()
         if "qmatmul" in mtype:
-            return S.search_matmul(cap, policy, int8_score=self.int8_score,
-                                   use_kernels=self.use_kernels)
-        w, b = params_for_op(self.net.params, name)
-        if mtype == "qconv":
-            return S.search_conv(w, b, cap, policy)
-        return S.search_linear(w, b, cap, policy, int8_score=self.int8_score,
-                               use_kernels=self.use_kernels)
+            qp = S.search_matmul(cap, policy, int8_score=self.int8_score,
+                                 use_kernels=self.use_kernels)
+        else:
+            w, b = params_for_op(self.net.params, name)
+            if mtype == "qconv":
+                qp = S.search_conv(w, b, cap, policy)
+            else:
+                qp = S.search_linear(w, b, cap, policy,
+                                     calib_bs=self.batch_size,
+                                     int8_score=self.int8_score,
+                                     use_kernels=self.use_kernels)
+        self._sync()
+        self.report.search_seconds[name] = time.time() - t0
+        if verbose:
+            print(f"[calib] {name}: {self.report.search_seconds[name]:.2f}s",
+                  flush=True)
+        return qp
 
 
 # ---------------------------------------------------------------------------

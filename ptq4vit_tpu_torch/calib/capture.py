@@ -1,5 +1,6 @@
 """Calibration data capture: per-op FP32 inputs, outputs and probe
-gradients in one forward + backward per micro-batch (parallel paradigm).
+gradients in one forward + backward per micro-batch (the sequential
+paradigm runs the ops calibrated so far in fake-quant).
 
 The counterpart of ``ptq4vit_tpu/calib/capture.py`` ``capture()``.  The
 hessian metric needs ∂loss/∂(op output); the loss is the reference's
@@ -50,18 +51,31 @@ def _kl_batchmean(logits, target):
     return torch.sum(target * (logt - logp)) / logits.shape[0]
 
 
+def probe_target(raw_logits, probe_u, probe_sigma: float):
+    """The probe target softmax(logits + σ·u) (capture.py:64-70)."""
+    return torch.softmax(raw_logits + probe_sigma * probe_u, dim=-1)
+
+
 def capture(net, calib_x, *, batch_size: int = 8, need_grad: bool = True,
             probe_seed: int = 3, probe_sigma: float = 1e-3,
             probe_u=None, ops: Optional[Sequence[str]] = None,
             store_raw_out: bool = True, cache_dtype=None,
-            device=None) -> Dict[str, OpCapture]:
+            device=None, qstate=None,
+            target_probs: Optional[torch.Tensor] = None
+            ) -> Dict[str, OpCapture]:
     """Run the capture pass over ``calib_x`` (num, 3, H, W).
 
     Returns {op name: OpCapture} with every cache on ``device`` (the net's
     params' device by default), concatenated over the micro-batches, in
     ``cache_dtype`` (default: float32).  ``store_raw_out=False`` drops the
     op outputs (the searches recompute them).  Swin's window-matmul caches
-    are (images x windows)-major, since the forward emits them so."""
+    are (images x windows)-major, since the forward emits them so.
+
+    ``qstate`` runs the ops it holds in fake-quant (sequential mode); the
+    probe gradient dies at their ``round`` (its derivative is 0, with no
+    straight-through estimator), as in the reference.  ``target_probs``
+    (num, classes) is the probe target; without it the target comes from
+    the pass's own logits and ``probe_u``."""
     params, cfg, fwd = net.params, net.cfg, net.forward
     if device is None:
         device = net.params["head"]["weight"].device
@@ -78,7 +92,7 @@ def capture(net, calib_x, *, batch_size: int = 8, need_grad: bool = True,
     dtype = cache_dtype or torch.float32
 
     u_all = None
-    if need_grad:
+    if need_grad and target_probs is None:
         if probe_u is None:
             probe_u = draw_probe_u(num, cfg.num_classes, probe_seed)
         u_all = torch.from_numpy(np.array(probe_u, np.float32)).to(device)
@@ -93,24 +107,27 @@ def capture(net, calib_x, *, batch_size: int = 8, need_grad: bool = True,
         xb = x_all[s0:s0 + batch_size]
         if need_grad:
             with torch.no_grad():
-                raw_logits, taps = fwd(params, xb, cfg, capture=True)
-                target = torch.softmax(
-                    raw_logits + probe_sigma * u_all[s0:s0 + batch_size],
-                    dim=-1)
+                raw_logits, taps = fwd(params, xb, cfg, qstate=qstate,
+                                       capture=True)
+                target = (target_probs[s0:s0 + batch_size]
+                          if target_probs is not None else
+                          probe_target(raw_logits, u_all[s0:s0 + batch_size],
+                                       probe_sigma))
                 shapes = {n: taps[n]["out"].shape for n in names}
                 del taps
             eps = {n: torch.zeros(sh, dtype=torch.float32, device=device,
                                   requires_grad=True)
                    for n, sh in shapes.items()}
             with torch.enable_grad():
-                logits, taps = fwd(params, xb, cfg, eps=eps, capture=True)
+                logits, taps = fwd(params, xb, cfg, qstate=qstate, eps=eps,
+                                   capture=True)
                 loss = _kl_batchmean(logits, target)
                 grads = torch.autograd.grad(loss, [eps[n] for n in names])
             for n, g in zip(names, grads):
                 keep(n, "grad", g)
         else:
             with torch.no_grad():
-                _, taps = fwd(params, xb, cfg, capture=True)
+                _, taps = fwd(params, xb, cfg, qstate=qstate, capture=True)
         for n in names:
             for field in TAP_FIELDS[kinds[n]]:
                 keep(n, field, taps[n][field])

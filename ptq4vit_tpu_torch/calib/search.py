@@ -1,37 +1,52 @@
 """Scale-factor candidate search — the calibration hot path.
 
-The counterpart of ``ptq4vit_tpu/calib/search.py`` for the cases of the
-main path of ViT and Swin: the linear search (qkv with n_V = 3, proj, fc1,
-the post-GELU fc2, Swin's bias-free patch-merging reduction and the head),
-the head-wise attention-matmul search (with the split-of-softmax split
-search for matmul2; Swin's window matmuls hold images x windows samples)
-and the channelwise patch-embedding conv search.
+The counterpart of ``ptq4vit_tpu/calib/search.py``: the linear search (any
+n_V x n_H x n_a grid, every metric, the pearson linear with chunk-local
+means), the head-wise matmul search and the general blocked matmul search
+(both with the split-of-softmax split search; Swin's window matmuls hold
+images x windows samples), and the conv searches (channelwise, layerwise,
+the n_V x n_H ``conv_ptqsl`` grid and ``conv_quantile``).
 
-Scoring mode follows the device, as the JAX package's follows the backend
-(search.py:51-76), but as explicit parameters:
+Dispatch follows the JAX package, with the device in place of its backend:
 
-  * CPU, default (``int8_score=False``): fp32-scored branches in plain
-    torch — the counterparts of the JAX XLA branches;
-  * CUDA (``int8_score=True, use_kernels=True``, the default there): int8
-    scoring through the hand-written kernels of ``ops/search_kernels.py``;
-  * CUDA otherwise: ``NotImplementedError`` for the linear and matmul
-    searches (the fp32-scored kernels are not ported yet).  There is no
-    fall-through to plain torch on the card.
+  * A case that JAX scores in a Pallas kernel scores through the port's
+    kernel (``ops/search_kernels.py``) when ``use_kernels`` is set.  On
+    CUDA that is required (``use_kernels=False`` raises); on CPU tensors
+    the kernels' plain versions run.  Those cases:
+      - linear, weight side, hessian metric, n_H == 1: B1 with int8
+        scoring and n_a == 1, else B4w (search.py:250, 263, 285-289);
+      - linear, input side, hessian metric, n_a == 1: B2 with int8 scoring
+        and n_H == 1, else B4a (search.py:252, 347, 357-362);
+      - unblocked matmul, hessian metric, int8 scoring: B3 or B3f
+        (search.py:528-532, 1008-1011).
+    JAX's extra test ``pallas_tile_ok`` (128-lane output tiles) is a TPU
+    layout limit the port's kernels do not have, so the port drops it.
+  * Every other case is plain tensor code on any device, the counterpart
+    of the JAX XLA code, not a fallback: non-hessian metrics, n_H > 1 and
+    n_a > 1 grids, matmuls under exact scoring or with no kernel (the int8
+    XLA branch: levels multiplied exactly, one fp32 rescale in JAX's
+    order), blocked matmuls, the SoS split search, the conv searches and
+    the interval inits.
 
-With ``int8_score=True, use_kernels=True`` on CPU tensors the same code
-runs the kernels' plain versions, which is how the tests hold this path
-against the JAX Pallas path.  The conv search, the SoS split search and the
-interval inits are plain tensor code on every device, as in JAX.
+``int8_score`` picks int8 scoring (one fp32 rescale of an exact integer
+product) or exact scoring (fp32 products of the fake-quant values, the
+reference's own numerics); it defaults to on for CUDA and off for CPU, as
+JAX's follows the backend (search.py:71-76).  ``use_kernels`` defaults to
+on for CUDA and off for CPU.
 
 Parity notes (as in the JAX package): only the first eq_n of the eq_n+1
 grid candidates are scored; per-batch similarities are summed, then
-argmaxed with the first maximum winning (``torch.argmax``).
+argmaxed with the first maximum winning (``torch.argmax``); the pearson
+linear's means are chunk-local, with the batch chunk pinned to the
+calibrator's batch size (``calib_bs``) when it divides the calib size.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..configs.policy import OpPolicy
 from ..ops import search_kernels as K
@@ -43,16 +58,22 @@ DEFAULT_BUDGET = 2 << 30  # bytes of out_sim scratch per candidate chunk
 
 
 def plan_chunks(eq_n: int, samples: int, out_elems_per_sample_candidate: int,
-                budget: int = DEFAULT_BUDGET):
+                budget: int = DEFAULT_BUDGET,
+                batch_chunk: Optional[int] = None):
     """Pick (candidate_chunk P, batch_chunk bs) with bs * P * out_elems * 4
-    <= budget, preferring P big."""
-    per_cand = samples * out_elems_per_sample_candidate * 4
-    P = int(max(1, min(eq_n, budget // max(per_cand, 1))))
+    <= budget, preferring P big.  A given ``batch_chunk`` (a divisor of
+    ``samples``) is kept as bs and only P is planned."""
+    def cands(bs):
+        per_cand = bs * out_elems_per_sample_candidate * 4
+        return int(max(1, min(eq_n, budget // max(per_cand, 1))))
+
+    if batch_chunk:
+        return cands(batch_chunk), batch_chunk
     bs = samples
+    P = cands(bs)
     while P < 2 and bs > 1:
         bs = (bs + 1) // 2
-        per_cand = bs * out_elems_per_sample_candidate * 4
-        P = int(max(1, min(eq_n, budget // max(per_cand, 1))))
+        P = cands(bs)
     while samples % bs != 0:   # keep exact chunking
         bs -= 1
     return P, bs
@@ -107,22 +128,19 @@ def _quant_act_linear(x, a_interval, a_neg_interval, policy: OpPolicy):
     return fq.fake_quant_act_grouped(x, a_interval, qmax)
 
 
-def _kernel_path(device: torch.device, int8_score: bool, use_kernels: bool,
-                 eligible: bool, what: str) -> bool:
-    """Whether the search scores through the int8 kernels.  On CUDA it
-    must (or raise); on CPU it does when asked and the case is eligible."""
-    if device.type == "cuda":
-        if not (int8_score and use_kernels):
-            raise NotImplementedError(
-                f"the {what} search runs on CUDA only through its int8 "
-                "kernels (int8_score=True, use_kernels=True); the "
-                "fp32-scored kernels are not ported yet")
-        if not eligible:
-            raise NotImplementedError(
-                f"this {what} search case (blocked layout or non-hessian "
-                "metric) has no CUDA kernel yet")
-        return True
-    return bool(int8_score and use_kernels and eligible)
+def _scorer(device: torch.device, use_kernels: bool, pallas_case: bool,
+            what: str) -> bool:
+    """Whether a search side scores through a kernel: a case the JAX
+    package scores in a Pallas kernel does so on CUDA (or raises) and on
+    the CPU when ``use_kernels`` (through the kernel's plain version);
+    every other case is plain tensor code on any device."""
+    if not pallas_case:
+        return False
+    if device.type == "cuda" and not use_kernels:
+        raise NotImplementedError(
+            f"this {what} search case is scored by a kernel on CUDA "
+            "(use_kernels=True); the card has no plain-torch scorer for it")
+    return bool(use_kernels)
 
 
 def _defaults(device, int8_score, use_kernels):
@@ -137,14 +155,43 @@ def _argmax_take(cands2d, sims2d):
     return torch.gather(cands2d, 0, best[None])[0]
 
 
+def _levels(x, d, qmax: int):
+    """clip(round(x / d)) as float64 levels: their products are exact, as
+    the int32 dots of the JAX int8 branch are."""
+    return torch.clamp(torch.round(x / d), -qmax, qmax - 1).double()
+
+
 # ---------------------------------------------------------------------------
 # linear search
 # ---------------------------------------------------------------------------
 
+def _pearson_w(raw, sim):
+    """Reference _get_pearson_w (linear.py:426-439) with chunk-global
+    means.  raw: (bs,T,1,n_V,crb); sim: (bs,T,P,n_V,crb) -> (bs,P,n_V)."""
+    bs, T, P, n_V, crb = sim.shape
+    s = sim.permute(0, 1, 4, 3, 2).reshape(bs, T * crb, n_V, P)
+    r = raw.permute(0, 1, 4, 3, 2).reshape(bs, T * crb, n_V, 1)
+    s = s - torch.mean(s, dim=(0, 1), keepdim=True)
+    r = r - torch.mean(r, dim=(0, 1), keepdim=True)
+    return cosine_similarity(r, s, axis=1).permute(0, 2, 1)
+
+
+def _pearson_a(raw, sim):
+    """Reference _get_pearson_a (linear.py:441-453).  raw: (bs,T,1,oc);
+    sim: (bs,T,P,oc) -> (bs,P)."""
+    bs, T, P, oc = sim.shape
+    s = sim.permute(0, 1, 3, 2).reshape(bs, T * oc, P)
+    r = raw.permute(0, 1, 3, 2).reshape(bs, T * oc, 1)
+    s = s - torch.mean(s, dim=(0, 1), keepdim=True)
+    r = r - torch.mean(r, dim=(0, 1), keepdim=True)
+    return cosine_similarity(r, s, axis=1)
+
+
 def _linear_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
-                   bs: int, kernels: bool):
+                   bs: int, kern_w: bool, kern_a: bool, int8_score: bool):
     """calibration_step2 of a linear layer (reference linear.py:536-555).
-    x: (S, T, ic); raw_out / raw_grad: (S, T, oc) or None."""
+    x: (S, T, ic); raw_out / raw_grad: (S, T, oc) or None.  ``kern_w`` /
+    ``kern_a``: the weight / input side scores through a kernel."""
     x = x.float()
     if raw_out is None:
         raw_out = torch.matmul(x, w.t())
@@ -156,6 +203,7 @@ def _linear_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
     S, T, ic = x.shape
     oc = raw_out.shape[-1]
     dev = x.device
+    metric = policy.metric
     n_V, n_H, n_a = policy.n_V, policy.n_H, policy.n_a
     crb_r = oc // n_V
     w_qmax = fq.qmax_for_bit(policy.w_bit)
@@ -163,6 +211,7 @@ def _linear_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
     postgelu = policy.quantizer == "postgelu_linear"
     a_neg = (torch.tensor(fq.GELU_NEG_CLIP / a_qmax, dtype=torch.float32,
                           device=dev) if postgelu else None)
+    a_neg_f = fq.GELU_NEG_CLIP / a_qmax if postgelu else 0.0
 
     if policy.init_layerwise:
         w_int0 = fq.minmax_interval(w, w_qmax).reshape(1, 1, 1, 1) \
@@ -183,36 +232,42 @@ def _linear_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
     a_cands = grid[:eq_n, None, None] * a_int0[None]          # eq_n, n_a, 1
     w4 = fq.blocked_weight_view(w, n_V, n_H)
 
-    if kernels:
+    if kern_w or kern_a:
         rawb = (raw_out if b is None else raw_out - b).reshape(S * T, oc) \
             .contiguous()
         grad_f = raw_grad.reshape(S * T, oc).contiguous()
         x2 = x.reshape(S * T, ic).contiguous()
-    else:
+    if not (kern_w and kern_a):
         xb, rb = _batch_chunks(x, bs), _batch_chunks(raw_out, bs)
-        gb = (_batch_chunks(raw_grad, bs) if policy.metric == "hessian"
+        gb = (_batch_chunks(raw_grad, bs) if metric == "hessian"
               else [None] * len(xb))
 
     def score_w_kernel(a_int):
-        a_sc = a_int.reshape(())
-        if postgelu:
-            x_lv = torch.clamp(torch.round(x2 / a_sc), 0, a_qmax - 1) \
-                .to(torch.int8)
-            x_neg = torch.clamp(torch.round(x2 / a_neg), -a_qmax, 0) \
-                .to(torch.int8)
+        """B1 (int8 scoring, n_a == 1) or B4w: (eq_n, n_V) sims."""
+        cands = w_cands.reshape(eq_n, n_V).contiguous()
+        if int8_score and n_a == 1:
+            a_sc = a_int.reshape(())
+            if postgelu:
+                x_lv = torch.clamp(torch.round(x2 / a_sc), 0, a_qmax - 1) \
+                    .to(torch.int8)
+                x_neg = torch.clamp(torch.round(x2 / a_neg), -a_qmax, 0) \
+                    .to(torch.int8)
+            else:
+                x_lv = torch.clamp(torch.round(x2 / a_sc), -a_qmax,
+                                   a_qmax - 1).to(torch.int8)
+                x_neg = None
+            sims = K.linear_w_hessian_sims_i8(
+                x_lv, x_neg, a_sc, a_neg, w, cands, rawb, grad_f, w_qmax)
         else:
-            x_lv = torch.clamp(torch.round(x2 / a_sc), -a_qmax, a_qmax - 1) \
-                .to(torch.int8)
-            x_neg = None
-        sims = K.linear_w_hessian_sims_i8(
-            x_lv, x_neg, a_sc, a_neg, w, w_cands.reshape(eq_n, n_V)
-            .contiguous(), rawb, grad_f, w_qmax)
-        return fq.exact_div(sims, float(T * crb_r))            # eq_n, n_V
+            x_sim = _quant_act_linear(x2, a_int, a_neg, policy).contiguous()
+            sims = K.linear_w_hessian_sims(x_sim, w, cands, rawb, grad_f,
+                                           w_qmax)
+        return fq.exact_div(sims, float(T * crb_r))
 
     def score_w(w_int, a_int, h):
         """Summed similarities (eq_n, n_V) of the candidates for weight
         column block h (linear.py:455-495)."""
-        if kernels:
+        if kern_w:
             return score_w_kernel(a_int)
         x_sim = _quant_act_linear(x, a_int, a_neg, policy)
         x_sim_all = _batch_chunks(x_sim, bs)
@@ -229,26 +284,41 @@ def _linear_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
                     out = out + b
                 outc = out.reshape(bs, T, P, n_V, crb_r)
                 rawc = r_s.reshape(bs, T, 1, n_V, crb_r)
-                gc = (g_s.reshape(bs, T, 1, n_V, crb_r)
-                      if policy.metric == "hessian" else None)
-                sim = _feature_similarity(rawc, outc, policy.metric, gc, -1)
-                acc = acc + torch.sum(torch.mean(sim, dim=1), dim=0)
+                if metric == "pearson":
+                    sim = _pearson_w(rawc, outc)
+                else:
+                    gc = (g_s.reshape(bs, T, 1, n_V, crb_r)
+                          if metric == "hessian" else None)
+                    sim = torch.mean(_feature_similarity(
+                        rawc, outc, metric, gc, -1), dim=1)
+                acc = acc + torch.sum(sim, dim=0)
             out_sims.append(acc)
         return torch.cat(out_sims)[:eq_n]
 
-    def score_a(w_int, a_int, a):
-        """Summed similarities (eq_n,) of the candidates for input group a
-        (linear.py:497-533, :609-642)."""
-        if kernels:
+    def score_a_kernel(w_int):
+        """B2 (int8 scoring, n_H == 1) or B4a: (eq_n,) sims."""
+        cands = a_cands.reshape(eq_n).contiguous()
+        if int8_score and n_H == 1:
             w_lv = fq.int_quant(w4, w_int, w_qmax).to(torch.int8) \
                 .reshape(oc, ic)
             w_sc = w_int[:, 0, 0, 0][:, None].expand(n_V, crb_r) \
                 .reshape(oc).contiguous()
             sims = K.linear_a_hessian_sims_i8(
-                x2, w_lv, w_sc, a_cands.reshape(eq_n).contiguous(), rawb,
-                grad_f, a_qmax, postgelu=postgelu,
-                a_neg=fq.GELU_NEG_CLIP / a_qmax if postgelu else 0.0)
-            return fq.exact_div(sims, float(T * oc))
+                x2, w_lv, w_sc, cands, rawb, grad_f, a_qmax,
+                postgelu=postgelu, a_neg=a_neg_f)
+        else:
+            w_sim = fq.fake_quant_weight_blocked(w, w_int, w_qmax) \
+                .contiguous()
+            sims = K.linear_a_hessian_sims(x2, w_sim, cands, rawb, grad_f,
+                                           a_qmax, postgelu=postgelu,
+                                           a_neg=a_neg_f)
+        return fq.exact_div(sims, float(T * oc))
+
+    def score_a(w_int, a_int, a):
+        """Summed similarities (eq_n,) of the candidates for input group a
+        (linear.py:497-533, :609-642)."""
+        if kern_a:
+            return score_a_kernel(w_int)
         w_sim = fq.fake_quant_weight_blocked(w, w_int, w_qmax)
         mask_a = torch.arange(n_a, device=dev).reshape(1, n_a, 1) == a
         out_sims = []
@@ -271,10 +341,14 @@ def _linear_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
                 out = torch.einsum("btpi,oi->btpo", x_sim, w_sim)
                 if b is not None:
                     out = out + b
-                gc = g_s[:, :, None] if policy.metric == "hessian" else None
-                sim = _feature_similarity(r_s[:, :, None], out,
-                                          policy.metric, gc, -1)
-                acc = acc + torch.sum(torch.mean(sim, dim=1), dim=0)
+                raw = r_s[:, :, None]
+                if metric == "pearson":
+                    sim = _pearson_a(raw, out)
+                else:
+                    gc = g_s[:, :, None] if metric == "hessian" else None
+                    sim = torch.mean(_feature_similarity(raw, out, metric,
+                                                         gc, -1), dim=1)
+                acc = acc + torch.sum(sim, dim=0)
             out_sims.append(acc)
         return torch.cat(out_sims)[:eq_n]
 
@@ -295,15 +369,15 @@ def _linear_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
 
 
 def search_linear(w, b, cap, policy: OpPolicy, budget: int = DEFAULT_BUDGET,
+                  calib_bs: Optional[int] = None,
                   int8_score: Optional[bool] = None,
                   use_kernels: Optional[bool] = None) -> LinearQP:
-    """Calibrate a linear op from its captured data."""
-    if policy.metric == "pearson":
-        raise NotImplementedError("the pearson linear search is not ported")
+    """Calibrate a linear op from its captured data.  ``calib_bs`` pins the
+    batch chunk of the pearson metric (see the module docstring)."""
     x = cap.inputs["x"]
     dev = x.device
     int8_score, use_kernels = _defaults(dev, int8_score, use_kernels)
-    w = w.to(dev).float()
+    w = w.to(dev).float().contiguous()
     b = None if b is None else b.to(dev).float()
     S, ic = x.shape[0], x.shape[-1]
     oc = w.shape[0]
@@ -312,15 +386,22 @@ def search_linear(w, b, cap, policy: OpPolicy, budget: int = DEFAULT_BUDGET,
         T *= d
     x = x.reshape(S, T, ic)
     raw_out = None if cap.out is None else cap.out.reshape(S, T, oc)
-    grad = (cap.grad.reshape(S, T, oc) if policy.metric == "hessian"
-            else None)
-    kernels = _kernel_path(
-        dev, int8_score, use_kernels,
-        policy.n_H == 1 and policy.n_a == 1 and policy.metric == "hessian",
-        "linear")
-    P, bs = plan_chunks(policy.eq_n, S, T * oc, budget)
+    hessian = policy.metric == "hessian"
+    grad = cap.grad.reshape(S, T, oc) if hessian else None
+    kern_w = _scorer(dev, use_kernels, hessian and policy.n_H == 1,
+                     "linear weight")
+    kern_a = _scorer(dev, use_kernels, hessian and policy.n_a == 1,
+                     "linear input")
+    # per candidate the plain branches hold the output and, on the input
+    # side, the quantized input: plan on the larger
+    width = T * max(oc, ic)
+    # the reference's pearson means are chunk-local (linear.py:426-453,
+    # chunks of calib_batch_size): pin the batch chunk to reproduce them
+    pin = (calib_bs if policy.metric == "pearson" and calib_bs
+           and S % calib_bs == 0 else None)
+    P, bs = plan_chunks(policy.eq_n, S, width, budget, batch_chunk=pin)
     w_int, a_int = _linear_search(w, b, x, raw_out, grad, policy, P, bs,
-                                  kernels)
+                                  kern_w, kern_a, int8_score)
     postgelu = policy.quantizer == "postgelu_linear"
     a_qmax = fq.qmax_for_bit(policy.a_bit)
     return LinearQP(
@@ -335,11 +416,56 @@ def search_linear(w, b, cap, policy: OpPolicy, budget: int = DEFAULT_BUDGET,
 # matmul search
 # ---------------------------------------------------------------------------
 
+def _sos_levels(a, split, qmax: int):
+    """SoS hi / lo level sets of the softmax side (matmul.py:595-598) as
+    float64 levels, and their scales (s_hi, s_lo)."""
+    one = torch.ones((), device=a.device)
+    zero = torch.zeros((), device=a.device)
+    a_int = fq.exact_div(split, qmax - 1)
+    hi = torch.clamp(torch.round(
+        torch.minimum(torch.maximum(a, split), one) * (qmax - 1)),
+        0, qmax - 1).double()
+    lo = torch.clamp(torch.round(fq.exact_div(
+        torch.minimum(torch.maximum(a, zero), split), a_int)),
+        0, qmax - 1).double()
+    return hi, lo, fq.exact_div(one, qmax - 1), a_int
+
+
+def _raw_out(a_s, b_s, r_s):
+    """The stored raw output of a batch chunk, or A @ B when not stored."""
+    return torch.matmul(a_s, b_s) if r_s is None else r_s
+
+
+def _head_sims(out, raw, g_s, metric: str):
+    """(P,bs,G,R,Co) -> (P,G): the metric over Co, the mean over rows,
+    summed over the batch (matmul.py:510-518)."""
+    gc = None if g_s is None else g_s[None]
+    sim = _feature_similarity(raw[None], out, metric, gc, -1)
+    return torch.sum(torch.mean(sim, dim=3), dim=1)
+
+
+def _split_sims(splits, Ab, Bb, rb, gb, A_qmax: int, metric: str):
+    """Summed similarities of the SoS split grid, B raw
+    (matmul.py:600-631)."""
+    sims = []
+    for sp in splits:
+        acc = torch.zeros((), device=sp.device)
+        for a_s, b_s, r_s, g_s in zip(Ab, Bb, rb, gb):
+            out = torch.matmul(fq.sos_quant_softmax(a_s, sp, A_qmax), b_s)
+            sim = _feature_similarity(_raw_out(a_s, b_s, r_s), out, metric,
+                                      g_s, -1)
+            acc = acc + torch.sum(torch.mean(sim, dim=(1, 2)))
+        sims.append(acc)
+    return torch.stack(sims)
+
+
 def _matmul_search(A, B, raw_out, raw_grad, policy: OpPolicy, P: int,
                    bs: int, kernels: bool):
     """calibration_step2 of an A@B op with head-wise groups and
-    n_V = n_H = 1 (reference matmul.py:565-576).  A: (S,G,R,Ci);
-    B: (S,G,Ci,Co); raw_out / raw_grad: (S,G,R,Co) or None."""
+    n_V = n_H = 1 (reference matmul.py:565-576) under int8 scoring: B3 /
+    B3f, or the int8 XLA branch's levels with one rescale (exact scoring
+    runs ``_matmul_blocked_search``).  A: (S,G,R,Ci); B: (S,G,Ci,Co);
+    raw_out / raw_grad: (S,G,R,Co) or None."""
     S, G, R, Ci = A.shape
     Co = B.shape[-1]
     dev = A.device
@@ -381,30 +507,6 @@ def _matmul_search(A, B, raw_out, raw_grad, policy: OpPolicy, P: int,
         gb = (_batch_chunks(raw_grad.float(), bs) if hessian
               else [None] * len(Ab))
 
-    def get_raw(a_s, b_s, r_s):
-        return torch.matmul(a_s, b_s) if r_s is None else r_s
-
-    def sim_reduce(out, raw, g_s):
-        """(P,bs,G,R,Co) -> (P, G) per-head summed similarity
-        (matmul.py:510-518)."""
-        gc = g_s[None] if hessian else None
-        sim = _feature_similarity(raw[None], out, policy.metric, gc, -1)
-        return torch.sum(torch.mean(sim, dim=3), dim=1)
-
-    def score_splits():
-        """SoS split grid, B raw (matmul.py:600-631)."""
-        sims = []
-        for sp in splits:
-            acc = torch.zeros((), device=dev)
-            for a_s, b_s, r_s, g_s in zip(Ab, Bb, rb, gb):
-                A_sim = fq.sos_quant_softmax(a_s, sp, A_qmax)
-                out = torch.matmul(A_sim, b_s)
-                sim = _feature_similarity(get_raw(a_s, b_s, r_s), out,
-                                          policy.metric, g_s, -1)
-                acc = acc + torch.sum(torch.mean(sim, dim=(1, 2)))
-            sims.append(acc)
-        return torch.stack(sims)
-
     def score_A(B_int):
         """(eq_n, G) summed sims of the A-interval candidates
         (matmul.py:483-522)."""
@@ -413,18 +515,22 @@ def _matmul_search(A, B, raw_out, raw_grad, policy: OpPolicy, P: int,
                 A_raw, B_raw, grad_raw, A_cands.reshape(eq_n, G).contiguous(),
                 B_int.reshape(G), "a", A_qmax, B_qmax)
             return fq.exact_div(sims, float(R * Co))
-        B_sim = [fq.fake_quant_matmul_operand(b_s, B_int, B_qmax) for b_s in Bb]
+        # the fixed side as levels; ONE rescale after the exact dot
+        # (search.py:649-677)
+        B_fix = [_levels(b_s, B_int.reshape(1, G, 1, 1), B_qmax)
+                 for b_s in Bb]
+        b_sc = B_int.reshape(1, 1, G, 1, 1)
         out_sims = []
         for ac in _candidate_chunks(A_cands, P):
             cur = ac.reshape(P, 1, G, 1, 1, 1)
             acc = torch.zeros(P, G, device=dev)
-            for a_s, b_raw, b_s, r_s, g_s in zip(Ab, Bb, B_sim, rb, gb):
+            for a_s, b_raw, b_s, r_s, g_s in zip(Ab, Bb, B_fix, rb, gb):
                 blocked = a_s.reshape(1, bs, G, 1, R, Ci)
-                q = torch.clamp(torch.round(blocked / cur), -A_qmax,
-                                A_qmax - 1) * cur
-                out = torch.einsum("pbgrc,bgco->pbgro",
-                                   q.reshape(P, bs, G, R, Ci), b_s)
-                acc = acc + sim_reduce(out, get_raw(a_s, b_raw, r_s), g_s)
+                a_lv = _levels(blocked, cur, A_qmax).reshape(P, bs, G, R, Ci)
+                out = torch.einsum("pbgrc,bgco->pbgro", a_lv, b_s) \
+                    .float() * cur.reshape(P, 1, G, 1, 1) * b_sc
+                acc = acc + _head_sims(out, _raw_out(a_s, b_raw, r_s), g_s,
+                                       policy.metric)
             out_sims.append(acc)
         return torch.cat(out_sims)[:eq_n]
 
@@ -446,29 +552,38 @@ def _matmul_search(A, B, raw_out, raw_grad, policy: OpPolicy, P: int,
                     B_cands.reshape(eq_n, G).contiguous(),
                     a_state.reshape(G), "b", B_qmax, A_qmax)
             return fq.exact_div(sims, float(R * Co))
-        if sos:
-            A_sim = [fq.sos_quant_softmax(a_s, a_state, A_qmax) for a_s in Ab]
+        if sos:                              # two level sets (:717-751)
+            A_fix = [_sos_levels(a_s, a_state, A_qmax)[:2] for a_s in Ab]
+            s_hi = fq.exact_div(torch.ones((), device=dev), A_qmax - 1)
+            s_lo = fq.exact_div(a_state, A_qmax - 1)
         else:
-            A_sim = [fq.fake_quant_matmul_operand(a_s, a_state, A_qmax)
+            A_fix = [(_levels(a_s, a_state.reshape(1, G, 1, 1), A_qmax),)
                      for a_s in Ab]
+            a_sc = a_state.reshape(1, 1, G, 1, 1)
         out_sims = []
         for bc in _candidate_chunks(B_cands, P):
             cur = bc.reshape(P, 1, G, 1, 1, 1)
+            cur5 = cur.reshape(P, 1, G, 1, 1)
             acc = torch.zeros(P, G, device=dev)
-            for a_raw, a_s, b_s, r_s, g_s in zip(Ab, A_sim, Bb, rb, gb):
+            for a_raw, a_s, b_s, r_s, g_s in zip(Ab, A_fix, Bb, rb, gb):
                 blocked = b_s.reshape(1, bs, G, 1, Ci, Co)
-                q = torch.clamp(torch.round(blocked / cur), -B_qmax,
-                                B_qmax - 1) * cur
-                out = torch.einsum("bgrc,pbgco->pbgro", a_s,
-                                   q.reshape(P, bs, G, Ci, Co))
-                acc = acc + sim_reduce(out, get_raw(a_raw, b_s, r_s), g_s)
+                b_lv = _levels(blocked, cur, B_qmax).reshape(P, bs, G, Ci, Co)
+                acc32 = [torch.einsum("bgrc,pbgco->pbgro", lv, b_lv).float()
+                         for lv in a_s]
+                if sos:
+                    out = (acc32[0] * s_hi + acc32[1] * s_lo) * cur5
+                else:
+                    out = acc32[0] * cur5 * a_sc
+                acc = acc + _head_sims(out, _raw_out(a_raw, b_s, r_s), g_s,
+                                       policy.metric)
             out_sims.append(acc)
         return torch.cat(out_sims)[:eq_n]
 
     a_state, B_int = a_state0, B_int0
     for _ in range(policy.search_round):
         if sos:
-            a_state = splits[torch.argmax(score_splits())]
+            a_state = splits[torch.argmax(_split_sims(
+                splits, Ab, Bb, rb, gb, A_qmax, policy.metric))]
         else:
             a_state = _argmax_take(A_cands.reshape(eq_n, G), score_A(B_int)) \
                 .reshape(1, G, 1, 1, 1, 1, 1)
@@ -478,27 +593,161 @@ def _matmul_search(A, B, raw_out, raw_grad, policy: OpPolicy, P: int,
     return a_state, B_int
 
 
+def _matmul_blocked_search(A, B, raw_out, raw_grad, policy: OpPolicy,
+                           P: int, bs: int, n_G_A: int, n_G_B: int):
+    """General blocked-operand matmul search (JAX
+    ``_matmul_blocked_search_jit``; reference PTQSLQuantMatMul
+    matmul.py:109-138, search matmul.py:177-241 in its batching form
+    :483-563): each operand split n_G x n_V x n_H with ceil-div padding;
+    per (v, h) block position the candidates are spliced into the current
+    interval grid, the similarities reduced per head, the group axis
+    ZERO-padded to n_G*crb_g before the per-group mean (matmul.py:519) and
+    argmaxed per group.  SoS: the split-grid A search (n_*_A forced to 1),
+    B blocked."""
+    S, G, R, Ci = A.shape
+    Co = B.shape[-1]
+    dev = A.device
+    sos = policy.quantizer == "sos_matmul"
+    hessian = policy.metric == "hessian"
+    A_qmax = fq.qmax_for_bit(policy.a_bit)
+    B_qmax = fq.qmax_for_bit(policy.b_bit)
+    A = A.float()
+    B = B.float()
+    nVA, nHA = (1, 1) if sos else (policy.n_V_A, policy.n_H_A)
+    nVB, nHB = policy.n_V_B, policy.n_H_B
+
+    def init_interval(x, qmax, nG, nV, nH):
+        if policy.init_layerwise:
+            return fq.exact_div(torch.amax(torch.abs(x)), qmax - 0.5) \
+                .reshape(1, 1, 1, 1, 1, 1, 1) \
+                .expand(1, nG, 1, nV, 1, nH, 1).contiguous()
+        return fq.matmul_operand_interval_init(x, nG, nV, nH, qmax)
+
+    B_int0 = init_interval(B, B_qmax, n_G_B, nVB, nHB)
+    a_state0 = (torch.tensor(0.01, dtype=torch.float32, device=dev) if sos
+                else init_interval(A, A_qmax, n_G_A, nVA, nHA))
+    grid = fq.candidate_grid(policy.eq_alpha, policy.eq_beta, policy.eq_n,
+                             device=dev)
+    eq_n = policy.eq_n
+    B_cands = grid[:eq_n].reshape(-1, 1, 1, 1, 1, 1, 1, 1) * B_int0[None]
+    A_cands = (None if sos else
+               grid[:eq_n].reshape(-1, 1, 1, 1, 1, 1, 1, 1) * a_state0[None])
+    splits = fq.sos_split_grid(20, device=dev)
+
+    Ab, Bb = _batch_chunks(A, bs), _batch_chunks(B, bs)
+    rb = ([None] * len(Ab) if raw_out is None
+          else _batch_chunks(raw_out.float(), bs))
+    gb = _batch_chunks(raw_grad.float(), bs) if hessian else [None] * len(Ab)
+
+    def quant_A_state(a, st):
+        if sos:
+            return fq.sos_quant_softmax(a, st, A_qmax)
+        return fq.fake_quant_matmul_operand(a, st, A_qmax)
+
+    def quant_P(x_s, cur, qmax, nG, nV, nH, R_, C_):
+        """Blocked quant of (bs,G,R_,C_) under P interval grids
+        (P,1,nG,1,nV,1,nH,1) -> (P,bs,G,R_,C_) (matmul.py:124-138)."""
+        crb_g, crb_r, crb_c, pg, pr, pc = fq.matmul_block_shape(
+            x_s.shape, nG, nV, nH)
+        xp = F.pad(x_s, (0, pc, 0, pr, 0, pg))
+        xbk = xp.reshape(1, bs, nG, crb_g, nV, crb_r, nH, crb_c)
+        cur8 = cur.reshape(P, 1, nG, 1, nV, 1, nH, 1)
+        q = torch.clamp(torch.round(xbk / cur8), -qmax, qmax - 1) * cur8
+        q = q.reshape(P, bs, nG * crb_g, nV * crb_r, nH * crb_c)
+        return q[:, :, :G, :R_, :C_]
+
+    def group_reduce(sims, nG):
+        """(eq_n, G) head sims -> (eq_n, nG): ZERO-pad the group axis to
+        nG*crb_g, then the per-group mean (matmul.py:519)."""
+        crb_g = -(-G // nG)
+        sims = F.pad(sims, (0, nG * crb_g - G))
+        return torch.mean(sims.reshape(eq_n, nG, crb_g), dim=-1)
+
+    def search_blocks(opA: bool, a_state, B_int):
+        nG = n_G_A if opA else n_G_B
+        nV = nVA if opA else nVB
+        nH = nHA if opA else nHB
+        cands = A_cands if opA else B_cands
+        qmax = A_qmax if opA else B_qmax
+        interval = a_state if opA else B_int
+        if opA:
+            otherq = [fq.fake_quant_matmul_operand(b_s, B_int, B_qmax)
+                      for b_s in Bb]
+        else:
+            otherq = [quant_A_state(a_s, a_state) for a_s in Ab]
+        for idx in range(nV * nH):
+            v, h = divmod(idx, nH)
+            m = ((torch.arange(nV, device=dev).reshape(1, 1, 1, nV, 1, 1, 1)
+                  == v)
+                 & (torch.arange(nH, device=dev).reshape(1, 1, 1, 1, 1, nH, 1)
+                    == h))
+            out_sims = []
+            for cc in _candidate_chunks(cands, P):   # P,1,nG,1,nV,1,nH,1
+                cur = torch.where(m, cc, interval[None])
+                acc = torch.zeros(P, G, device=dev)
+                for a_s, b_s, oq, r_s, g_s in zip(Ab, Bb, otherq, rb, gb):
+                    if opA:
+                        out = torch.einsum(
+                            "pbgrc,bgco->pbgro",
+                            quant_P(a_s, cur, qmax, nG, nV, nH, R, Ci), oq)
+                    else:
+                        out = torch.einsum(
+                            "bgrc,pbgco->pbgro", oq,
+                            quant_P(b_s, cur, qmax, nG, nV, nH, Ci, Co))
+                    acc = acc + _head_sims(out, _raw_out(a_s, b_s, r_s), g_s,
+                                           policy.metric)
+                out_sims.append(acc)
+            sims = group_reduce(torch.cat(out_sims)[:eq_n], nG)
+            best = torch.argmax(sims, dim=0)                   # (nG,)
+            chosen = torch.gather(
+                cands.reshape(eq_n, nG, nV, nH), 0,
+                best[None, :, None, None].expand(1, nG, nV, nH))[0]
+            interval = torch.where(m, chosen.reshape(1, nG, 1, nV, 1, nH, 1),
+                                   interval)
+        return interval
+
+    a_state, B_int = a_state0, B_int0
+    for _ in range(policy.search_round):
+        if sos:
+            a_state = splits[torch.argmax(_split_sims(
+                splits, Ab, Bb, rb, gb, A_qmax, policy.metric))]
+        else:
+            a_state = search_blocks(True, a_state, B_int)
+        B_int = search_blocks(False, a_state, B_int)
+    return a_state, B_int
+
+
 def search_matmul(cap, policy: OpPolicy, budget: int = DEFAULT_BUDGET,
                   int8_score: Optional[bool] = None,
                   use_kernels: Optional[bool] = None) -> MatMulQP:
     """Calibrate an A@B op (head-wise groups) from its captured data;
     ``cap.out=None`` recomputes raw_out as A@B."""
-    blocked = (policy.n_V_A != 1 or policy.n_H_A != 1 or policy.n_V_B != 1
-               or policy.n_H_B != 1 or policy.n_G_A > 1 or policy.n_G_B > 1)
-    if blocked:
-        raise NotImplementedError("blocked matmul operand grids are not "
-                                  "ported yet")
     A, B = cap.inputs["a"], cap.inputs["b"]
     dev = A.device
     int8_score, use_kernels = _defaults(dev, int8_score, use_kernels)
     grad = cap.grad if policy.metric == "hessian" else None
-    S, G, R, _ = A.shape
+    S, G, R, Ci = A.shape
     Co = B.shape[-1]
-    kernels = _kernel_path(dev, int8_score, use_kernels,
-                           policy.metric == "hessian", "matmul")
-    P, bs = plan_chunks(policy.eq_n, S, G * R * Co, budget)
-    a_state, B_int = _matmul_search(A, B, cap.out, grad, policy, P, bs,
-                                    kernels)
+    # the plain branches hold the quantized candidate operand as well as
+    # the output per candidate: plan on the larger (matmul2's A, R x R per
+    # head, is 9x its output at ViT-B/384)
+    P, bs = plan_chunks(policy.eq_n, S, G * max(R * Co, R * Ci, Ci * Co),
+                        budget)
+    blocked = (policy.n_V_A != 1 or policy.n_H_A != 1 or policy.n_V_B != 1
+               or policy.n_H_B != 1 or policy.n_G_A > 1 or policy.n_G_B > 1)
+    if blocked or not int8_score:
+        # n_G defaults to head-wise (matmul.py:411-417); an explicit
+        # n_G > 1 overrides it (search.py:994-999).  Exact scoring of the
+        # unblocked matmul is the same engine at n_G = G, n_V = n_H = 1.
+        n_G_A = policy.n_G_A if policy.n_G_A > 1 else G
+        n_G_B = policy.n_G_B if policy.n_G_B > 1 else G
+        a_state, B_int = _matmul_blocked_search(A, B, cap.out, grad, policy,
+                                                P, bs, n_G_A, n_G_B)
+    else:
+        kernels = _scorer(dev, use_kernels, policy.metric == "hessian",
+                          "matmul")
+        a_state, B_int = _matmul_search(A, B, cap.out, grad, policy, P, bs,
+                                        kernels)
     A_qmax = fq.qmax_for_bit(policy.a_bit)
     if policy.quantizer == "sos_matmul":
         return MatMulQP(A_interval=fq.exact_div(a_state, A_qmax - 1),
@@ -512,20 +761,45 @@ def search_matmul(cap, policy: OpPolicy, budget: int = DEFAULT_BUDGET,
 # conv search (patch-embedding conv as matmul)
 # ---------------------------------------------------------------------------
 
+def _conv_inputs(w, b, x, raw_out, raw_grad):
+    """fp32 x and raw_out (recomputed as x @ wᵀ + b when not stored)."""
+    x = x.float()
+    if raw_out is None:
+        raw_out = torch.matmul(x, w.t())
+        if b is not None:
+            raw_out = raw_out + b
+    return x, raw_out.float(), (None if raw_grad is None
+                                else raw_grad.float())
+
+
+def _conv_input_sims(w_sim, b, xb, rb, gb, a_cands, P: int, a_qmax: int,
+                     reduce):
+    """Summed similarities (eq_n,) of the layerwise input-interval
+    candidates of the patch-embed conv under its fake-quant weight
+    ``w_sim`` (oc, icp) (conv.py:222-243, :429-441); ``reduce(out, raw,
+    grad)`` maps a batch chunk's (bs,N,P,oc) outputs to (bs, P) sims."""
+    out_sims = []
+    for ac in _candidate_chunks(a_cands, P):                   # (P,)
+        cur = ac[None, None, :, None]
+        acc = torch.zeros(P, device=ac.device)
+        for x_s, r_s, g_s in zip(xb, rb, gb):
+            x_sim = torch.clamp(torch.round(x_s[:, :, None] / cur),
+                                -a_qmax, a_qmax - 1) * cur
+            out = torch.einsum("btpi,oi->btpo", x_sim, w_sim)
+            if b is not None:
+                out = out + b
+            acc = acc + torch.sum(reduce(out, r_s, g_s), dim=0)
+        out_sims.append(acc)
+    return torch.cat(out_sims)[:a_cands.shape[0]]
+
+
 def _conv_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
                  bs: int, channelwise: bool):
     """calibration_step2 of the patch-embed conv (reference
     ChannelwiseBatchingQuantConv2d, conv.py:591-603, and
     BatchingEasyQuantConv2d, conv.py:429-441).  x: (S, N, icp) patchified
     input; w: (oc, icp) flattened kernel."""
-    x = x.float()
-    if raw_out is None:
-        raw_out = torch.matmul(x, w.t())
-        if b is not None:
-            raw_out = raw_out + b
-    raw_out = raw_out.float()
-    if raw_grad is not None:
-        raw_grad = raw_grad.float()
+    x, raw_out, raw_grad = _conv_inputs(w, b, x, raw_out, raw_grad)
     S, N, icp = x.shape
     oc = w.shape[0]
     dev = x.device
@@ -589,22 +863,6 @@ def _conv_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
             out_sims.append(acc)
         return torch.cat(out_sims)[:eq_n]
 
-    def score_a(w_int):
-        w_sim = fq.fake_quant(w, w_int, w_qmax)
-        out_sims = []
-        for ac in _candidate_chunks(a_cands, P):               # (P,)
-            acc = torch.zeros(P, device=dev)
-            for x_s, r_s, g_s in zip(xb, rb, gb):
-                cur = ac[None, None, :, None]
-                x_sim = torch.clamp(torch.round(x_s[:, :, None] / cur),
-                                    -a_qmax, a_qmax - 1) * cur
-                out = torch.einsum("btpi,oi->btpo", x_sim, w_sim)
-                if b is not None:
-                    out = out + b
-                acc = acc + torch.sum(reduce(out, r_s, g_s, False), dim=0)
-            out_sims.append(acc)
-        return torch.cat(out_sims)[:eq_n]
-
     w_int, a_int = w_int0, a_int0
     for _ in range(policy.search_round):
         sims = score_w(a_int)
@@ -613,15 +871,130 @@ def _conv_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
         else:
             w_int = w_cands[torch.argmax(sims)]
         if quant_act:
-            a_int = a_cands[torch.argmax(score_a(w_int))]
+            a_int = a_cands[torch.argmax(_conv_input_sims(
+                fq.fake_quant(w, w_int, w_qmax), b, xb, rb, gb, a_cands, P,
+                a_qmax, lambda o, r, g: reduce(o, r, g, False)))]
     return w_int, a_int
+
+
+def _conv_ptqsl_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
+                       bs: int):
+    """Sub-layerwise n_V x n_H conv weight grid (JAX
+    ``_conv_ptqsl_search_jit``; reference PTQSLQuantConv2d,
+    conv.py:126-277): per (v, h) the candidates are spliced into the
+    current interval, the metric runs over the channel axis, and ONE scalar
+    argmax picks per block position (conv.py:214-219), alternating with the
+    layerwise input search (conv.py:222-243, skipped at a_bit >= 32).
+    x: (S, N, icp) patchified input; w: (oc, icp) flattened kernel."""
+    x, raw_out, raw_grad = _conv_inputs(w, b, x, raw_out, raw_grad)
+    S, N, icp = x.shape
+    oc = w.shape[0]
+    dev = x.device
+    n_V, n_H = policy.n_V, policy.n_H
+    w_qmax = fq.qmax_for_bit(policy.w_bit)
+    a_qmax = fq.qmax_for_bit(policy.a_bit)
+    quant_act = policy.a_bit < 32
+    metric = policy.metric
+
+    if policy.init_layerwise:                                  # conv.py:246
+        w_int0 = fq.minmax_interval(w, w_qmax).reshape(1, 1, 1, 1) \
+            .expand(n_V, 1, n_H, 1).contiguous()
+    else:
+        w_int0 = fq.blocked_weight_interval_init(w, n_V, n_H, w_qmax)
+    a_int0 = fq.exact_div(torch.amax(torch.abs(x)), a_qmax - 0.5)
+
+    grid = fq.candidate_grid(policy.eq_alpha, policy.eq_beta, policy.eq_n,
+                             device=dev)
+    eq_n = policy.eq_n
+    w_cands = grid[:eq_n, None, None, None, None] * w_int0[None]
+    a_cands = grid[:eq_n] * a_int0
+    xb, rb = _batch_chunks(x, bs), _batch_chunks(raw_out, bs)
+    gb = (_batch_chunks(raw_grad, bs) if metric == "hessian"
+          else [None] * len(xb))
+    w4 = fq.blocked_weight_view(w, n_V, n_H)
+
+    def mask_vh(v, h):
+        return ((torch.arange(n_V, device=dev).reshape(n_V, 1, 1, 1) == v)
+                & (torch.arange(n_H, device=dev).reshape(1, 1, n_H, 1) == h))
+
+    def chan_sims(out, r_s, g_s):
+        """(bs,N,P,oc) -> (bs,P): channel-axis metric, mean over
+        tokens."""
+        gc = g_s[:, :, None] if metric == "hessian" else None
+        sim = _feature_similarity(r_s[:, :, None], out, metric, gc, -1)
+        return torch.mean(sim, dim=1)
+
+    def score_w(w_int, a_int, m):
+        out_sims = []
+        for wc in _candidate_chunks(w_cands, P):               # P,n_V,1,n_H,1
+            cur = torch.where(m, wc, w_int[None])
+            w_sim = (fq.int_quant(w4[None], cur, w_qmax) * cur) \
+                .reshape(P, oc, icp)
+            acc = torch.zeros(P, device=dev)
+            for x_s, r_s, g_s in zip(xb, rb, gb):
+                if quant_act:
+                    x_s = fq.fake_quant(x_s, a_int, a_qmax)
+                out = torch.einsum("bti,poi->btpo", x_s, w_sim)
+                if b is not None:
+                    out = out + b
+                acc = acc + torch.sum(chan_sims(out, r_s, g_s), dim=0)
+            out_sims.append(acc)
+        return torch.cat(out_sims)[:eq_n]
+
+    w_int, a_int = w_int0, a_int0
+    for _ in range(policy.search_round):
+        for idx in range(n_V * n_H):
+            m = mask_vh(*divmod(idx, n_H))
+            best = torch.argmax(score_w(w_int, a_int, m))
+            w_int = torch.where(m, w_cands[best], w_int)
+        if quant_act:
+            a_int = a_cands[torch.argmax(_conv_input_sims(
+                fq.fake_quant_weight_blocked(w, w_int, w_qmax), b, xb, rb,
+                gb, a_cands, P, a_qmax, chan_sims))]
+    return w_int, a_int
+
+
+def chunked_quantile(x: np.ndarray, q: float) -> float:
+    """Quantile with the reference's >=2^24-element chunking: the mean of
+    per-chunk quantiles (QuantileQuantConv2d._quantile, conv.py:111-116)."""
+    flat = np.abs(np.asarray(x)).reshape(-1)
+    if flat.size >= 16777216:
+        n = flat.size // 16777216
+        chunks = flat[:16777216 * n].reshape(n, 16777216)
+        return float(np.mean(np.quantile(chunks, q, axis=1)))
+    return float(np.quantile(flat, q))
+
+
+def quantile_conv(w, cap, policy: OpPolicy) -> ConvQP:
+    """Quantile-based conv scale init, no search (reference
+    QuantileQuantConv2d, conv.py:91-124).  The quantiles are host numpy,
+    as in the JAX package."""
+    dev = cap.inputs["x"].device
+    w_qmax = fq.qmax_for_bit(policy.w_bit)
+    a_qmax = fq.qmax_for_bit(policy.a_bit)
+
+    def host(t):
+        return t.detach().float().cpu().numpy()
+
+    def interval(v):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    w_int = interval(chunked_quantile(host(w), policy.w_quantile)
+                     / (w_qmax - 0.5))
+    a_int = None
+    if policy.a_bit < 32:
+        a_int = interval(chunked_quantile(host(cap.inputs["x"]),
+                                          policy.a_quantile)
+                         / (a_qmax - 0.5))
+    return ConvQP(w_interval=w_int, a_interval=a_int,
+                  w_bit=policy.w_bit, a_bit=policy.a_bit)
 
 
 def search_conv(w, b, cap, policy: OpPolicy,
                 budget: int = DEFAULT_BUDGET) -> ConvQP:
     """Calibrate the patch-embedding conv.  w: (oc, ic, kh, kw)."""
-    if policy.quantizer not in ("conv_channelwise", "conv_layerwise"):
-        raise NotImplementedError(f"{policy.quantizer} is not ported yet")
+    if policy.quantizer == "conv_quantile":
+        return quantile_conv(w, cap, policy)
     x = cap.inputs["x"]                                         # S,N,icp
     dev = x.device
     oc = w.shape[0]
@@ -630,10 +1003,17 @@ def search_conv(w, b, cap, policy: OpPolicy,
     grad = cap.grad if policy.metric == "hessian" else None
     S, N, _ = x.shape
     P, bs = plan_chunks(policy.eq_n, S, N * oc, budget)
+    a_qp = policy.a_bit < 32
+    if policy.quantizer == "conv_ptqsl":
+        w_int, a_int = _conv_ptqsl_search(wm, b, x, cap.out, grad, policy,
+                                          P, bs)
+        return ConvQP(w_interval=w_int, a_interval=a_int if a_qp else None,
+                      w_bit=policy.w_bit, a_bit=policy.a_bit, blocked=True)
+    if policy.quantizer not in ("conv_channelwise", "conv_layerwise"):
+        raise NotImplementedError(f"unknown conv quantizer {policy.quantizer}")
     channelwise = policy.quantizer == "conv_channelwise"
     w_int, a_int = _conv_search(wm, b, x, cap.out, grad, policy, P, bs,
                                 channelwise)
     w_int = w_int.reshape(oc, 1, 1, 1) if channelwise else w_int.reshape(())
-    return ConvQP(w_interval=w_int,
-                  a_interval=(a_int if policy.a_bit < 32 else None),
+    return ConvQP(w_interval=w_int, a_interval=a_int if a_qp else None,
                   w_bit=policy.w_bit, a_bit=policy.a_bit)

@@ -11,8 +11,10 @@
 //   B3f ptq4vit_tpu/ops/pallas_search.py  matmul_hessian_sims
 //       (body _mm_kernel_folded, F > 1): the same search at the window
 //       shapes of Swin (see the B3f section below)
+//   B4w, B4a  the fp32-scored (exact) twins of B1 and B2 (see their
+//       section below)
 //
-// All four score P candidate scales Δ_p with the hessian similarity
+// B1-B3f score P candidate scales Δ_p with the hessian similarity
 //     sims[p] = -Σ (g · (raw - out_p))²
 // where out_p is an int8 x int8 -> int32 product of quantization levels
 // rescaled once in fp32.  Each call runs three kernels:
@@ -905,6 +907,245 @@ int launch_mm_folded(const void* A, const void* B, const void* grad,
   return launch_folded<T, MODE, 3>(a, partial, out, st);
 }
 
+// ---------------------------------------------------------------------------
+// B4w / B4a: the fp32-scored (exact) linear scorers
+// ---------------------------------------------------------------------------
+//
+// They replace
+//   B4w ptq4vit_tpu/ops/pallas_search.py  linear_w_hessian_sims
+//       (body _kernel_ploop): out_p = x_sim @ Q(W; Δ_p)ᵀ
+//   B4a ptq4vit_tpu/ops/pallas_search.py  linear_a_hessian_sims
+//       (body _a_kernel_ploop): out_p = Q(x; Δ_p) @ w_simᵀ, Q signed or the
+//       post-GELU twin Q⁺(x; Δ_p) + Q⁻(x; a_neg)
+// with the same sims as B1 / B2, but every product is of the fp32
+// fake-quant values, accumulated in fp32: the reference's own numerics,
+// not the int8 levels rescaled once.  No TF32, no tensor cores (they have
+// no exact fp32 mode).
+//
+// Any element of Q(v; Δ) is level · Δ in fp32, so the levels come from the
+// B1 / B2 pre-pass (one IEEE division per element and candidate) and the
+// block multiplies each by its scale with one __fmul_rn as it stages the
+// tile in shared memory: the values of quantizing in place, with no
+// division in the candidate loop (B1's first version, which divided there,
+// was division-bound).
+//
+// A block owns a 128 x 128 output tile and loops over all candidates.  Per
+// candidate it streams both operand tiles in K chunks of 16 through two
+// shared-memory buffers: the next chunk is read from global memory into
+// registers while the current one is multiplied, so one __syncthreads per
+// chunk suffices.  Each of the 256 threads computes 8 x 8 outputs, rows
+// 4 ty + i and 64 + 4 ty + i, columns 4 tx + j and 64 + 4 tx + j, so four
+// 16-byte shared loads feed 64 __fmaf_rn.  raw and grad are read from
+// global memory in the epilogue (8 bytes an output and candidate, against
+// 2 K flops); the per-column sums and the fixed-order partials are B1's.
+//
+// What bounds them: 2 P M K N fp32 FLOP per call (1.09e12 for fc1 at 4
+// images, 16 ms at 67 TFLOP/s).
+
+constexpr int FBM = 128;  // output rows per block of the fp32 scorers
+constexpr int FBN = 128;  // output columns per block
+constexpr int FK = 16;    // K chunk
+constexpr int FLD = FBM + 4;  // shared row length (floats)
+
+// B4w: KIND 0 (x_sim fixed, weight levels per candidate, Δ per row bin);
+// B4a: KIND 1 signed, KIND 2 post-GELU twin (input levels per candidate,
+// w_sim fixed).
+struct Fp32Args {
+  const float* xf;      // B4w: x_sim (M, K)
+  const float* wf;      // B4a: w_sim (N, K)
+  const int8_t* lv;     // B4w: (P, N, Kp) weight levels; B4a: (P, M, Kp)
+  const int8_t* lneg;   // B4a twin: (M, Kp) negative levels
+  const float* cands;   // B4w (P, nV); B4a (P,)
+  const float* raw;     // (M, N), bias subtracted
+  const float* grad;    // (M, N)
+  float a_neg;
+  int M, N, K, Kp, P, nV, crb;
+};
+
+// One thread's share of a K chunk: 8 consecutive k of one tile row (row
+// tid % 128, k 8 (tid / 128) ...) of the fixed fp32 operand and the raw
+// level words of the level operand, held in registers between the global
+// read and the shared-memory store.  The levels are scaled only at the
+// store, after the current chunk's products: scaling them at the load
+// would stall every warp on the read before it multiplies.
+struct Fp32Chunk {
+  float f[8];
+  int2 lv, lv2;   // 8 levels [and the twin's negative levels]
+};
+
+__device__ __forceinline__ void load_f32_row8(float (&v)[8], const float* src,
+                                              int row, int rows, int K,
+                                              int k) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = 0.f;
+  if (row >= rows) return;
+  const float* p = src + (size_t)row * K + k;
+  if ((K & 3) == 0 && k + 8 <= K) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    const float4 b = *reinterpret_cast<const float4*>(p + 4);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (k + i < K) v[i] = p[i];
+  }
+}
+
+// 8 levels of one row (the K padding holds zeros; rows past the edge 0)
+__device__ __forceinline__ int2 load_levels8(const int8_t* lv, int row,
+                                             int rows, int Kp, int k) {
+  return row < rows
+             ? *reinterpret_cast<const int2*>(lv + (size_t)row * Kp + k)
+             : make_int2(0, 0);
+}
+
+template <int KIND>
+__device__ __forceinline__ void load_chunk(Fp32Chunk& c, const Fp32Args& a,
+                                           int p, int m0, int n0, int k0) {
+  const int r = threadIdx.x % FBM, k = k0 + 8 * (threadIdx.x / FBM);
+  if (KIND == 0) {        // A: x_sim rows, B: weight levels of candidate p
+    c.lv = load_levels8(a.lv + (size_t)p * a.N * a.Kp, n0 + r, a.N, a.Kp, k);
+    load_f32_row8(c.f, a.xf, m0 + r, a.M, a.K, k);
+  } else {                // A: input levels of candidate p, B: w_sim rows
+    c.lv = load_levels8(a.lv + (size_t)p * a.M * a.Kp, m0 + r, a.M, a.Kp, k);
+    if (KIND == 2) c.lv2 = load_levels8(a.lneg, m0 + r, a.M, a.Kp, k);
+    load_f32_row8(c.f, a.wf, n0 + r, a.N, a.K, k);
+  }
+}
+
+// registers -> S[k][row] of the A (input rows) and B (weight rows) tiles,
+// each level as level · lsc [+ level2 · a_neg]
+template <int KIND>
+__device__ __forceinline__ void store_chunk(const Fp32Chunk& c, float lsc,
+                                            float a_neg, float (*As)[FLD],
+                                            float (*Bs)[FLD]) {
+  const int r = threadIdx.x % FBM, kh = 8 * (threadIdx.x / FBM);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int sh = 8 * (i & 3);
+    float q = __fmul_rn(
+        __int2float_rn((int8_t)((i < 4 ? c.lv.x : c.lv.y) >> sh)), lsc);
+    if (KIND == 2)
+      q = __fadd_rn(q, __fmul_rn(__int2float_rn((int8_t)(
+                                     (i < 4 ? c.lv2.x : c.lv2.y) >> sh)),
+                                 a_neg));
+    As[kh + i][r] = KIND == 0 ? c.f[i] : q;
+    Bs[kh + i][r] = KIND == 0 ? q : c.f[i];
+  }
+}
+
+template <int KIND>
+__global__ void __launch_bounds__(NT)
+    fp32_scored_kernel(Fp32Args a, float* __restrict__ partial) {
+  __shared__ __align__(16) float As[2][FK][FLD];
+  __shared__ __align__(16) float Bs[2][FK][FLD];
+  __shared__ float red[16][FBN];
+  __shared__ float colred[FBN];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int n0 = blockIdx.x * FBN, m0 = blockIdx.y * FBM;
+  const int b = blockIdx.y * gridDim.x + blockIdx.x;
+  const int nbins = KIND == 0 ? a.nV : 1;
+  const int M = a.M, N = a.N;
+  const int nch = (a.K + FK - 1) / FK;
+  // the scale of this thread's level row: B4w Δ_p of the row's bin
+  const int lrow = (KIND == 0 ? n0 : m0) + tid % FBM;
+  const int lbin = KIND == 0 ? min(lrow, N - 1) / a.crb : 0;
+
+  for (int p = 0; p < a.P; ++p) {
+    const float lsc = a.cands[KIND == 0 ? p * a.nV + lbin : p];
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+    Fp32Chunk c;
+    load_chunk<KIND>(c, a, p, m0, n0, 0);
+    store_chunk<KIND>(c, lsc, a.a_neg, As[0], Bs[0]);
+    __syncthreads();
+    for (int ch = 0; ch < nch; ++ch) {
+      const int buf = ch & 1;
+      if (ch + 1 < nch) load_chunk<KIND>(c, a, p, m0, n0, (ch + 1) * FK);
+#pragma unroll
+      for (int kk = 0; kk < FK; ++kk) {
+        const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][kk][4 * ty]);
+        const float4 a1 =
+            *reinterpret_cast<const float4*>(&As[buf][kk][64 + 4 * ty]);
+        const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][kk][4 * tx]);
+        const float4 b1 =
+            *reinterpret_cast<const float4*>(&Bs[buf][kk][64 + 4 * tx]);
+        const float ar[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float br[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            acc[i][j] = __fmaf_rn(ar[i], br[j], acc[i][j]);
+      }
+      // the other buffer was last read in iteration ch - 1, which every
+      // thread has left (the barrier below it)
+      if (ch + 1 < nch)
+        store_chunk<KIND>(c, lsc, a.a_neg, As[buf ^ 1], Bs[buf ^ 1]);
+      __syncthreads();
+    }
+
+    float colsum[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) colsum[j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + (i < 4 ? 4 * ty + i : 60 + 4 * ty + i);
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = n0 + (j < 4 ? 4 * tx + j : 60 + 4 * tx + j);
+        if (n < N) {
+          const size_t o = (size_t)m * N + n;
+          const float e = __fmul_rn(a.grad[o], __fsub_rn(a.raw[o],
+                                                         acc[i][j]));
+          colsum[j] = __fadd_rn(colsum[j], __fmul_rn(e, e));
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      red[ty][j < 4 ? 4 * tx + j : 60 + 4 * tx + j] = colsum[j];
+    __syncthreads();
+    if (tid < FBN) {
+      float s = 0.f;
+      for (int r = 0; r < 16; ++r) s = __fadd_rn(s, red[r][tid]);
+      colred[tid] = s;
+    }
+    __syncthreads();
+    if (tid < nbins) {
+      float s = 0.f;
+      for (int col = 0; col < FBN; ++col) {
+        const int n = n0 + col;
+        if (n < N && (KIND != 0 || n / a.crb == tid))
+          s = __fadd_rn(s, colred[col]);
+      }
+      partial[((size_t)b * a.P + p) * nbins + tid] = s;
+    }
+    // red / colred are rewritten only after the next candidate's K loop,
+    // whose barriers order those writes after the reads above
+  }
+}
+
+template <int KIND>
+int launch_fp32(const Fp32Args& a, float* partial, float* out,
+                cudaStream_t st) {
+  dim3 grid(cdiv(a.N, FBN), cdiv(a.M, FBM));
+  fp32_scored_kernel<KIND><<<grid, NT, 0, st>>>(a, partial);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int nbins = KIND == 0 ? a.nV : 1;
+  const int total = a.P * nbins;
+  reduce_partials<<<cdiv(total, 128), 128, 0, st>>>(
+      partial, out, 1, (int)(grid.x * grid.y), a.P, nbins);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -991,6 +1232,48 @@ int ptq_linear_a_sims(const float* x, const int8_t* w_lv, const float* w_scale,
   op.ws = w_scale; op.cands = cands; op.rawp = raw; op.gradp = grad;
   op.a_neg = a_neg; op.M = M; op.N = N; op.K = K; op.P = P; op.nbins = 1;
   return launch(op, lev, M, N, 1, 1, P, 1, partial, out, st);
+}
+
+// B4w.  x_sim (M, K) f32; w (N, K) f32; cands (P, nV); raw, grad (M, N)
+// f32 -> out (P, nV).  Scratch: lw (P, N, Kp) int8; partial
+// ptq_num_tiles(M, N) * P * nV floats.
+int ptq_linear_w_sims_f32(const float* x_sim, const float* w,
+                          const float* cands, const float* raw,
+                          const float* grad, int M, int K, int N, int P,
+                          int nV, int qmax, int8_t* lw, float* partial,
+                          float* out, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int crb = N / nV;
+  WeightLevels wl{w, cands, K, nV, crb, qmax};
+  int err = fill_levels(wl, lw, P, 1, N, K, st);
+  if (err) return err;
+  Fp32Args a{x_sim, nullptr, lw, nullptr, cands, raw, grad, 0.f,
+             M, N, K, kpad(K), P, nV, crb};
+  return launch_fp32<0>(a, partial, out, st);
+}
+
+// B4a.  x (M, K) f32 raw; w_sim (N, K) f32; cands (P,); raw, grad (M, N)
+// f32 -> out (P,).  Scratch: lx (P, M, Kp) int8, lneg (M, Kp) (NULL unless
+// post-GELU); partial ptq_num_tiles(M, N) * P floats.
+int ptq_linear_a_sims_f32(const float* x, const float* w_sim,
+                          const float* cands, const float* raw,
+                          const float* grad, float a_neg, int M, int K,
+                          int N, int P, int qmax, int postgelu, int8_t* lx,
+                          int8_t* lneg, float* partial, float* out,
+                          void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  InputLevels il{x, cands, a_neg, K, postgelu ? 0 : -qmax, qmax - 1, 0};
+  int err = fill_levels(il, lx, P, 1, M, K, st);
+  if (err) return err;
+  if (postgelu) {
+    InputLevels nl{x, cands, a_neg, K, -qmax, 0, 1};
+    err = fill_levels(nl, lneg, 1, 1, M, K, st);
+    if (err) return err;
+  }
+  Fp32Args a{nullptr, w_sim, lx, lneg, cands, raw, grad, a_neg,
+             M, N, K, kpad(K), P, 1, N};
+  return postgelu ? launch_fp32<2>(a, partial, out, st)
+                  : launch_fp32<1>(a, partial, out, st);
 }
 
 // B3f: the partial-sum count per candidate (the wrapper sizes the

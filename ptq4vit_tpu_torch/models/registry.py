@@ -10,6 +10,7 @@ import dataclasses
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
+import torch
 
 from ..utils.convert import params_from_numpy
 from . import swin as swin_mod
@@ -143,13 +144,26 @@ def net_from_config(cfg, params: Dict[str, Any],
                op_shapes=mod.op_shapes(cfg), data_config=data_config)
 
 
+def resolve_device(device=None) -> torch.device:
+    """``device``, or the card when it is None; a CUDA device with no card
+    raises (the port's entry points run on the card unless the caller asks
+    for the CPU)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card; pass "
+                           "device='cpu' to run on the CPU")
+    return device
+
+
 def get_net(name: str, params: Optional[Dict[str, Any]] = None,
-            seed: int = 0, device="cpu") -> Net:
-    """Build a model bundle on ``device``.  ``params=None``
-    random-initializes from a numpy generator seeded with ``seed``; given
-    params (numpy or torch, timm key layout) are moved there."""
+            seed: int = 0, device=None) -> Net:
+    """Build a model bundle on ``device`` (default: the card).
+    ``params=None`` random-initializes from a numpy generator seeded with
+    ``seed``; given params (numpy or torch, timm key layout) are moved
+    there."""
     if name not in MODEL_ZOO:
         raise NotImplementedError(f"unknown model {name}")
+    device = resolve_device(device)
     z = MODEL_ZOO[name]
     cfg = model_config(name)
     if params is None:

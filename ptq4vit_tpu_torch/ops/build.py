@@ -39,6 +39,10 @@ _SIGNATURES = {
                           _I, _P, _P, _P, _P, _P, _P],
     "ptq_matmul_sims": [_P, _P, _P, _I, _P, _P, _F, _F, _F, _F, _I, _I, _I,
                         _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "ptq_linear_w_sims_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _P, _P, _P, _P],
+    "ptq_linear_a_sims_f32": [_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I,
+                              _I, _P, _P, _P, _P, _P],
     "ptq_fold_num_partials": [_I] * 7,
     "ptq_matmul_sims_folded": [_P, _P, _P, _I, _P, _P, _F, _F, _F, _F, _I,
                                _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,

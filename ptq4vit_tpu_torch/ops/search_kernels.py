@@ -1,4 +1,4 @@
-"""The int8-scored candidate scorers of the calibration search.
+"""The candidate scorers of the calibration search.
 
 Each public function takes the arguments of its JAX counterpart in
 ``ptq4vit_tpu/ops/pallas_search.py`` and returns the same un-normalized
@@ -10,15 +10,19 @@ hessian similarity sums ``-Σ (g·(raw − out))²`` per candidate:
                                where ``mm_fold_factor`` is 1, B3f (body
                                _mm_kernel_folded) where it is > 1, as the
                                JAX function picks its body
+  linear_w_hessian_sims     <- linear_w_hessian_sims (B4w, exact scoring)
+  linear_a_hessian_sims     <- linear_a_hessian_sims (B4a, exact scoring)
 
 For CUDA tensors the kernel wrappers launch the hand-written kernels of
 ``csrc/search_kernels.cu`` (or raise); for CPU tensors they run the plain
-PyTorch version beside them (``*_ref``), which follows the same formulas:
-the int8 dot is a float64 matmul of the levels, exact because every sum
-stays far below 2**53, and the fp32 rescale keeps the kernels' operation
-order.  B3 and B3f compute the same function, so both have
-``matmul_hessian_sims_ref`` as their plain version.  Each kernel wrapper
-counts its kernel launches in ``<function>.launches``.
+PyTorch version beside them (``*_ref``), which follows the same formulas.
+For the int8 scorers the int8 dot is a float64 matmul of the levels, exact
+because every sum stays far below 2**53, and the fp32 rescale keeps the
+kernels' operation order; the fp32 scorers take fp32 products of the
+fake-quant values, as the kernels do, summed in another order.  B3 and B3f
+compute the same function, so both have ``matmul_hessian_sims_ref`` as
+their plain version.  Each kernel wrapper counts its kernel launches in
+``<function>.launches``.
 """
 from __future__ import annotations
 
@@ -115,6 +119,51 @@ def linear_a_hessian_sims_i8_ref(x, w_lv, w_scale, cands, raw_minus_bias,
             acc = _dot_nt(_levels(x, delta, -a_qmax, a_qmax - 1), w_lv) \
                 * delta
         d = grad * (raw_minus_bias - acc * ws)
+        out[p] = -torch.sum(d * d)
+    return out
+
+
+def linear_w_hessian_sims_ref(x_sim, w, cands, raw_minus_bias, grad,
+                              qmax: int):
+    """Plain version of B4w (body ``_kernel_ploop``): per candidate the fp32
+    fake-quant weight clip(round(W / Δ)) · Δ of each row block and an fp32
+    product with the fake-quant input."""
+    squeeze = cands.ndim == 1
+    c2 = cands[:, None] if squeeze else cands
+    P, n_V = c2.shape
+    crb = w.shape[0] // n_V
+    out = torch.empty(P, n_V, dtype=torch.float32, device=w.device)
+    for p in range(P):
+        for v in range(n_V):
+            delta = c2[p, v]
+            rows = slice(v * crb, (v + 1) * crb)
+            w_sim = torch.clamp(torch.round(w[rows] / delta), -qmax,
+                                qmax - 1) * delta
+            d = grad[:, rows] * (raw_minus_bias[:, rows] - x_sim @ w_sim.t())
+            out[p, v] = -torch.sum(d * d)
+    return out[:, 0] if squeeze else out
+
+
+def linear_a_hessian_sims_ref(x, w_sim, cands, raw_minus_bias, grad,
+                              a_qmax: int, postgelu: bool = False,
+                              a_neg: float = 0.0):
+    """Plain version of B4a (body ``_a_kernel_ploop``): per candidate the
+    fp32 fake-quant input (signed, or the post-GELU twin with the fixed
+    negative scale, ``x / a_neg`` a true division) and an fp32 product with
+    the fake-quant weight."""
+    if postgelu:
+        an = torch.tensor(a_neg, dtype=torch.float32, device=x.device)
+        x_neg = torch.clamp(torch.round(x / an), -a_qmax, 0) * an
+    out = torch.empty(cands.shape[0], dtype=torch.float32, device=x.device)
+    for p in range(cands.shape[0]):
+        delta = cands[p]
+        if postgelu:
+            xq = torch.clamp(torch.round(x / delta), 0, a_qmax - 1) * delta \
+                + x_neg
+        else:
+            xq = torch.clamp(torch.round(x / delta), -a_qmax, a_qmax - 1) \
+                * delta
+        d = grad * (raw_minus_bias - xq @ w_sim.t())
         out[p] = -torch.sum(d * d)
     return out
 
@@ -290,6 +339,75 @@ def linear_a_hessian_sims_i8(x, w_lv, w_scale, cands, raw_minus_bias, grad,
     return out
 
 
+def linear_w_hessian_sims(x_sim, w, cands, raw_minus_bias, grad, qmax: int):
+    """B4w: exact (fp32-scored) weight-interval search, n_H = 1.
+
+    x_sim: (M, ic) already input-quantized activations; w: (oc, ic) fp32;
+    cands: (P,) or (P, n_V) with oc % n_V == 0; raw_minus_bias, grad:
+    (M, oc) fp32.  Returns (P,) or (P, n_V)."""
+    if not w.is_cuda:
+        return linear_w_hessian_sims_ref(x_sim, w, cands, raw_minus_bias,
+                                         grad, qmax)
+    from .build import load
+    lib = load()
+    dev = w.device
+    M, ic = x_sim.shape
+    oc = w.shape[0]
+    squeeze = cands.ndim == 1
+    c2 = (cands[:, None] if squeeze else cands).contiguous()
+    P, n_V = c2.shape
+    if oc % n_V or n_V > 256:
+        raise ValueError(f"n_V={n_V} must divide oc={oc} and be <= 256")
+    _check(x_sim, "x_sim", torch.float32, (M, ic), dev)
+    _check(w, "w", torch.float32, (oc, ic), dev)
+    _check(c2, "cands", torch.float32, (P, n_V), dev)
+    _check(raw_minus_bias, "raw_minus_bias", torch.float32, (M, oc), dev)
+    _check(grad, "grad", torch.float32, (M, oc), dev)
+    lw = _levels_scratch((P, oc, lib.ptq_k_pad(ic)), dev)
+    partial = torch.empty(lib.ptq_num_tiles(M, oc) * P * n_V,
+                          dtype=torch.float32, device=dev)
+    out = torch.empty(P, n_V, dtype=torch.float32, device=dev)
+    _launch(lib.ptq_linear_w_sims_f32, _ptr(x_sim), _ptr(w), _ptr(c2),
+            _ptr(raw_minus_bias), _ptr(grad), M, ic, oc, P, n_V, qmax,
+            _ptr(lw), _ptr(partial), _ptr(out), _stream())
+    linear_w_hessian_sims.launches += 1
+    return out[:, 0] if squeeze else out
+
+
+def linear_a_hessian_sims(x, w_sim, cands, raw_minus_bias, grad, a_qmax: int,
+                          postgelu: bool = False, a_neg: float = 0.0):
+    """B4a: exact (fp32-scored) input-interval search, n_a = 1.
+
+    x: (M, ic) raw fp32 activations; w_sim: (oc, ic) fake-quant weight;
+    cands: (P,).  Returns (P,)."""
+    if not x.is_cuda:
+        return linear_a_hessian_sims_ref(x, w_sim, cands, raw_minus_bias,
+                                         grad, a_qmax, postgelu, a_neg)
+    from .build import load
+    lib = load()
+    dev = x.device
+    M, ic = x.shape
+    oc = w_sim.shape[0]
+    P = cands.shape[0]
+    _check(x, "x", torch.float32, (M, ic), dev)
+    _check(w_sim, "w_sim", torch.float32, (oc, ic), dev)
+    _check(cands, "cands", torch.float32, (P,), dev)
+    _check(raw_minus_bias, "raw_minus_bias", torch.float32, (M, oc), dev)
+    _check(grad, "grad", torch.float32, (M, oc), dev)
+    kp = lib.ptq_k_pad(ic)
+    lx = _levels_scratch((P, M, kp), dev)
+    lneg = _levels_scratch((M, kp), dev) if postgelu else None
+    partial = torch.empty(lib.ptq_num_tiles(M, oc) * P, dtype=torch.float32,
+                          device=dev)
+    out = torch.empty(P, dtype=torch.float32, device=dev)
+    _launch(lib.ptq_linear_a_sims_f32, _ptr(x), _ptr(w_sim), _ptr(cands),
+            _ptr(raw_minus_bias), _ptr(grad), float(a_neg), M, ic, oc, P,
+            a_qmax, int(postgelu), _ptr(lx), _ptr(lneg), _ptr(partial),
+            _ptr(out), _stream())
+    linear_a_hessian_sims.launches += 1
+    return out
+
+
 _MODES = {"a": 0, "b": 1, "b_sos": 2}
 
 
@@ -403,7 +521,8 @@ def matmul_hessian_sims_b3f(A, B, grad, cands, fixed_int, mode: str,
 
 
 KERNELS = (linear_w_hessian_sims_i8, linear_a_hessian_sims_i8,
-           matmul_hessian_sims_b3, matmul_hessian_sims_b3f)
+           matmul_hessian_sims_b3, matmul_hessian_sims_b3f,
+           linear_w_hessian_sims, linear_a_hessian_sims)
 
 
 def reset_launch_counts() -> None:

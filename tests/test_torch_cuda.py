@@ -118,7 +118,47 @@ def test_kernels_match_plain_versions_on_the_card():
     assert sk.launch_counts() == {"linear_w_hessian_sims_i8": 2,
                                   "linear_a_hessian_sims_i8": 2,
                                   "matmul_hessian_sims_b3": 3,
-                                  "matmul_hessian_sims_b3f": 0}
+                                  "matmul_hessian_sims_b3f": 0,
+                                  "linear_w_hessian_sims": 0,
+                                  "linear_a_hessian_sims": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,ic,oc", [(100, 64, 3 * 64), (130, 72, 3 * 40)])
+def test_fp32_kernels_match_plain_versions_on_the_card(M, ic, oc):
+    """B4w (n_V 1 and 3, signed and twin fake-quant input) and B4a (signed
+    and post-GELU) against their plain versions: rows and columns past a
+    64 x 64 tile, K not a multiple of the 32-wide chunk, and row blocks
+    (oc / n_V = 40) that straddle tiles.  rtol 1e-4: fp32 sums in another
+    order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    rng = np.random.default_rng(42)
+    dev = "cuda"
+    sk.reset_launch_counts()
+    for n_V, twin in ((1, False), (3, True), (3, False), (1, True)):
+        x, w, raw, g, cands, a = linear_case(rng, M, ic, oc, n_V, 7, twin)
+        an = np.float32(A_NEG)
+        x_sim = (np.clip(np.round(x / a), 0, Q - 1) * a
+                 + np.clip(np.round(x / an), -Q, 0) * an) if twin else \
+            np.clip(np.round(x / a), -Q, Q - 1) * a
+        args = (T(x_sim).to(dev), T(w).to(dev),
+                T(cands if n_V > 1 else cands[:, 0]).to(dev),
+                T(raw).to(dev), T(g).to(dev), Q)
+        torch.testing.assert_close(sk.linear_w_hessian_sims(*args),
+                                   sk.linear_w_hessian_sims_ref(*args),
+                                   rtol=1e-4, atol=0)
+        w_int = np.float32(np.abs(w).max() / (Q - 0.5))
+        w_sim = np.clip(np.round(w / w_int), -Q, Q - 1) * w_int
+        args = (T(x).to(dev), T(w_sim).to(dev),
+                T(np.linspace(0.3, 1.2, 7) * a).to(dev), T(raw).to(dev),
+                T(g).to(dev), Q, twin, GELU_NEG_CLIP / Q if twin else 0.0)
+        torch.testing.assert_close(sk.linear_a_hessian_sims(*args),
+                                   sk.linear_a_hessian_sims_ref(*args),
+                                   rtol=1e-4, atol=0)
+    counts = sk.launch_counts()
+    assert counts["linear_w_hessian_sims"] == 4
+    assert counts["linear_a_hessian_sims"] == 4
 
 
 @pytest.mark.cuda

@@ -18,66 +18,24 @@ import torch
 
 from ptq4vit_tpu.calib.calibrator import save_qstate as jax_save_qstate
 from ptq4vit_tpu.quant.qparams import ConvQP, LinearQP, MatMulQP
-from ptq4vit_tpu_torch.calib import search as psearch
 from ptq4vit_tpu_torch.calib.calibrator import load_qstate
-from ptq4vit_tpu_torch.calib.capture import OpCapture
-from ptq4vit_tpu_torch.configs import apply_modifier, ptq4vit
 from ptq4vit_tpu_torch.models.vit import op_inventory
 from tests import test_reference_goldens as G
 from tests.torch_port_helpers import (assert_logits_close,
-                                      assert_qstate_matches, port_net)
+                                      assert_qstate_matches, load_golden,
+                                      port_cfg, port_net, search_golden, t32)
 
-CELL = os.path.join(G.GOLDEN_DIR, "ref_tinyvit_PTQ4ViT_w8a8_hessian.npz")
+
+# the cells this file holds; the other calibrated cells are in
+# tests/test_torch_goldens_{metrics,ablation,policies,exact,seq}.py
+CELLS = ["ref_tinyvit_PTQ4ViT_w8a8_hessian",
+         "ref_tinyswin_PTQ4ViT_w8a8_hessian",
+         "ref_tinyswin3_PTQ4ViT_w8a8_hessian"]
 
 
 @pytest.fixture(scope="module")
 def golden():
-    z, meta, sd, mods = G._load(CELL)
-    jnet = G._build_net(meta, sd)
-    for name, m in meta["modules"].items():
-        if "a_neg_interval" in m:
-            mods[name]["a_neg_interval"] = np.float32(m["a_neg_interval"])
-    return z, meta, jnet, mods
-
-
-def t(a):
-    return torch.from_numpy(np.array(a, np.float32))
-
-
-def port_caps(z, jnet):
-    """The golden's per-op caches as port OpCaptures (conv: NCHW images
-    patchified, NCHW outputs as tokens)."""
-    p = jnet.cfg.patch_size
-    caps = {}
-    for name, mtype in jnet.op_inventory:
-        raw = {k.split("::")[2]: z[k] for k in z.files
-               if k.startswith(f"raw::{name}::")}
-        if mtype == "qconv":
-            x = raw["x"]
-            S, C, H, W = x.shape
-            xp = x.reshape(S, C, H // p, p, W // p, p) \
-                .transpose(0, 2, 4, 1, 3, 5).reshape(S, -1, C * p * p)
-
-            def tokens(a):
-                return a.reshape(a.shape[0], a.shape[1], -1).transpose(0, 2, 1)
-            caps[name] = OpCapture("conv", {"x": t(xp)},
-                                   out=t(tokens(raw["out"])),
-                                   grad=t(tokens(raw["grad"])))
-        elif "qmatmul" in mtype:
-            caps[name] = OpCapture("matmul", {"a": t(raw["A"]),
-                                              "b": t(raw["B"])},
-                                   out=t(raw["out"]), grad=t(raw["grad"]))
-        else:
-            caps[name] = OpCapture("linear", {"x": t(raw["x"])},
-                                   out=t(raw["out"]), grad=t(raw["grad"]))
-    return caps
-
-
-def port_cfg(meta):
-    cfg = ptq4vit()
-    apply_modifier(cfg, bit_setting=tuple(meta["bit_setting"]),
-                   metric=meta["metric"])
-    return cfg
+    return load_golden("ref_tinyvit_PTQ4ViT_w8a8_hessian")
 
 
 def test_policy_matches_reference(golden):
@@ -94,28 +52,6 @@ def test_policy_matches_reference(golden):
             G.REF_CLASS_TO_QUANTIZER[ref_cls], name
 
 
-def search_golden(z, meta, jnet, **kw):
-    """Every op of the golden searched by the port on the golden's
-    caches."""
-    cfg = port_cfg(meta)
-    caps = port_caps(z, jnet)
-    pq = {}
-    for name, mtype in jnet.op_inventory:
-        pol = cfg.op_policy(mtype)
-        cap = caps[name]
-        b = (t(z[f"sd::{name}.bias"]) if f"sd::{name}.bias" in z.files
-             else None)
-        if mtype == "qconv":
-            pq[name] = psearch.search_conv(t(z[f"sd::{name}.weight"]), b, cap,
-                                           pol)
-        elif "qmatmul" in mtype:
-            pq[name] = psearch.search_matmul(cap, pol, **kw)
-        else:
-            pq[name] = psearch.search_linear(t(z[f"sd::{name}.weight"]), b,
-                                             cap, pol, **kw)
-    return pq
-
-
 def test_port_search_reproduces_reference_intervals(golden):
     z, meta, jnet, mods = golden
     pq = search_golden(z, meta, jnet)
@@ -123,19 +59,14 @@ def test_port_search_reproduces_reference_intervals(golden):
     assert_qstate_matches(pq, mods, z, meta, jnet.op_inventory, kws)
 
 
-@pytest.mark.parametrize("cell", ["ref_tinyswin_PTQ4ViT_w8a8_hessian",
-                                  "ref_tinyswin3_PTQ4ViT_w8a8_hessian"])
+@pytest.mark.parametrize("cell", CELLS[1:])
 @pytest.mark.parametrize("scoring", ["fp32", "int8"])
 def test_port_search_reproduces_swin_golden(cell, scoring):
     """The Swin cells (window attention with shifts, patch-merging
     reduction, 2-D head input; tinyswin3 has odd heads), scored in fp32 (the
     CPU default) and in int8 through the kernels' plain versions (B1, B2
     and, at these fold shapes, B3f's)."""
-    z, meta, sd, mods = G._load(os.path.join(G.GOLDEN_DIR, f"{cell}.npz"))
-    jnet = G._build_net(meta, sd)
-    for name, m in meta["modules"].items():
-        if "a_neg_interval" in m:
-            mods[name]["a_neg_interval"] = np.float32(m["a_neg_interval"])
+    z, meta, jnet, mods = load_golden(cell)
     int8 = scoring == "int8"
     pq = search_golden(z, meta, jnet, int8_score=int8, use_kernels=int8)
     assert_qstate_matches(pq, mods, z, meta, jnet.op_inventory,
@@ -174,5 +105,5 @@ def test_jax_qstate_cross_loads_into_the_port(golden, tmp_path):
     for key in ("calib_x", "eval_x"):
         x = z[key]
         with torch.no_grad():
-            got = pnet.apply(t(x), qstate=pq)
+            got = pnet.apply(t32(x), qstate=pq)
         assert_logits_close(got, jnet.apply(jnp.asarray(x), qstate=jq))

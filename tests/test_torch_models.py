@@ -103,15 +103,32 @@ def test_registry_matches_jax_zoo():
     cfg = model_config("vit_base_patch16_384")
     assert (cfg.embed_dim, cfg.depth, cfg.num_heads, cfg.seq_len) == \
         (768, 12, 12, 577)
-    net = get_net("vit_tiny_patch16_224", seed=0)
+    net = get_net("vit_tiny_patch16_224", seed=0, device="cpu")
     assert net.op_inventory == port_inventory(net.cfg)
     assert net.params["blocks"][0]["mlp"]["fc1"]["weight"].shape == (768, 192)
     # the Swin rows build Swin nets (tests/test_torch_swin.py holds them
     # against JAX); unknown names still raise
-    swin = get_net("swin_tiny_patch4_window7_224")
+    swin = get_net("swin_tiny_patch4_window7_224", device="cpu")
     assert swin.op_inventory == jreg.swin_mod.op_inventory(
         jreg.model_config("swin_tiny_patch4_window7_224"))
     assert swin.params["layers"][0]["downsample"]["reduction"]["weight"] \
         .shape == (192, 384)
     with pytest.raises(NotImplementedError):
         get_net("swin_huge")
+
+
+def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """``get_net`` and ``quantize`` run on the card when no device is
+    given; with no card they raise instead of running on the CPU."""
+    import ptq4vit_tpu_torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_net("vit_tiny_patch16_224")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ptq4vit_tpu_torch.quantize("vit_tiny_patch16_224",
+                                   np.zeros((1, 3, 224, 224), np.float32))
+    net = get_net("vit_tiny_patch16_224", device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ptq4vit_tpu_torch.quantize(net, np.zeros((1, 3, 224, 224),
+                                                 np.float32))
+    assert net.params["head"]["weight"].device.type == "cpu"

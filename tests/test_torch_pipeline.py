@@ -93,3 +93,45 @@ def test_qstate_save_load_roundtrip(calibrated, tmp_path):
         torch.testing.assert_close(
             pnet.apply(torch.from_numpy(x[:2]), qstate=back),
             pnet.apply(torch.from_numpy(x[:2]), qstate=pq), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("sequential", [False, True])
+def test_baseptq_w6a6_quantize_matches_jax(sequential):
+    """``quantize(config="BasePTQ", bits=(6, 6))`` (cosine metric, one
+    round, layerwise conv, no twins), parallel and sequential, against the
+    JAX calibrator on the same tiny net and images."""
+    from ptq4vit_tpu.configs import base_ptq as jbase_ptq
+    from ptq4vit_tpu.configs import get_config as jget_config
+    jnet = jax_net(TINY)
+    pnet = port_net(jnet)
+    x = images(8, 32)
+    jcfg = shrink(jbase_ptq()).set_bits(6, 6)
+    jq = HessianQuantCalibrator(jnet, jcfg, x, batch_size=4,
+                                sequential=sequential) \
+        .batching_quant_calib(verbose=False)
+    pcfg = shrink(ptq4vit_tpu_torch.configs.get_config("BasePTQ"))
+    _, pq = ptq4vit_tpu_torch.quantize(pnet, x, config=pcfg, bits=(6, 6),
+                                       batch_size=4, device="cpu",
+                                       sequential=sequential)
+    assert jget_config("BasePTQ").name == pcfg.name == "BasePTQ"
+    assert pq["patch_embed.proj"].w_interval.shape == ()
+    assert pq["blocks.0.attn.matmul2"].split is None
+    assert not pq["blocks.1.mlp.fc2"].postgelu
+    assert pq["blocks.0.attn.qkv"].w_bit == pq["blocks.0.attn.qkv"].a_bit == 6
+    mods = {n: np_fields(q) for n, q in jq.items()}
+    if sequential:
+        # each op was captured under its own prefix: hold the picks equal
+        for n in mods:
+            for k, v in np_fields(pq[n]).items():
+                np.testing.assert_allclose(v.reshape(-1),
+                                           mods[n][k].reshape(-1),
+                                           rtol=1e-5, err_msg=f"{n}.{k}")
+        return
+    caps = jcapture(jnet, x, batch_size=4, need_grad=False)
+    z = golden_view(jax.tree.map(np.asarray, jnet.params), caps, mods,
+                    TINY["patch_size"])
+    kws = {"conv": jcfg.ptqsl_conv2d_kwargs,
+           "linear": jcfg.ptqsl_linear_kwargs,
+           "matmul": jcfg.ptqsl_matmul_kwargs}
+    assert_qstate_matches(pq, mods, z, bits_meta(jcfg, TINY["patch_size"]),
+                          jnet.op_inventory, kws)

@@ -182,7 +182,8 @@ def test_port_imports_no_jax():
             "import ptq4vit_tpu_torch.calib.search, "
             "ptq4vit_tpu_torch.calib.calibrator, "
             "ptq4vit_tpu_torch.ops.search_kernels, "
-            "ptq4vit_tpu_torch.ops.build, ptq4vit_tpu_torch.utils.convert\n"
+            "ptq4vit_tpu_torch.ops.build, ptq4vit_tpu_torch.utils.convert, "
+            "ptq4vit_tpu_torch.models.net_wrap\n"
             "assert 'jax' not in sys.modules\n"
             "assert not any(m == 'ptq4vit_tpu' or "
             "m.startswith('ptq4vit_tpu.') for m in sys.modules)\n")

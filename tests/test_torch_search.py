@@ -104,19 +104,66 @@ def test_search_matches_jax(setup, monkeypatch, mode, kind):
 
 
 def test_cuda_paths_refuse_plain_scoring():
-    """On the card the linear and matmul searches score only through the
-    kernels; asking for anything else raises instead of running plain
-    torch there."""
+    """On the card a case the JAX package scores in a Pallas kernel scores
+    only through the port's kernel (asking for plain scoring raises); a
+    case JAX runs as XLA code is plain torch on any device; on the CPU a
+    kernel case runs the kernel's plain version when asked."""
     dev = torch.device("cuda")
     with pytest.raises(NotImplementedError):
-        psearch._kernel_path(dev, False, True, True, "linear")
-    with pytest.raises(NotImplementedError):
-        psearch._kernel_path(dev, True, False, True, "matmul")
-    with pytest.raises(NotImplementedError):
-        psearch._kernel_path(dev, True, True, False, "linear")
-    assert psearch._kernel_path(dev, True, True, True, "linear")
+        psearch._scorer(dev, False, True, "linear weight")
+    assert psearch._scorer(dev, True, True, "linear weight")
+    assert not psearch._scorer(dev, False, False, "linear input")
+    assert not psearch._scorer(dev, True, False, "matmul")
     cpu = torch.device("cpu")
-    assert not psearch._kernel_path(cpu, False, False, True, "linear")
-    assert psearch._kernel_path(cpu, True, True, True, "linear")
+    assert not psearch._scorer(cpu, False, True, "linear weight")
+    assert psearch._scorer(cpu, True, True, "linear weight")
+    assert not psearch._scorer(cpu, True, False, "matmul")
     assert psearch._defaults(cpu, None, None) == (False, False)
     assert psearch._defaults(dev, None, None) == (True, True)
+
+
+class _NoCall:
+    """A kernel wrapper stand-in that records the kernel each search case
+    picks, returning the plain version's sims."""
+
+    def __init__(self, name, fn):
+        self.name, self.fn = name, fn
+
+    def __call__(self, *a, **k):
+        _NoCall.calls.append(self.name)
+        return self.fn(*a, **k)
+
+
+@pytest.mark.parametrize("metric,grid,int8,expect", [
+    # hessian, n_H = n_a = 1: B1 + B2 with int8 scoring, B4w + B4a exact
+    ("hessian", (1, 1, 1), True, {"B1", "B2"}),
+    ("hessian", (1, 1, 1), False, {"B4w", "B4a"}),
+    # n_a > 1: the weight side keeps a kernel (B4w even with int8 scoring,
+    # the input scale no longer factors out); the input side is plain
+    ("hessian", (1, 1, 2), True, {"B4w"}),
+    # n_H > 1: the input side keeps a kernel (B4a), the weight side plain
+    ("hessian", (1, 2, 1), True, {"B4a"}),
+    ("cosine", (1, 1, 1), True, set()),
+])
+def test_linear_dispatch_rule(setup, monkeypatch, metric, grid, int8,
+                              expect):
+    """Which scorer each linear case takes (search.py:250-263, :347-362),
+    recorded on CPU tensors through the plain versions."""
+    jnet, params, caps = setup
+    name = "blocks.0.mlp.fc1"
+    for attr, tag in (("linear_w_hessian_sims_i8", "B1"),
+                      ("linear_a_hessian_sims_i8", "B2"),
+                      ("linear_w_hessian_sims", "B4w"),
+                      ("linear_a_hessian_sims", "B4a")):
+        monkeypatch.setattr(psearch.K, attr,
+                            _NoCall(tag, getattr(psearch.K, attr + "_ref")))
+    _NoCall.calls = []
+    cfg = shrink(pptq4vit())
+    cfg.ptqsl_linear_kwargs.update(metric=metric, n_V=grid[0], n_H=grid[1],
+                                   n_a=grid[2])
+    w, b = (torch.from_numpy(np.array(a)) for a in params_for_op(params,
+                                                                  name))
+    psearch.search_linear(w, b, port_cap(caps[name]),
+                          cfg.op_policy("qlinear_MLP_1"), int8_score=int8,
+                          use_kernels=True)
+    assert set(_NoCall.calls) == expect

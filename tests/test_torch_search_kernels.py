@@ -1,9 +1,9 @@
 """The search kernels' plain PyTorch versions against the JAX Pallas
 scorers run in interpret mode (as tests/test_pallas_search.py runs them):
-B1 plain and twin with n_V 1 and 3, B2 signed and post-GELU, B3 in modes
-a, b and b_sos.  Sims rtol 1e-5.  The CUDA kernels themselves are checked
-against the same plain versions on the card by tests/test_torch_cuda.py
-and chip_smoke.py."""
+B1 and B4w plain and twin with n_V 1 and 3, B2 and B4a signed and
+post-GELU, B3 in modes a, b and b_sos.  Sims rtol 1e-5.  The CUDA kernels
+themselves are checked against the same plain versions on the card by
+tests/test_torch_cuda.py and chip_smoke.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -59,6 +59,61 @@ def test_linear_a_ref_matches_pallas(postgelu):
         jnp.asarray(x), jnp.asarray(w_lv), jnp.asarray(ws),
         jnp.asarray(cands), jnp.asarray(raw), jnp.asarray(g), Q,
         postgelu=postgelu, a_neg=a_neg, interpret=True)
+    close(got, ref)
+
+
+def fake_quant_input(x, a, twin):
+    """The input the exact weight scorer takes: signed, or the post-GELU
+    twin with the fixed negative scale."""
+    if twin:
+        an = np.float32(A_NEG)
+        return (np.clip(np.round(x / a), 0, Q - 1) * a
+                + np.clip(np.round(x / an), -Q, 0) * an).astype(np.float32)
+    return (np.clip(np.round(x / a), -Q, Q - 1) * a).astype(np.float32)
+
+
+@pytest.mark.parametrize("n_V,twin", [(1, False), (1, True), (3, False),
+                                      (3, True)])
+def test_linear_w_fp32_ref_matches_pallas(n_V, twin):
+    """B4w's plain version against ``linear_w_hessian_sims``: fp32 products
+    summed in another order than XLA's, rtol 1e-5."""
+    rng = np.random.default_rng(50 + n_V + 2 * twin)
+    M, ic, oc, P = 40, 32, 3 * 128, 6
+    x, w, raw, g, cands, a = linear_case(rng, M, ic, oc, n_V, P, twin)
+    x_sim = fake_quant_input(x, a, twin)
+    c = cands if n_V > 1 else cands[:, 0]
+    got = sk.linear_w_hessian_sims(T(x_sim), T(w), T(c), T(raw), T(g), Q)
+    ref = jps.linear_w_hessian_sims(
+        jnp.asarray(x_sim), jnp.asarray(w), jnp.asarray(c),
+        jnp.asarray(raw), jnp.asarray(g), Q, interpret=True)
+    close(got, ref)
+
+
+@pytest.mark.parametrize("postgelu", [False, True])
+def test_linear_a_fp32_ref_matches_pallas(postgelu):
+    """B4a's plain version against ``linear_a_hessian_sims``, rtol 1e-5.
+    The JAX body divides by the constant ``a_neg`` (ROADMAP C1), which XLA
+    may turn into a reciprocal multiply; the port divides exactly.  The
+    test counts the inputs where the two would give another negative level
+    and holds the sims equal where there are none."""
+    rng = np.random.default_rng(60 + postgelu)
+    M, ic, oc, P = 40, 64, 128, 6
+    x, w, raw, g, _, a = linear_case(rng, M, ic, oc, 1, P, postgelu)
+    w_int = np.float32(np.abs(w).max() / (Q - 0.5))
+    w_sim = (np.clip(np.round(w / w_int), -Q, Q - 1) * w_int) \
+        .astype(np.float32)
+    cands = (np.linspace(0.3, 1.2, P) * a).astype(np.float32)
+    a_neg = GELU_NEG_CLIP / Q if postgelu else 0.0
+    got = sk.linear_a_hessian_sims(T(x), T(w_sim), T(cands), T(raw), T(g),
+                                   Q, postgelu, a_neg)
+    ref = jps.linear_a_hessian_sims(
+        jnp.asarray(x), jnp.asarray(w_sim), jnp.asarray(cands),
+        jnp.asarray(raw), jnp.asarray(g), Q, postgelu=postgelu,
+        a_neg=a_neg, interpret=True)
+    if postgelu:
+        an = np.float32(a_neg)
+        c1 = np.round(x / an) != np.round(x * (np.float32(1) / an))
+        assert int(c1.sum()) == 0, "inputs of the C1 class"
     close(got, ref)
 
 

@@ -182,7 +182,7 @@ def test_params_from_state_dict_by_zoo_name():
     """A zoo Swin's state_dict (timm key names, with the static buffers
     timm stores) round-trips through params_from_state_dict as in JAX."""
     name = "swin_tiny_patch4_window7_224"
-    net = get_net(name, seed=4)
+    net = get_net(name, seed=4, device="cpu")
     sd = dict(_leaves(net.params))
     sd["layers.0.blocks.0.attn.relative_position_index"] = np.zeros((49, 49))
     sd["layers.0.blocks.1.attn_mask"] = np.zeros((64, 49, 49))
@@ -190,7 +190,7 @@ def test_params_from_state_dict_by_zoo_name():
     assert_same_tree(params, jax.tree.map(
         np.asarray, jtp.params_from_state_dict(name, dict(sd))))
     assert_same_tree(params, net.params)
-    assert get_net(name, params=params).params["head"]["weight"].shape == \
+    assert get_net(name, params=params, device="cpu").params["head"]["weight"].shape == \
         (1000, 768)
 
 
@@ -230,16 +230,17 @@ def test_tap_bytes_counts_window_caches():
 
 def test_kernel_scratch_bytes_at_swin_b384():
     """The level buffers the calibrator reserves beside a group's caches:
-    B2's per-candidate input levels at stage-1 fc2 dominate (eq_n x M x
-    K-padded ic bytes, M = 9216 tokens x images); the SoS matmul2 runs
-    only mode b_sos."""
+    the per-candidate input levels of B2 and B4a at stage-1 fc2 dominate
+    (eq_n x M x K-padded ic bytes, M = 9216 tokens x images), B4a's with
+    its fp32 fake-quant weight (oc x ic x 4 bytes) beside them; the SoS
+    matmul2 runs only mode b_sos."""
     cfg = model_config("swin_base_patch4_window12_384")
     pol = pptq4vit()
     shapes, inv = pswin.op_shapes(cfg), dict(pswin.op_inventory(cfg))
     fc2 = "layers.0.blocks.0.mlp.fc2"
     M = 9216 * 8
     assert kernel_scratch_bytes(shapes[fc2], 8, pol.op_policy(inv[fc2])) \
-        == 100 * M * 512 + M * 512 + 128 * 512
+        == 100 * M * 512 + M * 512 + 4 * 128 * 512
     mm2 = "layers.0.blocks.0.attn.matmul2"
     Z = 4 * 64 * 8
     assert kernel_scratch_bytes(shapes[mm2], 8, pol.op_policy(inv[mm2])) \

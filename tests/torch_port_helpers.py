@@ -4,9 +4,12 @@ One ViT is built in both packages from the same JAX-initialized params
 (carried across with ``params_from_numpy``), the probe noise is the one the
 JAX package draws, and interval mismatches are adjudicated with the f64 tie
 oracles of tests/test_reference_goldens.py, fed through a golden-shaped
-view of the caches.
+view of the caches.  The golden helpers load a cell, build its port
+config, search every op on its own caches and hold the result to the
+reference's calibrated intervals.
 """
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -16,7 +19,10 @@ import torch
 from ptq4vit_tpu.models import swin as jswin
 from ptq4vit_tpu.models import vit as jvit
 from ptq4vit_tpu.models.registry import DataConfig, Net as JNet
+from ptq4vit_tpu_torch.calib import search as psearch
 from ptq4vit_tpu_torch.calib.calibrator import params_for_op
+from ptq4vit_tpu_torch.calib.capture import OpCapture
+from ptq4vit_tpu_torch.configs import apply_modifier, base_ptq, ptq4vit
 from ptq4vit_tpu_torch.models import net_from_config
 from ptq4vit_tpu_torch.models import swin as pswin
 from ptq4vit_tpu_torch.models import vit as pvit
@@ -149,9 +155,9 @@ def golden_view(params, caps, mods, patch_size):
                 .reshape(S, c, nh * patch_size, nh * patch_size)
             z[f"raw::{name}::x"] = img
             for f, v in (("out", cap.out), ("grad", cap.grad)):
-                t = arr(v)
-                z[f"raw::{name}::{f}"] = t.reshape(S, nh, nh, -1) \
-                    .transpose(0, 3, 1, 2)
+                if v is not None:
+                    z[f"raw::{name}::{f}"] = arr(v).reshape(S, nh, nh, -1) \
+                        .transpose(0, 3, 1, 2)
         else:
             z[f"raw::{name}::x"] = arr(cap.inputs["x"])
             z[f"raw::{name}::out"] = arr(cap.out)
@@ -168,55 +174,232 @@ def bits_meta(cfg, patch_size):
             "cfg": {"patch_size": patch_size}}
 
 
-def assert_qstate_matches(port_q, ref_mods, z, meta, inventory, kws):
+def split_tie_check(z, meta, name, mtype, kw, port_split, ref_split):
+    """f64 replay of the SoS split search (matmul.py:600-631: B raw, the
+    metric over the last axis, the mean over heads and rows, summed over
+    the batch; independent of B, so one curve serves both sides): both
+    splits must score within TIE_TOL of the curve's range of its optimum.
+    At the smallest splits nearly every softmax value sits above the split
+    and the fp32 scores of neighbouring splits differ in the last ulp."""
+    def f64(key):
+        return torch.from_numpy(np.array(z[key], np.float64))
+
+    A, B, raw = (f64(f"raw::{name}::{k}") for k in ("A", "B", "out"))
+    grad = (f64(f"raw::{name}::grad") if kw["metric"] == "hessian"
+            else None)
+    qA = 2 ** (meta["A_bit"][mtype] - 1)
+    splits = 2.0 ** -np.arange(20)
+
+    def score(split):
+        ai = split / (qA - 1)
+        hi = (A.clamp(split, 1.0) * (qA - 1)).round().clamp(0, qA - 1) \
+            / (qA - 1)
+        lo = (A.clamp(0.0, split) / ai).round().clamp(0, qA - 1) * ai
+        sim = G._slot_sim(raw, (hi + lo) @ B, kw["metric"], grad)
+        return float(sim.mean((1, 2)).sum())
+
+    curve = torch.tensor([score(s) for s in splits], dtype=torch.float64)
+    for side, v in (("repo", port_split), ("ref", ref_split)):
+        G._tie_assert(curve, v, torch.from_numpy(splits), name,
+                      ("split", side))
+
+
+def assert_qstate_matches(port_q, ref_mods, z, meta, inventory, kws,
+                          seq=False, split_ties=()):
     """Every interval slot of the port qstate equals the reference's
     (rtol 1e-5), or both picks are proven f64 argmax ties by the golden
-    tie oracles (tests/test_reference_goldens.py, TIE_TOL)."""
+    tie oracles (tests/test_reference_goldens.py, TIE_TOL), chosen as
+    ``test_reference_golden`` chooses them: the channelwise conv, the
+    head-wise matmul and SoS B intervals, the scalar-n_H/n_a linear (the
+    post-GELU twin included) and, outside sequential mode, the fully
+    blocked linear; every other slot must match exactly.  The SoS split
+    must match exactly too, except in the ops named in ``split_ties``,
+    where both splits must be f64 ties (``split_tie_check``).  ``seq``
+    scores the port's activation picks on the reference's curve
+    (sequential cells)."""
     def check(repo_arr, ref_arr, name, tie):
         repo_flat = np.asarray(repo_arr, np.float64).reshape(-1)
         ref_flat = np.asarray(ref_arr, np.float64).reshape(-1)
         bad = np.nonzero(~np.isclose(repo_flat, ref_flat, rtol=1e-5))[0]
-        if bad.size:
-            tie(list(bad), repo_flat)
+        if bad.size == 0:
+            return
+        if tie is None:
+            np.testing.assert_allclose(repo_flat, ref_flat, rtol=1e-5,
+                                       err_msg=name)
+        tie(list(bad), repo_flat)
 
     for name, mtype in inventory:
         qp = np_fields(port_q[name])
         ref = ref_mods[name]
         if mtype == "qconv":
+            channelwise = (not port_q[name].blocked
+                           and qp["w_interval"].size > 1)
             check(qp["w_interval"], ref["w_interval"], name,
-                  lambda b, r, n=name: G._conv_tie_check(
-                      z, meta, n, b, r, kws["conv"]))
+                  (lambda b, r, n=name: G._conv_tie_check(
+                      z, meta, n, b, r, kws["conv"])) if channelwise
+                  else None)
             assert port_q[name].a_interval is None
         elif "qmatmul" in mtype:
             kw = kws["matmul"]
             if "split" in qp:
-                np.testing.assert_allclose(float(qp["split"]),
-                                           float(ref["split"]), rtol=1e-6,
-                                           err_msg=name)
                 rs = float(qp["split"])
+                if name in split_ties:
+                    if not np.isclose(rs, float(ref["split"]), rtol=1e-6):
+                        split_tie_check(z, meta, name, mtype, kw, rs,
+                                        float(ref["split"]))
+                else:
+                    np.testing.assert_allclose(rs, float(ref["split"]),
+                                               rtol=1e-6, err_msg=name)
+                head_wise = (qp["B_interval"].size
+                             == z[f"raw::{name}::A"].shape[1])
                 check(qp["B_interval"], ref["B_interval"], name,
-                      lambda b, r, n=name, t=mtype: G._sos_b_tie_check(
-                          z, meta, n, t, b, r, kw, rs))
+                      (lambda b, r, n=name, t=mtype: G._sos_b_tie_check(
+                          z, meta, n, t, b, r, kw, rs, seq))
+                      if head_wise else None)
             else:
                 ra = qp["A_interval"].reshape(-1)
                 for which in ("A", "B"):
                     check(qp[f"{which}_interval"], ref[f"{which}_interval"],
                           name, lambda b, r, n=name, t=mtype, w=which:
                           G._matmul_tie_check(z, meta, n, t, w, b, r, kw,
-                                              ra))
+                                              ra, seq))
         else:
             kw = kws["linear"]
             pg = port_q[name].postgelu
             rw = qp["w_interval"].reshape(-1)
+            lin_ok = (kw.get("n_H", 1) == 1 and kw.get("n_a", 1) == 1
+                      and qp["a_interval"].size == 1)
             for which in ("w", "a"):
+                if lin_ok:
+                    tie = (lambda b, r, n=name, t=mtype, w=which:
+                           G._linear_tie_check(z, meta, n, t, w, b, r, kw,
+                                               rw, seq, pg))
+                elif not pg and not seq:
+                    tie = (lambda b, r, n=name, t=mtype, w=which:
+                           G._blocked_linear_tie_check(z, meta, n, t, w, b,
+                                                       r, kw))
+                else:
+                    tie = None
                 check(qp[f"{which}_interval"], ref[f"{which}_interval"],
-                      name, lambda b, r, n=name, t=mtype, w=which:
-                      G._linear_tie_check(z, meta, n, t, w, b, r, kw, rw,
-                                          False, pg))
+                      name, tie)
             if pg and "a_neg_interval" in ref:
                 np.testing.assert_allclose(float(qp["a_neg_interval"]),
                                            float(ref["a_neg_interval"]),
                                            rtol=1e-6, err_msg=name)
+
+
+def t32(a):
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def load_golden(cell):
+    """(z, meta, JAX net, mods) of a golden cell by name, the twin
+    post-GELU fixed interval added to mods as the reference records it."""
+    z, meta, sd, mods = G._load(os.path.join(G.GOLDEN_DIR, f"{cell}.npz"))
+    jnet = G._build_net(meta, sd)
+    for name, m in meta["modules"].items():
+        if "a_neg_interval" in m:
+            mods[name]["a_neg_interval"] = np.float32(m["a_neg_interval"])
+    return z, meta, jnet, mods
+
+
+def port_cfg(meta):
+    """The port's QuantConfig of a golden cell (the port's counterpart of
+    tests/test_reference_goldens.py _build_quant_cfg)."""
+    cfg = ptq4vit() if meta["config"] == "PTQ4ViT" else base_ptq()
+    apply_modifier(cfg, bit_setting=tuple(meta["bit_setting"]),
+                   metric=meta["metric"],
+                   linear_ptq_setting=tuple(
+                       meta.get("linear_ptq_setting", (1, 1, 1))),
+                   no_softmax=meta.get("no_softmax") or None,
+                   no_postgelu=meta.get("no_postgelu") or None)
+    if meta.get("matmul_blocks"):
+        cfg.ptqsl_matmul_kwargs.update(meta["matmul_blocks"])
+    if meta.get("conv_metric"):
+        cfg.ptqsl_conv2d_kwargs["metric"] = meta["conv_metric"]
+    if meta.get("linear_metric"):
+        cfg.ptqsl_linear_kwargs["metric"] = meta["linear_metric"]
+    return cfg
+
+
+def assert_policy_matches(cfg, meta, inventory):
+    """The port policy resolves the reference's search kwargs and quantizer
+    classes."""
+    for kind, kw in (("conv", cfg.ptqsl_conv2d_kwargs),
+                     ("linear", cfg.ptqsl_linear_kwargs),
+                     ("matmul", cfg.ptqsl_matmul_kwargs)):
+        for k in G.SEARCH_KW:
+            assert kw[k] == meta["ref_kwargs"][kind][k], (kind, k)
+    for name, mtype in inventory:
+        assert cfg.op_policy(mtype).quantizer == \
+            G.REF_CLASS_TO_QUANTIZER[meta["modules"][name]["class"]], name
+
+
+def port_caps(z, jnet):
+    """The golden's per-op caches as port OpCaptures (conv: NCHW images
+    patchified, NCHW outputs as tokens)."""
+    p = jnet.cfg.patch_size
+    caps = {}
+    for name, mtype in jnet.op_inventory:
+        raw = {k.split("::")[2]: z[k] for k in z.files
+               if k.startswith(f"raw::{name}::")}
+        grad = t32(raw["grad"]) if "grad" in raw else None
+        if mtype == "qconv":
+            x = raw["x"]
+            S, C, H, W = x.shape
+            xp = x.reshape(S, C, H // p, p, W // p, p) \
+                .transpose(0, 2, 4, 1, 3, 5).reshape(S, -1, C * p * p)
+
+            def tokens(a):
+                return a.reshape(a.shape[0], a.shape[1], -1).transpose(0, 2, 1)
+            caps[name] = OpCapture("conv", {"x": t32(xp)},
+                                   out=t32(tokens(raw["out"])),
+                                   grad=(None if grad is None else
+                                         t32(tokens(raw["grad"]))))
+        elif "qmatmul" in mtype:
+            caps[name] = OpCapture("matmul", {"a": t32(raw["A"]),
+                                              "b": t32(raw["B"])},
+                                   out=t32(raw["out"]), grad=grad)
+        else:
+            caps[name] = OpCapture("linear", {"x": t32(raw["x"])},
+                                   out=t32(raw["out"]), grad=grad)
+    return caps
+
+
+def search_golden(z, meta, jnet, **kw):
+    """Every op of the golden searched by the port on the golden's
+    caches (the pearson linear's batch chunk pinned to the cell's batch
+    size, as the calibrator pins it)."""
+    cfg = port_cfg(meta)
+    caps = port_caps(z, jnet)
+    pq = {}
+    for name, mtype in jnet.op_inventory:
+        pol = cfg.op_policy(mtype)
+        cap = caps[name]
+        b = (t32(z[f"sd::{name}.bias"]) if f"sd::{name}.bias" in z.files
+             else None)
+        if mtype == "qconv":
+            pq[name] = psearch.search_conv(t32(z[f"sd::{name}.weight"]), b,
+                                           cap, pol)
+        elif "qmatmul" in mtype:
+            pq[name] = psearch.search_matmul(cap, pol, **kw)
+        else:
+            pq[name] = psearch.search_linear(t32(z[f"sd::{name}.weight"]), b,
+                                             cap, pol,
+                                             calib_bs=meta["batch_size"],
+                                             **kw)
+    return pq
+
+
+def check_golden_cell(cell, split_ties=(), **kw):
+    """Search every op of ``cell`` on its own caches and hold the port's
+    intervals to the reference's ``mod::*`` (``split_ties``: see
+    ``assert_qstate_matches``)."""
+    z, meta, jnet, mods = load_golden(cell)
+    assert_policy_matches(port_cfg(meta), meta, jnet.op_inventory)
+    pq = search_golden(z, meta, jnet, **kw)
+    assert_qstate_matches(pq, mods, z, meta, jnet.op_inventory,
+                          meta["ref_kwargs"], split_ties=split_ties)
 
 
 def assert_logits_close(port_logits, jax_logits, raw=False):
