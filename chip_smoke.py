@@ -4,13 +4,21 @@
 
 Phases (any failure raises, so the exit code is non-zero):
   1. the card's name and power limit; CUDA is required, TF32 is off;
-  2. build the search kernels from ptq4vit_tpu_torch/csrc/;
+  2. build the search and serving kernels from ptq4vit_tpu_torch/csrc/
+     (one nvcc per source, started together);
   3. each kernel against its plain PyTorch version, with both times and
      the least time the card could take for the same work: B1 plain/twin,
      B2 signed/post-GELU, B3 a/b/b_sos, B4w fc1 / post-GELU fc2 / qkv
      n_V=3 and B4a signed / post-GELU at ViT-B/384 shapes (4 images); B3f
      a/b/b_sos at Swin-B/384 window shapes (4 images, stages 1 and 3), with
-     B3 timed on the same inputs;
+     B3 timed on the same inputs; B6 in the block's four modes, the head,
+     the fp32 engine's qkv and the per-op post-GELU fc2, B7 int8 -> int8 and
+     float -> float (SoS and per-head) and B8 at ViT-B/384 shapes with 32
+     images (float outputs of B6 bitwise; float attention outputs rtol
+     1e-5, atol 2e-5 max|ref|, except in at most 0.05% of the elements,
+     each off by at most one probability level's contribution; int8
+     outputs one level off in at most 0.1%), beside torch._int_mm and
+     SDPA as context;
   4. the ViT path: quantize("vit_base_patch16_384", 8 images, PTQ4ViT W8A8)
      with random weights from a seeded generator; B1, B2 and B3 must be
      launched and every interval finite and positive; serve 4 images with
@@ -22,11 +30,22 @@ Phases (any failure raises, so the exit code is non-zero):
      are launched 147 times each (49 linears x 3 rounds) and B1-B3f never;
      then the flip count: per op type, the interval slots where this qstate
      and phase 4's int8-scored one differ (same net, images and probe);
-  7. the policy path, at full ViT-B/384 width and depth 2 built with
+  7. the serving path: phase 4's seeded net and qstate (no second
+     calibration), pack_weights, then ServingEngine (bf16, fused kernels)
+     on 4 requests of 32 images: B6 launched exactly 4 x 49 times, B7 4 x
+     12, no search kernel; finite logits; cosine >= 0.99 between the
+     engine's logits and the fused fp32 forward's, between the fused fp32
+     and exact int8=True forwards and between int8=True and the fake-quant
+     forward; img/s of the engine and of those three forwards;
+     then B8's path: each block's attention on its captured (B, H, N, hd)
+     q, k, v through fused_attention (12 launches), by cosine to the
+     exact int8 attention;
+  8. the policy path, at full ViT-B/384 width and depth 2 built with
      net_from_config: BasePTQ W6A6 (cosine metric: plain torch, no kernel)
      and PTQ4ViT W8A8 sequential (B1, B2 and B3 launched); finite positive
      intervals and finite logits;
-  8. print the kernels' JSON line, the card line, then the result line.
+  9. print the kernels' JSON line (all nine kernels), the card line, then
+     the result line.
 Each path is driven with the launch counts set to 0 just before it and
 read just after.
 """
@@ -43,16 +62,34 @@ import torch
 
 SIMS_RTOL = 1e-4       # reordered fp32 sums of up to ~7M terms
 ARGMAX_TIE = 1e-4      # top-two sims closer than this may swap
+LEVEL_SHARE = 1e-3     # int8 outputs: at most this share one level off
+ATTN_RTOL = 1e-5       # float attention outputs: rtol, atol 2e-5 max|ref|,
+FLIP_SHARE = 5e-4      # except in at most this share of the elements, off
+                       # by at most one probability level's contribution
 NUM_CALIB = 8
-SOURCE = "ptq4vit_tpu_torch/csrc/search_kernels.cu"
-REPLACES = {
-    "linear_w_hessian_sims_i8": "ptq4vit_tpu/ops/pallas_search.py:285",
-    "linear_a_hessian_sims_i8": "ptq4vit_tpu/ops/pallas_search.py:453",
-    "matmul_hessian_sims_b3": "ptq4vit_tpu/ops/pallas_search.py:548",
-    "matmul_hessian_sims_b3f": "ptq4vit_tpu/ops/pallas_search.py:634",
-    "linear_w_hessian_sims": "ptq4vit_tpu/ops/pallas_search.py:117",
-    "linear_a_hessian_sims": "ptq4vit_tpu/ops/pallas_search.py:975",
+SERVE_BATCH, SERVE_REQUESTS = 32, 4
+SEARCH_SOURCE = "ptq4vit_tpu_torch/csrc/search_kernels.cu"
+SERVE_SOURCE = "ptq4vit_tpu_torch/csrc/serve_kernels.cu"
+# each kernel: (its source, the TPU kernel it replaces)
+KERNELS = {
+    "linear_w_hessian_sims_i8": (SEARCH_SOURCE,
+                                 "ptq4vit_tpu/ops/pallas_search.py:285"),
+    "linear_a_hessian_sims_i8": (SEARCH_SOURCE,
+                                 "ptq4vit_tpu/ops/pallas_search.py:453"),
+    "matmul_hessian_sims_b3": (SEARCH_SOURCE,
+                               "ptq4vit_tpu/ops/pallas_search.py:548"),
+    "matmul_hessian_sims_b3f": (SEARCH_SOURCE,
+                                "ptq4vit_tpu/ops/pallas_search.py:634"),
+    "linear_w_hessian_sims": (SEARCH_SOURCE,
+                              "ptq4vit_tpu/ops/pallas_search.py:117"),
+    "linear_a_hessian_sims": (SEARCH_SOURCE,
+                              "ptq4vit_tpu/ops/pallas_search.py:975"),
+    "q8_linear": (SERVE_SOURCE, "ptq4vit_tpu/ops/int8_serve.py:205"),
+    "fused_attention_qkv": (SERVE_SOURCE,
+                            "ptq4vit_tpu/ops/int8_serve.py:547"),
+    "fused_attention": (SERVE_SOURCE, "ptq4vit_tpu/ops/int8_serve.py:486"),
 }
+SEARCH = tuple(k for k, (src, _) in KERNELS.items() if src == SEARCH_SOURCE)
 # the kernels each path must launch (None: at least once) and must not
 INT8 = ("linear_w_hessian_sims_i8", "linear_a_hessian_sims_i8",
         "matmul_hessian_sims_b3", "matmul_hessian_sims_b3f")
@@ -65,7 +102,7 @@ PATHS = {
          "matmul_hessian_sims_b3f": None}, ()),
     "vit_base_patch16_384 exact": (
         {"linear_w_hessian_sims": 147, "linear_a_hessian_sims": 147}, INT8),
-    "vit_base_patch16_384 depth 2 BasePTQ W6A6": ({}, tuple(REPLACES)),
+    "vit_base_patch16_384 depth 2 BasePTQ W6A6": ({}, SEARCH),
     "vit_base_patch16_384 depth 2 PTQ4ViT sequential": (
         {"linear_w_hessian_sims_i8": None, "linear_a_hessian_sims_i8": None,
          "matmul_hessian_sims_b3": None}, ()),
@@ -456,11 +493,384 @@ def policy_phase(sk):
     return out
 
 
+def nbytes(*ts):
+    """Bytes of the tensors among ``ts`` (each read or written once)."""
+    out = 0
+    for t in ts:
+        if isinstance(t, (tuple, list)):
+            out += nbytes(*t)
+        elif torch.is_tensor(t):
+            out += t.numel() * t.element_size()
+    return out
+
+
+def q8_inputs(rng, M, K, N, mode, ln, gelu, out, dtype, q=128):
+    """(args, kwargs) of q8_linear at one of the block's modes, with
+    scales that keep the output about unit size."""
+    dev = "cuda"
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
+    if mode in ("q8", "q8twin"):
+        x = t(rng.integers(-q, q, (M, K)), torch.int8)
+        a = 0.03
+    else:
+        xn = (rng.standard_normal((M, K)) * 2 + 0.3).astype(np.float32)
+        if mode == "f_twin":
+            xn = np.where(xn > 0, xn, xn * 0.05).astype(np.float32)
+        x = t(xn, dtype)
+        a = float(np.float32((3.0 if ln else np.abs(xn).max()) / (q - 0.5)))
+    twin = mode in ("f_twin", "q8twin")
+    kw = dict(a_qmax=q, postgelu=twin, epilogue="gelu" if gelu else None,
+              in_q=mode if mode in ("q8", "q8twin") else None,
+              out_q={"vec": "vec", "twin": "twin"}.get(out), out_qmax=q,
+              float_dtype=dtype if mode in ("q8", "q8twin") else None)
+    if ln:
+        kw["ln"] = (t(1 + 0.1 * rng.standard_normal(K)),
+                    t(0.1 * rng.standard_normal(K)), 1e-6)
+    if out == "residual":
+        kw["residual"] = t(rng.standard_normal((M, N)), dtype)
+    if out == "vec":
+        kw["out_scale"] = t((rng.random(N) + 1.5) / (q - 0.5))
+    if out == "twin":
+        kw["out_scale"] = (torch.tensor(3.0 / (q - 0.5), device=dev),
+                           torch.tensor(0.16997124254703522 / q, device=dev))
+    args = (x, t(rng.integers(-q, q, (K, N)), torch.int8),
+            t((rng.random(N) + 0.5) / (a * q * q * np.sqrt(K) / 3)),
+            t(rng.standard_normal(N) * 0.1), torch.tensor(a, device=dev),
+            torch.tensor(0.16997124254703522 / q, device=dev) if twin
+            else None)
+    return args, kw
+
+
+def attn_level_step(ph, sos, qmax=128):
+    """(H,) the most that one probability level moves an attention output
+    of each head: a v level (at most qmax) times b2, times 1 / (qmax - 1)
+    (SoS: a level of the upper range; one of the lower range weighs split
+    times less) or times a2 (per head)."""
+    return qmax * ph[3] * (1.0 / (qmax - 1) if sos else ph[2])
+
+
+def compare_outputs(name, got, ref, atol=0.0, rtol=0.0, step=None):
+    """int8 outputs: at most one level off in at most LEVEL_SHARE of the
+    elements.  Float outputs: |got - ref| <= atol + rtol |ref| (0: bitwise)
+    everywhere; with ``step`` (broadcast to the output: what one attention
+    probability level moves an element by), at most FLIP_SHARE of the
+    elements may be off by up to ``step`` more, where a probability
+    rounded to the neighbouring level.  Returns (max abs error, share of
+    the elements off by a level or beyond the tolerance)."""
+    if got.dtype != ref.dtype or got.shape != ref.shape:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} vs "
+                             f"{ref.dtype} {tuple(ref.shape)}")
+    if got.dtype == torch.int8:
+        d = (got.int() - ref.int()).abs()
+        share = float((d > 0).double().mean())
+        if int(d.max()) > 1 or share > LEVEL_SHARE:
+            raise AssertionError(f"{name}: levels off by up to {int(d.max())}"
+                                 f" in {share:.3%} of the outputs")
+        return float(d.max()), share
+    g, r = got.double(), ref.double()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{name}: non-finite output")
+    err = (g - r).abs()
+    tol = atol + rtol * r.abs()
+    share = float((err > tol).double().mean())
+    if step is None:
+        bad = share > 0.0
+    else:
+        bad = share > FLIP_SHARE or bool((err > tol + step.double()).any())
+    if bad:
+        raise AssertionError(f"{name}: {share:.4%} of the outputs off, by "
+                             f"up to {float(err.max()):.3e}")
+    return float(err.max()), share
+
+
+def serve_kernel_phase(sv, dev):
+    """B6, B7 and B8 against their plain versions at ViT-B/384 shapes with
+    32 images (M = 18,464 token rows), beside torch._int_mm (B6) and
+    scaled_dot_product_attention (B7, B8) on the same shapes, for context
+    only: neither computes the quantized function, and the port never
+    calls them."""
+    from ptq4vit_tpu_torch.quant.qparams import MatMulQP
+    rng = np.random.default_rng(5)
+    B, N, d, hid, H, hd = SERVE_BATCH, 577, 768, 3072, 12, 64
+    M = B * N
+    bf = torch.bfloat16
+    cases = []
+    for label, m, K, Nn, mode, ln, gelu, out, dt in (
+            ("qkv: LN, quantize -> int8 per column", M, d, 3 * d, "f",
+             True, False, "vec", bf),
+            ("proj: int8 in -> + residual", M, d, d, "q8", False, False,
+             "residual", bf),
+            ("fc1: LN, quantize -> GELU -> twin int8", M, d, hid, "f", True,
+             True, "twin", bf),
+            ("fc2: twin int8 in -> + residual", M, hid, d, "q8twin", False,
+             False, "residual", bf),
+            ("head: quantize -> float", B, d, 1000, "f", False, False,
+             "float", bf),
+            ("qkv fp32 engine: LN, quantize -> int8 per column", M, d, 3 * d,
+             "f", True, False, "vec", torch.float32),
+            ("fc2 per op: post-GELU twin quantize -> float", M, hid, d,
+             "f_twin", False, False, "float", torch.float32)):
+        args, kw = q8_inputs(rng, m, K, Nn, mode, ln, gelu, out, dt)
+        twin = mode in ("f_twin", "q8twin")
+        # the int8 levels _int_mm would multiply: (M, K) x (K, N)
+        lv = args[0] if args[0].dtype == torch.int8 else torch.clamp(
+            torch.round(args[0].float() / args[4]), -128, 127) \
+            .to(torch.int8)
+        ops = {"int8": 2 * m * K * Nn * (2 if twin else 1)}
+        cases.append(("q8_linear", label, args, kw, ops,
+                      lambda lv=lv, w=args[1]: torch._int_mm(lv, w), None))
+
+    qkv = torch.from_numpy(rng.standard_normal((B, N, 3 * d))
+                           .astype(np.float32)).to(dev)
+    t = qkv.reshape(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+    shape = (1, H, 1, 1, 1, 1, 1)
+
+    def hmax(v):
+        return (v.abs().amax((0, 2, 3)) / 127.5).reshape(shape)
+    qp1 = MatMulQP(A_interval=hmax(t[0]), B_interval=hmax(t[1]))
+    split = torch.tensor(2.0 ** -6, device=dev)
+    a_out = torch.tensor(0.02, device=dev)
+    q4, k4, v4 = (c.contiguous() for c in t)
+    for sos in (True, False):
+        qp2 = MatMulQP(A_interval=(split / 127 if sos else
+                                   torch.full(shape, 1 / 127.5, device=dev)),
+                       B_interval=hmax(t[2]), split=split if sos else None)
+        ph, _ = sv.attn_scope(qp1, qp2, H)
+        cols = torch.cat([ph[i].repeat_interleave(hd) for i in (0, 1, 3)])
+        lv = torch.clamp(torch.round(qkv / cols), -128, 127).to(torch.int8)
+        ops = {"int8": 2 * B * H * N * N * hd * (3 if sos else 2),
+               # max, subtract, exp, sum, divide per logit
+               "fp32": 5 * B * H * N * N}
+        tag = "SoS" if sos else "per-head"
+        sdpa = (lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4))
+        step = attn_level_step(ph, sos)
+        cases.append(("fused_attention_qkv", f"int8 in -> int8 out, {tag}",
+                      (lv, H, qp1, qp2, hd ** -0.5),
+                      dict(in_q8=True, out_scale=a_out), ops, sdpa, None))
+        cases.append(("fused_attention_qkv", f"float in -> float out, {tag}",
+                      (qkv, H, qp1, qp2, hd ** -0.5), {}, ops, sdpa,
+                      step.repeat_interleave(hd)))
+        if sos:
+            cases.append(("fused_attention", "(B, H, N, hd) float, SoS",
+                          (q4, k4, v4, qp1, qp2, hd ** -0.5), {}, ops, sdpa,
+                          step.reshape(1, H, 1, 1)))
+
+    def plain(kname, args, kw):
+        if kname == "q8_linear":
+            return sv.q8_linear_ref(*args, **kw)
+        if kname == "fused_attention":
+            q_, k_, v_, p1, p2, sc = args
+            ph, sos = sv.attn_scope(p1, p2, q_.shape[1])
+            return sv.fused_attention_ref(
+                q_, k_, v_, ph, p2.split if sos else None, sc, None, sos=sos,
+                in_q8=False, qmaxes=sv.attn_qmaxes(p1, p2, 128),
+                out_dtype=q_.dtype)
+        x, heads, p1, p2, sc = args
+        Bx, Nx, d3 = x.shape
+        ph, sos = sv.attn_scope(p1, p2, heads)
+        c = x.reshape(Bx, Nx, 3, heads, d3 // 3 // heads) \
+            .permute(2, 0, 3, 1, 4)
+        out = sv.fused_attention_ref(
+            c[0], c[1], c[2], ph, p2.split if sos else None, sc,
+            kw.get("out_scale"), sos=sos, in_q8=kw.get("in_q8", False),
+            qmaxes=sv.attn_qmaxes(p1, p2, 128),
+            out_dtype=x.dtype if x.is_floating_point() else torch.float32)
+        return out.transpose(1, 2).reshape(Bx, Nx, d3 // 3)
+
+    stats = {}
+    for kname, label, args, kw, ops, lib_fn, step in cases:
+        fn = getattr(sv, kname)
+        got = fn(*args, **kw)
+        ref = plain(kname, args, kw)
+        torch.cuda.synchronize()
+        # attention: the softmax sums in another order; B6's float outputs
+        # (no LayerNorm among them) must be bitwise
+        tol = (2e-5 * float(ref.float().abs().max()), ATTN_RTOL) \
+            if kname != "q8_linear" else (0.0, 0.0)
+        err, share = compare_outputs(f"{kname} {label}", got, ref, *tol,
+                                     step=step)
+        ms = time_ms(lambda: fn(*args, **kw), 5)
+        plain_ms = time_ms(lambda: plain(kname, args, kw), 1)
+        lib_ms = time_ms(lib_fn, 5)
+        nb = nbytes(args, list(kw.values())) + nbytes(got)
+        bound_ms, bound_by = bound(ops, nb)
+        lib_key = "int_mm_ms" if kname == "q8_linear" else "sdpa_ms"
+        entry = {"case": label, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by,
+                 "out": str(got.dtype).replace("torch.", ""),
+                 "max_abs_err": err, "level_flip_share": share,
+                 lib_key: lib_ms}
+        log(f"[kernel] {kname} {label}: {entry['out']} out, max_abs_err "
+            f"{err:.3e}" + (" levels" if got.dtype == torch.int8 else "")
+            + f" ({share:.4%} of the outputs off by a level or beyond "
+            "tolerance)"
+            + f", kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), {lib_key} {lib_ms:.3f} "
+            "(context only)")
+        s = stats.setdefault(kname, {"max_abs_err": 0.0, "cases": []})
+        s["max_abs_err"] = max(s["max_abs_err"], err
+                               if got.dtype != torch.int8 else 0.0)
+        s["max_share_off"] = max(s.get("max_share_off", 0.0), share)
+        if "ms" not in s:
+            s.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by)
+        s["cases"].append(entry)
+    return stats
+
+
+def serving_phase(sk, sv, qcpu):
+    """The serving path: phase 4's seeded ViT-B/384 and its qstate (no
+    second calibration), pack_weights, then ServingEngine (bf16) on
+    SERVE_REQUESTS requests of SERVE_BATCH images with the launch counts
+    set to 0 just before and read just after; then the fused fp32, exact
+    int8 and fake-quant forwards on the first request, held to each other
+    and the engine's logits to the fused fp32 ones by cosine (>= 0.99),
+    and the img/s of each."""
+    from ptq4vit_tpu_torch import ServingEngine
+    from ptq4vit_tpu_torch.models import get_net
+    from ptq4vit_tpu_torch.ops.pack import pack_weights
+    from ptq4vit_tpu_torch.utils.convert import qstate_to
+    path = "vit_base_patch16_384 serving"
+    net = get_net("vit_base_patch16_384", seed=0)
+    qstate = qstate_to(qcpu, "cuda")
+    size, classes = net.cfg.img_size, net.cfg.num_classes
+    reqs = [np.random.default_rng(10 + i).standard_normal(
+        (SERVE_BATCH, 3, size, size)).astype(np.float32)
+        for i in range(SERVE_REQUESTS)]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    packed = pack_weights(net.params, qstate)
+    torch.cuda.synchronize()
+    pack_s = time.time() - t0
+    engine = ServingEngine(net, qstate)                 # bf16, the card
+    engine(reqs[0])                                     # warm-up
+    torch.cuda.synchronize()
+    sk.reset_launch_counts()
+    sv.reset_launch_counts()
+    t0 = time.time()
+    outs = [engine(x) for x in reqs]
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {**sk.launch_counts(), **sv.launch_counts()}
+    expect = {"q8_linear": SERVE_REQUESTS * 49,
+              "fused_attention_qkv": SERVE_REQUESTS * 12,
+              "fused_attention": 0}
+    for k, v in launches.items():
+        if v != expect.get(k, 0):
+            raise AssertionError(f"{k} was launched {v} times by the {path} "
+                                 f"path, expected {expect.get(k, 0)}")
+    for o in outs:
+        if o.shape != (SERVE_BATCH, classes) or not torch.isfinite(
+                o.float()).all():
+            raise AssertionError("served logits are not finite "
+                                 f"({SERVE_BATCH}, {classes})")
+    n_img = SERVE_BATCH * SERVE_REQUESTS
+    x0 = torch.from_numpy(reqs[0]).cuda()
+    ips = {"fused bf16 engine": n_img / wall}
+    logits = {}
+    with torch.no_grad():
+        for name, fwd in (
+                ("fused fp32", lambda: net.apply(x0, qstate=qstate,
+                                                 int8="fused",
+                                                 packed=packed)),
+                ("exact int8", lambda: net.apply(x0, qstate=qstate,
+                                                 int8=True, packed=packed)),
+                ("fake-quant", lambda: net.apply(x0, qstate=qstate))):
+            logits[name] = fwd()                        # warm-up
+            torch.cuda.synchronize()
+            t0 = time.time()
+            logits[name] = fwd()
+            torch.cuda.synchronize()
+            ips[name] = SERVE_BATCH / (time.time() - t0)
+    cos = {}
+    for a, b in (("fused fp32", "exact int8"), ("exact int8", "fake-quant"),
+                 ("fused fp32", "fused bf16 engine")):
+        la = logits[a] if a in logits else outs[0]
+        lb = logits[b] if b in logits else outs[0]
+        c = torch.nn.functional.cosine_similarity(la.float(), lb.float(),
+                                                  dim=-1)
+        cos[f"{a} vs {b}"] = float(c.min())
+    summary = {"path": path, "requests": SERVE_REQUESTS,
+               "batch": SERVE_BATCH, "wall_s": wall, "pack_s": pack_s,
+               "img_per_s": ips, "min_cosine": cos, "launches": launches,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log(f"[serve] {path}: {SERVE_REQUESTS} requests x {SERVE_BATCH} images "
+        f"in {wall:.3f} s, pack_weights {pack_s:.3f} s, launches {launches}")
+    log(f"[serve] img/s at {SERVE_BATCH} images: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in ips.items()))
+    log("[serve] min cosine over the request's images: " + ", ".join(
+        f"{k} {v:.6f}" for k, v in cos.items()))
+    for k, c in cos.items():
+        if c < 0.99:
+            raise AssertionError(f"{k}: cosine {c:.4f} < 0.99")
+    del engine, packed, outs, logits
+    torch.cuda.empty_cache()
+    b8 = layout_path(sk, sv, net, qstate, x0[:4])
+    del net, qstate
+    torch.cuda.empty_cache()
+    return launches, summary, b8
+
+
+def layout_path(sk, sv, net, qstate, x):
+    """B8's path: every block's attention of the calibrated ViT-B/384 on
+    its (B, H, N, hd) q, k, v (from a capture of 4 images) through
+    ``fused_attention``, with the launch counts set to 0 just before and
+    read just after; each context held by cosine to the exact int8 path
+    (matmul_int8 -> softmax -> matmul_int8)."""
+    from ptq4vit_tpu_torch.models.common import softmax_f32
+    from ptq4vit_tpu_torch.ops.int8 import matmul_int8
+    path = "vit_base_patch16_384 attention, (B, H, N, hd) layout"
+    scale = net.cfg.head_dim ** -0.5
+    with torch.no_grad():
+        _, taps = net.apply(x, capture=True)
+    qkv = []
+    for i in range(net.cfg.depth):
+        m1 = taps[f"blocks.{i}.attn.matmul1"]
+        m2 = taps[f"blocks.{i}.attn.matmul2"]
+        qkv.append((m1["a"].contiguous(),
+                    m1["b"].transpose(-2, -1).contiguous(),
+                    m2["b"].contiguous(), qstate[f"blocks.{i}.attn.matmul1"],
+                    qstate[f"blocks.{i}.attn.matmul2"]))
+    del taps
+    torch.cuda.synchronize()
+    sk.reset_launch_counts()
+    sv.reset_launch_counts()
+    t0 = time.time()
+    outs = [sv.fused_attention(q, k, v, qp1, qp2, scale)
+            for q, k, v, qp1, qp2 in qkv]
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {**sk.launch_counts(), **sv.launch_counts()}
+    depth = net.cfg.depth
+    for k_, v_ in launches.items():
+        if v_ != (depth if k_ == "fused_attention" else 0):
+            raise AssertionError(f"{k_} was launched {v_} times by the "
+                                 f"{path} path")
+    cos = 1.0
+    with torch.no_grad():
+        for (q, k, v, qp1, qp2), o in zip(qkv, outs):
+            p = softmax_f32(matmul_int8(q, k.transpose(-2, -1), qp1) * scale)
+            ref = matmul_int8(p, v, qp2)
+            cos = min(cos, float(torch.nn.functional.cosine_similarity(
+                o.reshape(-1).double(), ref.reshape(-1).double(), dim=0)))
+    log(f"[serve] {path}: {depth} blocks x {len(x)} images in {wall:.4f} s, "
+        f"min cosine to the exact int8 attention {cos:.6f}, launches "
+        f"{launches}")
+    if cos < 0.99:
+        raise AssertionError(f"{path}: cosine {cos:.4f} < 0.99")
+    return launches, {"path": path, "images": len(x), "wall_s": wall,
+                      "min_cosine": cos, "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from ptq4vit_tpu_torch.ops import build
+    from ptq4vit_tpu_torch.ops import int8_serve as sv
     from ptq4vit_tpu_torch.ops import search_kernels as sk
 
     card = card_line()
@@ -469,12 +879,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.time()
-    _, nvcc_s = build.build()
-    build.load()
-    log(f"[build] kernels built in {nvcc_s:.1f} s (nvcc), "
-        f"{time.time() - t0:.1f} s with loading")
+    _, nvcc_s = build.build_all()          # one nvcc per source, together
+    for name in build.LIBRARIES:
+        build.load(name)
+    log(f"[build] {len(build.LIBRARIES)} kernel libraries built in "
+        f"{nvcc_s:.1f} s (nvcc, in parallel), {time.time() - t0:.1f} s "
+        "with loading")
 
     stats = kernel_phase(sk, torch.device("cuda"))
+    serve_stats = serve_kernel_phase(sv, torch.device("cuda"))
 
     by_path, summaries, qstates = {}, [], {}
     for path, name, qkw in (
@@ -494,22 +907,30 @@ def main() -> int:
              sum(v[1] for v in flips.values())]
     log("[flips] int8 vs exact scoring, vit_base_patch16_384, 8 images: "
         + json.dumps({"by_op_type": flips, "total": total}))
+    serve_launches, summary, (b8_launches, b8_summary) = serving_phase(
+        sk, sv, qstates["vit_base_patch16_384"])
+    by_path[summary["path"]] = serve_launches
+    by_path[b8_summary["path"]] = b8_launches
+    summaries += [summary, b8_summary]
     for path, (launches, summary) in policy_phase(sk).items():
         by_path[path] = launches
         summaries.append(summary)
     log("[paths] " + json.dumps({"card": card, "paths": summaries}))
 
-    entries = [{"name": k, "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES[k],
-                "launches": sum(c[k] for c in by_path.values()),
-                "launches_by_path": {n: c[k] for n, c in by_path.items()},
+    stats.update(serve_stats)
+    entries = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
+                "launches": sum(c.get(k, 0) for c in by_path.values()),
+                "launches_by_path": {n: c.get(k, 0)
+                                     for n, c in by_path.items()},
                 "max_abs_err": stats[k]["max_abs_err"],
                 "ms": stats[k]["ms"], "plain_ms": stats[k]["plain_ms"],
                 "bound_ms": stats[k]["bound_ms"],
                 "bound_by": stats[k]["bound_by"],
-                # no single PyTorch call computes these sims
+                # no PyTorch call computes the sims or the quantized
+                # function: the serving cases carry torch._int_mm / SDPA
+                # times as context
                 "library_ms": None, "cases": stats[k]["cases"]}
-               for k in REPLACES]
+               for k, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": entries}))
     log(card)
     print(json.dumps({"ok": True, "device": {

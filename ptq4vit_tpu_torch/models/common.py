@@ -11,7 +11,12 @@ is threaded through every quantizable op call-site:
                                     with ``requires_grad`` set,
                                     ``torch.autograd.grad`` of the loss with
                                     respect to it is exactly ∂loss/∂(op
-                                    output).
+                                    output);
+  * ``int8=True``                -> quantized ops as exact int8 products
+                                    (ops/int8.py); ``int8="fused"`` adds the
+                                    fused serving kernels (ops/int8_serve.py,
+                                    still exact); ``packed`` holds int8
+                                    weights from ops/pack.pack_weights.
 
 Ops are keyed by their timm module path (``blocks.0.attn.qkv`` ...).
 """
@@ -22,7 +27,23 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..ops import int8 as i8
+from ..ops import int8_serve as serve
 from ..quant.qparams import apply_linear, apply_matmul
+
+INT8_MODES = (False, True, "fused")
+
+
+def cast_params(tree, dtype):
+    """The param tree with every tensor cast to ``dtype`` (the serving
+    mode's compute dtype, LN weights and biases included)."""
+    if torch.is_tensor(tree):
+        return tree.to(dtype)
+    if isinstance(tree, dict):
+        return {k: cast_params(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [cast_params(v, dtype) for v in tree]
+    return tree
 
 
 class QuantCtx:
@@ -30,14 +51,23 @@ class QuantCtx:
 
     def __init__(self, qstate: Optional[Dict[str, Any]] = None,
                  eps: Optional[Dict[str, torch.Tensor]] = None,
-                 capture: bool = False, int8: bool = False):
-        if int8:
+                 capture: bool = False, int8=False,
+                 packed: Optional[Dict[str, Any]] = None):
+        if int8 not in INT8_MODES:
             raise NotImplementedError(
-                "the int8 and fused execution paths are not ported yet")
+                f"int8={int8!r}: the port runs int8 in {INT8_MODES} "
+                "(the relaxed bf16 epilogues are not ported)")
         self.qstate = qstate or {}
         self.eps = eps
         self.capture = capture
+        self.int8 = int8
+        self.fused = int8 == "fused"
+        self.packed = packed or {}
         self.taps: Dict[str, Dict[str, torch.Tensor]] = {}
+
+    def _serving(self) -> bool:
+        """The fused hooks apply: fused mode, no taps and no probes."""
+        return self.fused and not self.capture and self.eps is None
 
     def _post(self, name, out, tap):
         if self.eps is not None and name in self.eps:
@@ -49,13 +79,72 @@ class QuantCtx:
 
     def linear(self, name, x, w, b):
         """Quantizable linear; the tap records its input and output."""
-        out = apply_linear(x, w, b, self.qstate.get(name))
+        qp = self.qstate.get(name)
+        if qp is not None and self.int8:
+            pk = self.packed.get(name) or {}
+            out = serve.fused_linear(x, w, b, qp, pk) if self.fused else None
+            if out is None:
+                out = i8.linear_int8(x, w, b, qp, w_intT=pk.get("w_intT"),
+                                     w_scale=pk.get("w_scale"))
+        else:
+            out = apply_linear(x, w, b, qp)
         return self._post(name, out.to(x.dtype), {"x": x})
 
     def matmul(self, name, a, b):
         """Quantizable A@B; the tap records both operands."""
-        out = apply_matmul(a, b, self.qstate.get(name))
+        qp = self.qstate.get(name)
+        if qp is not None and self.int8:
+            out = i8.matmul_int8(a, b, qp)
+        else:
+            out = apply_matmul(a, b, qp)
         return self._post(name, out.to(a.dtype), {"a": a, "b": b})
+
+    def linear_gelu(self, name, x, w, b):
+        """gelu(linear(x)), with the GELU in B6's epilogue on the fused
+        path (the same function; capture and probes take the generic path
+        so the tap records the pre-GELU output)."""
+        qp = self.qstate.get(name)
+        if self._serving() and qp is not None:
+            out = serve.fused_linear(x, w, b, qp, self.packed.get(name) or {},
+                                     epilogue="gelu")
+            if out is not None:
+                return out.to(x.dtype)
+        return gelu(self.linear(name, x, w, b))
+
+    def _block_ops(self, prefix):
+        keys = {k: f"{prefix}.{'mlp' if k.startswith('fc') else 'attn'}.{k}"
+                for k in serve.BLOCK_OPS}
+        return ({k: self.qstate.get(n) for k, n in keys.items()},
+                {k: self.packed.get(n) or {} for k, n in keys.items()})
+
+    def vit_block(self, prefix, x, blk, heads, scale, ln_eps):
+        """The whole-block fused path (ops/int8_serve.fused_vit_block):
+        returns the new residual stream, or None (the caller runs the
+        generic per-op path)."""
+        if not self._serving():
+            return None
+        qps, pks = self._block_ops(prefix)
+        return serve.fused_vit_block(x, blk, qps, pks, heads, scale, ln_eps)
+
+    def attention_qkv(self, name1, name2, qkv, heads, scale):
+        """Fused int8 attention (B7) on the (B, N, 3d) qkv output; returns
+        the (B, N, d) context, or None for the generic matmul1 / softmax /
+        matmul2 sequence."""
+        if not self._serving():
+            return None
+        qp1, qp2 = self.qstate.get(name1), self.qstate.get(name2)
+        if qp1 is None or qp2 is None:
+            return None
+        return serve.fused_attention_qkv(qkv, heads, qp1, qp2, scale)
+
+    def swin_block(self, prefix):
+        """The fused Swin block and window attention run in the JAX package
+        through kernels not ported yet (B9-B11); the port does not run the
+        generic path in their place."""
+        if self._serving():
+            raise NotImplementedError(
+                f"{prefix}: int8='fused' for Swin needs the window kernels "
+                "B9-B11, not ported yet; use int8=True")
 
     def conv2d_patch(self, name, x, w, b, patch: int):
         """Non-overlapping patch-embedding conv (stride == kernel) as
@@ -63,7 +152,7 @@ class QuantCtx:
         (tokens (B, nh*nw, oc), (nh, nw)); the tap records the patchified
         input (B, N, ic*p*p) and the token output."""
         qp = self.qstate.get(name)
-        if qp is not None:
+        if qp is not None and not self.int8:
             w = qp.quant_weight(w)
             x = qp.quant_input(x)
         B, C, H, W = x.shape
@@ -72,9 +161,14 @@ class QuantCtx:
         xp = x.reshape(B, C, nh, patch, nw, patch)
         xp = xp.permute(0, 2, 4, 1, 3, 5).reshape(B, nh * nw,
                                                   C * patch * patch)
-        out = torch.matmul(xp, w.reshape(oc, -1).t())
-        if b is not None:
-            out = out + b
+        if qp is not None and self.int8:
+            pk = self.packed.get(name) or {}
+            out = i8.conv_int8(xp, w, b, qp, patch, w_intT=pk.get("w_intT"),
+                               w_scale=pk.get("w_scale"))
+        else:
+            out = torch.matmul(xp, w.reshape(oc, -1).t())
+            if b is not None:
+                out = out + b
         out = self._post(name, out.to(x.dtype), {"x": xp})
         return out, (nh, nw)
 

@@ -103,14 +103,16 @@ class Net:
     name: str
     cfg: Any
     params: Dict[str, Any]
-    forward: Callable              # forward(params, x, cfg, qstate, eps, capture)
+    forward: Callable              # forward(params, x, cfg, qstate, ...)
     op_inventory: list             # ordered (op name, module_type)
     op_shapes: Dict[str, Any]
     data_config: DataConfig
 
-    def apply(self, x, qstate=None, eps=None, capture=False, int8=False):
+    def apply(self, x, qstate=None, eps=None, capture=False, int8=False,
+              packed=None, compute_dtype=None):
         return self.forward(self.params, x, self.cfg, qstate=qstate, eps=eps,
-                            capture=capture, int8=int8)
+                            capture=capture, int8=int8, packed=packed,
+                            compute_dtype=compute_dtype)
 
 
 def model_config(name: str):

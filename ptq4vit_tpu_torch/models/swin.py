@@ -21,7 +21,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from .common import QuantCtx, gelu, layer_norm, softmax_f32
+from .common import QuantCtx, cast_params, layer_norm, softmax_f32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,10 +203,17 @@ def _window_attention(ctx: QuantCtx, prefix: str, x, attn_p, heads: int,
 def forward(params: Dict[str, Any], x, cfg: SwinConfig,
             qstate: Optional[Dict[str, Any]] = None,
             eps: Optional[Dict[str, torch.Tensor]] = None,
-            capture: bool = False, int8: bool = False):
+            capture: bool = False, int8=False, compute_dtype=None,
+            packed: Optional[Dict[str, Any]] = None):
     """Swin forward.  x: (B, 3, H, W) float32.  Returns logits, or
-    (logits, taps) when ``capture``."""
-    ctx = QuantCtx(qstate=qstate, eps=eps, capture=capture, int8=int8)
+    (logits, taps) when ``capture``.  ``int8``, ``compute_dtype`` and
+    ``packed`` as in the ViT forward; ``int8="fused"`` raises until the
+    window kernels (B9-B11) are ported."""
+    if compute_dtype is not None:
+        params = cast_params(params, compute_dtype)
+        x = x.to(compute_dtype)
+    ctx = QuantCtx(qstate=qstate, eps=eps, capture=capture, int8=int8,
+                   packed=packed)
     B = x.shape[0]
     pe = params["patch_embed"]
     x, _ = ctx.conv2d_patch("patch_embed.proj", x, pe["proj"]["weight"],
@@ -220,6 +227,7 @@ def forward(params: Dict[str, Any], x, cfg: SwinConfig,
         for j, blk in enumerate(layer["blocks"]):
             ws, shift = cfg.block_geometry(i, j)
             p = f"layers.{i}.blocks.{j}"
+            ctx.swin_block(p)
             rpi = torch.from_numpy(relative_position_index(ws).reshape(-1)) \
                 .to(x.device)
             bias = blk["attn"]["relative_position_bias_table"][rpi]
@@ -242,9 +250,9 @@ def forward(params: Dict[str, Any], x, cfg: SwinConfig,
             x = shortcut + y.reshape(B, res * res, d)
             y = layer_norm(x, blk["norm2"]["weight"], blk["norm2"]["bias"],
                            cfg.ln_eps)
-            y = gelu(ctx.linear(f"{p}.mlp.fc1", y,
+            y = ctx.linear_gelu(f"{p}.mlp.fc1", y,
                                 blk["mlp"]["fc1"]["weight"],
-                                blk["mlp"]["fc1"]["bias"]))
+                                blk["mlp"]["fc1"]["bias"])
             y = ctx.linear(f"{p}.mlp.fc2", y, blk["mlp"]["fc2"]["weight"],
                            blk["mlp"]["fc2"]["bias"])
             x = x + y

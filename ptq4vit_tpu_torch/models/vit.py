@@ -14,7 +14,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from .common import QuantCtx, gelu, layer_norm, softmax_f32
+from .common import QuantCtx, cast_params, layer_norm, softmax_f32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,10 +93,18 @@ def init_params(cfg: ViTConfig, generator: np.random.Generator,
 def forward(params: Dict[str, Any], x, cfg: ViTConfig,
             qstate: Optional[Dict[str, Any]] = None,
             eps: Optional[Dict[str, torch.Tensor]] = None,
-            capture: bool = False, int8: bool = False):
+            capture: bool = False, int8=False, compute_dtype=None,
+            packed: Optional[Dict[str, Any]] = None):
     """ViT forward.  x: (B, 3, H, W) float32.  Returns logits, or
-    (logits, taps) when ``capture``."""
-    ctx = QuantCtx(qstate=qstate, eps=eps, capture=capture, int8=int8)
+    (logits, taps) when ``capture``.  ``int8``: False (fake-quant), True
+    (exact int8 products) or "fused" (the fused serving kernels);
+    ``compute_dtype`` casts every param and the input (the serving mode;
+    ``packed`` weights stay as packed from the fp32 params)."""
+    if compute_dtype is not None:
+        params = cast_params(params, compute_dtype)
+        x = x.to(compute_dtype)
+    ctx = QuantCtx(qstate=qstate, eps=eps, capture=capture, int8=int8,
+                   packed=packed)
     B = x.shape[0]
     d, H = cfg.embed_dim, cfg.num_heads
     scale = cfg.head_dim ** -0.5
@@ -111,25 +119,33 @@ def forward(params: Dict[str, Any], x, cfg: ViTConfig,
 
     for i, blk in enumerate(params["blocks"]):
         p = f"blocks.{i}"
+        xb = ctx.vit_block(p, x, blk, H, scale, cfg.ln_eps)
+        if xb is not None:
+            x = xb
+            continue
         y = layer_norm(x, blk["norm1"]["weight"], blk["norm1"]["bias"],
                        cfg.ln_eps)
         qkv = ctx.linear(f"{p}.attn.qkv", y, blk["attn"]["qkv"]["weight"],
                          blk["attn"]["qkv"]["bias"])
         N = qkv.shape[1]
-        qkv = qkv.reshape(B, N, 3, H, cfg.head_dim).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv[0], qkv[1], qkv[2]
-        attn = ctx.matmul(f"{p}.attn.matmul1", q, k.transpose(-2, -1)) \
-            * scale
-        attn = softmax_f32(attn, dim=-1)
-        y = ctx.matmul(f"{p}.attn.matmul2", attn, v)
-        y = y.transpose(1, 2).reshape(B, N, d)
+        y = ctx.attention_qkv(f"{p}.attn.matmul1", f"{p}.attn.matmul2",
+                              qkv, H, scale)
+        if y is None:
+            qkv = qkv.reshape(B, N, 3, H, cfg.head_dim) \
+                .permute(2, 0, 3, 1, 4)
+            q, k, v = qkv[0], qkv[1], qkv[2]
+            attn = ctx.matmul(f"{p}.attn.matmul1", q, k.transpose(-2, -1)) \
+                * scale
+            attn = softmax_f32(attn, dim=-1)
+            y = ctx.matmul(f"{p}.attn.matmul2", attn, v)
+            y = y.transpose(1, 2).reshape(B, N, d)
         y = ctx.linear(f"{p}.attn.proj", y, blk["attn"]["proj"]["weight"],
                        blk["attn"]["proj"]["bias"])
         x = x + y
         y = layer_norm(x, blk["norm2"]["weight"], blk["norm2"]["bias"],
                        cfg.ln_eps)
-        y = gelu(ctx.linear(f"{p}.mlp.fc1", y, blk["mlp"]["fc1"]["weight"],
-                            blk["mlp"]["fc1"]["bias"]))
+        y = ctx.linear_gelu(f"{p}.mlp.fc1", y, blk["mlp"]["fc1"]["weight"],
+                            blk["mlp"]["fc1"]["bias"])
         y = ctx.linear(f"{p}.mlp.fc2", y, blk["mlp"]["fc2"]["weight"],
                        blk["mlp"]["fc2"]["bias"])
         x = x + y

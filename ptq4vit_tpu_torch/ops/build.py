@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-The sources are compiled with ``nvcc`` into a shared library with a plain C
-interface at first use (never at import), and loaded with ``ctypes``.  The
-library lands in ``ptq4vit_tpu_torch/_build/`` (git-ignored), named by a
-hash of its source and flags, so an edited source rebuilds and a rebuilt
-checkout reuses nothing stale.
+Each source (``search_kernels.cu``: the calibration scorers;
+``serve_kernels.cu``: the fused serving kernels) is compiled with ``nvcc``
+into a shared library with a plain C interface at first use (never at
+import), and loaded with ``ctypes``.  The libraries land in
+``ptq4vit_tpu_torch/_build/`` (git-ignored), named by a hash of their source
+and flags, so an edited source rebuilds and a rebuilt checkout reuses
+nothing stale.  ``build_all`` starts one ``nvcc`` per source, all at once.
 """
 from __future__ import annotations
 
@@ -27,10 +29,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
-# argtypes of every C entry point (pointers and the stream as c_void_p, so
-# ctypes never narrows them to 32 bits)
-_SIGNATURES = {
+# argtypes of every C entry point, by library (pointers and the stream as
+# c_void_p, so ctypes never narrows them to 32 bits)
+_SEARCH = {
     "ptq_num_tiles": [_I, _I],
     "ptq_k_pad": [_I],
     "ptq_linear_w_sims": [_P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I,
@@ -48,6 +51,17 @@ _SIGNATURES = {
                                _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                                _P, _P, _P],
 }
+_SERVE = {
+    "ptq_q8_linear": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _F,
+                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "ptq_fused_attention": [_P, _P, _P, _I, _L, _L, _L, _P, _I, _L, _L, _L,
+                            _P, _P, _F] + [_I] * 10 + [_P],
+}
+LIBRARIES = {"search_kernels": _SEARCH, "serve_kernels": _SERVE}
+
+
+def source_path(name: str) -> str:
+    return os.path.join(CSRC, f"{name}.cu")
 
 
 def nvcc_path() -> str:
@@ -74,35 +88,52 @@ def _library_path(source: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
 
 
-def build(source: str = os.path.join(CSRC, "search_kernels.cu")):
-    """Compile ``source`` if its library is missing; returns (path,
-    seconds spent compiling, 0.0 when it was already built)."""
+def _start(source: str):
+    """Start ``nvcc`` on ``source`` into a temporary file; returns (lib
+    path, temporary path, process), or None when the library is built."""
     lib = _library_path(source)
     if os.path.exists(lib):
-        return lib, 0.0
+        return None
     os.makedirs(BUILD_DIR, exist_ok=True)
-    t0 = time.time()
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
+    proc = subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o", tmp, source],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return lib, tmp, proc
+
+
+def _finish(source: str, started) -> None:
+    lib, tmp, proc = started
     try:
-        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, source],
-                              capture_output=True, text=True)
+        _, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+            raise RuntimeError(f"nvcc failed on {source}:\n{err}")
         os.replace(tmp, lib)   # atomic: a concurrent build never sees half
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
-    return lib, time.time() - t0
+
+
+def build_all(names=tuple(LIBRARIES)):
+    """Compile every missing library of ``names``, one ``nvcc`` per source
+    started together; returns ({name: library path}, seconds spent)."""
+    t0 = time.time()
+    started = {n: _start(source_path(n)) for n in names}
+    for n, s in started.items():
+        if s is not None:
+            _finish(source_path(n), s)
+    return ({n: _library_path(source_path(n)) for n in names},
+            time.time() - t0)
 
 
 @functools.lru_cache(maxsize=None)
-def load() -> ctypes.CDLL:
-    """Build (if needed) and load the search-kernel library."""
-    path, _ = build()
-    lib = ctypes.CDLL(path)
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
+def load(name: str = "search_kernels") -> ctypes.CDLL:
+    """Build (if needed) and load the library of ``csrc/<name>.cu``."""
+    paths, _ = build_all((name,))
+    lib = ctypes.CDLL(paths[name])
+    for fn_name, argtypes in LIBRARIES[name].items():
+        fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib

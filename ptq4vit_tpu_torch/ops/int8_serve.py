@@ -1,0 +1,475 @@
+"""The fused int8 serving kernels and the dispatch that composes them into a
+ViT block whose intermediate activations cross device memory as int8.
+
+The counterpart of ``ptq4vit_tpu/ops/int8_serve.py`` (its ViT half):
+
+  q8_linear            <- q8_linear (B6, body _linear_kernel)
+  fused_attention_qkv  <- fused_attention_qkv (B7, body _attn_kernel_qkv)
+  fused_attention      <- fused_attention (B8, body _attn_kernel): the same
+                          kernel as B7, entered with the strides of the
+                          (B, H, N, hd) layout
+  fused_linear, fused_vit_block and the scope helpers <- their namesakes
+
+For CUDA tensors the wrappers launch the hand-written kernels of
+``csrc/serve_kernels.cu`` (or raise); for CPU tensors they run the plain
+PyTorch versions beside them (``q8_linear_ref``, ``fused_attention_ref``),
+which follow the same formulas with the int8 dot as an exact float64
+matmul of the levels.  Each kernel wrapper counts its launches in
+``<function>.launches``.
+
+Scope (the JAX rules about semantics): LinearQP with n_H == 1, n_a == 1 and
+bits <= 8; matmul QPs with per-head scales and no operand block grids; the
+block path needs fc2 post-GELU and one qmax for the packed q / k / v
+columns.  The JAX rules that are only TPU tiling (K % 128, 128-lane head
+groups, VMEM budgets) are dropped: the port's kernels take any K, head
+count and head dim.  ``relaxed`` (bf16 epilogues) is not ported.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..quant import fakequant as fq
+from .int8 import int_dot, levels
+from .pack import linear_w_levels, linear_w_scale
+from .search_kernels import _check, _launch, _ptr, _stream
+
+_IN_MODES = {"f": 0, "f_twin": 1, "q8": 2, "q8twin": 3}
+_OUT_Q = {None: 0, "vec": 1, "twin": 2}
+_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+SQRT_HALF = 0.7071067811865476          # 2 ** -0.5, rounded to float32
+
+
+def _f32(v, device) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=torch.float32, device=device)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def erf_as(z):
+    """float32 erf by Abramowitz & Stegun 7.1.26 (|eps| <= 1.5e-7), the
+    polynomial the JAX fused path computes (int8_serve.py:56)."""
+    s = torch.sign(z)
+    za = torch.abs(z)
+    t = fq.exact_div(torch.ones_like(za), 1.0 + 0.3275911 * za)
+    poly = t * (0.254829592 + t * (-0.284496736 + t * (
+        1.421413741 + t * (-1.453152027 + t * 1.061405429))))
+    return s * (1.0 - poly * torch.exp(-za * za))
+
+
+def q8_linear_ref(x, w_intT, w_scale, b, a_interval, a_neg_interval, *,
+                  a_qmax: int, postgelu: bool, epilogue: str = None,
+                  ln=None, in_q: str = None, out_q: str = None,
+                  out_scale=None, out_qmax: int = 128, float_dtype=None,
+                  residual=None):
+    """Plain version of B6; arguments and result as ``q8_linear``."""
+    dev = x.device
+    K, N = w_intT.shape
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, K)
+    a = _f32(a_interval, dev).reshape(())
+    mode = in_q if in_q else ("f_twin" if postgelu else "f")
+    if mode in ("f", "f_twin"):
+        xf = x2.float()
+        if ln:
+            mu = torch.mean(xf, dim=1, keepdim=True)
+            var = torch.mean(torch.square(xf - mu), dim=1, keepdim=True)
+            xf = ((xf - mu) * torch.rsqrt(var + _f32(ln[2], dev))
+                  * ln[0].float()[None, :] + ln[1].float()[None, :])
+        if mode == "f_twin":
+            an = _f32(a_neg_interval, dev).reshape(())
+            pos = levels(xf, a, 0, a_qmax - 1)
+            neg = levels(xf, an, -a_qmax, 0)
+        else:
+            pos, neg = levels(xf, a, -a_qmax, a_qmax - 1), None
+    elif mode == "q8":
+        pos, neg = x2, None
+    else:
+        pos, neg = torch.clamp(x2, min=0), torch.clamp(x2, max=0)
+    acc = int_dot(pos, w_intT) * a
+    if neg is not None:
+        an = _f32(a_neg_interval, dev).reshape(())
+        acc = acc + int_dot(neg, w_intT) * an
+    out = acc * w_scale.float()[None, :]
+    out = out + (b.float()[None, :] if b is not None else 0.0)
+    if epilogue == "gelu":
+        out = 0.5 * out * (1.0 + erf_as(out * SQRT_HALF))
+    if residual is not None:
+        out = out + residual.reshape(-1, N).float()
+    if out_q == "vec":
+        out = levels(out, out_scale.float()[None, :], -out_qmax,
+                  out_qmax - 1).to(torch.int8)
+    elif out_q == "twin":
+        p = levels(out, _f32(out_scale[0], dev), 0, out_qmax - 1)
+        n = levels(out, _f32(out_scale[1], dev), -out_qmax, 0)
+        out = (p + n).to(torch.int8)
+    else:
+        out = out.to(_float_dtype(x, float_dtype))
+    return out.reshape(lead + (N,))
+
+
+def _float_dtype(x, float_dtype):
+    if float_dtype is not None:
+        return float_dtype
+    return x.dtype if x.is_floating_point() else torch.float32
+
+
+def fused_attention_ref(q, k, v, ph, split, scale, a_out, *, sos: bool,
+                        in_q8: bool, qmaxes, out_dtype):
+    """Plain version of the B7 / B8 kernel body on (B, H, N, hd) views.
+
+    ph (4, H): the a1, b1, a2, b2 head scales; qmaxes (A1, B1, A2, B2, O);
+    a_out: the requantization scale (int8 out) or None (float out)."""
+    dev = q.device
+    A1, B1, A2, B2, O = qmaxes
+    H = q.shape[1]
+    a1, b1, a2, b2 = (ph[i].float().reshape(1, H, 1, 1) for i in range(4))
+    if in_q8:
+        qi, ki, vi = q, k, v
+    else:
+        qi = levels(q.float(), a1, -A1, A1 - 1)
+        ki = levels(k.float(), b1, -B1, B1 - 1)
+        vi = levels(v.float(), b2, -B2, B2 - 1)
+    logits = int_dot(qi, ki.transpose(-2, -1)) * (a1 * b1 * _f32(scale, dev))
+    p = torch.exp(logits - torch.amax(logits, dim=-1, keepdim=True))
+    p = p / torch.sum(p, dim=-1, keepdim=True)
+    if sos:
+        sp = _f32(split, dev)
+        a_int = fq.exact_div(sp, A2 - 1)
+        hi = torch.clamp(torch.round(
+            torch.minimum(torch.maximum(p, sp), torch.ones_like(sp))
+            * (A2 - 1)), 0, A2 - 1)
+        lo = levels(torch.minimum(torch.maximum(p, torch.zeros_like(sp)), sp),
+                 a_int, 0, A2 - 1)
+        acc = fq.exact_div(int_dot(hi, vi), A2 - 1) + int_dot(lo, vi) * a_int
+    else:
+        acc = int_dot(levels(p, a2, -A2, A2 - 1), vi) * a2
+    out = acc * b2
+    if a_out is not None:
+        return levels(out, _f32(a_out, dev), -O, O - 1).to(torch.int8)
+    return out.to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def q8_linear(x, w_intT, w_scale, b, a_interval, a_neg_interval, *,
+              a_qmax: int, postgelu: bool, epilogue: str = None,
+              ln=None, in_q: str = None, out_q: str = None,
+              out_scale=None, out_qmax: int = 128, float_dtype=None,
+              residual=None):
+    """B6: fused quantize -> int8 matmul -> rescale linear.
+
+    x:        (..., K) float32 / bfloat16, or int8 when ``in_q`` is set
+    w_intT:   (K, N) int8 weight levels (ops/pack.pack_weights)
+    w_scale:  (N,) per-out-channel dequant scale; b: (N,) or None
+    a_interval / a_neg_interval: the input scale(s)
+    ln:       optional (weight (K,), bias (K,), eps) LayerNorm prologue
+    in_q:     None | "q8" | "q8twin" (x holds levels; twin packed pos + neg)
+    epilogue: None | "gelu" (the A&S erf polynomial)
+    out_q:    None | "vec" (per-column ``out_scale`` (N,)) | "twin"
+              (``out_scale`` = (pos, neg) intervals): int8 output
+    residual: optional (..., N) float stream added in the epilogue
+    Returns (..., N): int8 when ``out_q``, else ``float_dtype`` (default:
+    x's dtype)."""
+    if not x.is_cuda:
+        return q8_linear_ref(x, w_intT, w_scale, b, a_interval,
+                             a_neg_interval, a_qmax=a_qmax,
+                             postgelu=postgelu, epilogue=epilogue, ln=ln,
+                             in_q=in_q, out_q=out_q, out_scale=out_scale,
+                             out_qmax=out_qmax, float_dtype=float_dtype,
+                             residual=residual)
+    from .build import load
+    lib = load("serve_kernels")
+    dev = x.device
+    K, N = w_intT.shape
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, K).contiguous()
+    M = x2.shape[0]
+    mode = in_q if in_q else ("f_twin" if postgelu else "f")
+    if mode not in _IN_MODES or out_q not in _OUT_Q:
+        raise ValueError(f"unknown input mode {mode} or output {out_q}")
+    want = (torch.int8,) if in_q else (torch.float32, torch.bfloat16)
+    if x2.dtype not in want:
+        raise TypeError(f"x: expected one of {want}, got {x2.dtype}")
+    _check(w_intT, "w_intT", torch.int8, (K, N), dev)
+    ws = w_scale.float().contiguous()
+    _check(ws, "w_scale", torch.float32, (N,), dev)
+    bias = b.float().contiguous() if b is not None else None
+    if bias is not None:
+        _check(bias, "b", torch.float32, (N,), dev)
+    lnw = lnb = None
+    if ln:
+        lnw, lnb = ln[0].float().contiguous(), ln[1].float().contiguous()
+        _check(lnw, "ln weight", torch.float32, (K,), dev)
+        _check(lnb, "ln bias", torch.float32, (K,), dev)
+    osc = None
+    o_pos = o_neg = 1.0
+    if out_q == "vec":
+        osc = out_scale.float().contiguous()
+        _check(osc, "out_scale", torch.float32, (N,), dev)
+    elif out_q == "twin":
+        o_pos, o_neg = out_scale
+    # the scalars stay on the card: reading them on the host would wait
+    # for the work queued before
+    scal = torch.stack([_f32(v, dev).reshape(()) for v in (
+        a_interval, 1.0 if a_neg_interval is None else a_neg_interval,
+        o_pos, o_neg)])
+    fdt = _float_dtype(x, float_dtype)
+    out_dtype = torch.int8 if out_q else fdt
+    if out_dtype not in _KINDS:
+        raise TypeError(f"unsupported output dtype {out_dtype}")
+    res = None
+    if residual is not None:
+        if out_q:
+            raise ValueError("a residual needs a float output")
+        res = residual.reshape(M, N).contiguous()
+        _check(res, "residual", fdt, (M, N), dev)
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    _launch(lib.ptq_q8_linear, _ptr(x2), _KINDS[x2.dtype], _ptr(w_intT),
+            _ptr(ws), _ptr(bias), _ptr(lnw), _ptr(lnb), _ptr(osc), _ptr(res),
+            _ptr(out), _KINDS[out_dtype], _ptr(scal),
+            float(ln[2]) if ln else 0.0, M, K, N, _IN_MODES[mode],
+            int(bool(ln)), int(epilogue == "gelu"), _OUT_Q[out_q], a_qmax,
+            out_qmax, _stream())
+    q8_linear.launches += 1
+    return out.reshape(lead + (N,))
+
+
+def _attn_launch(q, k, v, strides, out, ostrides, ph, split, scale, a_out,
+                 B, H, N, hd, sos, qmaxes, in_dtype):
+    """Launch the B7 / B8 kernel; q, k, v are element addresses."""
+    from .build import load
+    lib = load("serve_kernels")
+    dev = out.device
+    ph = ph.float().contiguous()
+    _check(ph, "head scales", torch.float32, (4, H), dev)
+    misc = torch.stack([_f32(0.0 if split is None else split, dev)
+                        .reshape(()),
+                        _f32(1.0 if a_out is None else a_out, dev)
+                        .reshape(())])
+    _launch(lib.ptq_fused_attention, q, k, v, _KINDS[in_dtype], *strides,
+            _ptr(out), _KINDS[out.dtype], *ostrides, _ptr(ph), _ptr(misc),
+            float(scale), B, H, N, hd, int(sos), *qmaxes, _stream())
+
+
+def fused_attention_qkv(qkv, heads: int, qp1, qp2, scale, *,
+                        in_q8: bool = False, out_scale=None,
+                        out_qmax: int = 128):
+    """B7: fused int8 attention softmax(q·kᵀ·scale)·v read straight from
+    the packed (B, N, 3d) qkv-linear output, written as (B, N, d).
+
+    in_q8: qkv holds int8 levels at the a1 / b1 / b2 head scales (the qkv
+    linear's ``out_q="vec"`` epilogue).  out_scale: the context is
+    requantized at this scalar and returned int8.  Returns (B, N, d) in
+    qkv's dtype (float32 for int8 in and float out, int8 with
+    ``out_scale``), or None when the QPs are out of scope."""
+    B, N, d3 = qkv.shape
+    if d3 % (3 * heads):
+        raise ValueError(f"qkv width {d3} is not 3 x {heads} heads")
+    d = d3 // 3
+    hd = d // heads
+    scoped = attn_scope(qp1, qp2, heads)
+    if scoped is None:
+        return None
+    ph, sos = scoped
+    qmaxes = attn_qmaxes(qp1, qp2, out_qmax)
+    split = qp2.split if sos else None
+    fdt = qkv.dtype if qkv.is_floating_point() else torch.float32
+    if not qkv.is_cuda:
+        t = qkv.reshape(B, N, 3, heads, hd).permute(2, 0, 3, 1, 4)
+        out = fused_attention_ref(t[0], t[1], t[2], ph, split, scale,
+                                  out_scale, sos=sos, in_q8=in_q8,
+                                  qmaxes=qmaxes, out_dtype=fdt)
+        return out.transpose(1, 2).reshape(B, N, d)
+    if (qkv.dtype == torch.int8) != bool(in_q8):
+        raise TypeError("qkv must be int8 exactly when in_q8")
+    if qkv.dtype not in _KINDS:
+        raise TypeError(f"qkv: unsupported dtype {qkv.dtype}")
+    _check(qkv, "qkv", qkv.dtype, (B, N, 3 * d), qkv.device)
+    out = torch.empty((B, N, d), device=qkv.device,
+                      dtype=torch.int8 if out_scale is not None else fdt)
+    # (b, n, h, j) of q at b*N*3d + n*3d + h*hd + j; k, v at +d, +2d
+    base = qkv.data_ptr()
+    es = qkv.element_size()
+    _attn_launch(base, base + d * es, base + 2 * d * es,
+                 (N * d3, hd, d3), out, (N * d, hd, d), ph, split, scale,
+                 out_scale, B, heads, N, hd, sos, qmaxes, qkv.dtype)
+    fused_attention_qkv.launches += 1
+    return out
+
+
+def fused_attention(q, k, v, qp1, qp2, scale):
+    """B8: the B7 kernel entered with the strides of the (B, H, N, hd)
+    layout; float in, float out.  Returns (B, H, N, hd) in q's dtype, or
+    None when the QPs are out of scope."""
+    B, H, N, hd = q.shape
+    scoped = attn_scope(qp1, qp2, H)
+    if scoped is None:
+        return None
+    ph, sos = scoped
+    qmaxes = attn_qmaxes(qp1, qp2, 128)
+    split = qp2.split if sos else None
+    if not q.is_cuda:
+        return fused_attention_ref(q, k, v, ph, split, scale, None, sos=sos,
+                                   in_q8=False, qmaxes=qmaxes,
+                                   out_dtype=q.dtype)
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q: expected float32 or bfloat16, got {q.dtype}")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _check(t, name, q.dtype, (B, H, N, hd), q.device)
+    out = torch.empty_like(q)
+    st = (H * N * hd, N * hd, hd)
+    _attn_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), st, out, st, ph,
+                 split, scale, None, B, H, N, hd, sos, qmaxes, q.dtype)
+    fused_attention.launches += 1
+    return out
+
+
+KERNELS = (q8_linear, fused_attention_qkv, fused_attention)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+reset_launch_counts()
+
+
+# ---------------------------------------------------------------------------
+# dispatch helpers
+# ---------------------------------------------------------------------------
+
+def head_scalar(interval, heads: int) -> Optional[torch.Tensor]:
+    """Per-head scale vector from a (1, n_G, 1, 1, 1, 1, 1) interval (or a
+    scalar, e.g. the SoS A_interval); None when it is not per head."""
+    iv = interval.float()
+    if iv.ndim == 0:
+        return iv.expand(heads)
+    if iv.numel() != heads:
+        return None
+    return iv.reshape(heads)
+
+
+def attn_scope(qp1, qp2, heads: int):
+    """(ph (4, H), sos) of an attention in scope, else None."""
+    if qp1.split is not None:
+        return None
+    for qp in (qp1, qp2):
+        for iv in (qp.A_interval, qp.B_interval):
+            if iv.ndim == 7 and (iv.shape[3] != 1 or iv.shape[5] != 1):
+                return None        # operand block grids: generic path
+    if max(qp1.A_bit, qp1.B_bit, qp2.A_bit, qp2.B_bit) > 8:
+        return None
+    scales = [head_scalar(iv, heads) for iv in (
+        qp1.A_interval, qp1.B_interval, qp2.A_interval, qp2.B_interval)]
+    if any(s is None for s in scales):
+        return None
+    return torch.stack(scales), qp2.split is not None
+
+
+def attn_qmaxes(qp1, qp2, out_qmax: int):
+    return (qp1.A_qmax, qp1.B_qmax, qp2.A_qmax, qp2.B_qmax, out_qmax)
+
+
+def linear_scope(qp) -> bool:
+    return (qp.w_interval.shape[2] == 1 and qp.a_interval.shape[0] == 1
+            and qp.a_bit <= 8 and qp.w_bit <= 8)
+
+
+def packed_or_compute(w, qp, pk):
+    """(w_intT, w_scale) from the packed dict, else from the weight."""
+    w_intT, w_scale = pk.get("w_intT"), pk.get("w_scale")
+    if w_intT is None or w_scale is None:
+        w_intT = linear_w_levels(w, qp).t().contiguous()
+        w_scale = linear_w_scale(qp, w.shape[0]).contiguous()
+    return w_intT, w_scale
+
+
+def fused_linear(x, w, b, qp, pk, epilogue: str = None):
+    """A LinearQP through B6 when in scope; None sends the caller to the
+    exact int8 path."""
+    if not linear_scope(qp):
+        return None
+    w_intT, w_scale = packed_or_compute(w, qp, pk)
+    return q8_linear(x, w_intT, w_scale, b, qp.a_interval[0, 0],
+                     qp.a_neg_interval, a_qmax=qp.a_qmax,
+                     postgelu=qp.postgelu, epilogue=epilogue)
+
+
+# ---------------------------------------------------------------------------
+# whole-block fusion: intermediate activations cross memory as int8, once
+# ---------------------------------------------------------------------------
+
+BLOCK_OPS = ("qkv", "matmul1", "matmul2", "proj", "fc1", "fc2")
+
+
+def fused_vit_block(x, blk, qps, pks, heads: int, scale, ln_eps):
+    """One pre-norm ViT block (LN -> qkv -> attention -> proj -> residual
+    -> LN -> fc1 / GELU -> fc2 -> residual) in five launches: LN1 / LN2 in
+    the qkv / fc1 prologues; qkv emitted int8 at the attention's a1 / b1 /
+    b2 head scales; the context emitted int8 at the proj input scale; fc1
+    GELU'd and twin-packed int8 for fc2; both residual adds in the
+    epilogues.
+
+    x: (B, N, d); blk: the block's params; qps / pks: {op suffix: QP /
+    packed entry}.  Returns the new residual stream, or None when a piece
+    is out of scope (the caller runs the generic per-op path)."""
+    qp_qkv, qp1, qp2, qp_proj, qp_fc1, qp_fc2 = (qps.get(k)
+                                                 for k in BLOCK_OPS)
+    if any(qp is None for qp in (qp_qkv, qp1, qp2, qp_proj, qp_fc1, qp_fc2)):
+        return None
+    if not all(linear_scope(qp) for qp in (qp_qkv, qp_proj, qp_fc1, qp_fc2)):
+        return None
+    if qp_qkv.postgelu or qp_proj.postgelu or qp_fc1.postgelu \
+            or not qp_fc2.postgelu:
+        return None
+    hd = x.shape[-1] // heads
+    if attn_scope(qp1, qp2, heads) is None:
+        return None
+    # one clip range must cover the packed q / k / v columns
+    if not (qp1.A_qmax == qp1.B_qmax == qp2.B_qmax):
+        return None
+    col_scales = torch.cat([
+        torch.repeat_interleave(head_scalar(iv, heads), hd)
+        for iv in (qp1.A_interval, qp1.B_interval, qp2.B_interval)])
+    attn, mlp = blk["attn"], blk["mlp"]
+    w_qkv, w_proj, w_fc1, w_fc2 = (
+        packed_or_compute(p["weight"], qp, pks.get(k) or {})
+        for p, qp, k in ((attn["qkv"], qp_qkv, "qkv"),
+                         (attn["proj"], qp_proj, "proj"),
+                         (mlp["fc1"], qp_fc1, "fc1"),
+                         (mlp["fc2"], qp_fc2, "fc2")))
+    qkv_q = q8_linear(x, *w_qkv, attn["qkv"]["bias"], qp_qkv.a_interval[0, 0],
+                      None, a_qmax=qp_qkv.a_qmax, postgelu=False,
+                      ln=(blk["norm1"]["weight"], blk["norm1"]["bias"],
+                          ln_eps),
+                      out_q="vec", out_scale=col_scales,
+                      out_qmax=qp1.A_qmax)
+    y_q = fused_attention_qkv(qkv_q, heads, qp1, qp2, scale, in_q8=True,
+                              out_scale=qp_proj.a_interval[0, 0],
+                              out_qmax=qp_proj.a_qmax)
+    x = q8_linear(y_q, *w_proj, attn["proj"]["bias"],
+                  qp_proj.a_interval[0, 0], None, a_qmax=qp_proj.a_qmax,
+                  postgelu=False, in_q="q8", float_dtype=x.dtype, residual=x)
+    z_q = q8_linear(x, *w_fc1, mlp["fc1"]["bias"], qp_fc1.a_interval[0, 0],
+                    None, a_qmax=qp_fc1.a_qmax, postgelu=False,
+                    ln=(blk["norm2"]["weight"], blk["norm2"]["bias"],
+                        ln_eps),
+                    epilogue="gelu", out_q="twin",
+                    out_scale=(qp_fc2.a_interval[0, 0],
+                               qp_fc2.a_neg_interval),
+                    out_qmax=qp_fc2.a_qmax)
+    return q8_linear(z_q, *w_fc2, mlp["fc2"]["bias"],
+                     qp_fc2.a_interval[0, 0], qp_fc2.a_neg_interval,
+                     a_qmax=qp_fc2.a_qmax, postgelu=True, in_q="q8twin",
+                     float_dtype=x.dtype, residual=x)

@@ -1,0 +1,66 @@
+"""Batched int8 serving on one device.
+
+The counterpart of ``ptq4vit_tpu/parallel/serve.py`` ``ServingEngine``:
+packed int8 weights and the fused kernels (``int8="fused"``: B6 and B7 on
+every ViT block).  The data-parallel mesh (ROADMAP A12) and the relaxed
+bf16 epilogues are not ported and raise.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from ..models.registry import resolve_device
+from ..ops.pack import pack_weights
+from ..quant.fakequant import exact_div
+from ..utils.convert import params_from_numpy, qstate_to
+
+
+class ServingEngine:
+    """Quantized inference with packed int8 weights and the fused kernels.
+
+    net:      models.registry.Net
+    qstate:   calibrated quantization state
+    compute_dtype: dtype of the float segments (bfloat16 by default)
+    raw_uint8: take (B, 3, H, W) uint8 images and normalize them on the
+              device with ``net.data_config`` (4x fewer bytes to the card)
+    device:   the card by default; ``device="cpu"`` runs the kernels'
+              plain versions
+    """
+
+    def __init__(self, net, qstate: Dict[str, Any], mesh=None,
+                 compute_dtype=torch.bfloat16, relaxed: bool = False,
+                 raw_uint8: bool = False, device=None):
+        if mesh is not None:
+            raise NotImplementedError("a device mesh needs multi-GPU "
+                                      "serving (ROADMAP A12)")
+        if relaxed:
+            raise NotImplementedError("the relaxed bf16 epilogues are not "
+                                      "ported")
+        self.net = net
+        self.device = resolve_device(device)
+        self.compute_dtype = compute_dtype
+        self._params = params_from_numpy(net.params, self.device)
+        self._qstate = qstate_to(qstate, self.device)
+        self._packed = pack_weights(self._params, self._qstate)
+        self._norm = None
+        if raw_uint8:
+            dc = net.data_config
+            self._norm = tuple(
+                torch.tensor(np.asarray(v, np.float32).reshape(1, 3, 1, 1),
+                             device=self.device) for v in (dc.mean, dc.std))
+
+    def __call__(self, x) -> torch.Tensor:
+        """x: (B, 3, H, W) float (or uint8 with ``raw_uint8``), numpy or a
+        tensor -> (B, num_classes) logits in ``compute_dtype``."""
+        x = torch.as_tensor(x).to(self.device)
+        if self._norm is not None:
+            mean, std = self._norm
+            x = exact_div(exact_div(x.float(), 255.0) - mean, std)
+        with torch.no_grad():
+            return self.net.forward(self._params, x, self.net.cfg,
+                                    qstate=self._qstate, int8="fused",
+                                    packed=self._packed,
+                                    compute_dtype=self.compute_dtype)

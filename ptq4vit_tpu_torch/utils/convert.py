@@ -62,3 +62,10 @@ def qstate_to(qstate: Dict[str, Any], device) -> Dict[str, Any]:
                for f in dataclasses.fields(qp)
                if torch.is_tensor(getattr(qp, f.name))})
             for name, qp in qstate.items()}
+
+
+def packed_to(packed: Dict[str, Any], device) -> Dict[str, Any]:
+    """A copy of a ``packed`` dict (ops/pack.pack_weights) with every
+    tensor moved to ``device``."""
+    return {name: {k: v.to(device) for k, v in entry.items()}
+            for name, entry in packed.items()}

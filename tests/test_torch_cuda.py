@@ -210,3 +210,191 @@ def test_wrapper_checks_reject_bad_inputs():
     with pytest.raises(TypeError):
         sk._check(x.numpy(), "x", torch.float32)
 
+
+
+# ---------------------------------------------------------------------------
+# serving kernels: B6 (q8_linear), B7 (fused_attention_qkv), B8
+# (fused_attention) against their plain versions
+# ---------------------------------------------------------------------------
+
+def q8_modes():
+    for mode in ("f", "f_twin", "q8", "q8twin"):
+        for ln in ((False, True) if mode in ("f", "f_twin") else (False,)):
+            for gelu in (False, True):
+                for out in ("float", "residual", "vec", "twin"):
+                    yield mode, ln, gelu, out
+
+
+def q8_case(rng, mode, ln, gelu, out, M, K, N, qmax, dtype):
+    """Arguments of q8_linear / q8_linear_ref on the card."""
+    dev = "cuda"
+    if mode in ("q8", "q8twin"):
+        x = T(rng.integers(-qmax, qmax, (M, K)), torch.int8)
+        a = 0.03
+    else:
+        xn = (rng.standard_normal((M, K)) * 2 + 0.3).astype(np.float32)
+        if mode == "f_twin":
+            xn = np.where(xn > 0, xn, xn * 0.05).astype(np.float32)
+        x = T(xn, dtype)
+        a = float(np.float32((3.0 if ln else np.abs(xn).max())
+                             / (qmax - 0.5)))
+    w = T(rng.integers(-qmax, qmax, (K, N)), torch.int8)
+    ws = T((rng.random(N) + 0.5) / (a * qmax * qmax * np.sqrt(K) / 3))
+    b = T(rng.standard_normal(N) * 0.1)
+    twin_in = mode in ("f_twin", "q8twin")
+    kw = dict(a_qmax=qmax, postgelu=twin_in,
+              epilogue="gelu" if gelu else None,
+              in_q=mode if mode in ("q8", "q8twin") else None,
+              out_q={"vec": "vec", "twin": "twin"}.get(out), out_qmax=qmax,
+              float_dtype=dtype if mode in ("q8", "q8twin") else None)
+    if ln:
+        kw["ln"] = (T(1 + 0.1 * rng.standard_normal(K)).to(dev),
+                    T(0.1 * rng.standard_normal(K)).to(dev), 1e-6)
+    if out == "residual":
+        kw["residual"] = T(rng.standard_normal((M, N)), dtype).to(dev)
+    if out == "vec":
+        kw["out_scale"] = T((rng.random(N) + 1.5) / (qmax - 0.5)).to(dev)
+    if out == "twin":
+        kw["out_scale"] = (torch.tensor(3.0 / (qmax - 0.5), device=dev),
+                           torch.tensor(GELU_NEG_CLIP / qmax, device=dev))
+    a_neg = torch.tensor(GELU_NEG_CLIP / qmax, device=dev) if twin_in \
+        else None
+    return (x.to(dev), w.to(dev), ws.to(dev), b.to(dev),
+            torch.tensor(a, device=dev), a_neg), kw
+
+
+def attn_level_step(ph, sos, qmax=128):
+    """(H,) the most that one probability level moves an attention output
+    of each head: a v level (at most qmax) times b2, times 1 / (qmax - 1)
+    (SoS: a level of the upper range) or times a2 (per head)."""
+    return qmax * ph[3] * (1.0 / (qmax - 1) if sos else ph[2])
+
+
+def assert_float_close(got, ref, rtol, step, share=0.005):
+    """rtol, atol 2e-5 of max |ref|, except in at most ``share`` of the
+    elements, where a probability rounded to the neighbouring level: those
+    are off by at most ``step`` (broadcast to the output) more."""
+    g, r = got.double(), ref.double()
+    err = (g - r).abs()
+    tol = 2e-5 * float(r.abs().max()) + rtol * r.abs()
+    assert float((err > tol).double().mean()) <= share
+    assert bool((err <= tol + step.double()).all())
+
+
+def assert_levels_close(got, ref, share=0.01):
+    d = (got.int() - ref.int()).abs()
+    assert int(d.max()) <= 1
+    assert float((d > 0).float().mean()) <= share
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_q8_linear_matches_plain_version_on_the_card(dtype):
+    """B6 in every mode at qmax 128 and 32, with a ragged row edge (M = 77)
+    and N past one 128-column tile: float outputs without the LayerNorm
+    are bitwise the plain version's; with it (statistics summed in another
+    order, so a row may quantize one input a level the other way) every
+    row but at most 5% of them bitwise, and those off by at most one input
+    level's contribution (a * max |w[:, n]| * w_scale[n], times 1.13, the
+    steepest slope of the GELU, and plus one bf16 step at a bf16 output);
+    int8 outputs within one level in at most 1% of the elements."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from ptq4vit_tpu_torch.ops import int8_serve as sv
+    rng = np.random.default_rng(43)
+    sv.reset_launch_counts()
+    n = 0
+    for qmax in (128, 32):
+        for mode, ln, gelu, out in q8_modes():
+            args, kw = q8_case(rng, mode, ln, gelu, out, 77, 200, 150, qmax,
+                               dtype)
+            got = sv.q8_linear(*args, **kw)
+            ref = sv.q8_linear_ref(*args, **kw)
+            torch.cuda.synchronize()
+            assert got.dtype == ref.dtype and got.shape == ref.shape
+            what = f"{mode} ln={ln} gelu={gelu} {out} q{qmax}"
+            if got.dtype == torch.int8:
+                assert_levels_close(got, ref)
+            elif ln:
+                rows = (got != ref).any(dim=1)
+                assert float(rows.float().mean()) <= 0.05, what
+                a = max(float(args[4]), float(args[5] if args[5] is not None
+                                              else 0.0))
+                step = (a * args[1].abs().amax(0).double()
+                        * args[2].double() * (1.13 if gelu else 1.0))
+                r = ref.double()
+                room = step + (2.0 ** -7 * r.abs() if dtype == torch.bfloat16
+                               else 1e-6 * r.abs())
+                assert bool(((got.double() - r).abs() <= room).all()), what
+            else:
+                assert torch.equal(got, ref), what
+            n += 1
+    assert sv.launch_counts()["q8_linear"] == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,N,hd", [(2, 37, 64), (3, 130, 24)])
+def test_fused_attention_matches_plain_version_on_the_card(H, N, hd):
+    """B7 (float or int8 in, float or int8 out) and B8, SoS and per-head,
+    against the plain version: float outputs rtol 1e-5, atol 2e-5 of max
+    |ref| except in at most 0.5% of the elements (the softmax sums in
+    another order, so a probability may round to the neighbouring level),
+    and those off by at most one probability level's contribution more;
+    int8 outputs within one level in at most 1% of the elements.  N = 130
+    spans several row tiles of the kernel, with a ragged last one; hd = 24
+    is not a multiple of the 4-level words."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from ptq4vit_tpu_torch.ops import int8_serve as sv
+    from ptq4vit_tpu_torch.quant.qparams import MatMulQP
+    rng = np.random.default_rng(44)
+    dev = "cuda"
+    B = 3
+    d = H * hd
+    qkv = T(rng.standard_normal((B, N, 3 * d))).to(dev)
+    t = qkv.reshape(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+    shape = (1, H, 1, 1, 1, 1, 1)
+
+    def hmax(v):
+        return (v.abs().amax((0, 2, 3)) / 127.5).reshape(shape)
+    qp1 = MatMulQP(A_interval=hmax(t[0]), B_interval=hmax(t[1]))
+    sv.reset_launch_counts()
+    for sos in (True, False):
+        split = torch.tensor(2.0 ** -4, device=dev)
+        qp2 = MatMulQP(A_interval=(split / 127 if sos else
+                                   torch.full(shape, 1 / 127.5, device=dev)),
+                       B_interval=hmax(t[2]), split=split if sos else None)
+        ph, _ = sv.attn_scope(qp1, qp2, H)
+        step = attn_level_step(ph, sos)
+        cols = torch.cat([ph[i].repeat_interleave(hd) for i in (0, 1, 3)])
+        lv = torch.clamp(torch.round(qkv / cols), -128, 127).to(torch.int8)
+        a_out = torch.tensor(0.02, device=dev)
+        for x, in_q8, out_scale in ((qkv, False, None), (qkv, False, a_out),
+                                    (lv, True, None), (lv, True, a_out),
+                                    (qkv.bfloat16(), False, None)):
+            got = sv.fused_attention_qkv(x, H, qp1, qp2, hd ** -0.5,
+                                         in_q8=in_q8, out_scale=out_scale)
+            c = x.reshape(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+            ref = sv.fused_attention_ref(
+                c[0], c[1], c[2], ph, split if sos else None, hd ** -0.5,
+                out_scale, sos=sos, in_q8=in_q8,
+                qmaxes=(128, 128, 128, 128, 128),
+                out_dtype=got.dtype if got.is_floating_point() else None)
+            ref = ref.transpose(1, 2).reshape(B, N, d)
+            torch.cuda.synchronize()
+            assert got.dtype == ref.dtype
+            if got.dtype == torch.int8:
+                assert_levels_close(got, ref)
+            else:     # bf16 output: one bf16 step (2^-8) apart at most
+                assert_float_close(got, ref, 1e-5 if got.dtype ==
+                                   torch.float32 else 2.0 ** -8,
+                                   step.repeat_interleave(hd))
+        q, k, v = (c.contiguous() for c in t)
+        got = sv.fused_attention(q, k, v, qp1, qp2, hd ** -0.5)
+        ref = sv.fused_attention_ref(q, k, v, ph, split if sos else None,
+                                     hd ** -0.5, None, sos=sos, in_q8=False,
+                                     qmaxes=(128,) * 5, out_dtype=q.dtype)
+        assert_float_close(got, ref, 1e-5, step.reshape(1, H, 1, 1))
+    assert sv.launch_counts() == {"q8_linear": 0, "fused_attention_qkv": 10,
+                                  "fused_attention": 2}

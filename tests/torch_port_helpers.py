@@ -414,3 +414,52 @@ def assert_logits_close(port_logits, jax_logits, raw=False):
         np.testing.assert_allclose(p, j, rtol=1e-5, atol=1e-6)
     else:
         assert np.abs(p - j).max() <= 1e-3 * np.abs(j).max()
+
+
+def minmax_qstate(jnet, x, bits=8):
+    """A JAX qstate at ``bits`` (W = A) with every main-path quantizer kind
+    (channelwise conv, n_V = 3 qkv, twin post-GELU fc2, head-wise matmul1,
+    SoS matmul2), its intervals from min-max over a capture of ``x``; ViT
+    or Swin (whose reduction linears get the plain kind)."""
+    from ptq4vit_tpu.calib.capture import capture as jcapture
+    from ptq4vit_tpu.quant import fakequant as jfq
+    from ptq4vit_tpu.quant.qparams import ConvQP, LinearQP, MatMulQP
+    q_ = 2 ** (bits - 1)
+    caps = jcapture(jnet, x, batch_size=len(x), need_grad=False)
+    q = {}
+    for name, mtype in jnet.op_inventory:
+        cap = caps[name]
+        if mtype == "qconv":
+            w = np.asarray(jnet.params["patch_embed"]["proj"]["weight"])
+            wi = np.abs(w).reshape(w.shape[0], -1).max(1) / (q_ - 0.5)
+            q[name] = ConvQP(w_interval=jnp.asarray(
+                wi.reshape(-1, 1, 1, 1), jnp.float32), w_bit=bits)
+        elif "qmatmul" in mtype:
+            G = cap.inputs["a"].shape[1]
+            bi = jfq.matmul_operand_interval_init(
+                jnp.asarray(cap.inputs["b"]), G, 1, 1, q_)
+            if mtype == "qmatmul_scorev":
+                split = jnp.float32(2.0 ** -5)
+                q[name] = MatMulQP(A_interval=split / (q_ - 1),
+                                   B_interval=bi, split=split, A_bit=bits,
+                                   B_bit=bits)
+            else:
+                q[name] = MatMulQP(A_interval=jfq.matmul_operand_interval_init(
+                    jnp.asarray(cap.inputs["a"]), G, 1, 1, q_),
+                    B_interval=bi, A_bit=bits, B_bit=bits)
+        else:
+            node = jnet.params
+            for part in name.split("."):
+                node = node[int(part)] if isinstance(node, list) else node[part]
+            n_V = 3 if mtype == "qlinear_qkv" else 1
+            pg = mtype == "qlinear_MLP_2"
+            x_in = jnp.asarray(cap.inputs["x"])
+            q[name] = LinearQP(
+                w_interval=jfq.blocked_weight_interval_init(
+                    node["weight"], n_V, 1, q_),
+                a_interval=jfq.grouped_act_interval_init(x_in, 1, q_,
+                                                         signed=not pg),
+                a_neg_interval=(jnp.float32(jfq.GELU_NEG_CLIP / q_)
+                                if pg else None),
+                w_bit=bits, a_bit=bits, postgelu=pg)
+    return q
