@@ -18,7 +18,11 @@ Phases (any failure raises, so the exit code is non-zero):
      1e-5, atol 2e-5 max|ref|, except in at most 0.05% of the elements,
      each off by at most one probability level's contribution; int8
      outputs one level off in at most 0.1%), beside torch._int_mm and
-     SDPA as context;
+     SDPA as context; B10 and B11 at Swin-B/384 stages 1 and 3 and B9 int8
+     -> int8 on stage 1's shifted block (64 masks) and stage 4's one
+     window, float -> float (SoS and per-head) on stage 1, with 32 images
+     (B11 bitwise, B9 and B10 under the same rules), beside torch._int_mm
+     and SDPA with the same additive mask;
   4. the ViT path: quantize("vit_base_patch16_384", 8 images, PTQ4ViT W8A8)
      with random weights from a seeded generator; B1, B2 and B3 must be
      launched and every interval finite and positive; serve 4 images with
@@ -30,22 +34,31 @@ Phases (any failure raises, so the exit code is non-zero):
      are launched 147 times each (49 linears x 3 rounds) and B1-B3f never;
      then the flip count: per op type, the interval slots where this qstate
      and phase 4's int8-scored one differ (same net, images and probe);
-  7. the serving path: phase 4's seeded net and qstate (no second
-     calibration), pack_weights, then ServingEngine (bf16, fused kernels)
-     on 4 requests of 32 images: B6 launched exactly 4 x 49 times, B7 4 x
-     12, no search kernel; finite logits; cosine >= 0.99 between the
-     engine's logits and the fused fp32 forward's, between the fused fp32
-     and exact int8=True forwards and between int8=True and the fake-quant
-     forward; img/s of the engine and of those three forwards;
-     then B8's path: each block's attention on its captured (B, H, N, hd)
-     q, k, v through fused_attention (12 launches), by cosine to the
-     exact int8 attention;
+  7. the serving paths: phase 4's and phase 5's seeded nets and qstates
+     (no second calibration), pack_weights, then ServingEngine (bf16,
+     fused kernels) on 4 requests of 32 images each: ViT-B/384 launches B6
+     exactly 4 x 49 times and B7 4 x 12, Swin-B/384 B6 4 x 52 and B9, B10
+     and B11 4 x 24 each (SERVE_LAUNCHES), and no other kernel; finite
+     logits; cosine >= 0.99 between the engine's logits and the fused
+     fp32 forward's, between the fused fp32 and exact int8=True forwards
+     and between int8=True and the fake-quant forward; img/s of the engine
+     and of those three forwards; one request's device time by kernel
+     under torch.profiler, with the device's busy time, the span of its
+     kernels and the wall time;
+     after ViT's, B8's path: each block's attention on its captured (B, H,
+     N, hd) q, k, v through fused_attention (12 launches), by cosine to
+     the exact int8 attention;
+     then the per-op window path: Swin-B/384 at full width, depths (2, 2,
+     2, 2), PTQ4ViT W8A8 with no_postgelu calibrated on 8 images (B1, B2,
+     B3f), whose fused forward (8 images) launches B6 36 and B9 8 times on
+     the float qkv and B10 / B11 never, with finite logits at cosine >=
+     0.99 to int8=True;
   8. the policy path, at full ViT-B/384 width and depth 2 built with
      net_from_config: BasePTQ W6A6 (cosine metric: plain torch, no kernel)
      and PTQ4ViT W8A8 sequential (B1, B2 and B3 launched); finite positive
      intervals and finite logits;
-  9. print the kernels' JSON line (all nine kernels), the card line, then
-     the result line.
+  9. print the kernels' JSON line (all twelve kernels), the card line,
+     then the result line.
 Each path is driven with the launch counts set to 0 just before it and
 read just after.
 """
@@ -53,6 +66,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -88,6 +102,10 @@ KERNELS = {
     "fused_attention_qkv": (SERVE_SOURCE,
                             "ptq4vit_tpu/ops/int8_serve.py:547"),
     "fused_attention": (SERVE_SOURCE, "ptq4vit_tpu/ops/int8_serve.py:486"),
+    "fused_window_attention_qkv": (SERVE_SOURCE,
+                                   "ptq4vit_tpu/ops/int8_serve.py:638"),
+    "q8_win_qkv": (SERVE_SOURCE, "ptq4vit_tpu/ops/int8_serve.py:917"),
+    "q8_win_proj": (SERVE_SOURCE, "ptq4vit_tpu/ops/int8_serve.py:974"),
 }
 SEARCH = tuple(k for k, (src, _) in KERNELS.items() if src == SEARCH_SOURCE)
 # the kernels each path must launch (None: at least once) and must not
@@ -106,6 +124,20 @@ PATHS = {
     "vit_base_patch16_384 depth 2 PTQ4ViT sequential": (
         {"linear_w_hessian_sims_i8": None, "linear_a_hessian_sims_i8": None,
          "matmul_hessian_sims_b3": None}, ()),
+    "swin_base_patch4_window12_384 depths (2, 2, 2, 2) no_postgelu": (
+        {"linear_w_hessian_sims_i8": None, "linear_a_hessian_sims_i8": None,
+         "matmul_hessian_sims_b3f": None}, ()),
+}
+# launches of the serving kernels a request makes (every other kernel: 0).
+# ViT-B/384: B6 for qkv, proj, fc1 and fc2 of 12 blocks and the head, B7
+# in each block.  Swin-B/384: each of its 24 blocks runs B10 (qkv), B9
+# and B11 (proj), and B6 for fc1 and fc2; B6 also for the 3 patch-merging
+# reductions and the head: 2 x 24 + 3 + 1 = 52
+SERVE_LAUNCHES = {
+    "vit_base_patch16_384": {"q8_linear": 49, "fused_attention_qkv": 12},
+    "swin_base_patch4_window12_384": {
+        "q8_linear": 52, "fused_window_attention_qkv": 24, "q8_win_qkv": 24,
+        "q8_win_proj": 24},
 }
 # published H100 SXM peaks at 700 W (NVIDIA's data sheet, dense)
 PEAK_OPS = {"int8": 1979e12, "fp32": 67e12}
@@ -680,24 +712,39 @@ def serve_kernel_phase(sv, dev):
             out_dtype=x.dtype if x.is_floating_point() else torch.float32)
         return out.transpose(1, 2).reshape(Bx, Nx, d3 // 3)
 
+    return measure_serving([
+        (kname, label,
+         lambda kname=kname, args=args, kw=kw: getattr(sv, kname)(*args,
+                                                                  **kw),
+         lambda kname=kname, args=args, kw=kw: plain(kname, args, kw),
+         nbytes(args, list(kw.values())), ops, lib_fn, step)
+        for kname, label, args, kw, ops, lib_fn, step in cases])
+
+
+def measure_serving(cases):
+    """Each serving kernel case (kernel, label, call, plain call, bytes of
+    the inputs, operations, context call, step) against its plain version
+    (``compare_outputs``; attention float outputs under the FLIP_SHARE
+    rule, other float outputs bitwise), then timed beside the plain
+    version, the bound and the context call (torch._int_mm for the
+    linears, SDPA for the attentions).  Returns the stats by kernel; a
+    kernel's first case is its headline."""
     stats = {}
-    for kname, label, args, kw, ops, lib_fn, step in cases:
-        fn = getattr(sv, kname)
-        got = fn(*args, **kw)
-        ref = plain(kname, args, kw)
+    for kname, label, fn, plain, in_bytes, ops, lib_fn, step in cases:
+        got = fn()
+        ref = plain()
         torch.cuda.synchronize()
-        # attention: the softmax sums in another order; B6's float outputs
-        # (no LayerNorm among them) must be bitwise
+        attention = "attention" in kname
+        # attention sums its softmax in another order
         tol = (2e-5 * float(ref.float().abs().max()), ATTN_RTOL) \
-            if kname != "q8_linear" else (0.0, 0.0)
+            if attention else (0.0, 0.0)
         err, share = compare_outputs(f"{kname} {label}", got, ref, *tol,
                                      step=step)
-        ms = time_ms(lambda: fn(*args, **kw), 5)
-        plain_ms = time_ms(lambda: plain(kname, args, kw), 1)
+        ms = time_ms(fn, 5)
+        plain_ms = time_ms(plain, 1)
         lib_ms = time_ms(lib_fn, 5)
-        nb = nbytes(args, list(kw.values())) + nbytes(got)
-        bound_ms, bound_by = bound(ops, nb)
-        lib_key = "int_mm_ms" if kname == "q8_linear" else "sdpa_ms"
+        bound_ms, bound_by = bound(ops, in_bytes + nbytes(got))
+        lib_key = "sdpa_ms" if attention else "int_mm_ms"
         entry = {"case": label, "ms": ms, "plain_ms": plain_ms,
                  "bound_ms": bound_ms, "bound_by": bound_by,
                  "out": str(got.dtype).replace("torch.", ""),
@@ -710,31 +757,182 @@ def serve_kernel_phase(sv, dev):
             + f", kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by}), {lib_key} {lib_ms:.3f} "
             "(context only)")
-        s = stats.setdefault(kname, {"max_abs_err": 0.0, "cases": []})
-        s["max_abs_err"] = max(s["max_abs_err"], err
-                               if got.dtype != torch.int8 else 0.0)
-        s["max_share_off"] = max(s.get("max_share_off", 0.0), share)
-        if "ms" not in s:
-            s.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                     bound_by=bound_by)
-        s["cases"].append(entry)
+        st = stats.setdefault(kname, {"max_abs_err": 0.0, "cases": []})
+        st["max_abs_err"] = max(st["max_abs_err"], err
+                                if got.dtype != torch.int8 else 0.0)
+        st["max_share_off"] = max(st.get("max_share_off", 0.0), share)
+        if "ms" not in st:
+            st.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                      bound_by=bound_by)
+        st["cases"].append(entry)
+        del got, ref
+    torch.cuda.empty_cache()
     return stats
 
 
-def serving_phase(sk, sv, qcpu):
-    """The serving path: phase 4's seeded ViT-B/384 and its qstate (no
-    second calibration), pack_weights, then ServingEngine (bf16) on
-    SERVE_REQUESTS requests of SERVE_BATCH images with the launch counts
-    set to 0 just before and read just after; then the fused fp32, exact
+def window_kernel_phase(sv, dev):
+    """B10, B9 and B11 against their plain versions at Swin-B/384 shapes
+    with 32 images (window 12: N = 144 tokens, head dim 32), beside
+    torch._int_mm on the same levels (B10, B11) and SDPA with the same
+    additive bias and mask on the float q, k, v (B9), for context only.
+    B10 and B11 at stage 1 (res 96, C 128, 64 windows an image) and stage
+    3 (res 24, C 512); B9 int8 -> int8 on stage 1's shifted block (64
+    masks) and stage 4's one unshifted window (32 heads), and float ->
+    float (SoS and per-head) on stage 1's shifted block."""
+    from ptq4vit_tpu_torch.models.swin import shifted_window_mask
+    from ptq4vit_tpu_torch.quant.qparams import MatMulQP
+    rng = np.random.default_rng(6)
+    B, ws, hd, q = SERVE_BATCH, 12, 32, 128
+    N = ws * ws
+    bf = torch.bfloat16
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
+
+    def levels(x, a):
+        return torch.clamp(torch.round(x.float() / a), -q, q - 1) \
+            .to(torch.int8)
+
+    cases = []        # as measure_serving takes them
+    for stage, res, C in ((1, 96, 128), (3, 24, 512)):
+        M = B * res * res
+        x4 = t(rng.standard_normal((B, res, res, C)) * 2 + 0.3, bf)
+        a = torch.tensor(3.0 / (q - 0.5), device=dev)
+        w = t(rng.integers(-q, q, (C, 3 * C)), torch.int8)
+        wsc = t((rng.random(3 * C) + 0.5) / (float(a) * q * q * np.sqrt(C)
+                                              / 3))
+        args = (x4, w, wsc, t(rng.standard_normal(3 * C) * 0.1), a,
+                (t(1 + 0.1 * rng.standard_normal(C)),
+                 t(0.1 * rng.standard_normal(C)), 1e-5), ws,
+                t((rng.random(3 * C) + 1.5) / (q - 0.5)))
+        lv = levels(x4.reshape(M, C), a)
+        cases.append(("q8_win_qkv", f"stage {stage}: LN, quantize -> int8 "
+                      "per column", lambda args=args: sv.q8_win_qkv(
+                          *args, a_qmax=q, out_qmax=q),
+                      lambda args=args: sv.q8_win_qkv_ref(
+                          *args, a_qmax=q, out_qmax=q), nbytes(args),
+                      {"int8": 2 * M * C * 3 * C},
+                      lambda lv=lv, w=w: torch._int_mm(lv, w), None))
+        y_q = t(rng.integers(-q, q, (M // N, N, C)), torch.int8)
+        a = torch.tensor(0.03, device=dev)
+        wp = t(rng.integers(-q, q, (C, C)), torch.int8)
+        args = (y_q, wp, t((rng.random(C) + 0.5) / (0.03 * q * q
+                                                    * np.sqrt(C) / 3)),
+                t(rng.standard_normal(C) * 0.1), a, ws, res,
+                t(rng.standard_normal((B, res, res, C)), bf))
+        cases.append(("q8_win_proj", f"stage {stage}: int8 in -> + residual "
+                      "(image layout)",
+                      lambda args=args: sv.q8_win_proj(*args, a_qmax=q),
+                      lambda args=args: sv.q8_win_proj_ref(*args, a_qmax=q),
+                      nbytes(args), {"int8": 2 * M * C * C},
+                      lambda y=y_q.reshape(M, C), w=wp: torch._int_mm(y, w),
+                      None))
+
+    for stage, res, H, shift, modes in (
+            (1, 96, 4, ws // 2, ("int8 SoS", "float SoS", "float per-head")),
+            (4, 12, 32, 0, ("int8 SoS",))):
+        C = H * hd
+        nW = (res // ws) ** 2
+        B_ = B * nW
+        qkv = t(rng.standard_normal((B_, N, 3 * C)))
+        bias = t(rng.standard_normal((H, N, N)) * 0.5)
+        mask = shifted_window_mask(res, ws, shift)
+        mask = t(mask) if mask is not None else None
+        tq = qkv.reshape(B_, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+        q4, k4, v4 = (c.contiguous() for c in tq)
+        extra = bias[None] + (mask[:, None] if mask is not None else 0)
+        sdpa_mask = extra.repeat(B, 1, 1, 1)
+        shape = (1, H, 1, 1, 1, 1, 1)
+
+        def hmax(v):
+            return (v.abs().amax((0, 2, 3)) / 127.5).reshape(shape)
+        s = hd ** -0.5
+        qp1 = MatMulQP(A_interval=hmax(tq[0] * s), B_interval=hmax(tq[1]))
+        split = torch.tensor(2.0 ** -6, device=dev)
+        for mode in modes:
+            sos = mode.endswith("SoS")
+            qp2 = MatMulQP(A_interval=(split / 127 if sos else
+                                       torch.full(shape, 1 / 127.5,
+                                                  device=dev)),
+                           B_interval=hmax(tq[2]),
+                           split=split if sos else None)
+            ph, _ = sv.window_attn_scope(qp1, qp2, H, s)
+            if mode.startswith("int8"):
+                cols = torch.cat([ph[i].repeat_interleave(hd)
+                                  for i in (0, 1, 3)])
+                x, kw = levels(qkv / cols, 1.0), dict(
+                    in_q8=True, out_scale=torch.tensor(0.02, device=dev))
+                label, step = f"{mode}, int8 -> int8", None
+            else:
+                x, kw, label = qkv, {}, f"{mode}, float -> float"
+                step = attn_level_step(ph, sos).repeat_interleave(hd)
+            where = "shifted, 64 masks" if shift else "one window"
+            label = f"stage {stage}, {where}: {label}"
+            args = (x, H, nW, qp1, qp2, s, bias, mask)
+            ref_args = (x, H, nW, ph, split if sos else None, s, bias, mask,
+                        kw.get("out_scale"))
+            ref_kw = dict(sos=sos, in_q8=mode.startswith("int8"),
+                          qmaxes=(q,) * 5, out_dtype=torch.float32)
+            cases.append((
+                "fused_window_attention_qkv", label,
+                lambda args=args, kw=kw: sv.fused_window_attention_qkv(
+                    *args, **kw),
+                lambda a=ref_args, kw=ref_kw: sv.fused_window_attention_ref(
+                    *a, **kw), nbytes(args),
+                {"int8": 2 * B_ * H * N * N * hd * (3 if sos else 2),
+                 # the bias and mask adds, max, subtract, exp, sum, divide
+                 "fp32": 7 * B_ * H * N * N},
+                lambda qkv4=(q4, k4, v4), m=sdpa_mask: torch.nn.functional
+                .scaled_dot_product_attention(*qkv4, attn_mask=m), step))
+
+    return measure_serving(cases)
+
+
+def profile_call(fn):
+    """One call of ``fn`` under torch.profiler: device time by kernel (ms,
+    launches), the busy time of the device, the span from the first
+    kernel's start to the last one's end, and the host's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    by_kernel, t_lo, t_hi = {}, float("inf"), 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = re.sub(r"^void |\(anonymous namespace\)::", "", e.name)
+        name = name.split("(")[0].strip()[:60]
+        ms, n = by_kernel.get(name, (0.0, 0))
+        by_kernel[name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+        t_lo = min(t_lo, e.time_range.start)
+        t_hi = max(t_hi, e.time_range.end)
+    busy = sum(ms for ms, _ in by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
+    return {"busy_ms": busy, "span_ms": (t_hi - t_lo) / 1e3,
+            "wall_ms": wall * 1e3,
+            "by_kernel": [[k, ms, n] for k, (ms, n) in top]}
+
+
+def serving_phase(sk, sv, name, qcpu):
+    """The serving path of ``name``: the calibration phase's seeded net and
+    its qstate (no second calibration), pack_weights, then ServingEngine
+    (bf16) on SERVE_REQUESTS requests of SERVE_BATCH images with the
+    launch counts set to 0 just before and read just after, each kernel
+    launched exactly as SERVE_LAUNCHES says; then the fused fp32, exact
     int8 and fake-quant forwards on the first request, held to each other
     and the engine's logits to the fused fp32 ones by cosine (>= 0.99),
-    and the img/s of each."""
+    and the img/s of each.  Returns (launches, summary, (net, qstate, the
+    first request on the card))."""
     from ptq4vit_tpu_torch import ServingEngine
     from ptq4vit_tpu_torch.models import get_net
     from ptq4vit_tpu_torch.ops.pack import pack_weights
     from ptq4vit_tpu_torch.utils.convert import qstate_to
-    path = "vit_base_patch16_384 serving"
-    net = get_net("vit_base_patch16_384", seed=0)
+    path = f"{name} serving"
+    net = get_net(name, seed=0)
     qstate = qstate_to(qcpu, "cuda")
     size, classes = net.cfg.img_size, net.cfg.num_classes
     reqs = [np.random.default_rng(10 + i).standard_normal(
@@ -755,9 +953,7 @@ def serving_phase(sk, sv, qcpu):
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {**sk.launch_counts(), **sv.launch_counts()}
-    expect = {"q8_linear": SERVE_REQUESTS * 49,
-              "fused_attention_qkv": SERVE_REQUESTS * 12,
-              "fused_attention": 0}
+    expect = {k: SERVE_REQUESTS * n for k, n in SERVE_LAUNCHES[name].items()}
     for k, v in launches.items():
         if v != expect.get(k, 0):
             raise AssertionError(f"{k} was launched {v} times by the {path} "
@@ -806,12 +1002,17 @@ def serving_phase(sk, sv, qcpu):
     for k, c in cos.items():
         if c < 0.99:
             raise AssertionError(f"{k}: cosine {c:.4f} < 0.99")
+    # where one request's time goes on the device
+    prof = profile_call(lambda: engine(reqs[0]))
+    summary["profile"] = prof
+    log(f"[profile] {path}, one request of {SERVE_BATCH} images under "
+        f"torch.profiler: device busy {prof['busy_ms']:.2f} ms of a "
+        f"{prof['span_ms']:.2f} ms span and {prof['wall_ms']:.2f} ms wall; "
+        "by kernel (ms, launches): " + ", ".join(
+            f"{k} {ms:.2f} x{n}" for k, ms, n in prof["by_kernel"][:10]))
     del engine, packed, outs, logits
     torch.cuda.empty_cache()
-    b8 = layout_path(sk, sv, net, qstate, x0[:4])
-    del net, qstate
-    torch.cuda.empty_cache()
-    return launches, summary, b8
+    return launches, summary, (net, qstate, x0)
 
 
 def layout_path(sk, sv, net, qstate, x):
@@ -865,6 +1066,63 @@ def layout_path(sk, sv, net, qstate, x):
                       "min_cosine": cos, "launches": launches}
 
 
+def window_per_op_path(sk, sv):
+    """The per-op window path: Swin-B/384 at full width, depths cut to (2,
+    2, 2, 2), calibrated with PTQ4ViT W8A8 and no_postgelu (8 images), so
+    fc2 is a plain linear and no block is in scope of the fused block
+    path.  Its fused forward on 8 images, with the launch counts set to 0
+    just before and read just after, runs each block's four linears, the
+    3 reductions and the head through B6 (4 x 8 + 4 = 36) and each
+    block's attention through B9 on the float qkv (8), with no B10 or
+    B11; finite logits, cosine >= 0.99 to the exact int8=True forward."""
+    from ptq4vit_tpu_torch.configs import ptq4vit
+    from ptq4vit_tpu_torch.models import model_config, net_from_config, swin
+    from ptq4vit_tpu_torch.ops.pack import pack_weights
+    cfg = dataclasses.replace(model_config("swin_base_patch4_window12_384"),
+                              depths=(2, 2, 2, 2))
+    net = net_from_config(cfg, swin.init_params(
+        cfg, np.random.default_rng(0), device="cuda"))
+    calib = np.random.default_rng(1).standard_normal(
+        (NUM_CALIB, 3, cfg.img_size, cfg.img_size)).astype(np.float32)
+    path = "swin_base_patch4_window12_384 depths (2, 2, 2, 2) no_postgelu"
+    qstate, calib_launches, summary = run_path(
+        path, sk, net, calib, config=ptq4vit(no_postgelu=True))
+    x = torch.from_numpy(calib).cuda()
+    packed = pack_weights(net.params, qstate)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        sk.reset_launch_counts()
+        sv.reset_launch_counts()
+        t0 = time.time()
+        fused = net.apply(x, qstate=qstate, int8="fused", packed=packed)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {**sk.launch_counts(), **sv.launch_counts()}
+        exact = net.apply(x, qstate=qstate, int8=True, packed=packed)
+    blocks = sum(cfg.depths)
+    expect = {"q8_linear": 4 * blocks + cfg.num_layers,
+              "fused_window_attention_qkv": blocks}
+    for k, v in launches.items():
+        if v != expect.get(k, 0):
+            raise AssertionError(f"{k} was launched {v} times by the {path} "
+                                 f"forward, expected {expect.get(k, 0)}")
+    if not torch.isfinite(fused).all():
+        raise AssertionError(f"{path}: logits are not finite")
+    cos = float(torch.nn.functional.cosine_similarity(
+        fused.double(), exact.double(), dim=-1).min())
+    summary.update(forward_s=wall, forward_launches=launches,
+                   min_cosine_to_exact=cos)
+    log(f"[serve] {path}: fused per-op forward of {len(x)} images in "
+        f"{wall:.3f} s, launches {launches}, min cosine to int8=True "
+        f"{cos:.6f}")
+    if cos < 0.99:
+        raise AssertionError(f"{path}: cosine {cos:.4f} < 0.99")
+    del net, qstate, packed
+    torch.cuda.empty_cache()
+    # the calibration's launches and the forward's, apart
+    return {path: calib_launches, f"{path} serving": launches}, summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -888,6 +1146,7 @@ def main() -> int:
 
     stats = kernel_phase(sk, torch.device("cuda"))
     serve_stats = serve_kernel_phase(sv, torch.device("cuda"))
+    serve_stats.update(window_kernel_phase(sv, torch.device("cuda")))
 
     by_path, summaries, qstates = {}, [], {}
     for path, name, qkw in (
@@ -907,11 +1166,20 @@ def main() -> int:
              sum(v[1] for v in flips.values())]
     log("[flips] int8 vs exact scoring, vit_base_patch16_384, 8 images: "
         + json.dumps({"by_op_type": flips, "total": total}))
-    serve_launches, summary, (b8_launches, b8_summary) = serving_phase(
-        sk, sv, qstates["vit_base_patch16_384"])
-    by_path[summary["path"]] = serve_launches
-    by_path[b8_summary["path"]] = b8_launches
-    summaries += [summary, b8_summary]
+    for name in SERVE_LAUNCHES:
+        launches, summary, (net, qstate, x0) = serving_phase(
+            sk, sv, name, qstates[name])
+        by_path[summary["path"]] = launches
+        summaries.append(summary)
+        if name == "vit_base_patch16_384":
+            launches, summary = layout_path(sk, sv, net, qstate, x0[:4])
+            by_path[summary["path"]] = launches
+            summaries.append(summary)
+        del net, qstate, x0
+        torch.cuda.empty_cache()
+    launches, summary = window_per_op_path(sk, sv)
+    by_path.update(launches)
+    summaries.append(summary)
     for path, (launches, summary) in policy_phase(sk).items():
         by_path[path] = launches
         summaries.append(summary)

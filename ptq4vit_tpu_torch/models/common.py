@@ -137,14 +137,30 @@ class QuantCtx:
             return None
         return serve.fused_attention_qkv(qkv, heads, qp1, qp2, scale)
 
-    def swin_block(self, prefix):
-        """The fused Swin block and window attention run in the JAX package
-        through kernels not ported yet (B9-B11); the port does not run the
-        generic path in their place."""
-        if self._serving():
-            raise NotImplementedError(
-                f"{prefix}: int8='fused' for Swin needs the window kernels "
-                "B9-B11, not ported yet; use int8=True")
+    def swin_block(self, prefix, x, blk, heads, ws, shift, res, bias, mask,
+                   ln_eps):
+        """The whole-Swin-block fused path (ops/int8_serve.fused_swin_block:
+        B10, B9, B11 and two B6): returns the new residual stream, or None
+        (the caller runs the generic per-op path)."""
+        if not self._serving():
+            return None
+        qps, pks = self._block_ops(prefix)
+        return serve.fused_swin_block(x, blk, qps, pks, heads, ws, shift, res,
+                                      bias, mask, ln_eps)
+
+    def window_attention_qkv(self, name1, name2, qkv, heads, nW, prescale,
+                             bias, mask):
+        """Fused Swin window attention (B9) on the float (B·nW, N, 3C) qkv
+        output, bias and shifted mask in-kernel; returns the (B·nW, N, C)
+        context, or None for the generic matmul1 / softmax / matmul2
+        sequence."""
+        if not self._serving():
+            return None
+        qp1, qp2 = self.qstate.get(name1), self.qstate.get(name2)
+        if qp1 is None or qp2 is None:
+            return None
+        return serve.fused_window_attention_qkv(qkv, heads, nW, qp1, qp2,
+                                                prescale, bias, mask)
 
     def conv2d_patch(self, name, x, w, b, patch: int):
         """Non-overlapping patch-embedding conv (stride == kernel) as

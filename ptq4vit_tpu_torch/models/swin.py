@@ -179,23 +179,28 @@ def init_params(cfg: SwinConfig, generator: np.random.Generator,
 def _window_attention(ctx: QuantCtx, prefix: str, x, attn_p, heads: int,
                       bias, mask):
     """Window attention over (B·nW, N, C) windows; bias (heads, N, N),
-    mask (nW, N, N) tensor or None."""
+    mask (nW, N, N) tensor or None.  In fused serving the attention runs
+    in B9 on the float qkv (``ctx.window_attention_qkv``)."""
     B_, N, C = x.shape
     hd = C // heads
     qkv = ctx.linear(f"{prefix}.qkv", x, attn_p["qkv"]["weight"],
                      attn_p["qkv"]["bias"])
-    qkv = qkv.reshape(B_, N, 3, heads, hd).permute(2, 0, 3, 1, 4)
-    q, k, v = qkv[0], qkv[1], qkv[2]
-    q = q * (hd ** -0.5)                     # pre-scaled q
-    attn = ctx.matmul(f"{prefix}.matmul1", q, k.transpose(-2, -1))
-    attn = attn + bias[None]
-    if mask is not None:
-        nW = mask.shape[0]
-        attn = attn.reshape(B_ // nW, nW, heads, N, N) + mask[None, :, None]
-        attn = attn.reshape(B_, heads, N, N)
-    attn = softmax_f32(attn, dim=-1)
-    y = ctx.matmul(f"{prefix}.matmul2", attn, v)
-    y = y.transpose(1, 2).reshape(B_, N, C)
+    nW = mask.shape[0] if mask is not None else 1
+    y = ctx.window_attention_qkv(f"{prefix}.matmul1", f"{prefix}.matmul2",
+                                 qkv, heads, nW, hd ** -0.5, bias, mask)
+    if y is None:
+        qkv = qkv.reshape(B_, N, 3, heads, hd).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv[0], qkv[1], qkv[2]
+        q = q * (hd ** -0.5)                 # pre-scaled q
+        attn = ctx.matmul(f"{prefix}.matmul1", q, k.transpose(-2, -1))
+        attn = attn + bias[None]
+        if mask is not None:
+            attn = attn.reshape(B_ // nW, nW, heads, N, N) \
+                + mask[None, :, None]
+            attn = attn.reshape(B_, heads, N, N)
+        attn = softmax_f32(attn, dim=-1)
+        y = ctx.matmul(f"{prefix}.matmul2", attn, v)
+        y = y.transpose(1, 2).reshape(B_, N, C)
     return ctx.linear(f"{prefix}.proj", y, attn_p["proj"]["weight"],
                       attn_p["proj"]["bias"])
 
@@ -207,8 +212,9 @@ def forward(params: Dict[str, Any], x, cfg: SwinConfig,
             packed: Optional[Dict[str, Any]] = None):
     """Swin forward.  x: (B, 3, H, W) float32.  Returns logits, or
     (logits, taps) when ``capture``.  ``int8``, ``compute_dtype`` and
-    ``packed`` as in the ViT forward; ``int8="fused"`` raises until the
-    window kernels (B9-B11) are ported."""
+    ``packed`` as in the ViT forward.  ``int8="fused"`` tries each block's
+    fused path (``ctx.swin_block``: B10, B9, B11, B6) first, then the
+    per-op one (B6 linears, B9 on the float qkv), then the generic ops."""
     if compute_dtype is not None:
         params = cast_params(params, compute_dtype)
         x = x.to(compute_dtype)
@@ -227,7 +233,6 @@ def forward(params: Dict[str, Any], x, cfg: SwinConfig,
         for j, blk in enumerate(layer["blocks"]):
             ws, shift = cfg.block_geometry(i, j)
             p = f"layers.{i}.blocks.{j}"
-            ctx.swin_block(p)
             rpi = torch.from_numpy(relative_position_index(ws).reshape(-1)) \
                 .to(x.device)
             bias = blk["attn"]["relative_position_bias_table"][rpi]
@@ -236,6 +241,11 @@ def forward(params: Dict[str, Any], x, cfg: SwinConfig,
             if mask is not None:
                 mask = torch.from_numpy(mask).to(device=x.device,
                                                  dtype=x.dtype)
+            xb = ctx.swin_block(p, x, blk, heads, ws, shift, res, bias, mask,
+                                cfg.ln_eps)
+            if xb is not None:
+                x = xb
+                continue
             shortcut = x
             y = layer_norm(x, blk["norm1"]["weight"], blk["norm1"]["bias"],
                            cfg.ln_eps)

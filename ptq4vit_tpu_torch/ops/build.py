@@ -56,6 +56,11 @@ _SERVE = {
                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "ptq_fused_attention": [_P, _P, _P, _I, _L, _L, _L, _P, _I, _L, _L, _L,
                             _P, _P, _F] + [_I] * 10 + [_P],
+    "ptq_window_attention": [_P, _P, _P, _I, _L, _L, _L, _P, _I, _L, _L, _L,
+                             _P, _P, _F, _P, _P, _I] + [_I] * 10 + [_P],
+    "ptq_q8_win_qkv": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _F] + [_I] * 7
+                      + [_P],
+    "ptq_q8_win_proj": [_P, _P, _P, _P, _P, _P, _I, _P] + [_I] * 6 + [_P],
 }
 LIBRARIES = {"search_kernels": _SEARCH, "serve_kernels": _SERVE}
 

@@ -1,28 +1,38 @@
-"""The fused int8 serving kernels and the dispatch that composes them into a
-ViT block whose intermediate activations cross device memory as int8.
+"""The fused int8 serving kernels and the dispatch that composes them into
+ViT and Swin blocks whose intermediate activations cross device memory as
+int8.
 
-The counterpart of ``ptq4vit_tpu/ops/int8_serve.py`` (its ViT half):
+The counterpart of ``ptq4vit_tpu/ops/int8_serve.py``:
 
   q8_linear            <- q8_linear (B6, body _linear_kernel)
   fused_attention_qkv  <- fused_attention_qkv (B7, body _attn_kernel_qkv)
   fused_attention      <- fused_attention (B8, body _attn_kernel): the same
                           kernel as B7, entered with the strides of the
                           (B, H, N, hd) layout
-  fused_linear, fused_vit_block and the scope helpers <- their namesakes
+  fused_window_attention_qkv <- fused_window_attention_qkv (B9, body
+                          _attn_kernel_win): B7's kernel over Swin windows
+                          with the rel-pos bias and shifted mask added
+  q8_win_qkv           <- _q8_win_qkv (B10, body _win_qkv_kernel): B6 with
+                          its input rows read from the image layout
+  q8_win_proj          <- _q8_win_proj (B11, body _win_proj_kernel): B6
+                          with its output and residual rows in the image
+                          layout
+  fused_linear, fused_vit_block, fused_swin_block and the scope helpers
+                       <- their namesakes
 
 For CUDA tensors the wrappers launch the hand-written kernels of
 ``csrc/serve_kernels.cu`` (or raise); for CPU tensors they run the plain
-PyTorch versions beside them (``q8_linear_ref``, ``fused_attention_ref``),
-which follow the same formulas with the int8 dot as an exact float64
-matmul of the levels.  Each kernel wrapper counts its launches in
-``<function>.launches``.
+PyTorch versions beside them (the ``*_ref`` functions), which follow the
+same formulas with the int8 dot as an exact float64 matmul of the levels.
+Each kernel wrapper counts its launches in ``<function>.launches``.
 
 Scope (the JAX rules about semantics): LinearQP with n_H == 1, n_a == 1 and
 bits <= 8; matmul QPs with per-head scales and no operand block grids; the
-block path needs fc2 post-GELU and one qmax for the packed q / k / v
+block paths need fc2 post-GELU and one qmax for the packed q / k / v
 columns.  The JAX rules that are only TPU tiling (K % 128, 128-lane head
-groups, VMEM budgets) are dropped: the port's kernels take any K, head
-count and head dim.  ``relaxed`` (bf16 epilogues) is not ported.
+groups, VMEM budgets, the attention row tile) are dropped: the port's
+kernels take any K, head count and head dim.  ``relaxed`` (bf16
+epilogues) is not ported.
 """
 from __future__ import annotations
 
@@ -111,6 +121,13 @@ def q8_linear_ref(x, w_intT, w_scale, b, a_interval, a_neg_interval, *,
     return out.reshape(lead + (N,))
 
 
+def _scalars(dev, a, a_neg=None, o_pos=1.0, o_neg=1.0):
+    """B6's four scalars (a, a_neg, o_pos, o_neg) as a vector on the card:
+    reading them on the host would wait for the work queued before."""
+    return torch.stack([_f32(v, dev).reshape(()) for v in (
+        a, 1.0 if a_neg is None else a_neg, o_pos, o_neg)])
+
+
 def _float_dtype(x, float_dtype):
     if float_dtype is not None:
         return float_dtype
@@ -118,11 +135,14 @@ def _float_dtype(x, float_dtype):
 
 
 def fused_attention_ref(q, k, v, ph, split, scale, a_out, *, sos: bool,
-                        in_q8: bool, qmaxes, out_dtype):
-    """Plain version of the B7 / B8 kernel body on (B, H, N, hd) views.
+                        in_q8: bool, qmaxes, out_dtype, extra=None):
+    """Plain version of the B7 / B8 / B9 kernel body on (B, H, N, hd)
+    views.
 
     ph (4, H): the a1, b1, a2, b2 head scales; qmaxes (A1, B1, A2, B2, O);
-    a_out: the requantization scale (int8 out) or None (float out)."""
+    a_out: the requantization scale (int8 out) or None (float out);
+    extra: (nW, H, N, N) fp32 added to the logits of image b's window
+    b % nW before the softmax (B9), or None."""
     dev = q.device
     A1, B1, A2, B2, O = qmaxes
     H = q.shape[1]
@@ -134,6 +154,9 @@ def fused_attention_ref(q, k, v, ph, split, scale, a_out, *, sos: bool,
         ki = levels(k.float(), b1, -B1, B1 - 1)
         vi = levels(v.float(), b2, -B2, B2 - 1)
     logits = int_dot(qi, ki.transpose(-2, -1)) * (a1 * b1 * _f32(scale, dev))
+    if extra is not None:
+        logits = (logits.reshape((-1,) + tuple(extra.shape)) + extra) \
+            .reshape(logits.shape)
     p = torch.exp(logits - torch.amax(logits, dim=-1, keepdim=True))
     p = p / torch.sum(p, dim=-1, keepdim=True)
     if sos:
@@ -151,6 +174,48 @@ def fused_attention_ref(q, k, v, ph, split, scale, a_out, *, sos: bool,
     if a_out is not None:
         return levels(out, _f32(a_out, dev), -O, O - 1).to(torch.int8)
     return out.to(out_dtype)
+
+
+def fused_window_attention_ref(qkv, heads: int, nW: int, ph, split,
+                               prescale, bias, mask, a_out, *, sos: bool,
+                               in_q8: bool, qmaxes, out_dtype):
+    """Plain version of B9 on the (B·nW, N, 3C) qkv: ph[0] holds a1/s and
+    ``prescale`` is s; the logits get bias (H, N, N) + mask (nW, N, N), in
+    that order (JAX's ``extra``, int8_serve.py:625).  Returns (B·nW, N,
+    C)."""
+    B_, N, c3 = qkv.shape
+    C = c3 // 3
+    extra = bias.float()[None]
+    if mask is not None:
+        extra = extra + mask.float()[:, None]
+    t = qkv.reshape(B_, N, 3, heads, C // heads).permute(2, 0, 3, 1, 4)
+    out = fused_attention_ref(t[0], t[1], t[2], ph, split, prescale, a_out,
+                              sos=sos, in_q8=in_q8, qmaxes=qmaxes,
+                              out_dtype=out_dtype, extra=extra)
+    return out.transpose(1, 2).reshape(B_, N, C)
+
+
+def q8_win_qkv_ref(x4, w_intT, w_scale, b, a_interval, ln, ws: int,
+                   col_scales, *, a_qmax: int, out_qmax: int = 128):
+    """Plain version of B10: B6's LN / quantize / int8 dot / per-column
+    requant on ``window_partition(x4, ws)``."""
+    from ..models.swin import window_partition
+    return q8_linear_ref(window_partition(x4, ws), w_intT, w_scale, b,
+                         a_interval, None, a_qmax=a_qmax, postgelu=False,
+                         ln=ln, out_q="vec", out_scale=col_scales,
+                         out_qmax=out_qmax)
+
+
+def q8_win_proj_ref(y_q, w_intT, w_scale, b, a_interval, ws: int, res: int,
+                    residual4, *, a_qmax: int):
+    """Plain version of B11: B6's int8-input product in fp32, reversed to
+    the image layout, plus the residual, cast to its dtype."""
+    from ..models.swin import window_reverse
+    y = q8_linear_ref(y_q, w_intT, w_scale, b, a_interval, None,
+                      a_qmax=a_qmax, postgelu=False, in_q="q8",
+                      float_dtype=torch.float32)
+    return (window_reverse(y, ws, res, res) + residual4.float()) \
+        .to(residual4.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -214,11 +279,7 @@ def q8_linear(x, w_intT, w_scale, b, a_interval, a_neg_interval, *,
         _check(osc, "out_scale", torch.float32, (N,), dev)
     elif out_q == "twin":
         o_pos, o_neg = out_scale
-    # the scalars stay on the card: reading them on the host would wait
-    # for the work queued before
-    scal = torch.stack([_f32(v, dev).reshape(()) for v in (
-        a_interval, 1.0 if a_neg_interval is None else a_neg_interval,
-        o_pos, o_neg)])
+    scal = _scalars(dev, a_interval, a_neg_interval, o_pos, o_neg)
     fdt = _float_dtype(x, float_dtype)
     out_dtype = torch.int8 if out_q else fdt
     if out_dtype not in _KINDS:
@@ -241,8 +302,9 @@ def q8_linear(x, w_intT, w_scale, b, a_interval, a_neg_interval, *,
 
 
 def _attn_launch(q, k, v, strides, out, ostrides, ph, split, scale, a_out,
-                 B, H, N, hd, sos, qmaxes, in_dtype):
-    """Launch the B7 / B8 kernel; q, k, v are element addresses."""
+                 B, H, N, hd, sos, qmaxes, in_dtype, window=None):
+    """Launch the B7 / B8 kernel, or B9's with ``window`` = (bias (H, N,
+    N), mask (nW, N, N) or None, nW); q, k, v are element addresses."""
     from .build import load
     lib = load("serve_kernels")
     dev = out.device
@@ -252,9 +314,20 @@ def _attn_launch(q, k, v, strides, out, ostrides, ph, split, scale, a_out,
                         .reshape(()),
                         _f32(1.0 if a_out is None else a_out, dev)
                         .reshape(())])
-    _launch(lib.ptq_fused_attention, q, k, v, _KINDS[in_dtype], *strides,
-            _ptr(out), _KINDS[out.dtype], *ostrides, _ptr(ph), _ptr(misc),
-            float(scale), B, H, N, hd, int(sos), *qmaxes, _stream())
+    head = (q, k, v, _KINDS[in_dtype], *strides, _ptr(out),
+            _KINDS[out.dtype], *ostrides, _ptr(ph), _ptr(misc), float(scale))
+    tail = (B, H, N, hd, int(sos), *qmaxes, _stream())
+    if window is None:
+        _launch(lib.ptq_fused_attention, *head, *tail)
+        return
+    bias, mask, nW = window
+    bias = bias.float().contiguous()
+    _check(bias, "bias", torch.float32, (H, N, N), dev)
+    if mask is not None:
+        mask = mask.float().contiguous()
+        _check(mask, "mask", torch.float32, (nW, N, N), dev)
+    _launch(lib.ptq_window_attention, *head, _ptr(bias), _ptr(mask), nW,
+            *tail)
 
 
 def fused_attention_qkv(qkv, heads: int, qp1, qp2, scale, *,
@@ -330,7 +403,145 @@ def fused_attention(q, k, v, qp1, qp2, scale):
     return out
 
 
-KERNELS = (q8_linear, fused_attention_qkv, fused_attention)
+def fused_window_attention_qkv(qkv, heads: int, nW: int, qp1, qp2,
+                               prescale, bias, mask, *, in_q8: bool = False,
+                               out_scale=None, out_qmax: int = 128):
+    """B9: fused Swin window attention softmax(q·s·kᵀ + bias [+ mask])·v
+    from the packed (B·nW, N, 3C) qkv-linear output, windows images-major,
+    written as (B·nW, N, C).
+
+    The reference pre-scales q by s = ``prescale`` before matmul1, so its
+    A operand quantizes q·s: folded into the q scale a1/s (an exact
+    division) with the logits rescaled by (a1/s · b1) · s.
+    bias: (H, N, N) relative-position bias; mask: (nW, N, N) additive
+    shifted-window mask or None (both used in fp32).  in_q8: qkv holds
+    int8 levels at the (a1/s, b1, b2) head scales (B10's output);
+    out_scale: the context is requantized at this scalar and returned
+    int8.  Returns (B·nW, N, C) in qkv's dtype (float32 for int8 in and
+    float out, int8 with ``out_scale``), or None when the QPs are out of
+    scope."""
+    B_, N, c3 = qkv.shape
+    if c3 % (3 * heads) or B_ % nW:
+        raise ValueError(f"qkv {tuple(qkv.shape)}: not 3 x {heads} heads "
+                         f"over whole images of {nW} windows")
+    C = c3 // 3
+    hd = C // heads
+    scoped = window_attn_scope(qp1, qp2, heads, prescale)
+    if scoped is None:
+        return None
+    ph, sos = scoped
+    qmaxes = attn_qmaxes(qp1, qp2, out_qmax)
+    split = qp2.split if sos else None
+    fdt = qkv.dtype if qkv.is_floating_point() else torch.float32
+    if not qkv.is_cuda:
+        return fused_window_attention_ref(
+            qkv, heads, nW, ph, split, prescale, bias, mask, out_scale,
+            sos=sos, in_q8=in_q8, qmaxes=qmaxes, out_dtype=fdt)
+    if (qkv.dtype == torch.int8) != bool(in_q8):
+        raise TypeError("qkv must be int8 exactly when in_q8")
+    if qkv.dtype not in _KINDS:
+        raise TypeError(f"qkv: unsupported dtype {qkv.dtype}")
+    _check(qkv, "qkv", qkv.dtype, (B_, N, c3), qkv.device)
+    out = torch.empty((B_, N, C), device=qkv.device,
+                      dtype=torch.int8 if out_scale is not None else fdt)
+    base = qkv.data_ptr()
+    es = qkv.element_size()
+    _attn_launch(base, base + C * es, base + 2 * C * es, (N * c3, hd, c3),
+                 out, (N * C, hd, C), ph, split, prescale, out_scale, B_,
+                 heads, N, hd, sos, qmaxes, qkv.dtype,
+                 window=(bias, mask, nW))
+    fused_window_attention_qkv.launches += 1
+    return out
+
+
+def q8_win_qkv(x4, w_intT, w_scale, b, a_interval, ln, ws: int, col_scales,
+               *, a_qmax: int, out_qmax: int = 128):
+    """B10: the Swin qkv linear over the unshifted window grid of the
+    (B, res, res, C) image layout (a shifted block passes its rolled
+    stream): LayerNorm ``ln`` = (weight, bias, eps), quantize at
+    ``a_interval``, int8 dot with w_intT (C, 3C), rescale, and requantize
+    per column at ``col_scales`` (3C,) (the attention's a1/s, b1, b2, each
+    repeated hd times).  Windows are read in place, in window_partition's
+    order.  Returns (B·(res/ws)², ws², 3C) int8."""
+    B, res, res2, C = x4.shape
+    if res != res2 or res % ws:
+        raise ValueError(f"x4 {tuple(x4.shape)}: not square whole "
+                         f"windows of {ws}")
+    if not x4.is_cuda:
+        return q8_win_qkv_ref(x4, w_intT, w_scale, b, a_interval, ln, ws,
+                              col_scales, a_qmax=a_qmax, out_qmax=out_qmax)
+    from .build import load
+    lib = load("serve_kernels")
+    dev = x4.device
+    N3 = w_intT.shape[1]
+    if x4.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x4: expected float32 or bfloat16, got {x4.dtype}")
+    _check(x4, "x4", x4.dtype, (B, res, res, C), dev)
+    _check(w_intT, "w_intT", torch.int8, (C, N3), dev)
+    wsc = w_scale.float().contiguous()
+    _check(wsc, "w_scale", torch.float32, (N3,), dev)
+    bias = b.float().contiguous() if b is not None else None
+    if bias is not None:
+        _check(bias, "b", torch.float32, (N3,), dev)
+    lnw, lnb = ln[0].float().contiguous(), ln[1].float().contiguous()
+    _check(lnw, "ln weight", torch.float32, (C,), dev)
+    _check(lnb, "ln bias", torch.float32, (C,), dev)
+    osc = col_scales.float().contiguous()
+    _check(osc, "col_scales", torch.float32, (N3,), dev)
+    scal = _scalars(dev, a_interval)
+    M = B * res * res
+    out = torch.empty((B * (res // ws) ** 2, ws * ws, N3), dtype=torch.int8,
+                      device=dev)
+    _launch(lib.ptq_q8_win_qkv, _ptr(x4), _KINDS[x4.dtype], _ptr(w_intT),
+            _ptr(wsc), _ptr(bias), _ptr(lnw), _ptr(lnb), _ptr(osc),
+            _ptr(out), _ptr(scal), float(ln[2]), M, C, N3, a_qmax, out_qmax,
+            ws, res, _stream())
+    q8_win_qkv.launches += 1
+    return out
+
+
+def q8_win_proj(y_q, w_intT, w_scale, b, a_interval, ws: int, res: int,
+                residual4, *, a_qmax: int):
+    """B11: the Swin proj linear over the window-layout int8 context
+    y_q (B·(res/ws)², ws², C) at ``a_interval``, written to the (B, res,
+    res, C) image layout with ``residual4`` (that layout, float32 or
+    bfloat16; a shifted block's rolled stream) added in the epilogue.
+    Returns (B, res, res, C) in the residual's dtype."""
+    B_, N, C = y_q.shape
+    B = residual4.shape[0]
+    Co = w_intT.shape[1]
+    if N != ws * ws or B_ != B * (res // ws) ** 2 or res % ws:
+        raise ValueError(f"y_q {tuple(y_q.shape)} is not the window layout "
+                         f"of {B} images of {res} x {res} in windows of "
+                         f"{ws}")
+    if not y_q.is_cuda:
+        return q8_win_proj_ref(y_q, w_intT, w_scale, b, a_interval, ws, res,
+                               residual4, a_qmax=a_qmax)
+    from .build import load
+    lib = load("serve_kernels")
+    dev = y_q.device
+    _check(y_q, "y_q", torch.int8, (B_, N, C), dev)
+    _check(w_intT, "w_intT", torch.int8, (C, Co), dev)
+    wsc = w_scale.float().contiguous()
+    _check(wsc, "w_scale", torch.float32, (Co,), dev)
+    bias = b.float().contiguous() if b is not None else None
+    if bias is not None:
+        _check(bias, "b", torch.float32, (Co,), dev)
+    if residual4.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError("residual4: expected float32 or bfloat16, got "
+                        f"{residual4.dtype}")
+    _check(residual4, "residual4", residual4.dtype, (B, res, res, Co), dev)
+    scal = _scalars(dev, a_interval)
+    out = torch.empty_like(residual4)
+    _launch(lib.ptq_q8_win_proj, _ptr(y_q), _ptr(w_intT), _ptr(wsc),
+            _ptr(bias), _ptr(residual4), _ptr(out), _KINDS[out.dtype],
+            _ptr(scal), B_ * N, C, Co, a_qmax, ws, res, _stream())
+    q8_win_proj.launches += 1
+    return out
+
+
+KERNELS = (q8_linear, fused_attention_qkv, fused_attention,
+           fused_window_attention_qkv, q8_win_qkv, q8_win_proj)
 
 
 def reset_launch_counts() -> None:
@@ -377,6 +588,18 @@ def attn_scope(qp1, qp2, heads: int):
     return torch.stack(scales), qp2.split is not None
 
 
+def window_attn_scope(qp1, qp2, heads: int, prescale):
+    """``attn_scope`` of a Swin window attention, whose matmul1 quantizes
+    the pre-scaled q·s: (ph with a1 divided by s = ``prescale``, exactly,
+    sos), else None."""
+    scoped = attn_scope(qp1, qp2, heads)
+    if scoped is None:
+        return None
+    ph, sos = scoped
+    return torch.cat([fq.exact_div(ph[:1], _f32(prescale, ph.device)),
+                      ph[1:]]), sos
+
+
 def attn_qmaxes(qp1, qp2, out_qmax: int):
     return (qp1.A_qmax, qp1.B_qmax, qp2.A_qmax, qp2.B_qmax, out_qmax)
 
@@ -413,54 +636,49 @@ def fused_linear(x, w, b, qp, pk, epilogue: str = None):
 BLOCK_OPS = ("qkv", "matmul1", "matmul2", "proj", "fc1", "fc2")
 
 
-def fused_vit_block(x, blk, qps, pks, heads: int, scale, ln_eps):
-    """One pre-norm ViT block (LN -> qkv -> attention -> proj -> residual
-    -> LN -> fc1 / GELU -> fc2 -> residual) in five launches: LN1 / LN2 in
-    the qkv / fc1 prologues; qkv emitted int8 at the attention's a1 / b1 /
-    b2 head scales; the context emitted int8 at the proj input scale; fc1
-    GELU'd and twin-packed int8 for fc2; both residual adds in the
-    epilogues.
-
-    x: (B, N, d); blk: the block's params; qps / pks: {op suffix: QP /
-    packed entry}.  Returns the new residual stream, or None when a piece
-    is out of scope (the caller runs the generic per-op path)."""
-    qp_qkv, qp1, qp2, qp_proj, qp_fc1, qp_fc2 = (qps.get(k)
-                                                 for k in BLOCK_OPS)
-    if any(qp is None for qp in (qp_qkv, qp1, qp2, qp_proj, qp_fc1, qp_fc2)):
+def _block_scope(qps, heads: int):
+    """The block's (qkv, matmul1, matmul2, proj, fc1, fc2) QPs when the
+    whole-block path takes them, else None: the four linears in scope,
+    fc2 post-GELU and the others not, the attention in scope, and one
+    qmax for the packed q / k / v columns."""
+    qs = tuple(qps.get(k) for k in BLOCK_OPS)
+    if any(qp is None for qp in qs):
         return None
+    qp_qkv, qp1, qp2, qp_proj, qp_fc1, qp_fc2 = qs
     if not all(linear_scope(qp) for qp in (qp_qkv, qp_proj, qp_fc1, qp_fc2)):
         return None
     if qp_qkv.postgelu or qp_proj.postgelu or qp_fc1.postgelu \
             or not qp_fc2.postgelu:
         return None
-    hd = x.shape[-1] // heads
     if attn_scope(qp1, qp2, heads) is None:
         return None
-    # one clip range must cover the packed q / k / v columns
     if not (qp1.A_qmax == qp1.B_qmax == qp2.B_qmax):
         return None
-    col_scales = torch.cat([
-        torch.repeat_interleave(head_scalar(iv, heads), hd)
-        for iv in (qp1.A_interval, qp1.B_interval, qp2.B_interval)])
+    return qs
+
+
+def _block_weights(blk, qs, pks):
+    """(w_intT, w_scale) of the block's qkv, proj, fc1 and fc2."""
     attn, mlp = blk["attn"], blk["mlp"]
-    w_qkv, w_proj, w_fc1, w_fc2 = (
-        packed_or_compute(p["weight"], qp, pks.get(k) or {})
-        for p, qp, k in ((attn["qkv"], qp_qkv, "qkv"),
-                         (attn["proj"], qp_proj, "proj"),
-                         (mlp["fc1"], qp_fc1, "fc1"),
-                         (mlp["fc2"], qp_fc2, "fc2")))
-    qkv_q = q8_linear(x, *w_qkv, attn["qkv"]["bias"], qp_qkv.a_interval[0, 0],
-                      None, a_qmax=qp_qkv.a_qmax, postgelu=False,
-                      ln=(blk["norm1"]["weight"], blk["norm1"]["bias"],
-                          ln_eps),
-                      out_q="vec", out_scale=col_scales,
-                      out_qmax=qp1.A_qmax)
-    y_q = fused_attention_qkv(qkv_q, heads, qp1, qp2, scale, in_q8=True,
-                              out_scale=qp_proj.a_interval[0, 0],
-                              out_qmax=qp_proj.a_qmax)
-    x = q8_linear(y_q, *w_proj, attn["proj"]["bias"],
-                  qp_proj.a_interval[0, 0], None, a_qmax=qp_proj.a_qmax,
-                  postgelu=False, in_q="q8", float_dtype=x.dtype, residual=x)
+    return [packed_or_compute(p["weight"], qp, pks.get(k) or {})
+            for p, qp, k in ((attn["qkv"], qs[0], "qkv"),
+                             (attn["proj"], qs[3], "proj"),
+                             (mlp["fc1"], qs[4], "fc1"),
+                             (mlp["fc2"], qs[5], "fc2"))]
+
+
+def _col_scales(a1, qp1, qp2, heads: int, hd: int):
+    """The qkv requantization scales: a1, b1 and b2 per head, each
+    repeated hd times."""
+    return torch.cat([torch.repeat_interleave(v, hd) for v in (
+        a1, head_scalar(qp1.B_interval, heads),
+        head_scalar(qp2.B_interval, heads))])
+
+
+def _fused_mlp(x, blk, qp_fc1, qp_fc2, w_fc1, w_fc2, ln_eps):
+    """LN2 -> fc1 / GELU -> twin-packed int8 -> fc2 + residual, two B6
+    launches."""
+    mlp = blk["mlp"]
     z_q = q8_linear(x, *w_fc1, mlp["fc1"]["bias"], qp_fc1.a_interval[0, 0],
                     None, a_qmax=qp_fc1.a_qmax, postgelu=False,
                     ln=(blk["norm2"]["weight"], blk["norm2"]["bias"],
@@ -473,3 +691,97 @@ def fused_vit_block(x, blk, qps, pks, heads: int, scale, ln_eps):
                      qp_fc2.a_interval[0, 0], qp_fc2.a_neg_interval,
                      a_qmax=qp_fc2.a_qmax, postgelu=True, in_q="q8twin",
                      float_dtype=x.dtype, residual=x)
+
+
+def fused_vit_block(x, blk, qps, pks, heads: int, scale, ln_eps):
+    """One pre-norm ViT block (LN -> qkv -> attention -> proj -> residual
+    -> LN -> fc1 / GELU -> fc2 -> residual) in five launches: LN1 / LN2 in
+    the qkv / fc1 prologues; qkv emitted int8 at the attention's a1 / b1 /
+    b2 head scales; the context emitted int8 at the proj input scale; fc1
+    GELU'd and twin-packed int8 for fc2; both residual adds in the
+    epilogues.
+
+    x: (B, N, d); blk: the block's params; qps / pks: {op suffix: QP /
+    packed entry}.  Returns the new residual stream, or None when a piece
+    is out of scope (the caller runs the generic per-op path)."""
+    qs = _block_scope(qps, heads)
+    if qs is None:
+        return None
+    qp_qkv, qp1, qp2, qp_proj, qp_fc1, qp_fc2 = qs
+    hd = x.shape[-1] // heads
+    w_qkv, w_proj, w_fc1, w_fc2 = _block_weights(blk, qs, pks)
+    attn = blk["attn"]
+    qkv_q = q8_linear(x, *w_qkv, attn["qkv"]["bias"], qp_qkv.a_interval[0, 0],
+                      None, a_qmax=qp_qkv.a_qmax, postgelu=False,
+                      ln=(blk["norm1"]["weight"], blk["norm1"]["bias"],
+                          ln_eps),
+                      out_q="vec",
+                      out_scale=_col_scales(head_scalar(qp1.A_interval,
+                                                        heads),
+                                            qp1, qp2, heads, hd),
+                      out_qmax=qp1.A_qmax)
+    y_q = fused_attention_qkv(qkv_q, heads, qp1, qp2, scale, in_q8=True,
+                              out_scale=qp_proj.a_interval[0, 0],
+                              out_qmax=qp_proj.a_qmax)
+    x = q8_linear(y_q, *w_proj, attn["proj"]["bias"],
+                  qp_proj.a_interval[0, 0], None, a_qmax=qp_proj.a_qmax,
+                  postgelu=False, in_q="q8", float_dtype=x.dtype, residual=x)
+    return _fused_mlp(x, blk, qp_fc1, qp_fc2, w_fc1, w_fc2, ln_eps)
+
+
+def fused_swin_block(x, blk, qps, pks, heads: int, ws: int, shift: int,
+                     res: int, bias, mask, ln_eps):
+    """One Swin block with int8 handoffs, the window analogue of
+    :func:`fused_vit_block`, in five launches and two rolls:
+
+      * a shifted block rolls the (B, res, res, C) stream by -shift first
+        (``torch.roll``, as JAX); the block then runs in rolled
+        coordinates and rolls its attention output back, since the
+        residual add commutes with the permutation;
+      * B10: LN1, quantize, qkv, requantized per column at (a1/s, b1, b2)
+        -- the reference quantizes the pre-scaled q·s, so a1 is divided
+        by s = hd^-0.5 (exactly) -- read window by window from the image
+        layout;
+      * B9: window attention with the rel-pos bias and shifted mask,
+        context emitted int8 at the proj scale;
+      * B11: proj written back to the image layout, plus the (rolled)
+        residual;
+      * LN2 -> fc1 / GELU -> twin-packed int8 -> fc2 + residual (B6).
+
+    x: (B, res·res, C); bias: (H, N, N); mask: (nW, N, N) or None.
+    Returns the new residual stream, or None when a piece is out of scope.
+
+    JAX's other branch (int8_serve.py:1115, partition / generic linears /
+    reverse) is not ported: JAX takes it when the TPU rules (C % 128, VMEM
+    budgets) refuse the band kernels, and the port has no such rules; the
+    only geometric condition, res % ws == 0, is what window_partition
+    needs on every path of the forward."""
+    qs = _block_scope(qps, heads)
+    if qs is None:
+        return None
+    qp_qkv, qp1, qp2, qp_proj, qp_fc1, qp_fc2 = qs
+    B, T, C = x.shape
+    hd = C // heads
+    s = hd ** -0.5
+    a1 = window_attn_scope(qp1, qp2, heads, s)[0][0]      # a1 / s
+    w_qkv, w_proj, w_fc1, w_fc2 = _block_weights(blk, qs, pks)
+    attn = blk["attn"]
+    x4 = x.reshape(B, res, res, C)
+    if shift:
+        x4 = torch.roll(x4, (-shift, -shift), dims=(1, 2))
+    qkv_q = q8_win_qkv(x4, *w_qkv, attn["qkv"]["bias"],
+                       qp_qkv.a_interval[0, 0],
+                       (blk["norm1"]["weight"], blk["norm1"]["bias"], ln_eps),
+                       ws, _col_scales(a1, qp1, qp2, heads, hd),
+                       a_qmax=qp_qkv.a_qmax, out_qmax=qp1.A_qmax)
+    y_q = fused_window_attention_qkv(
+        qkv_q, heads, 1 if mask is None else mask.shape[0], qp1, qp2, s,
+        bias, mask, in_q8=True, out_scale=qp_proj.a_interval[0, 0],
+        out_qmax=qp_proj.a_qmax)
+    y4 = q8_win_proj(y_q, *w_proj, attn["proj"]["bias"],
+                     qp_proj.a_interval[0, 0], ws, res, x4,
+                     a_qmax=qp_proj.a_qmax)
+    if shift:
+        y4 = torch.roll(y4, (shift, shift), dims=(1, 2))
+    return _fused_mlp(y4.reshape(B, T, C), blk, qp_fc1, qp_fc2, w_fc1, w_fc2,
+                      ln_eps)

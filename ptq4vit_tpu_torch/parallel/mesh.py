@@ -1,8 +1,9 @@
 """Classification evaluation on one device.
 
 The counterpart of ``ptq4vit_tpu/parallel/mesh.py`` ``Evaluator`` and
-``test_classification`` without a mesh: the ("data", "model") mesh and
-tensor parallelism wait for multi-GPU (ROADMAP A12) and raise.
+``test_classification`` without a mesh, for ViT / DeiT and Swin alike
+(``int8="fused"`` runs each net's fused blocks): the ("data", "model")
+mesh and tensor parallelism wait for multi-GPU (ROADMAP A12) and raise.
 """
 from __future__ import annotations
 

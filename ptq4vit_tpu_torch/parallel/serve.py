@@ -2,8 +2,12 @@
 
 The counterpart of ``ptq4vit_tpu/parallel/serve.py`` ``ServingEngine``:
 packed int8 weights and the fused kernels (``int8="fused"``: B6 and B7 on
-every ViT block).  The data-parallel mesh (ROADMAP A12) and the relaxed
-bf16 epilogues are not ported and raise.
+every ViT block; B10, B9, B11 and B6 on every Swin block).  Model-agnostic:
+the net's own forward picks its fused blocks.  In bf16 the residual
+stream, biases and LayerNorm weights are bf16; the kernels accumulate
+exactly in int32, rescale in fp32, and B9 adds the rel-pos bias and the
+shifted mask in fp32.  The data-parallel mesh (ROADMAP A12) and the
+relaxed bf16 epilogues are not ported and raise.
 """
 from __future__ import annotations
 

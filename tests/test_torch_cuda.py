@@ -397,4 +397,117 @@ def test_fused_attention_matches_plain_version_on_the_card(H, N, hd):
                                      qmaxes=(128,) * 5, out_dtype=q.dtype)
         assert_float_close(got, ref, 1e-5, step.reshape(1, H, 1, 1))
     assert sv.launch_counts() == {"q8_linear": 0, "fused_attention_qkv": 10,
-                                  "fused_attention": 2}
+                                  "fused_attention": 2,
+                                  "fused_window_attention_qkv": 0,
+                                  "q8_win_qkv": 0, "q8_win_proj": 0}
+
+
+# ---------------------------------------------------------------------------
+# Swin serving kernels: B9 (fused_window_attention_qkv), B10 (q8_win_qkv),
+# B11 (q8_win_proj) against their plain versions
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res,ws", [(14, 7), (12, 12)])
+def test_window_linears_match_plain_versions_on_the_card(res, ws):
+    """B10 and B11 on a grid of 2 x 2 windows of 7 and on one window of 12,
+    with float32 and bfloat16 activations, K = 72 (not a whole number of
+    32-level chunks) and 216 output columns (past one 128-column tile):
+    B11 bitwise; B10's int8 levels within one level in at most 1% of the
+    elements (the LayerNorm statistics are summed in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from ptq4vit_tpu_torch.ops import int8_serve as sv
+    rng = np.random.default_rng(45)
+    dev = "cuda"
+    B, C = 3, 72
+    nwin = B * (res // ws) ** 2
+    sv.reset_launch_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        x4 = T(rng.standard_normal((B, res, res, C)) * 2 + 0.3, dtype).to(dev)
+        a = float(np.float32(3.0 / (Q - 0.5)))
+        w = T(rng.integers(-Q, Q, (C, 3 * C)), torch.int8).to(dev)
+        ws_ = T((rng.random(3 * C) + 0.5) / (a * Q * Q * np.sqrt(C) / 3)) \
+            .to(dev)
+        b = T(rng.standard_normal(3 * C) * 0.1).to(dev)
+        ln = (T(1 + 0.1 * rng.standard_normal(C)).to(dev),
+              T(0.1 * rng.standard_normal(C)).to(dev), 1e-5)
+        cols = T((rng.random(3 * C) + 1.5) / (Q - 0.5)).to(dev)
+        args = (x4, w, ws_, b, torch.tensor(a, device=dev), ln, ws, cols)
+        got = sv.q8_win_qkv(*args, a_qmax=Q, out_qmax=Q)
+        ref = sv.q8_win_qkv_ref(*args, a_qmax=Q, out_qmax=Q)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape == (nwin, ws * ws, 3 * C)
+        assert_levels_close(got, ref)
+        y_q = T(rng.integers(-Q, Q, (nwin, ws * ws, C)), torch.int8).to(dev)
+        r4 = T(rng.standard_normal((B, res, res, C)), dtype).to(dev)
+        args = (y_q, w[:, :C].contiguous(), ws_[:C].contiguous(),
+                b[:C].contiguous(), torch.tensor(0.03, device=dev), ws, res,
+                r4)
+        got = sv.q8_win_proj(*args, a_qmax=Q)
+        ref = sv.q8_win_proj_ref(*args, a_qmax=Q)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and torch.equal(got, ref)
+    assert sv.launch_counts()["q8_win_qkv"] == 2
+    assert sv.launch_counts()["q8_win_proj"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nW,N,hd", [(4, 49, 32), (1, 144, 32), (2, 16, 24)])
+def test_window_attention_matches_plain_version_on_the_card(nW, N, hd):
+    """B9 (float or int8 in, float or int8 out, float32 or bfloat16), SoS
+    and per-head, with the rel-pos bias and (nW > 1) the shifted mask,
+    against the plain version, under B7's rules: float outputs rtol 1e-5
+    (bf16: one bf16 step), atol 2e-5 of max |ref|, except in at most 0.5%
+    of the elements, off by at most one probability level's contribution
+    more; int8 outputs within one level in at most 1%."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from ptq4vit_tpu_torch.ops import int8_serve as sv
+    from ptq4vit_tpu_torch.quant.qparams import MatMulQP
+    rng = np.random.default_rng(46)
+    dev = "cuda"
+    H, images = 3, 3
+    C, B_ = H * hd, images * nW
+    s = hd ** -0.5
+    qkv = T(rng.standard_normal((B_, N, 3 * C))).to(dev)
+    bias = T(rng.standard_normal((H, N, N)) * 0.5).to(dev)
+    mask = (T(np.where(rng.random((nW, N, N)) > 0.7, -100.0, 0.0)).to(dev)
+            if nW > 1 else None)
+    t = qkv.reshape(B_, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+    shape = (1, H, 1, 1, 1, 1, 1)
+
+    def hmax(v):
+        return (v.abs().amax((0, 2, 3)) / 127.5).reshape(shape)
+    qp1 = MatMulQP(A_interval=hmax(t[0] * s), B_interval=hmax(t[1]))
+    sv.reset_launch_counts()
+    n = 0
+    for sos in (True, False):
+        split = torch.tensor(2.0 ** -4, device=dev)
+        qp2 = MatMulQP(A_interval=(split / 127 if sos else
+                                   torch.full(shape, 1 / 127.5, device=dev)),
+                       B_interval=hmax(t[2]), split=split if sos else None)
+        ph, _ = sv.window_attn_scope(qp1, qp2, H, s)
+        step = attn_level_step(ph, sos).repeat_interleave(hd)
+        cols = torch.cat([ph[i].repeat_interleave(hd) for i in (0, 1, 3)])
+        lv = torch.clamp(torch.round(qkv / cols), -128, 127).to(torch.int8)
+        a_out = torch.tensor(0.02, device=dev)
+        for x, in_q8, out_scale in ((qkv, False, None), (lv, True, a_out),
+                                    (lv, True, None),
+                                    (qkv.bfloat16(), False, None)):
+            got = sv.fused_window_attention_qkv(
+                x, H, nW, qp1, qp2, s, bias, mask, in_q8=in_q8,
+                out_scale=out_scale)
+            ref = sv.fused_window_attention_ref(
+                x, H, nW, ph, split if sos else None, s, bias, mask,
+                out_scale, sos=sos, in_q8=in_q8, qmaxes=(128,) * 5,
+                out_dtype=got.dtype if got.is_floating_point() else None)
+            torch.cuda.synchronize()
+            assert got.dtype == ref.dtype and got.shape == (B_, N, C)
+            if got.dtype == torch.int8:
+                assert_levels_close(got, ref)
+            else:
+                assert_float_close(got, ref, 1e-5 if got.dtype ==
+                                   torch.float32 else 2.0 ** -8, step)
+            n += 1
+    assert sv.launch_counts()["fused_window_attention_qkv"] == n

@@ -1,5 +1,5 @@
 """The port's serving surface against the JAX package: ``ServingEngine``
-(fp32 and bf16 compute, uint8 ingest), ``Evaluator`` and
+(fp32 and bf16 compute, uint8 ingest; ViT and Swin), ``Evaluator`` and
 ``test_classification`` without a mesh, and the integer export.
 
 Tolerances: the fp32 engine as JAX's fused path (rtol 1e-3, atol 2e-3 of
@@ -21,8 +21,9 @@ from ptq4vit_tpu_torch import ServingEngine
 from ptq4vit_tpu_torch.parallel import mesh as pmesh
 from ptq4vit_tpu_torch.utils import integer as pint
 from ptq4vit_tpu_torch.utils.convert import qstate_from_numpy
-from tests.torch_port_helpers import (TINY, WIDE, images, jax_net,
-                                      minmax_qstate, port_net)
+from tests.torch_port_helpers import (TINY, TINY_SWIN, WIDE, images,
+                                      jax_net, jax_swin_net, minmax_qstate,
+                                      port_net)
 
 
 @pytest.fixture(scope="module")
@@ -70,6 +71,27 @@ def test_serving_engine_bf16_and_uint8_ingest(wide):
                                      raw_uint8=True)(raw))
     np.testing.assert_allclose(u8(raw).numpy(), jraw, rtol=1e-3,
                                atol=2e-3 * np.abs(jraw).max())
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_serving_engine_on_tiny_swin_matches_jax(dtype):
+    """The port's engine runs TINY_SWIN's blocks fused (B10, B9, B11), JAX's
+    its exact int8 path (heads of 6 are outside its TPU tiling): the fp32
+    engines to JAX's fused tolerance, the bf16 ones within 5e-2 of max
+    |logit|, argmax equal."""
+    jnet = jax_swin_net(TINY_SWIN)
+    x = images(4, TINY_SWIN["img_size"])
+    jq = minmax_qstate(jnet, x)
+    jdt, tdt, tol = {"f32": (jnp.float32, torch.float32, (1e-3, 2e-3)),
+                     "bf16": (jnp.bfloat16, torch.bfloat16, (0, 5e-2))}[dtype]
+    ref = np.asarray(JServingEngine(jnet, jq, compute_dtype=jdt)(x)
+                     .astype(jnp.float32))
+    got = ServingEngine(port_net(jnet), qstate_from_numpy(jq),
+                        compute_dtype=tdt, device="cpu")(x)
+    assert got.dtype == tdt
+    assert (got.float().argmax(-1).numpy() == ref.argmax(-1)).all()
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=tol[0],
+                               atol=tol[1] * np.abs(ref).max())
 
 
 def test_serving_engine_options_not_ported(wide):

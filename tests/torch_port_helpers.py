@@ -47,6 +47,12 @@ WIDE = dict(img_size=32, patch_size=8, embed_dim=128, depth=1, num_heads=2,
 TINY_SWIN = dict(img_size=32, patch_size=2, embed_dim=12, depths=(2, 2),
                  num_heads=(2, 4), window_size=4, num_classes=7)
 SWIN3 = dict(TINY_SWIN, num_heads=(3, 6))
+# tests/test_int8_serve.py:256, the JAX fused Swin block's in-scope shape:
+# res 8 in windows of 4 (stage 0, its second block shifted), then res 4,
+# one unshifted window; heads of 64.  WIDE_SWIN32 has Swin-B's heads of 32
+WIDE_SWIN = dict(img_size=32, patch_size=4, embed_dim=128, depths=(2, 1),
+                 num_heads=(2, 4), window_size=4, num_classes=10)
+WIDE_SWIN32 = dict(WIDE_SWIN, num_heads=(4, 8))
 
 
 def jax_net(shape, seed=0):
@@ -416,11 +422,12 @@ def assert_logits_close(port_logits, jax_logits, raw=False):
         assert np.abs(p - j).max() <= 1e-3 * np.abs(j).max()
 
 
-def minmax_qstate(jnet, x, bits=8):
+def minmax_qstate(jnet, x, bits=8, postgelu=True):
     """A JAX qstate at ``bits`` (W = A) with every main-path quantizer kind
     (channelwise conv, n_V = 3 qkv, twin post-GELU fc2, head-wise matmul1,
     SoS matmul2), its intervals from min-max over a capture of ``x``; ViT
-    or Swin (whose reduction linears get the plain kind)."""
+    or Swin (whose reduction linears get the plain kind).
+    ``postgelu=False`` gives fc2 the plain kind (``no_postgelu``)."""
     from ptq4vit_tpu.calib.capture import capture as jcapture
     from ptq4vit_tpu.quant import fakequant as jfq
     from ptq4vit_tpu.quant.qparams import ConvQP, LinearQP, MatMulQP
@@ -452,7 +459,7 @@ def minmax_qstate(jnet, x, bits=8):
             for part in name.split("."):
                 node = node[int(part)] if isinstance(node, list) else node[part]
             n_V = 3 if mtype == "qlinear_qkv" else 1
-            pg = mtype == "qlinear_MLP_2"
+            pg = postgelu and mtype == "qlinear_MLP_2"
             x_in = jnp.asarray(cap.inputs["x"])
             q[name] = LinearQP(
                 w_interval=jfq.blocked_weight_interval_init(
