@@ -6,10 +6,12 @@ Phases (any failure raises, so the exit code is non-zero):
   1. the card's name and power limit; CUDA is required, TF32 is off;
   2. build the search and serving kernels from ptq4vit_tpu_torch/csrc/
      (one nvcc per source, started together);
-  3. each kernel against its plain PyTorch version, with both times and
-     the least time the card could take for the same work: B1 plain/twin,
-     B2 signed/post-GELU, B3 a/b/b_sos, B4w fc1 / post-GELU fc2 / qkv
-     n_V=3 and B4a signed / post-GELU at ViT-B/384 shapes (4 images); B3f
+  3. each kernel against its plain PyTorch version, with both times, the
+     least time the card could take for the same work and the share of
+     the int8 (fp32) peak its operations reach: B1 plain/twin, B2
+     signed/post-GELU, B3 a/b/b_sos, B4w fc1 / post-GELU fc2 / qkv n_V=3
+     and B4a signed / post-GELU at ViT-B/384 shapes (4 images), B1 and B2
+     also at fc1 with 32 images (the headline job's M = 18,464); B3f
      a/b/b_sos at Swin-B/384 window shapes (4 images, stages 1 and 3), with
      B3 timed on the same inputs; B6 in the block's four modes, the head,
      the fp32 engine's qkv and the per-op post-GELU fc2, B7 int8 -> int8 and
@@ -217,6 +219,16 @@ def bound(ops, nbytes):
                                        else "bytes")
 
 
+def peak_share(ops, ms):
+    """{type: the share of the card's peak rate of that type} the call's
+    operations reach in ``ms``."""
+    return {k: n / (ms * 1e-3) / PEAK_OPS[k] for k, n in ops.items()}
+
+
+def share_text(share):
+    return ", ".join(f"{v:.1%} of the {k} peak" for k, v in share.items())
+
+
 def kernel_phase(sk, dev):
     """Each kernel against its plain version at ViT-B/384 shapes."""
     from ptq4vit_tpu_torch.quant.fakequant import GELU_NEG_CLIP
@@ -276,6 +288,28 @@ def kernel_phase(sk, dev):
                  (t(x), t(w_lv * w_int), ca, t(raw), t(g), q, pg,
                   GELU_NEG_CLIP / q if pg else 0.0))
 
+    # B1 and B2 at fc1 with 32 images, the headline job's shape (a
+    # generator of their own keeps the other cases' inputs as they were)
+    r32 = np.random.default_rng(7)
+    M32 = 32 * N
+    x = r32.standard_normal((M32, d)).astype(np.float32)
+    w = (r32.standard_normal((hid, d)) * (2 / (d + hid)) ** 0.5) \
+        .astype(np.float32)
+    raw = (x @ w.T).astype(np.float32)
+    g = (r32.standard_normal((M32, hid)) * 1e-4).astype(np.float32)
+    a = np.float32(np.abs(x).max() / (q - 0.5))
+    base = np.abs(w).max() / (q - 0.5)
+    case("linear_w_hessian_sims_i8", "fc1 32 images",
+         (t(np.clip(np.round(x / a), -q, q - 1), torch.int8), None,
+          float(a), None, t(w), t(grid[:, None] * np.float32(base)),
+          t(raw), t(g), q))
+    w_int = (np.abs(w).max() / (q - 0.5)).astype(np.float32)
+    case("linear_a_hessian_sims_i8", "fc1 32 images",
+         (t(x), t(np.clip(np.round(w / w_int), -q, q - 1), torch.int8),
+          t(np.full(hid, w_int, np.float32)), t(grid * a), t(raw), t(g), q,
+          False, 0.0))
+    del x, w, raw, g
+
     for label, args in matmul_cases(rng, grid, S, G, N, hd, q, t):
         case("matmul_hessian_sims_b3", label, args, "matmul_hessian_sims_ref")
     # Swin-B/384 window matmuls (window 12: N = 144, head dim 32) at 4
@@ -299,13 +333,16 @@ def kernel_phase(sk, dev):
         err = check_sims(f"{kname} {label}", got, ref)
         ms = time_ms(fn, 5)
         plain_ms = time_ms(ref_fn, 1)
-        bound_ms, bound_by = bound(*work(kname, args, got))
+        ops, in_bytes = work(kname, args, got)
+        bound_ms, bound_by = bound(ops, in_bytes)
+        share = peak_share(ops, ms)
         entry = {"case": label, "ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": bound_ms, "bound_by": bound_by}
+                 "bound_ms": bound_ms, "bound_by": bound_by,
+                 "peak_share": share}
         line = (f"[kernel] {kname} {label}: max_abs_err {err:.3e} "
                 f"(max |sim| {float(ref.abs().max()):.3e}), kernel "
                 f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-                f"{bound_ms:.3f} ms ({bound_by})")
+                f"{bound_ms:.3f} ms ({bound_by}), {share_text(share)}")
         if other is not None:             # B3 on the same inputs
             entry["b3_max_abs_err"] = check_sims(f"B3 {label}", other(), ref)
             entry["b3_ms"] = time_ms(other, 5)
@@ -744,9 +781,11 @@ def measure_serving(cases):
         plain_ms = time_ms(plain, 1)
         lib_ms = time_ms(lib_fn, 5)
         bound_ms, bound_by = bound(ops, in_bytes + nbytes(got))
+        peak = peak_share(ops, ms)
         lib_key = "sdpa_ms" if attention else "int_mm_ms"
         entry = {"case": label, "ms": ms, "plain_ms": plain_ms,
                  "bound_ms": bound_ms, "bound_by": bound_by,
+                 "peak_share": peak,
                  "out": str(got.dtype).replace("torch.", ""),
                  "max_abs_err": err, "level_flip_share": share,
                  lib_key: lib_ms}
@@ -755,8 +794,8 @@ def measure_serving(cases):
             + f" ({share:.4%} of the outputs off by a level or beyond "
             "tolerance)"
             + f", kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}), {lib_key} {lib_ms:.3f} "
-            "(context only)")
+            f"{bound_ms:.4f} ms ({bound_by}), {share_text(peak)}, "
+            f"{lib_key} {lib_ms:.3f} (context only)")
         st = stats.setdefault(kname, {"max_abs_err": 0.0, "cases": []})
         st["max_abs_err"] = max(st["max_abs_err"], err
                                 if got.dtype != torch.int8 else 0.0)

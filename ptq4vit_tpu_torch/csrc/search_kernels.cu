@@ -1,6 +1,7 @@
 // Hand-written Hopper (sm_90a) kernels of the calibration candidate search.
 //
-// They replace the three int8-scored Pallas scorers of the JAX package:
+// They replace the int8-scored and fp32-scored Pallas scorers of the JAX
+// package:
 //
 //   B1  ptq4vit_tpu/ops/pallas_search.py  linear_w_hessian_sims_i8
 //       (body _kernel_i8_ploop): linear weight-interval search
@@ -22,21 +23,37 @@
 //   levels_kernel       quantizes each operand to int8 levels once (per
 //                       candidate for the searched operand) into K-padded
 //                       rows, one IEEE division per element;
-//   scored_gemm_kernel  a block owns a 64 x 64 output tile (B3: of one
-//                       (head, sample)), keeps raw and grad of its tile in
-//                       registers for the whole call, and loops over all P
-//                       candidates inside the block: 16-byte loads of the
-//                       level tiles into shared memory, __dp4a products
-//                       with an exact int32 accumulate, the fp32 rescale
-//                       and the squared error, summed per column;
+//   a scored GEMM       the products of every candidate, the fp32 rescale
+//                       and the squared errors, summed per block;
 //   reduce_partials     sums the per-block partials in a fixed order.
 //
-// What bounds them on the card: the int8 multiply-adds, about
-// P · M · K · N per call (100 x 4616 x 768 x 3072 for fc1 at 8 images), and
-// the level tiles streamed from L2 / HBM once per candidate and block row.
+// B1 and B2 (linear_tc_kernel, section at the end) run their products on
+// the int8 tensor cores: wgmma m64n64k32 s8 x s8 -> s32 from shared
+// memory, fed by TMA through a ring of mbarrier-guarded slots by a
+// producer warp, with the operand no candidate changes resident in shared
+// memory where it fits, two blocks an SM.  Their work is 2 P M K N int8
+// operations a call (1.09e12 for fc1 at 4 images: 0.55 ms at 1,979 TOPS);
+// they reach about a fifth of that rate.  What holds them there: a block
+// runs each candidate's products and then its epilogue -- one int32 ->
+// fp32 conversion (a quarter-rate instruction) and five fp32 operations
+// per output -- in turn, and only the SM's second block fills the gap
+// (one warpgroup a block measured 15% faster than two sharing one ring:
+// those ran their epilogues in lockstep); each candidate's 64-row tile
+// comes from L2 once per block; and the level pre-pass (an IEEE division
+// per level) is 13-36% of a call.  Their first design ran __dp4a on
+// the CUDA cores at 2-3% of the int8 peak, re-streamed the fixed operand
+// for every candidate and reduced every candidate across the block, and
+// B1's block order streamed the per-candidate weight levels once per row
+// tile.
+//
+// B3 (scored_gemm_kernel) keeps that first design: a block owns a 64 x 64
+// output tile of one (head, sample), keeps raw and grad of its tile in
+// registers and loops over all P candidates: 16-byte loads of the level
+// tiles into shared memory, __dp4a products with an exact int32
+// accumulate, the fp32 rescale and the squared error, summed per column.
 // Quantizing inside the candidate loop would make every row tile repeat
 // the same divisions (they bounded the kernels on the card); the pre-pass
-// does each once.  Tensor-core MMA, TMA and pipelining are later work.
+// does each once.  B3, B3f, B4w and B4a on the tensor cores are later work.
 //
 // Determinism.  The TPU kernel sums across sequential grid steps; Hopper
 // blocks run in no order, so every block writes its partial sums to a
@@ -50,8 +67,10 @@
 // The int32 accumulate is exact in any order; only the order of the final
 // fp32 sums differs.
 
-#include <cuda_runtime.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 namespace {
@@ -167,87 +186,27 @@ struct MatmulLevels {
 };
 
 // ---------------------------------------------------------------------------
-// scored GEMM over pre-quantized levels
+// B3: scored GEMM over pre-quantized levels
 // ---------------------------------------------------------------------------
 
 // Level buffers, K-padded rows of Kp bytes.  Element strides per candidate
 // (0: the operand is fixed) and per z (0: shared by every z).
 struct Levels {
   const int8_t* L0;
-  const int8_t* L1;    // second left operand (twin / SoS), or null
-  const int8_t* Lfix;  // candidate-free left operand (B2 twin), or null
+  const int8_t* L1;    // second left operand (SoS), or null
   const int8_t* R;
-  long long L0p, Rp, Lz, Rz;  // L1 and Lfix are fixed: no candidate stride
+  long long L0p, Rp, Lz, Rz;  // L1 is fixed: no candidate stride
   int Kp;
 };
 
 // Defaults every epilogue may override.
 struct OpBase {
-  static constexpr bool kFixedPass = false;   // candidate-free 2nd product
   static constexpr bool kRawProduct = false;  // raw = A @ B in the block
   __device__ void bind(int) {}
-  __device__ float fixed_value(int) const { return 0.f; }
   __device__ float rawA(int, int) const { return 0.f; }
   __device__ float rawB(int, int) const { return 0.f; }
   __device__ float raw(int, int) const { return 0.f; }
   __device__ float gprep(float g) const { return g; }
-};
-
-// B1: out = acc·(a·Δ) [+ acc_neg·(a_neg·Δ)], Δ = cands[p, v(n)]
-template <int NL_>
-struct LinearW : OpBase {
-  static constexpr int NL = NL_;
-  const float* cands;  // (P, nV)
-  const float* rawp;
-  const float* gradp;
-  float a, a_neg;
-  int M, N, K, P, nbins, crb;
-
-  __device__ float raw(int m, int n) const { return rawp[(size_t)m * N + n]; }
-  __device__ float grad(int m, int n) const {
-    return gradp[(size_t)m * N + n];
-  }
-  __device__ float term(int p, int n, int acc0, int acc1, float, float r,
-                        float g) const {
-    const float d = cands[p * nbins + n / crb];
-    float out = __fmul_rn(__int2float_rn(acc0), __fmul_rn(a, d));
-    if (NL == 2)
-      out = __fadd_rn(out, __fmul_rn(__int2float_rn(acc1),
-                                     __fmul_rn(a_neg, d)));
-    const float e = __fmul_rn(g, __fsub_rn(r, out));
-    return __fmul_rn(e, e);
-  }
-  __device__ int bin(int n) const { return n / crb; }
-};
-
-// B2: out = (acc·Δ [+ acc_neg·a_neg]) · w_scale[n]
-template <bool PG>
-struct LinearA : OpBase {
-  static constexpr int NL = 1;
-  static constexpr bool kFixedPass = PG;
-  const float* ws;
-  const float* cands;  // (P,)
-  const float* rawp;
-  const float* gradp;
-  float a_neg;
-  int M, N, K, P, nbins;
-
-  __device__ float fixed_value(int acc) const {
-    return __fmul_rn(__int2float_rn(acc), a_neg);
-  }
-  __device__ float raw(int m, int n) const { return rawp[(size_t)m * N + n]; }
-  __device__ float grad(int m, int n) const {
-    return gradp[(size_t)m * N + n];
-  }
-  __device__ float term(int p, int n, int acc0, int, float fix, float r,
-                        float g) const {
-    float acc = __fmul_rn(__int2float_rn(acc0), cands[p]);
-    if (PG) acc = __fadd_rn(acc, fix);
-    const float out = __fmul_rn(acc, ws[n]);
-    const float e = __fmul_rn(g, __fsub_rn(r, out));
-    return __fmul_rn(e, e);
-  }
-  __device__ int bin(int) const { return 0; }
 };
 
 // B3 / B3f squared error of one output.  MODE 0 ("a"): candidates on A;
@@ -321,26 +280,19 @@ __device__ __forceinline__ void store_words(int* dst, int4 v) {
   dst[3] = v.w;
 }
 
-// acc[l] = L_l tile @ R tileᵀ over all of Kp for candidate p (or the
-// candidate-free left operand when fixed_pass).  Threads 0-127 load the
-// left tile(s), 128-255 the right tile, 16 bytes each.
+// acc[l] = L_l tile @ R tileᵀ over all of Kp for candidate p.  Threads
+// 0-127 load the left tile(s), 128-255 the right tile, 16 bytes each.
 template <int NL>
 __device__ __forceinline__ void dot_tiles(const Levels& lev, int p, int z,
-                                          bool fixed_pass, int M, int N,
-                                          int m0, int n0,
+                                          int M, int N, int m0, int n0,
                                           int (*Ls)[TM][TKW + 1],
                                           int (*Rs)[TKW + 1],
                                           int (&acc)[NL][4][4]) {
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int nl = fixed_pass ? 1 : NL;
+  const int nl = NL;
   const int8_t* lb[2];
-  if (fixed_pass) {
-    lb[0] = lev.Lfix + (size_t)z * lev.Lz;
-    lb[1] = lb[0];
-  } else {
-    lb[0] = lev.L0 + (size_t)p * lev.L0p + (size_t)z * lev.Lz;
-    lb[1] = NL > 1 ? lev.L1 + (size_t)z * lev.Lz : lb[0];
-  }
+  lb[0] = lev.L0 + (size_t)p * lev.L0p + (size_t)z * lev.Lz;
+  lb[1] = NL > 1 ? lev.L1 + (size_t)z * lev.Lz : lb[0];
   const int8_t* rb = lev.R + (size_t)p * lev.Rp + (size_t)z * lev.Rz;
 #pragma unroll
   for (int l = 0; l < NL; ++l)
@@ -403,7 +355,7 @@ __global__ void __launch_bounds__(NT)
   __shared__ float red[16][TN];
   __shared__ float colred[TN];
 
-  float rawv[4][4], gv[4][4], fixv[4][4];
+  float rawv[4][4], gv[4][4];
   if (Op::kRawProduct) {
     // raw = A @ B in fp32 for this tile, computed once per call
     __shared__ float As[TM][TK + 1];
@@ -445,21 +397,12 @@ __global__ void __launch_bounds__(NT)
       const bool ok = m < o.M && n < o.N;
       if (!Op::kRawProduct) rawv[i][j] = ok ? o.raw(m, n) : 0.f;
       gv[i][j] = ok ? o.gprep(o.grad(m, n)) : 0.f;
-      fixv[i][j] = 0.f;
     }
   }
 
   int acc[Op::NL][4][4];
-  if (Op::kFixedPass) {
-    dot_tiles<Op::NL>(lev, 0, z, true, o.M, o.N, m0, n0, Ls, Rs, acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) fixv[i][j] = o.fixed_value(acc[0][i][j]);
-  }
-
   for (int p = 0; p < o.P; ++p) {
-    dot_tiles<Op::NL>(lev, p, z, false, o.M, o.N, m0, n0, Ls, Rs, acc);
+    dot_tiles<Op::NL>(lev, p, z, o.M, o.N, m0, n0, Ls, Rs, acc);
     float colsum[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -470,7 +413,7 @@ __global__ void __launch_bounds__(NT)
           colsum[j] = __fadd_rn(
               colsum[j], o.term(p, n, acc[0][i][j],
                                 Op::NL > 1 ? acc[Op::NL - 1][i][j] : 0,
-                                fixv[i][j], rawv[i][j], gv[i][j]));
+                                0.f, rawv[i][j], gv[i][j]));
       }
     }
 #pragma unroll
@@ -580,7 +523,7 @@ int launch_mm(const void* A, const void* B, const void* grad,
   if (err) return err;
 
   Levels lev;
-  lev.L0 = la; lev.L1 = la2; lev.Lfix = nullptr; lev.R = lb; lev.Kp = Kp;
+  lev.L0 = la; lev.L1 = la2; lev.R = lb; lev.Kp = Kp;
   lev.Lz = (long long)R * Kp;
   lev.Rz = (long long)Co * Kp;
   lev.L0p = MODE == 0 ? (long long)Z * R * Kp : 0;
@@ -1146,6 +1089,502 @@ int launch_fp32(const Fp32Args& a, float* partial, float* out,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// B1 / B2: the linear scorers on the int8 tensor cores (wgmma)
+// ---------------------------------------------------------------------------
+//
+// One block owns a 64 x 64 output tile and walks all candidates.  The
+// operand that no candidate changes -- B1's input levels (the A side),
+// B2's weight levels (the B side) -- is the "fixed" tile, 64 rows; the
+// other one, the 64-row tile of candidate p's levels, is the candidate
+// tile.  One consumer warpgroup computes the tile with wgmma m64n64k32
+// (s8 x s8 -> s32) from shared memory; a producer warp, whose lane 0
+// starts every TMA copy, feeds it.  The level buffers are read through
+// 3-D tensor maps (Kp, rows, candidates) in boxes of 128 K bytes,
+// 128-byte swizzled, which is the shared-memory layout wgmma reads
+// (K-major, SBO 1024); the maps zero-fill rows past M or N and K past Kp,
+// so ragged edges need no masking in the products.  A ring of S slots
+// (mbarriers "full" and "empty") carries one K chunk a step: candidate
+// p's chunk, and the fixed chunk(s) when the fixed tile is not resident.
+// The fixed tile stays resident in shared memory for the whole candidate
+// loop where it fits beside a ring of two slots within half an SM's
+// shared memory (64 x Kp bytes a tile: K = 768 and 1024 fit; K = 3072 and
+// the post-GELU pairs past K = 512 stream it with every chunk); the
+// host's plan (ops/search_kernels.py ``linear_plan``) decides and passes
+// it in.  Measured at fc1 (K = 768, H100): resident 1-2% faster than
+// streamed (B1 kernel 2.31 vs 2.36 ms at 4 images, 16.95 vs 17.28 at 32),
+// so L2 serves the fixed chunks about as well; the resident tile stays
+// for the L2 traffic it saves.  Two blocks share an SM, so that one
+// block's epilogue overlaps the other's products: a block's two phases do
+// not overlap.
+//
+// Epilogue, per candidate and element: the parent's arithmetic with
+// __fmul_rn / __fadd_rn in its order, so every squared error is bitwise
+// the dp4a kernel's; raw, grad (and B2's ws[n], B1's row-block index, and
+// the post-GELU fixed product) are loaded once per tile into the
+// accumulator fragment's layout before the candidate loop.  Each warp
+// reduces its squared errors with shuffles into its own per-candidate,
+// per-bin slot in shared memory: no block-wide barrier per candidate.  At
+// the end a named barrier of the consumer warps, then each block writes
+// its partials in a fixed order; reduce_partials sums them.
+//
+// Block order: the blocks that run together share the candidate tile --
+// B1 row tiles fastest (they share candidate p's weight columns), B2
+// column tiles fastest (they share candidate p's input rows).
+
+constexpr int LQ_ROWS = 64;             // rows of the fixed and candidate tiles
+constexpr int LQ_KC = 128;              // K bytes of one TMA box
+constexpr int LQ_TILE = LQ_ROWS * LQ_KC;          // one chunk: 8 KB
+constexpr int LQ_CWARPS = 4;            // consumer warps: one warpgroup
+constexpr int LQ_THREADS = 32 * LQ_CWARPS + 32;   // + the producer warp
+constexpr size_t LQ_SMEM_LIMIT = 232448;
+
+// Dynamic shared memory of one block: 1 KB of alignment slack, the
+// resident fixed tile(s), the ring, the per-warp accumulators, the
+// mbarriers.  ops/search_kernels.py linear_plan computes the same sum.
+size_t lin_smem_bytes(int NL, int NC, int resident, int stages, int pc,
+                      int nbl) {
+  const size_t slot = (size_t)LQ_TILE * (1 + (resident ? 0 : NL));
+  return 1024 + (resident ? (size_t)NL * NC * LQ_TILE : 0)
+         + (size_t)stages * slot + sizeof(float) * LQ_CWARPS * pc * nbl
+         + 8 * (2 * (size_t)stages + 1);
+}
+
+struct LinArgs {
+  const float* raw;      // (M, N), bias subtracted
+  const float* grad;     // (M, N)
+  const float* cands;    // B1 (P, nV); B2 (P,)
+  const float* ws;       // B2 (N,)
+  float a, a_neg;
+  int M, N, P, nV, crb;
+  int NC, ks_last;       // K chunks of LQ_KC bytes; 32-byte k-steps in the last
+  int resident, stages;
+  int p0, pc, nbl;       // candidates [p0, p0 + pc) of this launch; local bins
+  int nrt, nct;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// one box (K bytes [k, k + 128), rows [row, row + box rows), candidate p)
+// of a level buffer into shared memory, completing on bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int k, int row, int p,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
+      "l"((uint64_t)map), "r"(k), "r"(row), "r"(p), "r"(bar)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major tile, 128-byte swizzle: rows 128 bytes
+// apart, 8-row groups 1024 bytes apart (SBO), LBO unused (1)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma
+__device__ __forceinline__ void fence_acc(int (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d += A(64 x 32) B(64 x 32)ᵀ, s8 x s8 -> s32
+__device__ __forceinline__ void wgmma_s8_m64n64k32(int (&d)[32], uint64_t da,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// KIND 0 = B1 (fixed x levels on A, candidate weight levels on B; NL = 2
+// for the post-GELU twin, two fixed tiles sharing each weight fragment);
+// KIND 1 = B2 (candidate input levels on A, fixed weight levels on B; PG:
+// a candidate-free pass over the negative levels first).  Accumulator
+// element i of a consumer thread: row 16 w4 + lane/4 + 8 ((i >> 1) & 1),
+// column 8 (i >> 2) + 2 (lane & 3) + (i & 1) of its warpgroup's 64 x 64
+// tile; "ci" numbers its 16 distinct columns.
+template <int KIND, int NL, bool PG>
+__global__ void __launch_bounds__(LQ_THREADS, 2)
+    linear_tc_kernel(const __grid_constant__ CUtensorMap tm_fix0,
+                     const __grid_constant__ CUtensorMap tm_fix1,
+                     const __grid_constant__ CUtensorMap tm_cand,
+                     const __grid_constant__ CUtensorMap tm_cfix,
+                     LinArgs a, float* __restrict__ partial) {
+  extern __shared__ uint8_t lq_smem[];
+  const uint32_t base = (smem_u32(lq_smem) + 1023) & ~1023u;
+  uint8_t* gbase = lq_smem + (base - smem_u32(lq_smem));
+  const int S = a.stages, NC = a.NC;
+  const size_t slot_bytes = (size_t)LQ_TILE * (1 + (a.resident ? 0 : NL));
+  const uint32_t fixed = base;
+  const uint32_t ring =
+      fixed + (a.resident ? (uint32_t)(NL * NC * LQ_TILE) : 0u);
+  float* wacc = reinterpret_cast<float*>(gbase + (ring - base) +
+                                         (size_t)S * slot_bytes);
+  const uint32_t bars =
+      smem_u32(wacc) + (uint32_t)(sizeof(float) * LQ_CWARPS * a.pc * a.nbl);
+  auto full_bar = [&](int s) { return bars + 8u * s; };
+  auto empty_bar = [&](int s) { return bars + 8u * (S + s); };
+  const uint32_t fixbar = bars + 8u * (2 * S);
+
+  // block -> tile; the fixed tile's first row, the candidate tile's
+  int rt, ct;
+  if (KIND == 0) {
+    rt = blockIdx.x % a.nrt;
+    ct = blockIdx.x / a.nrt;
+  } else {
+    ct = blockIdx.x % a.nct;
+    rt = blockIdx.x / a.nct;
+  }
+  const int row_base = rt * LQ_ROWS, col_base = ct * LQ_ROWS;  // output
+  const int frow0 = KIND == 0 ? row_base : col_base;   // fixed tile rows
+  const int crow0 = KIND == 0 ? col_base : row_base;   // candidate tile
+  const int npass = a.pc + (PG ? 1 : 0);
+  const int nsteps = npass * NC;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full_bar(s), 1);
+      mbar_init(empty_bar(s), LQ_CWARPS);
+    }
+    mbar_init(fixbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 32 * LQ_CWARPS) {            // the producer warp
+    if (threadIdx.x != 32 * LQ_CWARPS) return;
+    if (a.resident) {
+      mbar_expect_tx(fixbar, NL * NC * LQ_TILE);
+      for (int l = 0; l < NL; ++l)
+        for (int c = 0; c < NC; ++c)
+          tma_load(fixed + (uint32_t)((l * NC + c) * LQ_TILE),
+                   l == 0 ? &tm_fix0 : &tm_fix1, c * LQ_KC, frow0, 0, fixbar);
+    }
+    for (int t = 0; t < nsteps; ++t) {
+      const int s = t % S, pass = t / NC, c = t % NC;
+      mbar_wait(empty_bar(s), ((t / S) & 1) ^ 1);
+      const uint32_t sb = ring + (uint32_t)(s * slot_bytes);
+      mbar_expect_tx(full_bar(s), (int)slot_bytes);
+      if (PG && pass == 0)
+        tma_load(sb, &tm_cfix, c * LQ_KC, crow0, 0, full_bar(s));
+      else
+        tma_load(sb, &tm_cand, c * LQ_KC, crow0, a.p0 + pass - (PG ? 1 : 0),
+                 full_bar(s));
+      if (!a.resident)
+        for (int l = 0; l < NL; ++l)
+          tma_load(sb + (uint32_t)((1 + l) * LQ_TILE),
+                   l == 0 ? &tm_fix0 : &tm_fix1, c * LQ_KC, frow0, 0,
+                   full_bar(s));
+    }
+    return;
+  }
+
+  // ---- consumers: one warpgroup, warp w4 of it, lane ----
+  const int ctid = threadIdx.x, w4 = ctid >> 5, lane = ctid & 31;
+
+  float rv[32], gv[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int m = row_base + 16 * w4 + (lane >> 2) + 8 * ((i >> 1) & 1);
+    const int n = col_base + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+    const bool ok = m < a.M && n < a.N;
+    rv[i] = ok ? a.raw[(size_t)m * a.N + n] : 0.f;
+    gv[i] = ok ? a.grad[(size_t)m * a.N + n] : 0.f;
+  }
+  // per column: B2's w_scale, B1's local row-block (bin) index, packed
+  // four to a word; the block's first bin is bin0
+  float wsv[KIND == 1 ? 16 : 1];
+  uint32_t lbp[4] = {0u, 0u, 0u, 0u};
+  const int bin0 = KIND == 0 ? col_base / a.crb : 0;
+  int lb_lo = 0, lb_hi = 0;
+#pragma unroll
+  for (int ci = 0; ci < 16; ++ci) {
+    const int n = col_base + 8 * (ci >> 1) + 2 * (lane & 3) + (ci & 1);
+    if constexpr (KIND == 1)
+      wsv[ci] = n < a.N ? a.ws[n] : 0.f;
+    else
+      lbp[ci >> 2] |= (uint32_t)((min(n, a.N - 1) / a.crb - bin0) & 255)
+                      << (8 * (ci & 3));
+  }
+  if (KIND == 0) {
+    lb_lo = min(col_base, a.N - 1) / a.crb - bin0;
+    lb_hi = min(col_base + 63, a.N - 1) / a.crb - bin0;
+  }
+  float* my_acc = wacc + (size_t)w4 * a.pc * a.nbl;
+  for (int i = lane; i < a.pc * a.nbl; i += 32) my_acc[i] = 0.f;
+  __syncwarp();
+
+  float fixv[PG ? 32 : 1];
+  int acc[NL][32];
+
+  if (a.resident) mbar_wait(fixbar, 0);
+  int t = 0;
+  for (int pass = 0; pass < npass; ++pass) {
+#pragma unroll
+    for (int l = 0; l < NL; ++l)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[l][i] = 0;
+    for (int c = 0; c < NC; ++c, ++t) {
+      const int s = t % S;
+      mbar_wait(full_bar(s), (t / S) & 1);
+      const uint32_t sb = ring + (uint32_t)(s * slot_bytes);
+      const uint32_t cand = sb;
+      const int ks = c + 1 < NC ? LQ_KC / 32 : a.ks_last;
+#pragma unroll
+      for (int l = 0; l < NL; ++l) fence_acc(acc[l]);
+      wgmma_fence();
+      for (int k = 0; k < ks; ++k) {
+#pragma unroll
+        for (int l = 0; l < NL; ++l) {
+          const uint32_t fx =
+              (a.resident ? fixed + (uint32_t)((l * NC + c) * LQ_TILE)
+                          : sb + (uint32_t)((1 + l) * LQ_TILE)) +
+              32u * k;
+          const uint64_t dfix = sw128_desc(fx);
+          const uint64_t dcand = sw128_desc(cand + 32u * k);
+          if (KIND == 0)
+            wgmma_s8_m64n64k32(acc[l], dfix, dcand);
+          else
+            wgmma_s8_m64n64k32(acc[l], dcand, dfix);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+#pragma unroll
+      for (int l = 0; l < NL; ++l) fence_acc(acc[l]);
+      if (c > 0) {                     // chunk c - 1's products are done
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty_bar((t - 1) % S));
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int l = 0; l < NL; ++l) fence_acc(acc[l]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty_bar((t - 1) % S));
+    // the accumulators as fp32, read here on the uniform path only (a read
+    // under the bin loop's divergence would serialize the wgmma)
+    float accf[NL][32];
+#pragma unroll
+    for (int l = 0; l < NL; ++l)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) accf[l][i] = __int2float_rn(acc[l][i]);
+
+    if constexpr (PG) {                // B2 post-GELU: acc_neg · a_neg
+      if (pass == 0) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) fixv[i] = __fmul_rn(accf[0][i], a.a_neg);
+        continue;
+      }
+    }
+    const int pl = pass - (PG ? 1 : 0);    // local candidate
+    const int p = a.p0 + pl;
+    if constexpr (KIND == 1) {
+      const float d = a.cands[p];
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        float v = __fmul_rn(accf[0][i], d);
+        if constexpr (PG) v = __fadd_rn(v, fixv[i]);
+        const float out = __fmul_rn(v, wsv[((i >> 2) << 1) | (i & 1)]);
+        const float e = __fmul_rn(gv[i], __fsub_rn(rv[i], out));
+        sum = __fadd_rn(sum, __fmul_rn(e, e));
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) my_acc[pl] = sum;
+    } else {
+      for (int lb = lb_lo; lb <= lb_hi; ++lb) {
+        const float d = a.cands[p * a.nV + bin0 + lb];
+        const float ad = __fmul_rn(a.a, d);
+        const float an = NL == 2 ? __fmul_rn(a.a_neg, d) : 0.f;
+        float sum = 0.f;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int ci = ((i >> 2) << 1) | (i & 1);
+          if (lb_lo != lb_hi &&
+              (int)((lbp[ci >> 2] >> (8 * (ci & 3))) & 255u) != lb)
+            continue;
+          float out = __fmul_rn(accf[0][i], ad);
+          if (NL == 2) out = __fadd_rn(out, __fmul_rn(accf[NL - 1][i], an));
+          const float e = __fmul_rn(gv[i], __fsub_rn(rv[i], out));
+          sum = __fadd_rn(sum, __fmul_rn(e, e));
+        }
+        sum = warp_sum(sum);
+        if (lane == 0) my_acc[pl * a.nbl + lb] = sum;
+      }
+    }
+  }
+
+  // the consumers' per-warp sums -> this block's partials, in a fixed order
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * LQ_CWARPS) : "memory");
+  const int nbins = KIND == 0 ? a.nV : 1;
+  for (int idx = ctid; idx < a.pc * nbins; idx += 32 * LQ_CWARPS) {
+    const int pl = idx / nbins, lb = idx % nbins - bin0;
+    float s = 0.f;
+    if (lb >= 0 && lb < a.nbl)
+      for (int w = 0; w < LQ_CWARPS; ++w)
+        s = __fadd_rn(s, wacc[((size_t)w * a.pc + pl) * a.nbl + lb]);
+    partial[((size_t)blockIdx.x * a.P + a.p0 + pl) * nbins + idx % nbins] =
+        s;
+  }
+}
+
+// cuTensorMapEncodeTiled from libcuda, which the CUDA runtime has already
+// loaded (no link against it)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
+    if (h != nullptr)
+      fn = (EncodeTiledFn)dlsym(h, "cuTensorMapEncodeTiled");
+  }
+  return fn;
+}
+
+constexpr int kErrNoLibcuda = 9001;     // returned when libcuda is missing
+constexpr int kErrTensorMap = 9002;    // cuTensorMapEncodeTiled refused
+constexpr int kErrSmem = 9003;         // the plan exceeds shared memory
+
+// the (Kp, rows, planes) int8 level buffer at p in boxes of 128 x box_rows
+int level_map(CUtensorMap* map, const int8_t* p, int Kp, int rows,
+              int planes, int box_rows) {
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return kErrNoLibcuda;
+  const cuuint64_t dims[3] = {(cuuint64_t)Kp, (cuuint64_t)rows,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)Kp, (cuuint64_t)rows * Kp};
+  const cuuint32_t box[3] = {(cuuint32_t)LQ_KC, (cuuint32_t)box_rows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, (void*)p,
+                         dims, strides, box, estr,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrTensorMap;
+}
+
+// one launch per chunk of pc candidates, then the fixed-order reduction
+template <int KIND, int NL, bool PG>
+int launch_linear_tc(const CUtensorMap (&maps)[4], LinArgs a, int pc,
+                     float* partial, float* out, cudaStream_t st) {
+  const int K_NL = KIND == 0 ? NL : 1;
+  const size_t smem = lin_smem_bytes(K_NL, a.NC, a.resident, a.stages, pc,
+                                     a.nbl);
+  if (smem > LQ_SMEM_LIMIT || a.stages < 2) return kErrSmem;
+  auto kern = linear_tc_kernel<KIND, NL, PG>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nblocks = a.nrt * a.nct;
+  for (int p0 = 0; p0 < a.P; p0 += pc) {
+    a.p0 = p0;
+    a.pc = a.P - p0 < pc ? a.P - p0 : pc;
+    kern<<<nblocks, LQ_THREADS, smem, st>>>(maps[0], maps[1], maps[2],
+                                            maps[3], a, partial);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int nbins = KIND == 0 ? a.nV : 1;
+  reduce_partials<<<cdiv(a.P * nbins, 128), 128, 0, st>>>(
+      partial, out, 1, nblocks, a.P, nbins);
+  return (int)cudaGetLastError();
+}
+
+LinArgs lin_args(int kind, const float* raw, const float* grad,
+                 const float* cands, const float* ws, float a, float a_neg,
+                 int M, int K, int N, int P, int nV, int resident,
+                 int stages, int nbl) {
+  LinArgs r;
+  const int Kp = kpad(K);
+  r.raw = raw; r.grad = grad; r.cands = cands; r.ws = ws;
+  r.a = a; r.a_neg = a_neg;
+  r.M = M; r.N = N; r.P = P; r.nV = nV; r.crb = N / nV;
+  r.NC = cdiv(Kp, LQ_KC);
+  r.ks_last = (Kp - (r.NC - 1) * LQ_KC) / 32;
+  r.resident = resident; r.stages = stages;
+  r.p0 = 0; r.pc = P; r.nbl = nbl;
+  r.nrt = cdiv(M, LQ_ROWS); r.nct = cdiv(N, LQ_ROWS);
+  return r;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1157,14 +1596,31 @@ int ptq_num_tiles(int M, int N) { return cdiv(M, TM) * cdiv(N, TN); }
 // K rounded up to the level buffers' row length.
 int ptq_k_pad(int K) { return kpad(K); }
 
+// B1 / B2: blocks (and partial sums per candidate and bin) of a call.
+int ptq_linear_num_partials(int M, int N) {
+  return cdiv(M, LQ_ROWS) * cdiv(N, LQ_ROWS);
+}
+
+// B1 / B2: dynamic shared memory of a block under a plan (nl fixed tiles
+// of K columns, resident or streamed, stages ring slots, pc candidates a
+// launch, nbl row-block bins a block).
+int ptq_linear_smem_bytes(int nl, int K, int resident, int stages, int pc,
+                          int nbl) {
+  return (int)lin_smem_bytes(nl, cdiv(kpad(K), LQ_KC), resident, stages, pc,
+                             nbl);
+}
+
 // B1.  x_lv, xn_lv (M, K) int8 (xn_lv NULL unless post-GELU twin);
 // w (N, K) f32; cands (P, nV); raw, grad (M, N) f32 -> out (P, nV).
-// Scratch: lx, lxn (M, Kp) int8 (lxn NULL unless twin), lw (P, N, Kp).
+// Plan (ops/search_kernels.py linear_plan): resident, stages, pc, nbl.
+// Scratch: lx, lxn (M, Kp) int8 (lxn NULL unless twin), lw (P, N, Kp);
+// partial ptq_linear_num_partials(M, N) * P * nV floats.
 int ptq_linear_w_sims(const int8_t* x_lv, const int8_t* xn_lv, const float* w,
                       const float* cands, const float* raw, const float* grad,
                       float a, float a_neg, int M, int K, int N, int P, int nV,
-                      int qmax, int8_t* lx, int8_t* lxn, int8_t* lw,
-                      float* partial, float* out, void* stream) {
+                      int qmax, int resident, int stages, int pc, int nbl,
+                      int8_t* lx, int8_t* lxn, int8_t* lw, float* partial,
+                      float* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int Kp = kpad(K), crb = N / nV;
   CopyLevels cx{x_lv, K};
@@ -1178,33 +1634,30 @@ int ptq_linear_w_sims(const int8_t* x_lv, const int8_t* xn_lv, const float* w,
   WeightLevels wl{w, cands, K, nV, crb, qmax};
   err = fill_levels(wl, lw, P, 1, N, K, st);
   if (err) return err;
-  Levels lev;
-  lev.L0 = lx; lev.L1 = lxn; lev.Lfix = nullptr; lev.R = lw; lev.Kp = Kp;
-  lev.L0p = 0; lev.Rp = (long long)N * Kp; lev.Lz = 0;
-  lev.Rz = 0;
-  if (xn_lv != nullptr) {
-    LinearW<2> op;
-    op.cands = cands; op.rawp = raw; op.gradp = grad; op.a = a;
-    op.a_neg = a_neg; op.M = M; op.N = N; op.K = K; op.P = P; op.nbins = nV;
-    op.crb = crb;
-    return launch(op, lev, M, N, 1, 1, P, nV, partial, out, st);
-  }
-  LinearW<1> op;
-  op.cands = cands; op.rawp = raw; op.gradp = grad; op.a = a;
-  op.a_neg = a_neg; op.M = M; op.N = N; op.K = K; op.P = P; op.nbins = nV;
-  op.crb = crb;
-  return launch(op, lev, M, N, 1, 1, P, nV, partial, out, st);
+  CUtensorMap maps[4];
+  if ((err = level_map(&maps[0], lx, Kp, M, 1, LQ_ROWS))) return err;
+  if ((err = level_map(&maps[1], xn_lv != nullptr ? lxn : lx, Kp, M, 1,
+                       LQ_ROWS)))
+    return err;
+  if ((err = level_map(&maps[2], lw, Kp, N, P, LQ_ROWS))) return err;
+  maps[3] = maps[2];
+  const LinArgs la = lin_args(0, raw, grad, cands, nullptr, a, a_neg, M, K,
+                              N, P, nV, resident, stages, nbl);
+  if (xn_lv != nullptr)
+    return launch_linear_tc<0, 2, false>(maps, la, pc, partial, out, st);
+  return launch_linear_tc<0, 1, false>(maps, la, pc, partial, out, st);
 }
 
 // B2.  x (M, K) f32; w_lv (N, K) int8; w_scale (N,); cands (P,);
-// raw, grad (M, N) f32 -> out (P,).
+// raw, grad (M, N) f32 -> out (P,).  Plan as B1 (nbl 1).
 // Scratch: lx (P, M, Kp) int8, lneg (M, Kp) (NULL unless post-GELU),
-// lw (N, Kp).
+// lw (N, Kp); partial ptq_linear_num_partials(M, N) * P floats.
 int ptq_linear_a_sims(const float* x, const int8_t* w_lv, const float* w_scale,
                       const float* cands, const float* raw, const float* grad,
                       float a_neg, int M, int K, int N, int P, int qmax,
-                      int postgelu, int8_t* lx, int8_t* lneg, int8_t* lw,
-                      float* partial, float* out, void* stream) {
+                      int postgelu, int resident, int stages, int pc,
+                      int8_t* lx, int8_t* lneg, int8_t* lw, float* partial,
+                      float* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int Kp = kpad(K);
   InputLevels il{x, cands, a_neg, K, postgelu ? 0 : -qmax, qmax - 1, 0};
@@ -1218,20 +1671,20 @@ int ptq_linear_a_sims(const float* x, const int8_t* w_lv, const float* w_scale,
   CopyLevels cw{w_lv, K};
   err = fill_levels(cw, lw, 1, 1, N, K, st);
   if (err) return err;
-  Levels lev;
-  lev.L0 = lx; lev.L1 = nullptr; lev.Lfix = lneg; lev.R = lw; lev.Kp = Kp;
-  lev.L0p = (long long)M * Kp; lev.Rp = 0; lev.Lz = 0;
-  lev.Rz = 0;
+  CUtensorMap maps[4];
+  if ((err = level_map(&maps[0], lw, Kp, N, 1, LQ_ROWS))) return err;
+  maps[1] = maps[0];
+  if ((err = level_map(&maps[2], lx, Kp, M, P, LQ_ROWS))) return err;
   if (postgelu) {
-    LinearA<true> op;
-    op.ws = w_scale; op.cands = cands; op.rawp = raw; op.gradp = grad;
-    op.a_neg = a_neg; op.M = M; op.N = N; op.K = K; op.P = P; op.nbins = 1;
-    return launch(op, lev, M, N, 1, 1, P, 1, partial, out, st);
+    if ((err = level_map(&maps[3], lneg, Kp, M, 1, LQ_ROWS))) return err;
+  } else {
+    maps[3] = maps[2];
   }
-  LinearA<false> op;
-  op.ws = w_scale; op.cands = cands; op.rawp = raw; op.gradp = grad;
-  op.a_neg = a_neg; op.M = M; op.N = N; op.K = K; op.P = P; op.nbins = 1;
-  return launch(op, lev, M, N, 1, 1, P, 1, partial, out, st);
+  const LinArgs la = lin_args(1, raw, grad, cands, w_scale, 0.f, a_neg, M,
+                              K, N, P, 1, resident, stages, 1);
+  if (postgelu)
+    return launch_linear_tc<1, 1, true>(maps, la, pc, partial, out, st);
+  return launch_linear_tc<1, 1, false>(maps, la, pc, partial, out, st);
 }
 
 // B4w.  x_sim (M, K) f32; w (N, K) f32; cands (P, nV); raw, grad (M, N)

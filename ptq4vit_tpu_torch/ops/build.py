@@ -25,6 +25,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+LINK_FLAGS = ["-ldl"]     # dlopen of libcuda for its tensor-map encoder
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,10 +37,11 @@ _L = ctypes.c_longlong
 _SEARCH = {
     "ptq_num_tiles": [_I, _I],
     "ptq_k_pad": [_I],
-    "ptq_linear_w_sims": [_P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I,
-                          _I, _I, _P, _P, _P, _P, _P, _P],
-    "ptq_linear_a_sims": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I,
-                          _I, _P, _P, _P, _P, _P, _P],
+    "ptq_linear_num_partials": [_I, _I],
+    "ptq_linear_smem_bytes": [_I] * 6,
+    "ptq_linear_w_sims": [_P, _P, _P, _P, _P, _P, _F, _F] + [_I] * 10
+                         + [_P] * 6,
+    "ptq_linear_a_sims": [_P, _P, _P, _P, _P, _P, _F] + [_I] * 9 + [_P] * 6,
     "ptq_matmul_sims": [_P, _P, _P, _I, _P, _P, _F, _F, _F, _F, _I, _I, _I,
                         _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "ptq_linear_w_sims_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -88,7 +90,7 @@ def _library_path(source: str) -> str:
     h = hashlib.sha256()
     with open(source, "rb") as f:
         h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
 
@@ -102,7 +104,8 @@ def _start(source: str):
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    proc = subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o", tmp, source],
+    proc = subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o", tmp, source,
+                             *LINK_FLAGS],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
     return lib, tmp, proc

@@ -26,7 +26,7 @@ their plain version.  Each kernel wrapper counts its kernel launches in
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -34,10 +34,82 @@ from ..quant.fakequant import exact_div
 
 K_PAD = 32   # level rows are K-padded to this many bytes (csrc TK)
 
+# B1 / B2 on the tensor cores (csrc LQ_*): a block holds a 64-row tile of
+# the operand no candidate changes and streams 64-row tiles of the
+# candidate operand in 128-byte K chunks through a ring of slots
+LQ_ROWS, LQ_KC = 64, 128
+LQ_TILE = LQ_ROWS * LQ_KC     # one chunk of either tile
+LQ_CWARPS = 4                 # consumer warps of a block (one warpgroup)
+SMEM_LIMIT = 232448           # dynamic shared memory a block may use
+# two blocks share an SM's 228 KB (each with 1 KB the system reserves), so
+# that one block's epilogue overlaps the other's products
+LQ_BLOCK_SMEM = 233472 // 2 - 1024
+LQ_MAX_STAGES = 6
+LQ_WACC_BYTES = 16384         # per-warp, per-candidate sums of one launch
+
 
 def k_pad(K: int) -> int:
     """K rounded up to the level buffers' row length."""
     return -(-K // K_PAD) * K_PAD
+
+
+class LinearPlan(NamedTuple):
+    """How B1 (``kind`` "w") or B2 ("a") runs one call on the card.
+
+    resident: the fixed tile(s) stay in shared memory for the whole
+    candidate loop (else they stream with every K chunk); stages: ring
+    slots; pc: candidates a launch (the per-warp sums of pc candidates and
+    nbl bins fit LQ_WACC_BYTES); nbl: row-block bins a block's 64 columns
+    span (B1; 1 for B2); blocks: blocks (and partial sums per candidate and
+    bin) of a launch; smem: dynamic shared memory of a block, at most
+    LQ_BLOCK_SMEM."""
+    resident: bool
+    stages: int
+    pc: int
+    nbl: int
+    blocks: int
+    smem: int
+
+
+def linear_smem_bytes(nl: int, K: int, resident: bool, stages: int, pc: int,
+                      nbl: int) -> int:
+    """A block's dynamic shared memory (csrc ``lin_smem_bytes``): 1 KB of
+    alignment slack, the resident fixed tile(s), the ring, the per-warp
+    sums, the mbarriers."""
+    nc = -(-k_pad(K) // LQ_KC)
+    slot = LQ_TILE * (1 + (0 if resident else nl))
+    return (1024 + (nl * nc * LQ_TILE if resident else 0)
+            + stages * slot + 4 * LQ_CWARPS * pc * nbl + 8 * (2 * stages + 1))
+
+
+def linear_plan(kind: str, M: int, N: int, K: int, P: int, n_V: int = 1,
+                twin: bool = False) -> LinearPlan:
+    """The plan of a B1 (``kind`` "w": fixed x levels of 64 rows, 64
+    weight columns a candidate tile; ``twin``: the post-GELU pair of fixed
+    tiles) or B2 ("a": fixed weight levels of 64 columns, 64 input rows a
+    candidate tile) call, within LQ_BLOCK_SMEM.  The fixed tile(s) stay
+    resident where they fit beside a ring of two slots (up to 1024 K bytes
+    of fixed rows here: not ViT's fc2, nor the post-GELU pairs past Swin's
+    stage 1, which stream with every chunk); the ring takes what is left,
+    up to LQ_MAX_STAGES slots."""
+    if kind not in ("w", "a"):
+        raise ValueError(f"unknown kind {kind}")
+    nl = 2 if kind == "w" and twin else 1
+    blocks = -(-M // LQ_ROWS) * -(-N // LQ_ROWS)
+    if kind == "w":
+        crb = N // n_V
+        nbl = max((min(n0 + LQ_ROWS, N) - 1) // crb - n0 // crb + 1
+                  for n0 in range(0, N, LQ_ROWS))
+    else:
+        nbl = 1
+    pc = max(1, min(P, LQ_WACC_BYTES // (4 * LQ_CWARPS * nbl)))
+    resident = linear_smem_bytes(nl, K, True, 2, pc, nbl) <= LQ_BLOCK_SMEM
+    stages = 2
+    while (stages < LQ_MAX_STAGES and linear_smem_bytes(
+            nl, K, resident, stages + 1, pc, nbl) <= LQ_BLOCK_SMEM):
+        stages += 1
+    return LinearPlan(resident, stages, pc, nbl, blocks,
+                      linear_smem_bytes(nl, K, resident, stages, pc, nbl))
 
 
 def mm_fold_factor(G: int, Ci: int, Co: int) -> int:
@@ -289,13 +361,15 @@ def linear_w_hessian_sims_i8(x_lv, x_neg_lv, a, a_neg, w, cands,
     lx = _levels_scratch((M, kp), dev)
     lxn = _levels_scratch((M, kp), dev) if x_neg_lv is not None else None
     lw = _levels_scratch((P, oc, kp), dev)
-    partial = torch.empty(lib.ptq_num_tiles(M, oc) * P * n_V,
+    plan = linear_plan("w", M, oc, ic, P, n_V, x_neg_lv is not None)
+    partial = torch.empty(lib.ptq_linear_num_partials(M, oc) * P * n_V,
                           dtype=torch.float32, device=dev)
     out = torch.empty(P, n_V, dtype=torch.float32, device=dev)
     _launch(lib.ptq_linear_w_sims, _ptr(x_lv), _ptr(x_neg_lv), _ptr(w),
             _ptr(c2), _ptr(raw_minus_bias), _ptr(grad), float(a),
             float(a_neg) if a_neg is not None else 1.0, M, ic, oc, P, n_V,
-            qmax, _ptr(lx), _ptr(lxn), _ptr(lw), _ptr(partial), _ptr(out),
+            qmax, int(plan.resident), plan.stages, plan.pc, plan.nbl,
+            _ptr(lx), _ptr(lxn), _ptr(lw), _ptr(partial), _ptr(out),
             _stream())
     linear_w_hessian_sims_i8.launches += 1
     return out[:, 0] if squeeze else out
@@ -328,12 +402,14 @@ def linear_a_hessian_sims_i8(x, w_lv, w_scale, cands, raw_minus_bias, grad,
     lx = _levels_scratch((P, M, kp), dev)
     lneg = _levels_scratch((M, kp), dev) if postgelu else None
     lw = _levels_scratch((oc, kp), dev)
-    partial = torch.empty(lib.ptq_num_tiles(M, oc) * P, dtype=torch.float32,
-                          device=dev)
+    plan = linear_plan("a", M, oc, ic, P)
+    partial = torch.empty(lib.ptq_linear_num_partials(M, oc) * P,
+                          dtype=torch.float32, device=dev)
     out = torch.empty(P, dtype=torch.float32, device=dev)
     _launch(lib.ptq_linear_a_sims, _ptr(x), _ptr(w_lv), _ptr(w_scale),
             _ptr(cands), _ptr(raw_minus_bias), _ptr(grad), float(a_neg), M,
-            ic, oc, P, a_qmax, int(postgelu), _ptr(lx), _ptr(lneg), _ptr(lw),
+            ic, oc, P, a_qmax, int(postgelu), int(plan.resident),
+            plan.stages, plan.pc, _ptr(lx), _ptr(lneg), _ptr(lw),
             _ptr(partial), _ptr(out), _stream())
     linear_a_hessian_sims_i8.launches += 1
     return out

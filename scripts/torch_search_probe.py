@@ -1,0 +1,270 @@
+"""Card probes of the port's search kernels, for comparing two checkouts
+(a parent commit unpacked beside this tree, and this tree) on one GPU.
+
+    python scripts/torch_search_probe.py profile ROOT [--streamed]
+    python scripts/torch_search_probe.py b3 ROOT
+    python scripts/torch_search_probe.py qstates ROOT OUT.pkl
+    python scripts/torch_search_probe.py compare PARENT.pkl CHANGE.pkl
+
+ROOT is the checkout whose ``ptq4vit_tpu_torch`` (and ``chip_smoke.py``)
+is imported; each command prints JSON lines.
+
+  profile  B1 and B2 at ViT-B/384 fc1 (4 and 32 images) and post-GELU fc2
+           (4 images), P = 100: the wrapper's ms (CUDA events, 5 calls)
+           and the device ms of each kernel of one call under
+           torch.profiler (pre-pass, scored GEMM, reduction).  With
+           --streamed, where the checkout has ``linear_plan``, also with
+           the fixed tile streamed with every chunk.
+  b3       B3 at chip_smoke.py's ViT-B/384 cases and B3f at its Swin
+           stage-1 cases (4 images), ms over 5 calls.
+  qstates  PTQ4ViT W8A8 calibration of ViT-B/384 and Swin-B/384 on 8
+           images (chip_smoke.py's seeds); pickles each qstate and every
+           scorer call's sims, by op, in call order.
+  compare  the interval slots where two such qstates differ, and for
+           each op the first scorer call whose argmax differs, with its
+           top-two gap (a near-tie when within chip_smoke.ARGMAX_TIE).
+"""
+from __future__ import annotations
+
+import json
+import pickle
+import re
+import sys
+
+import numpy as np
+
+P, Q, D, HID = 100, 128, 768, 3072
+GRID = np.linspace(0.01, 1.2, P + 1)[:P].astype(np.float32)
+
+
+def _import(root):
+    sys.path.insert(0, root)
+    import torch
+    from ptq4vit_tpu_torch.ops import build, search_kernels
+    build.load()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch, search_kernels
+
+
+def _time_ms(torch, fn, reps=5):
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def _device_ms(torch, fn):
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = re.sub(r"^void |\(anonymous namespace\)::", "", e.name)
+        name = name.split("(")[0][:50]
+        out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return out
+
+
+def _streamed(sk):
+    """A linear_plan that streams the fixed tile, with as many ring slots
+    as a block's shared memory holds."""
+    orig = sk.linear_plan
+
+    def plan(kind, M, N, K, P_, n_V=1, twin=False):
+        p = orig(kind, M, N, K, P_, n_V, twin)
+        nl = 2 if kind == "w" and twin else 1
+        st = 2
+        while st < sk.LQ_MAX_STAGES and sk.linear_smem_bytes(
+                nl, K, False, st + 1, p.pc, p.nbl) <= sk.SMEM_LIMIT:
+            st += 1
+        return p._replace(resident=False, stages=st,
+                          smem=sk.linear_smem_bytes(nl, K, False, st, p.pc,
+                                                    p.nbl))
+    return orig, plan
+
+
+def profile(root, streamed):
+    torch, sk = _import(root)
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to("cuda", dt)
+    a_neg = np.float32(0.16997124254703522 / Q)
+    for images, ic, oc, twin in ((4, D, HID, False), (32, D, HID, False),
+                                 (4, HID, D, True)):
+        rng = np.random.default_rng(0)
+        M = images * 577
+        x = rng.standard_normal((M, ic)).astype(np.float32)
+        if twin:
+            x = x * 0.5 * (1 + np.tanh(0.7978845608 * (x + 0.044715 * x ** 3)))
+        w = (rng.standard_normal((oc, ic)) * (2 / (ic + oc)) ** 0.5) \
+            .astype(np.float32)
+        raw = (x @ w.T).astype(np.float32)
+        g = (rng.standard_normal((M, oc)) * 1e-4).astype(np.float32)
+        a = np.float32((x.max() if twin else np.abs(x).max()) / (Q - 0.5))
+        x_lv = np.clip(np.round(x / a), 0 if twin else -Q, Q - 1)
+        x_neg = np.clip(np.round(x / a_neg), -Q, 0)
+        base = np.abs(w).max() / (Q - 0.5)
+        b1 = (t(x_lv, torch.int8), t(x_neg, torch.int8) if twin else None,
+              float(a), float(a_neg) if twin else None, t(w),
+              t(GRID[:, None] * np.float32(base)), t(raw), t(g), Q)
+        w_int = np.float32(np.abs(w).max() / (Q - 0.5))
+        b2 = (t(x), t(np.clip(np.round(w / w_int), -Q, Q - 1), torch.int8),
+              t(np.full(oc, w_int, np.float32)), t(GRID * a), t(raw), t(g),
+              Q, twin, float(a_neg) if twin else 0.0)
+        for name, fn, args in (("B1", sk.linear_w_hessian_sims_i8, b1),
+                               ("B2", sk.linear_a_hessian_sims_i8, b2)):
+            variants = [("plan", None)]
+            if streamed and hasattr(sk, "linear_plan"):
+                variants.append(("streamed", _streamed(sk)))
+            for vname, patch in variants:
+                if patch is not None:
+                    sk.linear_plan = patch[1]
+                try:
+                    ms = _time_ms(torch, lambda: fn(*args))
+                    by_kernel = _device_ms(torch, lambda: fn(*args))
+                finally:
+                    if patch is not None:
+                        sk.linear_plan = patch[0]
+                print(json.dumps({
+                    "case": f"{name} M={M} K={ic} N={oc} twin={twin}",
+                    "variant": vname, "ms": ms, "by_kernel": by_kernel}),
+                    flush=True)
+
+
+def b3(root):
+    torch, sk = _import(root)
+    import chip_smoke as cs
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to("cuda", dt)
+    rng = np.random.default_rng(0)
+    out = {}
+    for label, args in cs.matmul_cases(rng, GRID, 4, 12, 577, 64, Q, t):
+        out["b3 " + label] = cs.time_ms(
+            lambda: sk.matmul_hessian_sims_b3(*args), 5)
+    for label, args in cs.matmul_cases(rng, GRID, 4 * 64, 4, 144, 32, Q, t):
+        out["b3f stage 1 " + label] = cs.time_ms(
+            lambda: sk.matmul_hessian_sims_b3f(*args), 5)
+    print(json.dumps(out), flush=True)
+
+
+def qstates(root, path):
+    torch, sk = _import(root)
+    from ptq4vit_tpu_torch import quantize
+    from ptq4vit_tpu_torch.calib import calibrator
+    from ptq4vit_tpu_torch.configs import ptq4vit
+    from ptq4vit_tpu_torch.models import get_net
+    current = {"op": None}
+    search_one = calibrator.HessianQuantCalibrator._search_one
+
+    def named_search(self, name, *a, **kw):
+        current["op"] = name
+        return search_one(self, name, *a, **kw)
+    calibrator.HessianQuantCalibrator._search_one = named_search
+    log = []
+    for kname in ("linear_w_hessian_sims_i8", "linear_a_hessian_sims_i8",
+                  "matmul_hessian_sims"):
+        fn = getattr(sk, kname)
+
+        def logged(*a, _fn=fn, _k=kname, **kw):
+            out = _fn(*a, **kw)
+            log.append((current["op"], _k, out.float().cpu().numpy()))
+            return out
+        logged.launches = 0     # the wrappers count on their global name
+        setattr(sk, kname, logged)
+    res = {}
+    for name in ("vit_base_patch16_384", "swin_base_patch4_window12_384"):
+        log.clear()
+        net = get_net(name, seed=0)
+        size = net.cfg.img_size
+        calib = np.random.default_rng(1).standard_normal(
+            (8, 3, size, size)).astype(np.float32)
+        _, q = quantize(net, calib, config=ptq4vit(), batch_size=4,
+                        device=torch.device("cuda"))
+        res[name] = {"qstate": {op: {f: v.cpu().numpy()
+                                     for f, v in vars(qp).items()
+                                     if torch.is_tensor(v)}
+                                for op, qp in q.items()},
+                     "log": list(log)}
+        print(json.dumps({"model": name, "ops": len(q),
+                          "scorer_calls": len(log)}), flush=True)
+        del net, q
+        torch.cuda.empty_cache()
+    with open(path, "wb") as fh:
+        pickle.dump(res, fh)
+
+
+def compare(path_a, path_b, tie=1e-4):
+    with open(path_a, "rb") as fh:
+        a = pickle.load(fh)
+    with open(path_b, "rb") as fh:
+        b = pickle.load(fh)
+    for name in a:
+        qa, qb = a[name]["qstate"], b[name]["qstate"]
+        diff = total = 0
+        for op in qa:
+            for f, v in qa[op].items():
+                same = np.isclose(v.reshape(-1), qb[op][f].reshape(-1),
+                                  rtol=1e-6, atol=0)
+                diff += int((~same).sum())
+                total += same.size
+        first, worst = {}, {}
+        for (op, kname, sa), (op_b, _, sb) in zip(a[name]["log"],
+                                                  b[name]["log"]):
+            if op != op_b:
+                raise ValueError("the two runs called the scorers in "
+                                 "another order")
+            if op in first:
+                continue
+            rel = float(np.max(np.abs(sa - sb)
+                               / np.maximum(np.abs(sa), 1e-30)))
+            worst[kname] = max(worst.get(kname, 0.0), rel)
+            s2a = sa.reshape(sa.shape[0], -1)
+            s2b = sb.reshape(sb.shape[0], -1)
+            for col in range(s2a.shape[1]):
+                i, j = int(s2a[:, col].argmax()), int(s2b[:, col].argmax())
+                if i != j:
+                    gap = abs(float(s2a[i, col] - s2a[j, col])) \
+                        / abs(float(s2a[i, col]))
+                    first[op] = {"kernel": kname, "column": col,
+                                 "argmax": [i, j], "gap": gap,
+                                 "near_tie": gap <= tie}
+                    break
+        print(json.dumps({"model": name, "slots_differ": diff,
+                          "slots": total, "max_rel_sim_diff": worst,
+                          "first_divergences": first}), flush=True)
+
+
+def main(argv):
+    if len(argv) < 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    cmd, args = argv[1], argv[2:]
+    if cmd == "profile":
+        profile(args[0], "--streamed" in args)
+    elif cmd == "b3":
+        b3(args[0])
+    elif cmd == "qstates":
+        qstates(args[0], args[1])
+    elif cmd == "compare":
+        compare(args[0], args[1])
+    else:
+        print(__doc__, file=sys.stderr)
+        return 2
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

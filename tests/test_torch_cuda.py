@@ -77,16 +77,33 @@ def matmul_case(rng, mode, dtype, shape=UNFOLDED):
     return A, B, g, cands, fixed, sos
 
 
+# (M, ic, oc, n_V, twin, P) of the B1 / B2 cases on the card: rows and
+# columns past the 64 x 64 tiles, K not a multiple of the 32-byte pad
+# (72 -> 96) nor of the 128-byte TMA box, K = 3072 where the fixed tile
+# streams with every chunk (the plan's non-resident mode), row blocks
+# (oc / n_V = 40, 48) that straddle tiles, P = 7 (not a multiple of any
+# ring depth), and n_V = 120 (one column a bin) with 20 candidates, whose
+# per-warp sums split them over two launches (LinearPlan.pc 16)
+LINEAR_EDGES = [(100, 64, 3 * 64, 1, False, 7), (100, 64, 3 * 64, 3, True, 7),
+                (130, 72, 3 * 40, 3, False, 7), (130, 72, 3 * 40, 1, True, 7),
+                (77, 3072, 144, 3, True, 7), (77, 3072, 144, 1, False, 7),
+                (200, 96, 120, 120, False, 20)]
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_the_card():
+    """B1 and B2 on the tensor cores at LINEAR_EDGES, both post-GELU
+    twins, B3 in every mode; each within rtol 1e-4 of its plain version
+    (sums in another order), one launch per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     rng = np.random.default_rng(40)
     dev = "cuda"
     sk.reset_launch_counts()
-    for n_V, twin in ((1, False), (3, True)):
-        x, w, raw, g, cands, a = linear_case(rng, 100, 64, 3 * 64, n_V, 7,
-                                             twin)
+    plans = set()
+    for M, ic, oc, n_V, twin, P in LINEAR_EDGES:
+        x, w, raw, g, cands, a = linear_case(rng, M, ic, oc, n_V, P, twin)
+        plans.add(sk.linear_plan("w", M, oc, ic, P, n_V, twin)[:3] + (P,))
         x_lv = np.clip(np.round(x / a), 0 if twin else -Q, Q - 1) \
             .astype(np.int8)
         xn = np.clip(np.round(x / np.float32(A_NEG)), -Q, 0).astype(np.int8)
@@ -96,16 +113,21 @@ def test_kernels_match_plain_versions_on_the_card():
                 T(raw).to(dev), T(g).to(dev), Q)
         torch.testing.assert_close(sk.linear_w_hessian_sims_i8(*args),
                                    sk.linear_w_hessian_sims_i8_ref(*args),
-                                   rtol=1e-4, atol=0)
+                                   rtol=1e-4, atol=0,
+                                   msg=f"B1 {M} {ic} {oc} {n_V} {twin}")
         w_int = np.float32(np.abs(w).max() / (Q - 0.5))
         w_lv = np.clip(np.round(w / w_int), -Q, Q - 1).astype(np.int8)
         args = (T(x).to(dev), T(w_lv, torch.int8).to(dev),
                 T(np.full(w.shape[0], w_int, np.float32)).to(dev),
-                T(np.linspace(0.3, 1.2, 7) * a).to(dev), T(raw).to(dev),
+                T(np.linspace(0.3, 1.2, P) * a).to(dev), T(raw).to(dev),
                 T(g).to(dev), Q, twin, GELU_NEG_CLIP / Q if twin else 0.0)
         torch.testing.assert_close(sk.linear_a_hessian_sims_i8(*args),
                                    sk.linear_a_hessian_sims_i8_ref(*args),
-                                   rtol=1e-4, atol=0)
+                                   rtol=1e-4, atol=0,
+                                   msg=f"B2 {M} {ic} {oc} {twin}")
+    # the cases reach both fixed-tile modes and a split candidate loop
+    assert {r for r, _, _, _ in plans} == {True, False}
+    assert any(pc < P for _, _, pc, P in plans)
     for mode in ("a", "b", "b_sos"):
         A, B, g, cands, fixed, sos = matmul_case(rng, mode, "bf16")
         args = (T(A, torch.bfloat16).to(dev), T(B, torch.bfloat16).to(dev),
@@ -115,8 +137,9 @@ def test_kernels_match_plain_versions_on_the_card():
         torch.testing.assert_close(sk.matmul_hessian_sims(*args),
                                    sk.matmul_hessian_sims_ref(*args),
                                    rtol=1e-4, atol=0)
-    assert sk.launch_counts() == {"linear_w_hessian_sims_i8": 2,
-                                  "linear_a_hessian_sims_i8": 2,
+    n = len(LINEAR_EDGES)
+    assert sk.launch_counts() == {"linear_w_hessian_sims_i8": n,
+                                  "linear_a_hessian_sims_i8": n,
                                   "matmul_hessian_sims_b3": 3,
                                   "matmul_hessian_sims_b3f": 0,
                                   "linear_w_hessian_sims": 0,
@@ -195,6 +218,94 @@ def test_folded_kernel_matches_plain_version_on_the_card():
                     atol=0, msg=f"{shape} {mode} {dtype}")
                 n += 1
     assert n == 3 * 3 * 2
+
+
+@pytest.mark.cuda
+def test_linear_plan_matches_the_library_on_the_card():
+    """The wrappers size B1's / B2's partial sums from the library's block
+    count, and the library sizes a block's shared memory as linear_plan
+    does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from ptq4vit_tpu_torch.ops.build import load
+    lib = load()
+    for M, ic, oc, n_V, twin, _ in LINEAR_EDGES + [
+            (2308, 768, 3072, 1, False, 100), (18464, 3072, 768, 1, True, 100)]:
+        for kind, nl in (("w", 2 if twin else 1), ("a", 1)):
+            plan = sk.linear_plan(kind, M, oc, ic, 100,
+                                  n_V if kind == "w" else 1, twin)
+            assert lib.ptq_linear_num_partials(M, oc) == plan.blocks
+            assert lib.ptq_linear_smem_bytes(
+                nl, ic, int(plan.resident), plan.stages, plan.pc,
+                plan.nbl) == plan.smem
+
+
+def linear_calls(name, images):
+    """(kind, M, N, K, P, n_V, twin) of every B1 / B2 call a PTQ4ViT W8A8
+    calibration of ``name`` on ``images`` images makes."""
+    from ptq4vit_tpu_torch.configs import ptq4vit
+    from ptq4vit_tpu_torch.models import model_config, swin, vit
+    cfg = model_config(name)
+    mod = swin if name.startswith("swin") else vit
+    pol = ptq4vit()
+    shapes = mod.op_shapes(cfg)
+    for op, mtype in mod.op_inventory(cfg):
+        info = shapes[op]
+        if info["kind"] != "linear":
+            continue
+        p = pol.op_policy(mtype)
+        M = info["tokens"] * images
+        twin = p.quantizer == "postgelu_linear"
+        for kind in ("w", "a"):
+            yield (kind, M, info["out_features"], info["in_features"],
+                   p.eq_n, p.n_V if kind == "w" else 1, twin)
+
+
+@pytest.mark.parametrize("name", ["vit_base_patch16_384",
+                                  "swin_base_patch4_window12_384"])
+@pytest.mark.parametrize("images", [8, 32])
+def test_linear_plans_fit_shared_memory(name, images):
+    """Every B1 / B2 plan of the model's calibration stays within half
+    an SM's shared memory (two blocks an SM), so within a block's 232,448
+    bytes, with a ring of at least two slots, keeps the fixed tile(s)
+    resident exactly where they fit (up to 1024 K bytes of fixed rows:
+    qkv, proj, fc1, the head, Swin's stage-1 to 3 reductions and its
+    stage-1 fc2 pair; not ViT's fc2 nor Swin's later ones), and runs all
+    100 candidates in one launch."""
+    calls = set(linear_calls(name, images))
+    assert calls
+    for kind, M, N, K, P, n_V, twin in calls:
+        plan = sk.linear_plan(kind, M, N, K, P, n_V, twin)
+        nl = 2 if kind == "w" and twin else 1
+        assert plan.smem <= sk.LQ_BLOCK_SMEM < sk.SMEM_LIMIT
+        assert plan.stages >= 2
+        assert plan.resident == (nl * sk.k_pad(K) <= 1024), \
+            (kind, M, N, K, twin)
+        assert plan.pc == P == 100
+        assert plan.nbl == 1
+        if not plan.resident:
+            assert sk.linear_smem_bytes(nl, K, True, 2, plan.pc,
+                                        plan.nbl) > sk.LQ_BLOCK_SMEM
+
+
+def test_linear_plan_bins_and_candidate_chunks():
+    """Row blocks that straddle the 64-column tiles widen a block's bins;
+    many bins split the candidates over launches so that the per-warp sums
+    fit; both kinds tile the output 64 x 64."""
+    plan = sk.linear_plan("w", 100, 120, 72, 7, 3)
+    assert plan.nbl == 2 and plan.pc == 7 and plan.blocks == 2 * 2
+    plan = sk.linear_plan("w", 100, 768, 768, 100, 256)
+    assert plan.nbl == 22
+    assert plan.pc == sk.LQ_WACC_BYTES // (4 * sk.LQ_CWARPS * 22) == 46
+    assert sk.linear_plan("w", 200, 120, 96, 20, 120).pc == 16
+    assert sk.linear_plan("w", 2308, 2304, 768, 100, 3).nbl == 1
+    assert sk.linear_plan("w", 2308, 3072, 768, 100).blocks == 37 * 48
+    assert sk.linear_plan("a", 2308, 3072, 768, 100).blocks == 37 * 48
+    assert sk.linear_plan("w", 2308, 768, 3072, 100, 1, True).stages == 4
+    assert sk.linear_plan("a", 2308, 768, 3072, 100, 1, True).stages \
+        == sk.LQ_MAX_STAGES
+    with pytest.raises(ValueError):
+        sk.linear_plan("x", 1, 1, 1, 1)
 
 
 def test_wrapper_checks_reject_bad_inputs():
