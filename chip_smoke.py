@@ -10,8 +10,10 @@ Phases (any failure raises, so the exit code is non-zero):
      least time the card could take for the same work and the share of
      the int8 (fp32) peak its operations reach: B1 plain/twin, B2
      signed/post-GELU, B3 a/b/b_sos, B4w fc1 / post-GELU fc2 / qkv n_V=3
-     and B4a signed / post-GELU at ViT-B/384 shapes (4 images), B1 and B2
-     also at fc1 with 32 images (the headline job's M = 18,464); B3f
+     and B4a signed / post-GELU at ViT-B/384 shapes (4 images), B1, B2,
+     B4w and B4a also at fc1 with 32 images (the headline job's M =
+     18,464), each B4 case beside torch.mm of the same fp32 fake-quant
+     operands P times (cuBLAS SGEMM, TF32 off; context only); B3f
      a/b/b_sos at Swin-B/384 window shapes (4 images, stages 1 and 3), with
      B3 timed on the same inputs; B6 in the block's four modes, the head,
      the fp32 engine's qkv and the per-op post-GELU fc2, B7 int8 -> int8 and
@@ -250,13 +252,19 @@ def kernel_phase(sk, dev):
         g = (rng.standard_normal((M, oc)) * 1e-4).astype(np.float32)
         return x, w, raw, g
 
-    def case(kname, label, args, ref_name=None, other=None):
+    def case(kname, label, args, ref_name=None, other=None, sgemm=None):
         fn = getattr(sk, kname)
         ref = getattr(sk, ref_name or kname + "_ref")
         cases.append((kname, label, args, lambda: fn(*args),
-                      lambda: ref(*args), other))
+                      lambda: ref(*args), other, sgemm))
 
-    cases = []   # (kernel, label, args, fn, ref_fn, other)
+    def sgemm(xq, wq):
+        """The P fp32 products of a B4 call alone, as cuBLAS SGEMM runs
+        them (TF32 off): context for B4w / B4a, never called by the port."""
+        buf = torch.empty(xq.shape[0], wq.shape[0], device=dev)
+        return lambda: [torch.mm(xq, wq.t(), out=buf) for _ in range(P)]
+
+    cases = []   # (kernel, label, args, fn, ref_fn, other, sgemm)
     for label, ic, oc, n_V, pg in (("fc1", d, hid, 1, False),
                                    ("fc2 twin", hid, d, 1, True),
                                    ("qkv n_V=3", d, 3 * d, 3, False)):
@@ -274,11 +282,12 @@ def kernel_phase(sk, dev):
               q))
         # B4w takes the fake-quant input (twin on fc2) as fp32
         x_sim = x_lv * a + (x_neg * a_neg if pg else 0)
-        case("linear_w_hessian_sims", label,
-             (t(x_sim), t(w), cw if n_V > 1 else cw[:, 0].contiguous(),
-              t(raw), t(g), q))
         w_int = (np.abs(w).max() / (q - 0.5)).astype(np.float32)
         w_lv = np.clip(np.round(w / w_int), -q, q - 1)
+        products = sgemm(t(x_sim), t(w_lv * w_int))
+        case("linear_w_hessian_sims", label,
+             (t(x_sim), t(w), cw if n_V > 1 else cw[:, 0].contiguous(),
+              t(raw), t(g), q), sgemm=products)
         ca = t(grid * a)
         case("linear_a_hessian_sims_i8", label,
              (t(x), t(w_lv, torch.int8), t(np.full(oc, w_int, np.float32)),
@@ -286,10 +295,10 @@ def kernel_phase(sk, dev):
         if n_V == 1:      # B4a: signed (fc1) and post-GELU (fc2)
             case("linear_a_hessian_sims", label,
                  (t(x), t(w_lv * w_int), ca, t(raw), t(g), q, pg,
-                  GELU_NEG_CLIP / q if pg else 0.0))
+                  GELU_NEG_CLIP / q if pg else 0.0), sgemm=products)
 
-    # B1 and B2 at fc1 with 32 images, the headline job's shape (a
-    # generator of their own keeps the other cases' inputs as they were)
+    # B1, B2, B4w and B4a at fc1 with 32 images, the headline job's shape
+    # (a generator of their own keeps the other cases' inputs as they were)
     r32 = np.random.default_rng(7)
     M32 = 32 * N
     x = r32.standard_normal((M32, d)).astype(np.float32)
@@ -304,11 +313,19 @@ def kernel_phase(sk, dev):
           float(a), None, t(w), t(grid[:, None] * np.float32(base)),
           t(raw), t(g), q))
     w_int = (np.abs(w).max() / (q - 0.5)).astype(np.float32)
+    w_lv = np.clip(np.round(w / w_int), -q, q - 1)
     case("linear_a_hessian_sims_i8", "fc1 32 images",
-         (t(x), t(np.clip(np.round(w / w_int), -q, q - 1), torch.int8),
-          t(np.full(hid, w_int, np.float32)), t(grid * a), t(raw), t(g), q,
-          False, 0.0))
-    del x, w, raw, g
+         (t(x), t(w_lv, torch.int8), t(np.full(hid, w_int, np.float32)),
+          t(grid * a), t(raw), t(g), q, False, 0.0))
+    x_sim = t(np.clip(np.round(x / a), -q, q - 1) * a)
+    products = sgemm(x_sim, t(w_lv * w_int))
+    case("linear_w_hessian_sims", "fc1 32 images",
+         (x_sim, t(w), t(grid * np.float32(base)), t(raw), t(g), q),
+         sgemm=products)
+    case("linear_a_hessian_sims", "fc1 32 images",
+         (t(x), t(w_lv * w_int), t(grid * a), t(raw), t(g), q, False, 0.0),
+         sgemm=products)
+    del x, w, raw, g, w_lv, x_sim
 
     for label, args in matmul_cases(rng, grid, S, G, N, hd, q, t):
         case("matmul_hessian_sims_b3", label, args, "matmul_hessian_sims_ref")
@@ -326,7 +343,7 @@ def kernel_phase(sk, dev):
                  lambda args=args: sk.matmul_hessian_sims_b3(*args))
 
     stats = {}
-    for kname, label, args, fn, ref_fn, other in cases:
+    for kname, label, args, fn, ref_fn, other, products in cases:
         got = fn()
         ref = ref_fn()
         torch.cuda.synchronize()
@@ -348,6 +365,10 @@ def kernel_phase(sk, dev):
             entry["b3_ms"] = time_ms(other, 5)
             line += (f", B3 {entry['b3_ms']:.3f} ms (max_abs_err "
                      f"{entry['b3_max_abs_err']:.3e})")
+        if products is not None:          # B4w / B4a: cuBLAS SGEMM x P
+            entry["sgemm_ms"] = time_ms(products, 1)
+            line += (f", torch.mm x {P} {entry['sgemm_ms']:.3f} ms (context "
+                     "only)")
         log(line)
         s = stats.setdefault(kname, {"max_abs_err": 0.0, "cases": []})
         s["max_abs_err"] = max(s["max_abs_err"], err)
@@ -1234,8 +1255,8 @@ def main() -> int:
                 "bound_ms": stats[k]["bound_ms"],
                 "bound_by": stats[k]["bound_by"],
                 # no PyTorch call computes the sims or the quantized
-                # function: the serving cases carry torch._int_mm / SDPA
-                # times as context
+                # function: the B4 cases carry torch.mm, the serving cases
+                # torch._int_mm / SDPA times as context
                 "library_ms": None, "cases": stats[k]["cases"]}
                for k, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": entries}))

@@ -13,7 +13,7 @@
 //       (body _mm_kernel_folded, F > 1): the same search at the window
 //       shapes of Swin (see the B3f section below)
 //   B4w, B4a  the fp32-scored (exact) twins of B1 and B2 (see their
-//       section below)
+//       section at the end)
 //
 // B1-B3f score P candidate scales Δ_p with the hessian similarity
 //     sims[p] = -Σ (g · (raw - out_p))²
@@ -53,7 +53,9 @@
 // accumulate, the fp32 rescale and the squared error, summed per column.
 // Quantizing inside the candidate loop would make every row tile repeat
 // the same divisions (they bounded the kernels on the card); the pre-pass
-// does each once.  B3, B3f, B4w and B4a on the tensor cores are later work.
+// does each once.  B3 and B3f on the tensor cores are later work; B4w and
+// B4a stay on the fp32 CUDA cores by their exact-scoring contract (their
+// section, at the end).
 //
 // Determinism.  The TPU kernel sums across sequential grid steps; Hopper
 // blocks run in no order, so every block writes its partial sums to a
@@ -851,245 +853,6 @@ int launch_mm_folded(const void* A, const void* B, const void* grad,
 }
 
 // ---------------------------------------------------------------------------
-// B4w / B4a: the fp32-scored (exact) linear scorers
-// ---------------------------------------------------------------------------
-//
-// They replace
-//   B4w ptq4vit_tpu/ops/pallas_search.py  linear_w_hessian_sims
-//       (body _kernel_ploop): out_p = x_sim @ Q(W; Δ_p)ᵀ
-//   B4a ptq4vit_tpu/ops/pallas_search.py  linear_a_hessian_sims
-//       (body _a_kernel_ploop): out_p = Q(x; Δ_p) @ w_simᵀ, Q signed or the
-//       post-GELU twin Q⁺(x; Δ_p) + Q⁻(x; a_neg)
-// with the same sims as B1 / B2, but every product is of the fp32
-// fake-quant values, accumulated in fp32: the reference's own numerics,
-// not the int8 levels rescaled once.  No TF32, no tensor cores (they have
-// no exact fp32 mode).
-//
-// Any element of Q(v; Δ) is level · Δ in fp32, so the levels come from the
-// B1 / B2 pre-pass (one IEEE division per element and candidate) and the
-// block multiplies each by its scale with one __fmul_rn as it stages the
-// tile in shared memory: the values of quantizing in place, with no
-// division in the candidate loop (B1's first version, which divided there,
-// was division-bound).
-//
-// A block owns a 128 x 128 output tile and loops over all candidates.  Per
-// candidate it streams both operand tiles in K chunks of 16 through two
-// shared-memory buffers: the next chunk is read from global memory into
-// registers while the current one is multiplied, so one __syncthreads per
-// chunk suffices.  Each of the 256 threads computes 8 x 8 outputs, rows
-// 4 ty + i and 64 + 4 ty + i, columns 4 tx + j and 64 + 4 tx + j, so four
-// 16-byte shared loads feed 64 __fmaf_rn.  raw and grad are read from
-// global memory in the epilogue (8 bytes an output and candidate, against
-// 2 K flops); the per-column sums and the fixed-order partials are B1's.
-//
-// What bounds them: 2 P M K N fp32 FLOP per call (1.09e12 for fc1 at 4
-// images, 16 ms at 67 TFLOP/s).
-
-constexpr int FBM = 128;  // output rows per block of the fp32 scorers
-constexpr int FBN = 128;  // output columns per block
-constexpr int FK = 16;    // K chunk
-constexpr int FLD = FBM + 4;  // shared row length (floats)
-
-// B4w: KIND 0 (x_sim fixed, weight levels per candidate, Δ per row bin);
-// B4a: KIND 1 signed, KIND 2 post-GELU twin (input levels per candidate,
-// w_sim fixed).
-struct Fp32Args {
-  const float* xf;      // B4w: x_sim (M, K)
-  const float* wf;      // B4a: w_sim (N, K)
-  const int8_t* lv;     // B4w: (P, N, Kp) weight levels; B4a: (P, M, Kp)
-  const int8_t* lneg;   // B4a twin: (M, Kp) negative levels
-  const float* cands;   // B4w (P, nV); B4a (P,)
-  const float* raw;     // (M, N), bias subtracted
-  const float* grad;    // (M, N)
-  float a_neg;
-  int M, N, K, Kp, P, nV, crb;
-};
-
-// One thread's share of a K chunk: 8 consecutive k of one tile row (row
-// tid % 128, k 8 (tid / 128) ...) of the fixed fp32 operand and the raw
-// level words of the level operand, held in registers between the global
-// read and the shared-memory store.  The levels are scaled only at the
-// store, after the current chunk's products: scaling them at the load
-// would stall every warp on the read before it multiplies.
-struct Fp32Chunk {
-  float f[8];
-  int2 lv, lv2;   // 8 levels [and the twin's negative levels]
-};
-
-__device__ __forceinline__ void load_f32_row8(float (&v)[8], const float* src,
-                                              int row, int rows, int K,
-                                              int k) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) v[i] = 0.f;
-  if (row >= rows) return;
-  const float* p = src + (size_t)row * K + k;
-  if ((K & 3) == 0 && k + 8 <= K) {
-    const float4 a = *reinterpret_cast<const float4*>(p);
-    const float4 b = *reinterpret_cast<const float4*>(p + 4);
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      if (k + i < K) v[i] = p[i];
-  }
-}
-
-// 8 levels of one row (the K padding holds zeros; rows past the edge 0)
-__device__ __forceinline__ int2 load_levels8(const int8_t* lv, int row,
-                                             int rows, int Kp, int k) {
-  return row < rows
-             ? *reinterpret_cast<const int2*>(lv + (size_t)row * Kp + k)
-             : make_int2(0, 0);
-}
-
-template <int KIND>
-__device__ __forceinline__ void load_chunk(Fp32Chunk& c, const Fp32Args& a,
-                                           int p, int m0, int n0, int k0) {
-  const int r = threadIdx.x % FBM, k = k0 + 8 * (threadIdx.x / FBM);
-  if (KIND == 0) {        // A: x_sim rows, B: weight levels of candidate p
-    c.lv = load_levels8(a.lv + (size_t)p * a.N * a.Kp, n0 + r, a.N, a.Kp, k);
-    load_f32_row8(c.f, a.xf, m0 + r, a.M, a.K, k);
-  } else {                // A: input levels of candidate p, B: w_sim rows
-    c.lv = load_levels8(a.lv + (size_t)p * a.M * a.Kp, m0 + r, a.M, a.Kp, k);
-    if (KIND == 2) c.lv2 = load_levels8(a.lneg, m0 + r, a.M, a.Kp, k);
-    load_f32_row8(c.f, a.wf, n0 + r, a.N, a.K, k);
-  }
-}
-
-// registers -> S[k][row] of the A (input rows) and B (weight rows) tiles,
-// each level as level · lsc [+ level2 · a_neg]
-template <int KIND>
-__device__ __forceinline__ void store_chunk(const Fp32Chunk& c, float lsc,
-                                            float a_neg, float (*As)[FLD],
-                                            float (*Bs)[FLD]) {
-  const int r = threadIdx.x % FBM, kh = 8 * (threadIdx.x / FBM);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int sh = 8 * (i & 3);
-    float q = __fmul_rn(
-        __int2float_rn((int8_t)((i < 4 ? c.lv.x : c.lv.y) >> sh)), lsc);
-    if (KIND == 2)
-      q = __fadd_rn(q, __fmul_rn(__int2float_rn((int8_t)(
-                                     (i < 4 ? c.lv2.x : c.lv2.y) >> sh)),
-                                 a_neg));
-    As[kh + i][r] = KIND == 0 ? c.f[i] : q;
-    Bs[kh + i][r] = KIND == 0 ? q : c.f[i];
-  }
-}
-
-template <int KIND>
-__global__ void __launch_bounds__(NT)
-    fp32_scored_kernel(Fp32Args a, float* __restrict__ partial) {
-  __shared__ __align__(16) float As[2][FK][FLD];
-  __shared__ __align__(16) float Bs[2][FK][FLD];
-  __shared__ float red[16][FBN];
-  __shared__ float colred[FBN];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int n0 = blockIdx.x * FBN, m0 = blockIdx.y * FBM;
-  const int b = blockIdx.y * gridDim.x + blockIdx.x;
-  const int nbins = KIND == 0 ? a.nV : 1;
-  const int M = a.M, N = a.N;
-  const int nch = (a.K + FK - 1) / FK;
-  // the scale of this thread's level row: B4w Δ_p of the row's bin
-  const int lrow = (KIND == 0 ? n0 : m0) + tid % FBM;
-  const int lbin = KIND == 0 ? min(lrow, N - 1) / a.crb : 0;
-
-  for (int p = 0; p < a.P; ++p) {
-    const float lsc = a.cands[KIND == 0 ? p * a.nV + lbin : p];
-    float acc[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-    Fp32Chunk c;
-    load_chunk<KIND>(c, a, p, m0, n0, 0);
-    store_chunk<KIND>(c, lsc, a.a_neg, As[0], Bs[0]);
-    __syncthreads();
-    for (int ch = 0; ch < nch; ++ch) {
-      const int buf = ch & 1;
-      if (ch + 1 < nch) load_chunk<KIND>(c, a, p, m0, n0, (ch + 1) * FK);
-#pragma unroll
-      for (int kk = 0; kk < FK; ++kk) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][kk][4 * ty]);
-        const float4 a1 =
-            *reinterpret_cast<const float4*>(&As[buf][kk][64 + 4 * ty]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][kk][4 * tx]);
-        const float4 b1 =
-            *reinterpret_cast<const float4*>(&Bs[buf][kk][64 + 4 * tx]);
-        const float ar[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float br[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            acc[i][j] = __fmaf_rn(ar[i], br[j], acc[i][j]);
-      }
-      // the other buffer was last read in iteration ch - 1, which every
-      // thread has left (the barrier below it)
-      if (ch + 1 < nch)
-        store_chunk<KIND>(c, lsc, a.a_neg, As[buf ^ 1], Bs[buf ^ 1]);
-      __syncthreads();
-    }
-
-    float colsum[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) colsum[j] = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int m = m0 + (i < 4 ? 4 * ty + i : 60 + 4 * ty + i);
-      if (m >= M) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = n0 + (j < 4 ? 4 * tx + j : 60 + 4 * tx + j);
-        if (n < N) {
-          const size_t o = (size_t)m * N + n;
-          const float e = __fmul_rn(a.grad[o], __fsub_rn(a.raw[o],
-                                                         acc[i][j]));
-          colsum[j] = __fadd_rn(colsum[j], __fmul_rn(e, e));
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      red[ty][j < 4 ? 4 * tx + j : 60 + 4 * tx + j] = colsum[j];
-    __syncthreads();
-    if (tid < FBN) {
-      float s = 0.f;
-      for (int r = 0; r < 16; ++r) s = __fadd_rn(s, red[r][tid]);
-      colred[tid] = s;
-    }
-    __syncthreads();
-    if (tid < nbins) {
-      float s = 0.f;
-      for (int col = 0; col < FBN; ++col) {
-        const int n = n0 + col;
-        if (n < N && (KIND != 0 || n / a.crb == tid))
-          s = __fadd_rn(s, colred[col]);
-      }
-      partial[((size_t)b * a.P + p) * nbins + tid] = s;
-    }
-    // red / colred are rewritten only after the next candidate's K loop,
-    // whose barriers order those writes after the reads above
-  }
-}
-
-template <int KIND>
-int launch_fp32(const Fp32Args& a, float* partial, float* out,
-                cudaStream_t st) {
-  dim3 grid(cdiv(a.N, FBN), cdiv(a.M, FBM));
-  fp32_scored_kernel<KIND><<<grid, NT, 0, st>>>(a, partial);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int nbins = KIND == 0 ? a.nV : 1;
-  const int total = a.P * nbins;
-  reduce_partials<<<cdiv(total, 128), 128, 0, st>>>(
-      partial, out, 1, (int)(grid.x * grid.y), a.P, nbins);
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
 // B1 / B2: the linear scorers on the int8 tensor cores (wgmma)
 // ---------------------------------------------------------------------------
 //
@@ -1585,6 +1348,426 @@ LinArgs lin_args(int kind, const float* raw, const float* grad,
   return r;
 }
 
+// ---------------------------------------------------------------------------
+// B4w / B4a: the fp32-scored (exact) linear scorers
+// ---------------------------------------------------------------------------
+//
+// They replace
+//   B4w ptq4vit_tpu/ops/pallas_search.py  linear_w_hessian_sims
+//       (body _kernel_ploop): out_p = x_sim @ Q(W; Δ_p)ᵀ
+//   B4a ptq4vit_tpu/ops/pallas_search.py  linear_a_hessian_sims
+//       (body _a_kernel_ploop): out_p = Q(x; Δ_p) @ w_simᵀ, Q signed or the
+//       post-GELU twin Q⁺(x; Δ_p) + Q⁻(x; a_neg)
+// with the same sims as B1 / B2, but every product is of the fp32
+// fake-quant values, accumulated in fp32: the reference's own numerics,
+// not the int8 levels rescaled once.  So they stay on the CUDA cores: the
+// tensor cores have no exact fp32 mode (TF32 keeps 10 mantissa bits).
+//
+// Any element of Q(v; Δ) is level · Δ in fp32, so the levels come from the
+// B1 / B2 pre-pass (one IEEE division per element and candidate) and a
+// block multiplies each by its scale with one __fmul_rn (the twin adds
+// lneg · a_neg with __fadd_rn) once per block and K chunk: the values of
+// quantizing in place, with no division in the candidate loop.
+//
+// Design.  A block owns a 128 x 128 output tile and a group of candidates:
+// the host's plan (ops/search_kernels.py ``fp32_plan``) splits the P
+// candidates into groups so that the grid fills both block slots of each
+// of the 132 SMs with a short wave tail (fill >= 97% at ViT-B/384's
+// shapes; the first design's grid of tiles alone gave fc2 114 blocks for
+// 132 SMs at one block an SM).  Each of the 256 threads keeps 8 x 8
+// outputs, rows 4 ty + i and 64 + 4 ty + i, columns 4 tx + j and 64 + 4 tx
+// + j, and runs every output's K chain in one thread in ascending k with
+// __fmaf_rn, so each accumulator is bitwise what the first design (one
+// block a tile walking all candidates) computed.  The (candidate, K chunk)
+// steps of a block form one stream through a ring of S slots in dynamic
+// shared memory, S - 1 steps ahead, across the candidate boundary:
+//   - cp.async copies the fixed fp32 operand (B4w x_sim rows, B4a w_sim
+//     rows) 4 bytes a thread straight into the k-major layout the FFMA
+//     loop reads (conflict-free on both sides), and the raw level bytes
+//     (and the twin's negative levels) 16 bytes a thread;
+//   - each thread expands the level bytes it copied itself (so no barrier
+//     stands between its cp.async.wait_group and the expansion) into one
+//     of two k-major fp32 buffers, one step ahead of the products;
+//   - one __syncthreads a 32-k chunk; four 16-byte shared loads feed 64
+//     __fmaf_rn, the inner loop unrolled 8 k at a time.
+// __launch_bounds__(256, 2): two blocks share an SM (128 registers, 12-52
+// bytes of spill stores), so one block's barriers and epilogue run under
+// the other's products.
+//
+// Epilogue, per candidate: raw and grad from global memory (16-byte loads
+// where the row allows), e = g · (raw - acc), e · e summed per column over
+// the thread's rows, then over the 16 thread rows, then over each bin's
+// columns in ascending order -- the first design's order, so the sims are
+// bitwise its sims -- into partial[(tile, p, bin)]; reduce_partials sums
+// the tiles in a fixed order, in double.
+//
+// What bounds them: 2 P M K N fp32 FLOP a call (1.09e12 for fc1 at 4
+// images: 16.25 ms at 67 TFLOP/s).  Measured (NVIDIA H100 80GB HBM3,
+// 700.00 W; scripts/torch_search_probe.py b4, 4 images, P = 100): the
+// kernel alone takes fc1 30.5 ms (B4w) and 29.9 (B4a), fc2 30.0 and 30.5,
+// qkv 22.6 and 22.3 -- 53-55% of the fp32 peak, where the first design
+// reached 40-47% (fc1 40.4 / 35.0 ms at one block an SM, 177 registers);
+// cuBLAS SGEMM takes 26.3 ms for the same 100 fp32 products at fc1 (62%).
+// What holds it there, by elimination (no profiler counters on the card):
+// not the grid (fill >= 97%); not the thread tile's shared loads per FMA
+// (the 16 x 8 build, a quarter fewer bytes a FMA at one block an SM and
+// 231-255 registers, is 2-13% slower); the inner loop's unroll moved it
+// most (at 4 x 8 warps, 32 k unrolled ran 7% and 4 k 5% slower than 8 k;
+// 16 k within 1%).  What is left is the issue of the loop itself: per k,
+// 64 FFMA beside four 16-byte shared loads, which alone take as many of
+// the shared memory's 128-byte clocks as the FFMA take fp32 clocks, and
+// the ring's copies and expansion.
+
+// The measured choices: an 8 x 8 thread tile, warps of 2 x 16 threads,
+// 8 k unrolled, two blocks an SM (PERF.md §6 keeps the times of the 16 x 8
+// tile, the 4 x 8 warps and the other unrolls, which lost).
+constexpr int FRM = 8;                  // output rows a thread
+constexpr int FWR = 2;                  // thread rows a warp spans
+constexpr int FWC = 32 / FWR;           // thread columns a warp spans
+constexpr int FU = 8;                   // k steps unrolled
+constexpr int FBM = 16 * FRM;           // output rows per block
+constexpr int FBN = 128;                // output columns per block
+constexpr int FKC = 32;                 // K chunk, = TK: level rows hold
+                                        // whole chunks
+constexpr int F_MAX_STAGES = 4;
+constexpr size_t F_RED_BYTES = sizeof(float) * (16 + 1) * FBN;
+constexpr int F_BLOCKS_PER_SM = 2;
+constexpr size_t F_SMEM_LIMIT = 233472 / F_BLOCKS_PER_SM - 1024;
+
+// rows of the fixed fp32 operand's tile (B4w: x_sim, the output rows;
+// B4a: w_sim, the output columns) and of the level operand's
+__host__ __device__ constexpr int f_rows(int kind) {
+  return kind == 0 ? FBM : FBN;
+}
+__host__ __device__ constexpr int l_rows(int kind) {
+  return kind == 0 ? FBN : FBM;
+}
+// a k-major fp32 tile of FKC x rows (+ 4 floats a row: conflict-free)
+__host__ __device__ constexpr size_t f_tile_bytes(int rows) {
+  return sizeof(float) * FKC * (rows + 4);
+}
+// the raw level bytes a ring slot holds (the twin's negative levels too)
+__host__ __device__ constexpr size_t l_raw_bytes(int kind) {
+  return (size_t)l_rows(kind) * FKC * (kind == 2 ? 2 : 1);
+}
+
+// Dynamic shared memory of one block (ops/search_kernels.py
+// fp32_smem_bytes computes the same sum): S ring slots (the fixed tile,
+// the raw levels, the twin's negative levels), two expanded level tiles,
+// the epilogue's column sums.
+size_t fp32_smem_bytes(int kind, int stages) {
+  return (size_t)stages * (f_tile_bytes(f_rows(kind)) + l_raw_bytes(kind)) +
+         2 * f_tile_bytes(l_rows(kind)) + F_RED_BYTES;
+}
+
+// B4w: KIND 0 (x_sim fixed, weight levels per candidate, Δ per row bin);
+// B4a: KIND 1 signed, KIND 2 post-GELU twin (input levels per candidate,
+// w_sim fixed).
+struct Fp32Args {
+  const float* fx;      // the fixed operand: B4w x_sim (M, K), B4a w_sim
+                        // (N, K)
+  const int8_t* lv;     // B4w: (P, N, Kp) weight levels; B4a: (P, M, Kp)
+  const int8_t* lneg;   // B4a twin: (M, Kp) negative levels
+  const float* cands;   // B4w (P, nV); B4a (P,)
+  const float* raw;     // (M, N), bias subtracted
+  const float* grad;    // (M, N)
+  float a_neg;
+  int M, N, K, Kp, P, nV, crb;
+  int stages, pc, ngroups;  // ring slots; candidates a group; groups
+  int ntm, ntn;             // row and column tiles
+};
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most n of this thread's groups are in flight (n < 3)
+__device__ __forceinline__ void cp_async_wait(int n) {
+  if (n <= 0)
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  else if (n == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+}
+
+template <int KIND>
+__global__ void __launch_bounds__(NT, F_BLOCKS_PER_SM)
+    fp32_scored_kernel(Fp32Args a, float* __restrict__ partial) {
+  extern __shared__ __align__(16) uint8_t f_smem[];
+  constexpr bool TWIN = KIND == 2;
+  constexpr int FR = f_rows(KIND), LR = l_rows(KIND);
+  constexpr int FLD = FR + 4, LLD = LR + 4;       // k-major row lengths
+  constexpr int LDA = FBM + 4, LDB = FBN + 4;     // the A and B sides'
+  constexpr size_t FIX_BYTES = f_tile_bytes(FR);
+  constexpr size_t LV_BYTES = (size_t)LR * FKC;   // one level operand
+  constexpr int LPIECES = LR / 128;   // 16-byte level pieces a thread
+  const size_t slot_bytes = FIX_BYTES + l_raw_bytes(KIND);
+  const int S = a.stages;
+  uint8_t* ring = f_smem;
+  float(*Lx)[FKC][LLD] = reinterpret_cast<float(*)[FKC][LLD]>(
+      f_smem + (size_t)S * slot_bytes);
+  float(*red)[FBN] = reinterpret_cast<float(*)[FBN]>(
+      f_smem + (size_t)S * slot_bytes + 2 * f_tile_bytes(LR));
+  float* colred = &red[16][0];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // this thread's place in the 16 x 16 thread grid: a warp spans FWR
+  // thread rows and FWC columns
+  const int ty = FWR * (warp / (16 / FWC)) + lane / FWC;
+  const int tx = FWC * (warp % (16 / FWC)) + lane % FWC;
+  // block -> (tile, candidate group); the blocks that run together share
+  // the candidate operand: B4w row tiles fastest, B4a column tiles
+  int mt, nt, g;
+  if (KIND == 0) {
+    mt = blockIdx.x % a.ntm;
+    g = (blockIdx.x / a.ntm) % a.ngroups;
+    nt = blockIdx.x / (a.ntm * a.ngroups);
+  } else {
+    nt = blockIdx.x % a.ntn;
+    g = (blockIdx.x / a.ntn) % a.ngroups;
+    mt = blockIdx.x / (a.ntn * a.ngroups);
+  }
+  const int m0 = mt * FBM, n0 = nt * FBN;
+  const int tile = mt * a.ntn + nt;
+  const int p0 = g * a.pc;
+  const int npc = min(a.pc, a.P - p0);
+  const int M = a.M, N = a.N;
+  const int nch = a.Kp / FKC;
+  const int nsteps = npc * nch;
+  const int nbins = KIND == 0 ? a.nV : 1;
+
+  // the fixed operand's rows and the level operand's
+  const int frow0 = KIND == 0 ? m0 : n0, frows = KIND == 0 ? M : N;
+  const int lrow0 = KIND == 0 ? n0 : m0, lrows = KIND == 0 ? N : M;
+  // this thread's level row (its 16-byte pieces: halves lh of the chunk,
+  // piece q at lh = (256 q + tid) / LR), and its scale bin
+  const int lr = tid % LR;
+  const bool lr_ok = lrow0 + lr < lrows;
+  const int lbin = KIND == 0 ? min(lrow0 + lr, N - 1) / a.crb : 0;
+  // this thread's fixed-operand copies: rows 32 i + fr, k 8 j + fk
+  const int fr = 4 * warp + (lane & 3), fk = lane >> 2;
+
+  auto issue = [&](int t) {
+    if (t < nsteps) {
+      const int s = t % S, p = p0 + t / nch, k0 = (t % nch) * FKC;
+      const uint32_t sb = smem_u32(ring + (size_t)s * slot_bytes);
+#pragma unroll
+      for (int i = 0; i < FR / 32; ++i) {
+        const int row = frow0 + 32 * i + fr;
+        const bool rok = row < frows;
+        const float* src = a.fx + (size_t)(rok ? row : 0) * a.K;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int k = k0 + 8 * j + fk;
+          const bool ok = rok && k < a.K;
+          cp_async4(sb + (uint32_t)(sizeof(float) *
+                                    ((8 * j + fk) * FLD + 32 * i + fr)),
+                    src + (ok ? k : 0), ok);
+        }
+      }
+      const int8_t* lsrc = a.lv + (size_t)p * lrows * a.Kp;
+      const size_t lrow = (size_t)(lr_ok ? lrow0 + lr : 0) * a.Kp + k0;
+#pragma unroll
+      for (int q = 0; q < LPIECES; ++q) {
+        const int lh = (256 * q + tid) / LR;
+        const uint32_t ld = sb + (uint32_t)(FIX_BYTES + 16 * (lh * LR + lr));
+        cp_async16(ld, lsrc + lrow + 16 * lh, lr_ok);
+        if (TWIN)
+          cp_async16(ld + (uint32_t)LV_BYTES, a.lneg + lrow + 16 * lh,
+                     lr_ok);
+      }
+    }
+    cp_async_commit();   // an empty group past the end keeps the count
+  };
+
+  // the levels this thread copied for step t -> Lx[t & 1], k-major, each
+  // as level · Δ [+ lneg · a_neg]
+  auto expand = [&](int t) {
+    const int s = t % S, p = p0 + t / nch;
+    const float lsc = a.cands[KIND == 0 ? p * a.nV + lbin : p];
+    float(*dst)[LLD] = Lx[t & 1];
+#pragma unroll
+    for (int q = 0; q < LPIECES; ++q) {
+      const int lh = (256 * q + tid) / LR;
+      const uint8_t* sb = ring + (size_t)s * slot_bytes + FIX_BYTES +
+                          16 * (lh * LR + lr);
+      const int4 w = *reinterpret_cast<const int4*>(sb);
+      int4 wn = make_int4(0, 0, 0, 0);
+      if (TWIN) wn = *reinterpret_cast<const int4*>(sb + LV_BYTES);
+      const int wv[4] = {w.x, w.y, w.z, w.w};
+      const int wnv[4] = {wn.x, wn.y, wn.z, wn.w};
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int sh = 8 * (i & 3);
+        float v = __fmul_rn(__int2float_rn((int8_t)(wv[i >> 2] >> sh)), lsc);
+        if (TWIN)
+          v = __fadd_rn(v, __fmul_rn(__int2float_rn((int8_t)(wnv[i >> 2] >>
+                                                             sh)),
+                                     a.a_neg));
+        dst[16 * lh + i][lr] = v;
+      }
+    }
+  };
+
+  for (int t = 0; t < S - 1; ++t) issue(t);
+  cp_async_wait(S - 2);
+  expand(0);
+  __syncthreads();
+
+  // output (i, j) of this thread: row 64 (i / 4) + 4 ty + i % 4, column
+  // 64 (j / 4) + 4 tx + j % 4 of the tile
+  float acc[FRM][8];
+  for (int t = 0; t < nsteps; ++t) {
+    const int c = t % nch;
+    if (c == 0) {
+#pragma unroll
+      for (int i = 0; i < FRM; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    }
+    issue(t + S - 1);
+    {
+      uint8_t* fs = ring + (size_t)(t % S) * slot_bytes;
+      float(*As)[LDA] = reinterpret_cast<float(*)[LDA]>(
+          KIND == 0 ? fs : reinterpret_cast<uint8_t*>(Lx[t & 1]));
+      float(*Bs)[LDB] = reinterpret_cast<float(*)[LDB]>(
+          KIND == 0 ? reinterpret_cast<uint8_t*>(Lx[t & 1]) : fs);
+#pragma unroll 1
+      for (int k0 = 0; k0 < FKC; k0 += FU)
+#pragma unroll
+      for (int u = 0; u < FU; ++u) {
+        const int kk = k0 + u;
+        float ar[FRM];
+#pragma unroll
+        for (int h = 0; h < FRM / 4; ++h) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(&As[kk][64 * h + 4 * ty]);
+          ar[4 * h] = v.x; ar[4 * h + 1] = v.y;
+          ar[4 * h + 2] = v.z; ar[4 * h + 3] = v.w;
+        }
+        const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][4 * tx]);
+        const float4 b1 =
+            *reinterpret_cast<const float4*>(&Bs[kk][64 + 4 * tx]);
+        const float br[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < FRM; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            acc[i][j] = __fmaf_rn(ar[i], br[j], acc[i][j]);
+      }
+    }
+    // step t + 1's copies (this thread's) have landed; its levels go to
+    // the expanded buffer step t - 1 read, which every thread has left
+    cp_async_wait(S - 2);
+    if (t + 1 < nsteps) expand(t + 1);
+    __syncthreads();
+    if (c + 1 < nch) continue;
+
+    // ---- epilogue of candidate p ----
+    const int p = p0 + t / nch;
+    float colsum[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) colsum[j] = 0.f;
+    const bool vec = (N & 3) == 0 &&
+                     (((uintptr_t)a.raw | (uintptr_t)a.grad) & 15) == 0;
+#pragma unroll
+    for (int i = 0; i < FRM; ++i) {
+      const int m = m0 + 64 * (i / 4) + 4 * ty + i % 4;
+      if (m >= M) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int nb = n0 + 64 * h + 4 * tx;
+        const size_t o = (size_t)m * N + nb;
+        float rv[4], gv[4];
+        if (vec && nb + 4 <= N) {
+          const float4 r4 = *reinterpret_cast<const float4*>(a.raw + o);
+          const float4 g4 = *reinterpret_cast<const float4*>(a.grad + o);
+          rv[0] = r4.x; rv[1] = r4.y; rv[2] = r4.z; rv[3] = r4.w;
+          gv[0] = g4.x; gv[1] = g4.y; gv[2] = g4.z; gv[3] = g4.w;
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            rv[j] = nb + j < N ? a.raw[o + j] : 0.f;
+            gv[j] = nb + j < N ? a.grad[o + j] : 0.f;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (nb + j < N) {
+            const float e = __fmul_rn(gv[j], __fsub_rn(rv[j],
+                                                       acc[i][4 * h + j]));
+            colsum[4 * h + j] = __fadd_rn(colsum[4 * h + j], __fmul_rn(e, e));
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      red[ty][64 * (j / 4) + 4 * tx + j % 4] = colsum[j];
+    __syncthreads();
+    if (tid < FBN) {
+      float s = 0.f;
+#pragma unroll
+      for (int r = 0; r < 16; ++r) s = __fadd_rn(s, red[r][tid]);
+      colred[tid] = s;
+    }
+    __syncthreads();
+    if (tid < nbins) {
+      // bin tid's columns of this tile, in ascending order
+      const int c0 = KIND == 0 ? max(tid * a.crb - n0, 0) : 0;
+      const int c1 = min(KIND == 0 ? (tid + 1) * a.crb - n0 : FBN,
+                         min(FBN, N - n0));
+      float s = 0.f;
+      for (int col = c0; col < c1; ++col) s = __fadd_rn(s, colred[col]);
+      partial[((size_t)tile * a.P + p) * nbins + tid] = s;
+    }
+    // red / colred are rewritten only after the next candidate's last
+    // chunk, whose barrier orders those writes after the reads above
+  }
+  cp_async_wait(0);
+}
+
+template <int KIND>
+int launch_fp32(const Fp32Args& a, float* partial, float* out,
+                cudaStream_t st) {
+  const size_t smem = fp32_smem_bytes(KIND, a.stages);
+  if (a.stages < 2 || a.stages > F_MAX_STAGES || smem > F_SMEM_LIMIT ||
+      a.pc < 1 || a.ngroups != cdiv(a.P, a.pc))
+    return kErrSmem;
+  auto kern = fp32_scored_kernel<KIND>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  const int ntiles = a.ntm * a.ntn;
+  kern<<<ntiles * a.ngroups, NT, smem, st>>>(a, partial);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int nbins = KIND == 0 ? a.nV : 1;
+  const int total = a.P * nbins;
+  reduce_partials<<<cdiv(total, 128), 128, 0, st>>>(partial, out, 1, ntiles,
+                                                    a.P, nbins);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1687,33 +1870,46 @@ int ptq_linear_a_sims(const float* x, const int8_t* w_lv, const float* w_scale,
   return launch_linear_tc<1, 1, false>(maps, la, pc, partial, out, st);
 }
 
+// B4w / B4a: blocks of a call's tiles (and partial sums per candidate and
+// bin; the grid is this times the candidate groups).
+int ptq_fp32_num_partials(int M, int N) { return cdiv(M, FBM) * cdiv(N, FBN); }
+
+// B4w / B4a: dynamic shared memory of a block under a plan (kind 0 B4w,
+// 1 B4a signed, 2 B4a post-GELU; stages ring slots).
+int ptq_fp32_smem_bytes(int kind, int stages) {
+  return (int)fp32_smem_bytes(kind, stages);
+}
+
 // B4w.  x_sim (M, K) f32; w (N, K) f32; cands (P, nV); raw, grad (M, N)
-// f32 -> out (P, nV).  Scratch: lw (P, N, Kp) int8; partial
-// ptq_num_tiles(M, N) * P * nV floats.
+// f32 -> out (P, nV).  Plan (ops/search_kernels.py fp32_plan): stages
+// ring slots, pc candidates a group.  Scratch: lw (P, N, Kp) int8;
+// partial ptq_fp32_num_partials(M, N) * P * nV floats.
 int ptq_linear_w_sims_f32(const float* x_sim, const float* w,
                           const float* cands, const float* raw,
                           const float* grad, int M, int K, int N, int P,
-                          int nV, int qmax, int8_t* lw, float* partial,
-                          float* out, void* stream) {
+                          int nV, int qmax, int stages, int pc, int8_t* lw,
+                          float* partial, float* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int crb = N / nV;
   WeightLevels wl{w, cands, K, nV, crb, qmax};
   int err = fill_levels(wl, lw, P, 1, N, K, st);
   if (err) return err;
-  Fp32Args a{x_sim, nullptr, lw, nullptr, cands, raw, grad, 0.f,
-             M, N, K, kpad(K), P, nV, crb};
+  Fp32Args a{x_sim, lw, nullptr, cands, raw, grad, 0.f,
+             M, N, K, kpad(K), P, nV, crb,
+             stages, pc, cdiv(P, pc), cdiv(M, FBM), cdiv(N, FBN)};
   return launch_fp32<0>(a, partial, out, st);
 }
 
 // B4a.  x (M, K) f32 raw; w_sim (N, K) f32; cands (P,); raw, grad (M, N)
-// f32 -> out (P,).  Scratch: lx (P, M, Kp) int8, lneg (M, Kp) (NULL unless
-// post-GELU); partial ptq_num_tiles(M, N) * P floats.
+// f32 -> out (P,).  Plan as B4w.  Scratch: lx (P, M, Kp) int8, lneg
+// (M, Kp) (NULL unless post-GELU); partial ptq_fp32_num_partials(M, N) * P
+// floats.
 int ptq_linear_a_sims_f32(const float* x, const float* w_sim,
                           const float* cands, const float* raw,
                           const float* grad, float a_neg, int M, int K,
-                          int N, int P, int qmax, int postgelu, int8_t* lx,
-                          int8_t* lneg, float* partial, float* out,
-                          void* stream) {
+                          int N, int P, int qmax, int postgelu, int stages,
+                          int pc, int8_t* lx, int8_t* lneg, float* partial,
+                          float* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   InputLevels il{x, cands, a_neg, K, postgelu ? 0 : -qmax, qmax - 1, 0};
   int err = fill_levels(il, lx, P, 1, M, K, st);
@@ -1723,8 +1919,9 @@ int ptq_linear_a_sims_f32(const float* x, const float* w_sim,
     err = fill_levels(nl, lneg, 1, 1, M, K, st);
     if (err) return err;
   }
-  Fp32Args a{nullptr, w_sim, lx, lneg, cands, raw, grad, a_neg,
-             M, N, K, kpad(K), P, 1, N};
+  Fp32Args a{w_sim, lx, lneg, cands, raw, grad, a_neg,
+             M, N, K, kpad(K), P, 1, N,
+             stages, pc, cdiv(P, pc), cdiv(M, FBM), cdiv(N, FBN)};
   return postgelu ? launch_fp32<2>(a, partial, out, st)
                   : launch_fp32<1>(a, partial, out, st);
 }

@@ -44,10 +44,10 @@ _SEARCH = {
     "ptq_linear_a_sims": [_P, _P, _P, _P, _P, _P, _F] + [_I] * 9 + [_P] * 6,
     "ptq_matmul_sims": [_P, _P, _P, _I, _P, _P, _F, _F, _F, _F, _I, _I, _I,
                         _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    "ptq_linear_w_sims_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _P, _P, _P, _P],
-    "ptq_linear_a_sims_f32": [_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I,
-                              _I, _P, _P, _P, _P, _P],
+    "ptq_fp32_num_partials": [_I, _I],
+    "ptq_fp32_smem_bytes": [_I, _I],
+    "ptq_linear_w_sims_f32": [_P] * 5 + [_I] * 8 + [_P] * 4,
+    "ptq_linear_a_sims_f32": [_P] * 5 + [_F] + [_I] * 8 + [_P] * 5,
     "ptq_fold_num_partials": [_I] * 7,
     "ptq_matmul_sims_folded": [_P, _P, _P, _I, _P, _P, _F, _F, _F, _F, _I,
                                _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,

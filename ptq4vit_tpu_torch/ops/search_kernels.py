@@ -112,6 +112,82 @@ def linear_plan(kind: str, M: int, N: int, K: int, P: int, n_V: int = 1,
                       linear_smem_bytes(nl, K, resident, stages, pc, nbl))
 
 
+# B4w / B4a on the fp32 CUDA cores (csrc F*): a block owns a 128 x 128
+# output tile and a group of candidates, two blocks an SM (each within
+# LQ_BLOCK_SMEM), and streams (candidate, 32-k chunk) steps through a ring
+# of slots: the fixed fp32 tile k-major, the raw levels (and the post-GELU
+# twin's negative levels)
+F_TILE, F_KC = 128, 32
+F_RED_BYTES = 4 * 17 * F_TILE             # the epilogue's column sums
+F_MAX_STAGES = 4
+F_BLOCKS_PER_SM = 2
+NUM_SMS = 132     # H100 SXM; the wrappers pass the card's own count
+
+
+class Fp32Plan(NamedTuple):
+    """How B4w or B4a runs one call on the card.
+
+    stages: ring slots; pc: candidates a block (the last of the ``groups``
+    groups may hold fewer); tiles: output tiles (and partial sums per
+    candidate and bin); blocks: tiles x groups; waves: blocks over the
+    card's block slots (``num_sms`` x F_BLOCKS_PER_SM), rounded up;
+    fill: the share of the waves' slot time that holds candidate work;
+    smem: dynamic shared memory of a block."""
+    stages: int
+    pc: int
+    groups: int
+    tiles: int
+    blocks: int
+    waves: int
+    fill: float
+    smem: int
+
+
+def fp32_smem_bytes(kind: str, twin: bool, stages: int) -> int:
+    """A B4w (``kind`` "w") or B4a ("a"; ``twin``: post-GELU) block's
+    dynamic shared memory (csrc ``fp32_smem_bytes``): the ring slots (the
+    fixed operand's k-major fp32 tile, the raw levels, the twin's negative
+    levels), two expanded level tiles, the epilogue's column sums."""
+    tile = 4 * F_KC * (F_TILE + 4)
+    raw = F_TILE * F_KC * (2 if kind == "a" and twin else 1)
+    return stages * (tile + raw) + 2 * tile + F_RED_BYTES
+
+
+def fp32_plan(kind: str, M: int, N: int, K: int, P: int,
+              twin: bool = False, num_sms: int = NUM_SMS) -> Fp32Plan:
+    """The plan of a B4w (``kind`` "w") or B4a ("a"; ``twin``: post-GELU)
+    call on a card of ``num_sms`` SMs: the most ring slots (up to
+    F_MAX_STAGES) within LQ_BLOCK_SMEM, and the candidate groups.  Each
+    group count G gives groups of pc = ceil(P / G); the plan takes the G
+    with the least time in block waves, ``ceil(tiles G / slots) (pc + 4 /
+    chunks)`` (a block's start and pipeline fill cost about four of its K
+    chunks), among those that give every block slot a block where tiles x
+    P allows it; ties keep the fewer groups."""
+    if kind not in ("w", "a"):
+        raise ValueError(f"unknown kind {kind}")
+    slots = num_sms * F_BLOCKS_PER_SM
+    tiles = -(-M // F_TILE) * -(-N // F_TILE)
+    stages = 2
+    while (stages < F_MAX_STAGES
+           and fp32_smem_bytes(kind, twin, stages + 1) <= LQ_BLOCK_SMEM):
+        stages += 1
+    chunks = k_pad(K) // F_KC
+    need = min(slots, tiles * P)
+    best = None
+    for groups in range(1, P + 1):
+        pc = -(-P // groups)
+        if -(-P // pc) != groups or tiles * groups < need:
+            continue
+        waves = -(-tiles * groups // slots)
+        cost = waves * (pc + 4 / chunks)
+        if best is None or cost < best[0]:
+            best = (cost, pc, groups, waves)
+    _, pc, groups, waves = best
+    return Fp32Plan(stages, pc, groups, tiles, tiles * groups, waves,
+                    tiles * P / (slots * waves * pc),
+                    fp32_smem_bytes(kind, twin, stages))
+
+
 def mm_fold_factor(G: int, Ci: int, Co: int) -> int:
     """The head fold F of the JAX matmul scorer (pallas_search.py
     ``_mm_fold_factor``, without its environment override): the largest F
@@ -324,6 +400,10 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def _num_sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _levels_scratch(shape, device):
     """int8 level buffer the kernels' pre-pass fills (K-padded rows)."""
     return torch.empty(shape, dtype=torch.int8, device=device)
@@ -440,12 +520,14 @@ def linear_w_hessian_sims(x_sim, w, cands, raw_minus_bias, grad, qmax: int):
     _check(raw_minus_bias, "raw_minus_bias", torch.float32, (M, oc), dev)
     _check(grad, "grad", torch.float32, (M, oc), dev)
     lw = _levels_scratch((P, oc, lib.ptq_k_pad(ic)), dev)
-    partial = torch.empty(lib.ptq_num_tiles(M, oc) * P * n_V,
+    plan = fp32_plan("w", M, oc, ic, P, num_sms=_num_sms(dev))
+    partial = torch.empty(lib.ptq_fp32_num_partials(M, oc) * P * n_V,
                           dtype=torch.float32, device=dev)
     out = torch.empty(P, n_V, dtype=torch.float32, device=dev)
     _launch(lib.ptq_linear_w_sims_f32, _ptr(x_sim), _ptr(w), _ptr(c2),
             _ptr(raw_minus_bias), _ptr(grad), M, ic, oc, P, n_V, qmax,
-            _ptr(lw), _ptr(partial), _ptr(out), _stream())
+            plan.stages, plan.pc, _ptr(lw), _ptr(partial), _ptr(out),
+            _stream())
     linear_w_hessian_sims.launches += 1
     return out[:, 0] if squeeze else out
 
@@ -473,13 +555,14 @@ def linear_a_hessian_sims(x, w_sim, cands, raw_minus_bias, grad, a_qmax: int,
     kp = lib.ptq_k_pad(ic)
     lx = _levels_scratch((P, M, kp), dev)
     lneg = _levels_scratch((M, kp), dev) if postgelu else None
-    partial = torch.empty(lib.ptq_num_tiles(M, oc) * P, dtype=torch.float32,
-                          device=dev)
+    plan = fp32_plan("a", M, oc, ic, P, postgelu, _num_sms(dev))
+    partial = torch.empty(lib.ptq_fp32_num_partials(M, oc) * P,
+                          dtype=torch.float32, device=dev)
     out = torch.empty(P, dtype=torch.float32, device=dev)
     _launch(lib.ptq_linear_a_sims_f32, _ptr(x), _ptr(w_sim), _ptr(cands),
             _ptr(raw_minus_bias), _ptr(grad), float(a_neg), M, ic, oc, P,
-            a_qmax, int(postgelu), _ptr(lx), _ptr(lneg), _ptr(partial),
-            _ptr(out), _stream())
+            a_qmax, int(postgelu), plan.stages, plan.pc, _ptr(lx),
+            _ptr(lneg), _ptr(partial), _ptr(out), _stream())
     linear_a_hessian_sims.launches += 1
     return out
 

@@ -3,7 +3,9 @@
 
     python scripts/torch_search_probe.py profile ROOT [--streamed]
     python scripts/torch_search_probe.py b3 ROOT
-    python scripts/torch_search_probe.py qstates ROOT OUT.pkl
+    python scripts/torch_search_probe.py b4 ROOT [--images=4,32]
+    python scripts/torch_search_probe.py ptxas ROOT
+    python scripts/torch_search_probe.py qstates ROOT OUT.pkl [--exact]
     python scripts/torch_search_probe.py compare PARENT.pkl CHANGE.pkl
 
 ROOT is the checkout whose ``ptq4vit_tpu_torch`` (and ``chip_smoke.py``)
@@ -17,15 +19,29 @@ is imported; each command prints JSON lines.
            the fixed tile streamed with every chunk.
   b3       B3 at chip_smoke.py's ViT-B/384 cases and B3f at its Swin
            stage-1 cases (4 images), ms over 5 calls.
+  b4       B4w (fc1, post-GELU twin fc2, qkv n_V=3) and B4a (fc1,
+           post-GELU fc2, qkv) at ViT-B/384 shapes with 4 and 32 images
+           (or the --images given), P = 100: one JSON line a case with
+           the wrapper's ms (CUDA events, 3 calls), the device ms of each
+           kernel of one call
+           under torch.profiler (level pre-pass, scored kernel,
+           reduction), and the SHA-1 of the sims' bytes (equal between
+           two checkouts where their sims are bitwise equal).
+  ptxas    ptxas's registers and spill bytes of each B4 kernel
+           (``fp32_scored_kernel<KIND>``: 0 B4w, 1 B4a, 2 B4a post-GELU)
+           as the checkout's search_kernels.cu builds, one JSON line a
+           kernel.
   qstates  PTQ4ViT W8A8 calibration of ViT-B/384 and Swin-B/384 on 8
            images (chip_smoke.py's seeds); pickles each qstate and every
-           scorer call's sims, by op, in call order.
+           scorer call's sims, by op, in call order.  With --exact:
+           ViT-B/384 only, with int8_score=False (the B4w / B4a calls).
   compare  the interval slots where two such qstates differ, and for
            each op the first scorer call whose argmax differs, with its
            top-two gap (a near-tie when within chip_smoke.ARGMAX_TIE).
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import pickle
 import re
@@ -160,7 +176,99 @@ def b3(root):
     print(json.dumps(out), flush=True)
 
 
-def qstates(root, path):
+def b4(root, images_list=(4, 32)):
+    torch, sk = _import(root)
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to("cuda", dt)
+    a_neg = np.float32(0.16997124254703522 / Q)
+    for images in images_list:
+        M = images * 577
+        for label, ic, oc, n_V, twin in (("fc1", D, HID, 1, False),
+                                         ("fc2 twin", HID, D, 1, True),
+                                         ("qkv", D, 3 * D, 3, False)):
+            rng = np.random.default_rng(0)
+            x = rng.standard_normal((M, ic)).astype(np.float32)
+            if twin:
+                x = x * 0.5 * (1 + np.tanh(0.7978845608
+                                           * (x + 0.044715 * x ** 3)))
+            w = (rng.standard_normal((oc, ic)) * (2 / (ic + oc)) ** 0.5) \
+                .astype(np.float32)
+            raw = (x @ w.T).astype(np.float32)
+            g = (rng.standard_normal((M, oc)) * 1e-4).astype(np.float32)
+            a = np.float32((x.max() if twin else np.abs(x).max()) / (Q - 0.5))
+            x_lv = np.clip(np.round(x / a), 0 if twin else -Q, Q - 1)
+            x_sim = x_lv * a
+            if twin:
+                x_sim = x_sim + np.clip(np.round(x / a_neg), -Q, 0) * a_neg
+            base = np.abs(w.reshape(n_V, -1)).max(1) / (Q - 0.5)
+            cw = GRID[:, None] * base[None].astype(np.float32)
+            w_int = np.float32(np.abs(w).max() / (Q - 0.5))
+            w_sim = np.clip(np.round(w / w_int), -Q, Q - 1) * w_int
+            del x_lv
+            bw = (t(x_sim), t(w), t(cw if n_V > 1 else cw[:, 0]), t(raw),
+                  t(g), Q)
+            ba = (t(x), t(w_sim), t(GRID * a), t(raw), t(g), Q, twin,
+                  float(a_neg) if twin else 0.0)
+            del x, w, raw, g, x_sim, w_sim
+            for name, fn, args in (("B4w", sk.linear_w_hessian_sims, bw),
+                                   ("B4a", sk.linear_a_hessian_sims, ba)):
+                sims = fn(*args)
+                ms = _time_ms(torch, lambda: fn(*args), 3)
+                by_kernel = _device_ms(torch, lambda: fn(*args))
+                print(json.dumps({
+                    "case": f"{name} {label} M={M} K={ic} N={oc}",
+                    "ms": ms, "by_kernel": by_kernel,
+                    "sims_sha1": hashlib.sha1(
+                        sims.cpu().numpy().tobytes()).hexdigest()}),
+                    flush=True)
+            del bw, ba
+            torch.cuda.empty_cache()
+
+
+def ptxas(root):
+    import os
+    import subprocess
+    import tempfile
+    sys.path.insert(0, root)
+    from ptq4vit_tpu_torch.ops import build
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    fd, cubin = tempfile.mkstemp(suffix=".cubin", dir=build.BUILD_DIR)
+    os.close(fd)
+    flags = [f for f in build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    try:
+        out = subprocess.run(
+            [build.nvcc_path(), *flags, "-Xptxas", "-v", "-cubin", "-o", cubin,
+             build.source_path("search_kernels")],
+            capture_output=True, text=True, check=True).stderr
+    finally:
+        os.remove(cubin)
+    kernel = None
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"fp32_scored_kernelILi(\d)E", m.group(1))
+            kernel = f"fp32_scored_kernel<{k.group(1)}>" if k else None
+            spills = None
+            continue
+        if kernel is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            print(json.dumps({"kernel": kernel,
+                              "registers": int(m.group(1)),
+                              "spill_stores": spills[0] if spills else 0,
+                              "spill_loads": spills[1] if spills else 0}),
+                  flush=True)
+            kernel = None
+
+
+def qstates(root, path, exact=False):
     torch, sk = _import(root)
     from ptq4vit_tpu_torch import quantize
     from ptq4vit_tpu_torch.calib import calibrator
@@ -174,8 +282,10 @@ def qstates(root, path):
         return search_one(self, name, *a, **kw)
     calibrator.HessianQuantCalibrator._search_one = named_search
     log = []
-    for kname in ("linear_w_hessian_sims_i8", "linear_a_hessian_sims_i8",
-                  "matmul_hessian_sims"):
+    for kname in (("linear_w_hessian_sims", "linear_a_hessian_sims")
+                  if exact else ("linear_w_hessian_sims_i8",
+                                 "linear_a_hessian_sims_i8",
+                                 "matmul_hessian_sims")):
         fn = getattr(sk, kname)
 
         def logged(*a, _fn=fn, _k=kname, **kw):
@@ -185,14 +295,16 @@ def qstates(root, path):
         logged.launches = 0     # the wrappers count on their global name
         setattr(sk, kname, logged)
     res = {}
-    for name in ("vit_base_patch16_384", "swin_base_patch4_window12_384"):
+    for name in (("vit_base_patch16_384",) if exact else
+                 ("vit_base_patch16_384", "swin_base_patch4_window12_384")):
         log.clear()
         net = get_net(name, seed=0)
         size = net.cfg.img_size
         calib = np.random.default_rng(1).standard_normal(
             (8, 3, size, size)).astype(np.float32)
         _, q = quantize(net, calib, config=ptq4vit(), batch_size=4,
-                        device=torch.device("cuda"))
+                        device=torch.device("cuda"),
+                        **({"int8_score": False} if exact else {}))
         res[name] = {"qstate": {op: {f: v.cpu().numpy()
                                      for f, v in vars(qp).items()
                                      if torch.is_tensor(v)}
@@ -256,8 +368,13 @@ def main(argv):
         profile(args[0], "--streamed" in args)
     elif cmd == "b3":
         b3(args[0])
+    elif cmd == "b4":
+        b4(args[0], *[tuple(int(n) for n in a.split("=", 1)[1].split(","))
+                      for a in args[1:] if a.startswith("--images=")])
+    elif cmd == "ptxas":
+        ptxas(args[0])
     elif cmd == "qstates":
-        qstates(args[0], args[1])
+        qstates(args[0], args[1], "--exact" in args)
     elif cmd == "compare":
         compare(args[0], args[1])
     else:

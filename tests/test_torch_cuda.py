@@ -146,42 +146,88 @@ def test_kernels_match_plain_versions_on_the_card():
                                   "linear_a_hessian_sims": 0}
 
 
+def forced_fp32_plan(pc, stages):
+    """An ``fp32_plan`` with pc candidates a block and ``stages`` ring
+    slots (at most the plan's own), for the card tests' edge cases."""
+    orig = sk.fp32_plan
+
+    def plan(kind, M, N, K, P, twin=False, num_sms=sk.NUM_SMS):
+        p = orig(kind, M, N, K, P, twin, num_sms)
+        st, c = min(stages, p.stages), min(pc, P)
+        groups = -(-P // c)
+        return p._replace(stages=st, pc=c, groups=groups,
+                          blocks=p.tiles * groups,
+                          smem=sk.fp32_smem_bytes(kind, twin, st))
+    return plan
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,ic,oc", [(100, 64, 3 * 64), (130, 72, 3 * 40)])
-def test_fp32_kernels_match_plain_versions_on_the_card(M, ic, oc):
+@pytest.mark.parametrize("M,ic,oc", [(100, 64, 3 * 64), (130, 72, 3 * 40),
+                                     (260, 72, 3 * 100), (77, 3072, 144)])
+def test_fp32_kernels_match_plain_versions_on_the_card(M, ic, oc,
+                                                       monkeypatch):
     """B4w (n_V 1 and 3, signed and twin fake-quant input) and B4a (signed
-    and post-GELU) against their plain versions: rows and columns past a
-    64 x 64 tile, K not a multiple of the 32-wide chunk, and row blocks
-    (oc / n_V = 40) that straddle tiles.  rtol 1e-4: fp32 sums in another
-    order."""
+    and post-GELU) against their plain versions: rows and columns past the
+    128 x 128 tiles, K not a multiple of the 32-wide chunk (64 -> 64,
+    72 -> 96), K = 3072, row blocks (oc / n_V = 40, 100) that straddle
+    tiles, under the plan and under forced plans -- 7 candidates in
+    groups of 3 (the last holds 1), the ring at 2 and 4 slots -- and
+    P = 1.  rtol 1e-4: fp32 sums in another order."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     rng = np.random.default_rng(42)
     dev = "cuda"
     sk.reset_launch_counts()
-    for n_V, twin in ((1, False), (3, True), (3, False), (1, True)):
-        x, w, raw, g, cands, a = linear_case(rng, M, ic, oc, n_V, 7, twin)
-        an = np.float32(A_NEG)
-        x_sim = (np.clip(np.round(x / a), 0, Q - 1) * a
-                 + np.clip(np.round(x / an), -Q, 0) * an) if twin else \
-            np.clip(np.round(x / a), -Q, Q - 1) * a
-        args = (T(x_sim).to(dev), T(w).to(dev),
-                T(cands if n_V > 1 else cands[:, 0]).to(dev),
-                T(raw).to(dev), T(g).to(dev), Q)
-        torch.testing.assert_close(sk.linear_w_hessian_sims(*args),
-                                   sk.linear_w_hessian_sims_ref(*args),
-                                   rtol=1e-4, atol=0)
-        w_int = np.float32(np.abs(w).max() / (Q - 0.5))
-        w_sim = np.clip(np.round(w / w_int), -Q, Q - 1) * w_int
-        args = (T(x).to(dev), T(w_sim).to(dev),
-                T(np.linspace(0.3, 1.2, 7) * a).to(dev), T(raw).to(dev),
-                T(g).to(dev), Q, twin, GELU_NEG_CLIP / Q if twin else 0.0)
-        torch.testing.assert_close(sk.linear_a_hessian_sims(*args),
-                                   sk.linear_a_hessian_sims_ref(*args),
-                                   rtol=1e-4, atol=0)
+    calls = 0
+    for forced in (None, (3, 2), (3, 4), (1, 3)):
+        if forced is not None:
+            monkeypatch.setattr(sk, "fp32_plan",
+                                forced_fp32_plan(*forced))
+        for n_V, twin, P in ((1, False, 7), (3, True, 7), (3, False, 7),
+                             (1, True, 7), (3, False, 1), (1, True, 1)):
+            x, w, raw, g, cands, a = linear_case(rng, M, ic, oc, n_V, P,
+                                                 twin)
+            an = np.float32(A_NEG)
+            x_sim = (np.clip(np.round(x / a), 0, Q - 1) * a
+                     + np.clip(np.round(x / an), -Q, 0) * an) if twin else \
+                np.clip(np.round(x / a), -Q, Q - 1) * a
+            args = (T(x_sim).to(dev), T(w).to(dev),
+                    T(cands if n_V > 1 else cands[:, 0]).to(dev),
+                    T(raw).to(dev), T(g).to(dev), Q)
+            msg = f"{forced} n_V={n_V} twin={twin} P={P}"
+            torch.testing.assert_close(sk.linear_w_hessian_sims(*args),
+                                       sk.linear_w_hessian_sims_ref(*args),
+                                       rtol=1e-4, atol=0, msg="B4w " + msg)
+            w_int = np.float32(np.abs(w).max() / (Q - 0.5))
+            w_sim = np.clip(np.round(w / w_int), -Q, Q - 1) * w_int
+            args = (T(x).to(dev), T(w_sim).to(dev),
+                    T(np.linspace(0.3, 1.2, P) * a).to(dev), T(raw).to(dev),
+                    T(g).to(dev), Q, twin, GELU_NEG_CLIP / Q if twin else 0.0)
+            torch.testing.assert_close(sk.linear_a_hessian_sims(*args),
+                                       sk.linear_a_hessian_sims_ref(*args),
+                                       rtol=1e-4, atol=0, msg="B4a " + msg)
+            calls += 1
     counts = sk.launch_counts()
-    assert counts["linear_w_hessian_sims"] == 4
-    assert counts["linear_a_hessian_sims"] == 4
+    assert counts["linear_w_hessian_sims"] == calls == 24
+    assert counts["linear_a_hessian_sims"] == calls
+
+
+@pytest.mark.cuda
+def test_fp32_plan_matches_the_library_on_the_card():
+    """The wrappers size B4w's / B4a's partial sums from the library's
+    tile count, and the library sizes a block's shared memory as
+    fp32_plan does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from ptq4vit_tpu_torch.ops.build import load
+    lib = load()
+    for M, ic, oc in ((100, 64, 192), (130, 72, 300), (2308, 768, 3072),
+                      (2308, 3072, 768), (18464, 768, 2304)):
+        for code, (kind, twin) in enumerate((("w", False), ("a", False),
+                                             ("a", True))):
+            plan = sk.fp32_plan(kind, M, oc, ic, 100, twin)
+            assert lib.ptq_fp32_num_partials(M, oc) == plan.tiles
+            assert lib.ptq_fp32_smem_bytes(code, plan.stages) == plan.smem
 
 
 @pytest.mark.cuda
@@ -622,3 +668,38 @@ def test_window_attention_matches_plain_version_on_the_card(nW, N, hd):
                                    torch.float32 else 2.0 ** -8, step)
             n += 1
     assert sv.launch_counts()["fused_window_attention_qkv"] == n
+
+
+@pytest.mark.parametrize("name", ["vit_base_patch16_384",
+                                  "swin_base_patch4_window12_384"])
+@pytest.mark.parametrize("images", [4, 8, 32])
+def test_fp32_plans_cover_candidates_and_fill_the_card(name, images):
+    """Every B4w / B4a plan of the model's exact-scoring calibration (its
+    linears at P = 100, n_V 1 and 3): the candidate groups cover each
+    candidate exactly once; a block's shared memory fits its share of an
+    SM (two blocks of 128 x 128 outputs an SM, so within 232,448 bytes)
+    with a ring of at least two slots (three without the twin's negative
+    levels); the grid gives every block slot of the card a block wherever
+    tiles x P allows it; every bin of a tile has its thread; and where the
+    work spans ten waves or more, the tail wastes at most 10% of the
+    slots' time."""
+    calls = set(linear_calls(name, images))
+    assert {n_V for *_, n_V, _ in calls} == {1, 3}
+    assert sk.F_BLOCKS_PER_SM == 2
+    slots = sk.NUM_SMS * sk.F_BLOCKS_PER_SM
+    for kind, M, N, K, P, n_V, twin in calls:
+        assert N % n_V == 0 and n_V <= 256      # one thread a bin
+        twin = twin and kind == "a"             # B4a's negative levels
+        plan = sk.fp32_plan(kind, M, N, K, P, twin)
+        assert plan.smem == sk.fp32_smem_bytes(kind, twin, plan.stages)
+        assert plan.smem <= sk.LQ_BLOCK_SMEM <= sk.SMEM_LIMIT
+        assert plan.stages >= (2 if twin else 3)
+        covered = [p for g in range(plan.groups)
+                   for p in range(g * plan.pc, min(P, (g + 1) * plan.pc))]
+        assert covered == list(range(P))
+        assert plan.tiles == -(-M // 128) * -(-N // 128)
+        assert plan.blocks == plan.tiles * plan.groups
+        assert plan.blocks >= min(slots, plan.tiles * P)
+        assert plan.waves == -(-plan.blocks // slots)
+        if plan.tiles * P >= 10 * slots:
+            assert plan.fill >= 0.9, (kind, M, N, K, plan)
