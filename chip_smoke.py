@@ -6,16 +6,18 @@ Phases (any failure raises, so the exit code is non-zero):
   1. the card's name and power limit; CUDA is required, TF32 is off;
   2. build the search and serving kernels from ptq4vit_tpu_torch/csrc/
      (one nvcc per source, started together);
-  3. each kernel against its plain PyTorch version, with both times, the
-     least time the card could take for the same work and the share of
-     the int8 (fp32) peak its operations reach: B1 plain/twin, B2
+  3. each kernel against its plain PyTorch version, with both times (a
+     kernel's over at least TIMED_MS of launches), the least time the card
+     could take for the same work (for B3 / B3f also the bound of the
+     products alone, without the fp32 epilogue) and the share of the int8
+     (fp32) peak its operations reach: B1 plain/twin, B2
      signed/post-GELU, B3 a/b/b_sos, B4w fc1 / post-GELU fc2 / qkv n_V=3
      and B4a signed / post-GELU at ViT-B/384 shapes (4 images), B1, B2,
      B4w and B4a also at fc1 with 32 images (the headline job's M =
-     18,464), each B4 case beside torch.mm of the same fp32 fake-quant
-     operands P times (cuBLAS SGEMM, TF32 off; context only); B3f
-     a/b/b_sos at Swin-B/384 window shapes (4 images, stages 1 and 3), with
-     B3 timed on the same inputs; B6 in the block's four modes, the head,
+     18,464) and B3 a / b_sos with 32 images, each B4 case beside
+     torch.mm of the same fp32 fake-quant operands P times (cuBLAS SGEMM,
+     TF32 off; context only); B3f a/b/b_sos at Swin-B/384 window shapes
+     (4 images, stages 1 and 3); B6 in the block's four modes, the head,
      the fp32 engine's qkv and the per-op post-GELU fc2, B7 int8 -> int8 and
      float -> float (SoS and per-head) and B8 at ViT-B/384 shapes with 32
      images (float outputs of B6 bitwise; float attention outputs rtol
@@ -85,6 +87,8 @@ ATTN_RTOL = 1e-5       # float attention outputs: rtol, atol 2e-5 max|ref|,
 FLIP_SHARE = 5e-4      # except in at most this share of the elements, off
                        # by at most one probability level's contribution
 NUM_CALIB = 8
+TIMED_MS = 100.0       # a kernel's timing spans at least this many ms of
+MAX_REPS = 2000        # launches (at most this many)
 SERVE_BATCH, SERVE_REQUESTS = 32, 4
 SEARCH_SOURCE = "ptq4vit_tpu_torch/csrc/search_kernels.cu"
 SERVE_SOURCE = "ptq4vit_tpu_torch/csrc/serve_kernels.cu"
@@ -159,11 +163,21 @@ def card_line() -> str:
     return out.splitlines()[0]
 
 
-def time_ms(fn, reps: int) -> float:
+def time_ms(fn, reps: int = 5, min_ms: float = TIMED_MS) -> float:
+    """Mean ms of a call over at least ``reps`` calls and, for a short
+    call, enough calls to fill ``min_ms`` (one warm-up call first, a
+    second call sizes the count)."""
     fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
+    if min_ms > 0:
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        reps = max(reps, min(MAX_REPS, int(min_ms / max(
+            e0.elapsed_time(e1), 1e-3)) + 1))
     e0.record()
     for _ in range(reps):
         fn()
@@ -190,10 +204,17 @@ def check_sims(name, got, ref):
     return float(err.max())
 
 
-def work(kname, args, out):
+# fp32 operations of B3's / B3f's epilogue per (output, candidate): the
+# rescale, the difference and the weighted square, summed (csrc
+# mm_epilogue; "b_sos" rescales two sums)
+MM_EPILOGUE_OPS = {"a": 5, "b": 5, "b_sos": 8}
+
+
+def work(kname, args, out, epilogue=True):
     """(operations by type, bytes) a call needs: each input read once and
     the output written once; int8 multiply-adds of the levels (2 ops) for
-    B1-B3f, fp32 ones for B4w / B4a and for B3's in-kernel raw = A @ B."""
+    B1-B3f, fp32 ones for B4w / B4a and for B3's in-kernel raw = A @ B,
+    and (``epilogue``) B3's / B3f's fp32 epilogue."""
     nbytes = sum(a.numel() * a.element_size() for a in args
                  if torch.is_tensor(a)) + out.numel() * out.element_size()
     P = args[3].shape[0] if kname.startswith("matmul") else None
@@ -206,9 +227,12 @@ def work(kname, args, out):
         return {"int8": 2 * M * K * N * (P + (1 if args[7] else 0))}, nbytes
     if kname.startswith("matmul"):
         S, G, R, Ci = args[0].shape
-        mm = 2 * S * G * R * Ci * args[1].shape[-1]
+        Co = args[1].shape[-1]
+        mm = 2 * S * G * R * Ci * Co
+        epi = P * S * G * R * Co * MM_EPILOGUE_OPS[args[5]] if epilogue \
+            else 0
         return {"int8": P * mm * (2 if args[5] == "b_sos" else 1),
-                "fp32": mm}, nbytes
+                "fp32": mm + epi}, nbytes
     (M, K), N, P = args[0].shape, args[1].shape[0], args[2].shape[0]
     return {"fp32": 2 * P * M * K * N}, nbytes                 # B4w, B4a
 
@@ -232,7 +256,8 @@ def share_text(share):
 
 
 def kernel_phase(sk, dev):
-    """Each kernel against its plain version at ViT-B/384 shapes."""
+    """Each kernel against its plain version at ViT-B/384 shapes (B3f at
+    Swin-B/384's), beside its bound with and without B3's epilogue."""
     from ptq4vit_tpu_torch.quant.fakequant import GELU_NEG_CLIP
     rng = np.random.default_rng(0)
     S, N, d, hid, G, hd, P, q = 4, 577, 768, 3072, 12, 64, 100, 128
@@ -252,11 +277,11 @@ def kernel_phase(sk, dev):
         g = (rng.standard_normal((M, oc)) * 1e-4).astype(np.float32)
         return x, w, raw, g
 
-    def case(kname, label, args, ref_name=None, other=None, sgemm=None):
+    def case(kname, label, args, ref_name=None, sgemm=None):
         fn = getattr(sk, kname)
         ref = getattr(sk, ref_name or kname + "_ref")
         cases.append((kname, label, args, lambda: fn(*args),
-                      lambda: ref(*args), other, sgemm))
+                      lambda: ref(*args), sgemm))
 
     def sgemm(xq, wq):
         """The P fp32 products of a B4 call alone, as cuBLAS SGEMM runs
@@ -264,7 +289,7 @@ def kernel_phase(sk, dev):
         buf = torch.empty(xq.shape[0], wq.shape[0], device=dev)
         return lambda: [torch.mm(xq, wq.t(), out=buf) for _ in range(P)]
 
-    cases = []   # (kernel, label, args, fn, ref_fn, other, sgemm)
+    cases = []   # (kernel, label, args, fn, ref_fn, sgemm)
     for label, ic, oc, n_V, pg in (("fc1", d, hid, 1, False),
                                    ("fc2 twin", hid, d, 1, True),
                                    ("qkv n_V=3", d, 3 * d, 3, False)):
@@ -330,8 +355,7 @@ def kernel_phase(sk, dev):
     for label, args in matmul_cases(rng, grid, S, G, N, hd, q, t):
         case("matmul_hessian_sims_b3", label, args, "matmul_hessian_sims_ref")
     # Swin-B/384 window matmuls (window 12: N = 144, head dim 32) at 4
-    # images: stage 1 (64 windows, 4 heads), stage 3 (4 windows, 16 heads);
-    # B3 runs on the same inputs for comparison
+    # images: stage 1 (64 windows, 4 heads), stage 3 (4 windows, 16 heads)
     for stage, nwin, G_s in ((1, 64, 4), (3, 4, 16)):
         for label, args in matmul_cases(rng, grid, S * nwin, G_s, 144, 32,
                                         q, t):
@@ -339,17 +363,24 @@ def kernel_phase(sk, dev):
                                  args[1].shape[-1]) <= 1:
                 raise AssertionError("Swin window shapes must fold")
             case("matmul_hessian_sims_b3f", f"stage {stage} {label}", args,
-                 "matmul_hessian_sims_ref",
-                 lambda args=args: sk.matmul_hessian_sims_b3(*args))
+                 "matmul_hessian_sims_ref")
+    # B3 at ViT-B/384 with 32 images, the headline job's shape: matmul1 a
+    # and matmul2 b_sos (a generator of their own keeps the other cases'
+    # inputs as they were)
+    for label, args in matmul_cases(np.random.default_rng(8), grid, 32, G,
+                                    N, hd, q, t, ("a", "b_sos")):
+        case("matmul_hessian_sims_b3", f"{label} 32 images", args,
+             "matmul_hessian_sims_ref")
 
     stats = {}
-    for kname, label, args, fn, ref_fn, other, products in cases:
+    for kname, label, args, fn, ref_fn, products in cases:
         got = fn()
         ref = ref_fn()
         torch.cuda.synchronize()
         err = check_sims(f"{kname} {label}", got, ref)
+        del ref
         ms = time_ms(fn, 5)
-        plain_ms = time_ms(ref_fn, 1)
+        plain_ms = time_ms(ref_fn, 1, 0)
         ops, in_bytes = work(kname, args, got)
         bound_ms, bound_by = bound(ops, in_bytes)
         share = peak_share(ops, ms)
@@ -357,16 +388,16 @@ def kernel_phase(sk, dev):
                  "bound_ms": bound_ms, "bound_by": bound_by,
                  "peak_share": share}
         line = (f"[kernel] {kname} {label}: max_abs_err {err:.3e} "
-                f"(max |sim| {float(ref.abs().max()):.3e}), kernel "
+                f"(max |sim| {float(got.abs().max()):.3e}), kernel "
                 f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
                 f"{bound_ms:.3f} ms ({bound_by}), {share_text(share)}")
-        if other is not None:             # B3 on the same inputs
-            entry["b3_max_abs_err"] = check_sims(f"B3 {label}", other(), ref)
-            entry["b3_ms"] = time_ms(other, 5)
-            line += (f", B3 {entry['b3_ms']:.3f} ms (max_abs_err "
-                     f"{entry['b3_max_abs_err']:.3e})")
+        if kname.startswith("matmul"):    # the products alone
+            pops, _ = work(kname, args, got, epilogue=False)
+            entry["products_bound_ms"], _ = bound(pops, in_bytes)
+            line += (f", products-only bound "
+                     f"{entry['products_bound_ms']:.3f} ms")
         if products is not None:          # B4w / B4a: cuBLAS SGEMM x P
-            entry["sgemm_ms"] = time_ms(products, 1)
+            entry["sgemm_ms"] = time_ms(products, 1, 0)
             line += (f", torch.mm x {P} {entry['sgemm_ms']:.3f} ms (context "
                      "only)")
         log(line)
@@ -379,9 +410,10 @@ def kernel_phase(sk, dev):
     return stats
 
 
-def matmul_cases(rng, grid, S, G, N, hd, q, t):
-    """matmul1 a / b and matmul2 b_sos inputs at S samples, G heads, N
-    tokens, head dim hd (bf16, as the calibration caches on the card)."""
+def matmul_cases(rng, grid, S, G, N, hd, q, t, modes=("a", "b", "b_sos")):
+    """matmul1 a / b and matmul2 b_sos inputs (those of ``modes``) at S
+    samples, G heads, N tokens, head dim hd (bf16, as the calibration
+    caches on the card)."""
     qk = rng.standard_normal((S, G, N, hd)).astype(np.float32)
     kT = rng.standard_normal((S, G, hd, N)).astype(np.float32)
     att = qk @ kT / np.float32(hd ** 0.5)
@@ -404,6 +436,8 @@ def matmul_cases(rng, grid, S, G, N, hd, q, t):
             ("matmul1 b", qk, kT, g1, "b", kT, heads_absmax(qk)),
             ("matmul2 b_sos", att, v, g2, "b_sos", v,
              np.ones(G, np.float32))):
+        if mode not in modes:
+            continue
         cm = t(grid[:, None] * heads_absmax(cand_src)[None])
         sos = (float(split), float(a_int), float(s_hi), float(a_int)) \
             if mode == "b_sos" else None
@@ -799,7 +833,7 @@ def measure_serving(cases):
         err, share = compare_outputs(f"{kname} {label}", got, ref, *tol,
                                      step=step)
         ms = time_ms(fn, 5)
-        plain_ms = time_ms(plain, 1)
+        plain_ms = time_ms(plain, 1, 0)
         lib_ms = time_ms(lib_fn, 5)
         bound_ms, bound_by = bound(ops, in_bytes + nbytes(got))
         peak = peak_share(ops, ms)

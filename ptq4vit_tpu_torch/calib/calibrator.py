@@ -69,8 +69,8 @@ def kernel_scratch_bytes(info, calib_n: int, policy) -> int:
     of B1, B2, B4w or B4a for a linear (B2's and B4a's per-candidate input
     levels dominate) with the fp32 operand B4w / B4a take (the fake-quant
     input, the fake-quant weight), B3 / B3f for a matmul (mode "a" only
-    without the SoS quantizer); 0 for the conv, whose search is plain
-    tensor code."""
+    without the SoS quantizer) with its per-warp partial sums; 0 for the
+    conv, whose search is plain tensor code."""
     P = policy.eq_n
     if info["kind"] == "linear":
         ic, oc = info["in_features"], info["out_features"]
@@ -80,12 +80,15 @@ def kernel_scratch_bytes(info, calib_n: int, policy) -> int:
                    P * oc * kp + 4 * M * ic,                   # B4w
                    P * M * kp + M * kp + 4 * oc * ic)          # B4a
     if info["kind"] == "matmul":
-        Z = info["heads"] * info.get("windows", 1) * calib_n
+        G, S = info["heads"], info.get("windows", 1) * calib_n
+        Z = G * S
         R, C, kp = info["rows"], info["cols"], K.k_pad(info["inner"])
+        partial = 4 * P * G * S * -(-R // K.MM_ROWS) \
+            * -(-C // K.mm_width(C)) * K.MM_WARPS
         mode_b = 2 * Z * R * kp + P * Z * C * kp               # b, b_sos
         if policy.quantizer == "sos_matmul":
-            return mode_b
-        return max(P * Z * R * kp + Z * C * kp, mode_b)        # a, b
+            return mode_b + partial
+        return max(P * Z * R * kp + Z * C * kp, mode_b) + partial  # a, b
     return 0
 
 

@@ -11,9 +11,9 @@
 //       (body _mm_kernel, F = 1): per-head attention-matmul search
 //   B3f ptq4vit_tpu/ops/pallas_search.py  matmul_hessian_sims
 //       (body _mm_kernel_folded, F > 1): the same search at the window
-//       shapes of Swin (see the B3f section below)
-//   B4w, B4a  the fp32-scored (exact) twins of B1 and B2 (see their
-//       section at the end)
+//       shapes of Swin; one kernel serves B3 and B3f (their section)
+//   B4w, B4a  the fp32-scored (exact) twins of B1 and B2 (their section,
+//       at the end)
 //
 // B1-B3f score P candidate scales Δ_p with the hessian similarity
 //     sims[p] = -Σ (g · (raw - out_p))²
@@ -23,51 +23,42 @@
 //   levels_kernel       quantizes each operand to int8 levels once (per
 //                       candidate for the searched operand) into K-padded
 //                       rows, one IEEE division per element;
-//   a scored GEMM       the products of every candidate, the fp32 rescale
-//                       and the squared errors, summed per block;
-//   reduce_partials     sums the per-block partials in a fixed order.
+//   a scored GEMM       the products of every candidate on the int8 tensor
+//                       cores (wgmma s8 x s8 -> s32 from shared memory,
+//                       fed by TMA through a ring of mbarrier-guarded
+//                       slots by a producer warp, the operand no candidate
+//                       changes resident in shared memory), the fp32
+//                       rescale and the squared errors, summed per warp;
+//   a reduction         sums the per-block partials in a fixed order.
 //
-// B1 and B2 (linear_tc_kernel, section at the end) run their products on
-// the int8 tensor cores: wgmma m64n64k32 s8 x s8 -> s32 from shared
-// memory, fed by TMA through a ring of mbarrier-guarded slots by a
-// producer warp, with the operand no candidate changes resident in shared
-// memory where it fits, two blocks an SM.  Their work is 2 P M K N int8
-// operations a call (1.09e12 for fc1 at 4 images: 0.55 ms at 1,979 TOPS);
-// they reach about a fifth of that rate.  What holds them there: a block
-// runs each candidate's products and then its epilogue -- one int32 ->
-// fp32 conversion (a quarter-rate instruction) and five fp32 operations
-// per output -- in turn, and only the SM's second block fills the gap
-// (one warpgroup a block measured 15% faster than two sharing one ring:
-// those ran their epilogues in lockstep); each candidate's 64-row tile
-// comes from L2 once per block; and the level pre-pass (an IEEE division
-// per level) is 13-36% of a call.  Their first design ran __dp4a on
-// the CUDA cores at 2-3% of the int8 peak, re-streamed the fixed operand
-// for every candidate and reduced every candidate across the block, and
-// B1's block order streamed the per-candidate weight levels once per row
-// tile.
+// What bounds them on this card: B1 and B2 (linear_tc_kernel) take 2 K
+// int8 operations per (output, candidate) pair against an epilogue of one
+// int32 -> fp32 conversion and five fp32 operations, with K = 768-3072:
+// the tensor cores; they reach about a fifth of the int8 peak, since a
+// block runs each candidate's products and then its epilogue in turn and
+// only the SM's second block fills the gap.  B3 / B3f's matmul1 has K = 32
+// or 64, so its epilogue, not its products, bounds it: the B3 kernel
+// overlaps one candidate's epilogue with the next one's products inside a
+// block and converts the int32 sums without the slow I2F (their section).
+// Every one of them ran __dp4a on the CUDA cores at 1-3% of the int8 peak
+// in its first design.  B4w and B4a stay on the fp32 CUDA cores by their
+// exact-scoring contract.
 //
-// B3 (scored_gemm_kernel) keeps that first design: a block owns a 64 x 64
-// output tile of one (head, sample), keeps raw and grad of its tile in
-// registers and loops over all P candidates: 16-byte loads of the level
-// tiles into shared memory, __dp4a products with an exact int32
-// accumulate, the fp32 rescale and the squared error, summed per column.
-// Quantizing inside the candidate loop would make every row tile repeat
-// the same divisions (they bounded the kernels on the card); the pre-pass
-// does each once.  B3 and B3f on the tensor cores are later work; B4w and
-// B4a stay on the fp32 CUDA cores by their exact-scoring contract (their
-// section, at the end).
+// Quantizing inside the candidate loop would make every output tile
+// repeat the same divisions (they bounded the first kernels on the card);
+// the pre-pass does each once.
 //
 // Determinism.  The TPU kernel sums across sequential grid steps; Hopper
-// blocks run in no order, so every block writes its partial sums to a
-// (blocks, P, bins) scratch buffer and reduce_partials sums them in a fixed
-// order (in double).  No atomics: the sims are the same from run to run.
+// blocks run in no order, so every block (B3: every warp) writes its
+// partial sums to scratch and a second kernel sums them in a fixed order
+// (in double).  No atomics: the sims are the same from run to run.
 //
 // Numerics.  The elementwise part is bitwise equal to the plain PyTorch
 // version: __fdiv_rn divisions, rintf (round half to even) levels, and the
 // TPU kernels' rescale order with __fmul_rn / __fadd_rn, so no FMA
 // contraction changes a rounding (the build also passes --fmad=false).
-// The int32 accumulate is exact in any order; only the order of the final
-// fp32 sums differs.
+// The int32 accumulate is exact in any order; only the order of the fp32
+// sums (and of B3's raw product) differs.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -77,11 +68,17 @@
 
 namespace {
 
-constexpr int TM = 64;        // output rows per block
-constexpr int TN = 64;        // output columns per block
-constexpr int TK = 32;        // K bytes per shared-memory chunk (K pad unit)
-constexpr int TKW = TK / 4;   // K words per chunk
-constexpr int NT = 256;       // 16 x 16 threads, 4 x 4 outputs each
+constexpr int TK = 32;        // K pad unit of the level rows (bytes)
+constexpr int NT = 256;       // threads of a B4 block
+
+// error codes of the C entry points beside CUDA's own
+constexpr int kErrNoLibcuda = 9001;     // returned when libcuda is missing
+constexpr int kErrTensorMap = 9002;    // cuTensorMapEncodeTiled refused
+constexpr int kErrSmem = 9003;         // the plan exceeds shared memory
+constexpr int kErrSize = 9004;         // a level buffer past 2^31 words
+
+int cdiv(int a, int b) { return (a + b - 1) / b; }
+int kpad(int K) { return cdiv(K, TK) * TK; }
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -160,284 +157,118 @@ struct InputLevels {  // B2: Q(x[m]; Δ_p) signed or positive, or the
   }
 };
 
-// B3 operands.  z = g * S + s indexes (head, sample); which = 0: A rows
-// (R, Ci) as they are, 1: B transposed to (Co, Ci).
-// kind 0: candidate scale cands[p, g]; 1: fixed scale fixed[g];
-// 2: SoS high level; 3: SoS low level.
+// the candidate planes a pre-pass thread writes its level words for
+constexpr int MM_LV_PLANES = 8;
+
+// B3 / B3f operands, A's rows (R, Ci) as they are or B's columns as rows
+// (Co, Ci).  kind 0: candidate scale cands[p, g]; 1: fixed scale fixed[g];
+// 2: SoS high level; 3: SoS low level (scale a_int).
 template <class T>
 struct MatmulLevels {
   const T* X;
   const float* cands;  // (P, G)
   const float* fixed;  // (G,)
   float split, a_int;
-  int S, G, R, Ci, Co, which, kind, qmax;
-  __device__ int8_t level(int p, int z, int r, int k) const {
-    const int g = z / S;
-    const size_t sg = (size_t)(z % S) * G + g;
-    const float v = which == 0 ? to_f(X[(sg * R + r) * Ci + k])
-                               : to_f(X[(sg * Ci + k) * Co + r]);
-    if (kind == 0) return qlevel(v, cands[p * G + g], -qmax, qmax - 1);
-    if (kind == 1) return qlevel(v, fixed[g], -qmax, qmax - 1);
+  int S, G, R, Ci, Co, kind, qmax;
+  // the scale of kinds 0, 1 and 3 at (p, g)
+  __device__ __forceinline__ float scale(int p, int g) const {
+    return kind == 0 ? cands[p * G + g] : (kind == 1 ? fixed[g] : a_int);
+  }
+  // the level of v under scale d
+  __device__ __forceinline__ int8_t quant(float v, float d) const {
     if (kind == 2)
       return clamp_level(
           rintf(__fmul_rn(fminf(fmaxf(v, split), 1.f), (float)(qmax - 1))),
           0, qmax - 1);
-    return clamp_level(rintf(__fdiv_rn(fminf(fmaxf(v, 0.f), split), a_int)),
-                       0, qmax - 1);
+    if (kind == 3)
+      return qlevel(fminf(fmaxf(v, 0.f), split), d, 0, qmax - 1);
+    return qlevel(v, d, -qmax, qmax - 1);
   }
 };
 
-// ---------------------------------------------------------------------------
-// B3: scored GEMM over pre-quantized levels
-// ---------------------------------------------------------------------------
-
-// Level buffers, K-padded rows of Kp bytes.  Element strides per candidate
-// (0: the operand is fixed) and per z (0: shared by every z).
-struct Levels {
-  const int8_t* L0;
-  const int8_t* L1;    // second left operand (SoS), or null
-  const int8_t* R;
-  long long L0p, Rp, Lz, Rz;  // L1 is fixed: no candidate stride
-  int Kp;
-};
-
-// Defaults every epilogue may override.
-struct OpBase {
-  static constexpr bool kRawProduct = false;  // raw = A @ B in the block
-  __device__ void bind(int) {}
-  __device__ float rawA(int, int) const { return 0.f; }
-  __device__ float rawB(int, int) const { return 0.f; }
-  __device__ float raw(int, int) const { return 0.f; }
-  __device__ float gprep(float g) const { return g; }
-};
-
-// B3 / B3f squared error of one output.  MODE 0 ("a"): candidates on A;
-// 1 ("b"): on B; 2 ("b_sos"): on B with the softmax side as SoS hi/lo
-// levels.  d = cands[p, g], f = fixed_int[g].
-template <int MODE>
-__device__ __forceinline__ float mm_term(int acc0, int acc1, float d,
-                                         float f, float s_hi, float s_lo,
-                                         float r, float g2) {
-  float out;
-  if (MODE == 0) {
-    out = __fmul_rn(__int2float_rn(acc0), __fmul_rn(d, f));
-  } else if (MODE == 1) {
-    out = __fmul_rn(__int2float_rn(acc0), __fmul_rn(f, d));
-  } else {
-    out = __fmul_rn(__fadd_rn(__fmul_rn(__int2float_rn(acc0), s_hi),
-                              __fmul_rn(__int2float_rn(acc1), s_lo)),
-                    d);
+// B3 / B3f pre-pass: out[((p * Z + z) * rows + r) * Kp + k] = the level
+// of the operand at (z, r, k) under candidate p's scale (np = P planes;
+// np = 1: a fixed operand), z = g * S + s, 0 past K.  A thread owns up to
+// NW 16-byte words of a level row and MM_LV_PLANES planes (grid.y): it
+// reads the values once and writes their levels for each of its planes,
+// so the index decode and the reads are shared.  Threads run along A's
+// rows' words (WHICH 0: contiguous reads and writes) or along B's columns
+// (WHICH 1: contiguous reads of B's rows); NW = 2 there for long rows.
+template <class T, int WHICH, int NW>
+__global__ void mm_levels_kernel(MatmulLevels<T> src,
+                                 int8_t* __restrict__ out, int np, int Kp) {
+  constexpr int NV = 16 * NW;
+  const int KC = Kp / 16, rows = WHICH == 0 ? src.R : src.Co;
+  const int NQ = (KC + NW - 1) / NW;
+  const int Z = src.S * src.G;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= Z * rows * NQ) return;
+  int z, r, q;
+  if (WHICH == 0) {                       // (z, r, q), q fastest
+    q = i % NQ;
+    r = (i / NQ) % rows;
+    z = i / (NQ * rows);
+  } else {                                // (z, q, r), r fastest
+    r = i % rows;
+    q = (i / rows) % NQ;
+    z = i / (rows * NQ);
   }
-  const float diff = __fsub_rn(r, out);
-  return __fmul_rn(__fmul_rn(g2, diff), diff);
-}
-
-// B3 epilogue; raw = A @ B in fp32.
-template <class T, int MODE>
-struct MatmulOp : OpBase {
-  static constexpr int NL = MODE == 2 ? 2 : 1;
-  static constexpr bool kRawProduct = true;
-  const T* A;
-  const T* B;
-  const T* Gr;
-  const float* cands;      // (P, G)
-  const float* fixed_int;  // (G,)
-  float s_hi, s_lo;
-  int S, Gh;
-  int M, N, K, P, nbins;
-  int g;
-  const T* Ab;
-  const T* Bb;
-  const T* Gb;
-
-  __device__ void bind(int z) {
-    g = z / S;
-    const size_t sg = (size_t)(z % S) * Gh + g;
-    Ab = A + sg * M * K;
-    Bb = B + sg * K * N;
-    Gb = Gr + sg * M * N;
+  const int g = z / src.S;
+  const size_t sg = (size_t)(z - g * src.S) * src.G + g;
+  const int c0 = q * NW, nw = min(NW, KC - c0);
+  const T* x = WHICH == 0 ? src.X + (sg * src.R + r) * src.Ci
+                          : src.X + sg * src.Ci * src.Co + r;
+  float v[NV];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int k = 16 * c0 + j;
+    v[j] = k < src.Ci && j < 16 * nw
+               ? to_f(WHICH == 0 ? x[k] : x[(size_t)k * src.Co])
+               : 0.f;
   }
-  __device__ float rawA(int m, int k) const {
-    return to_f(Ab[(size_t)m * K + k]);
-  }
-  __device__ float rawB(int k, int n) const {
-    return to_f(Bb[(size_t)k * N + n]);
-  }
-  __device__ float grad(int m, int n) const {
-    return to_f(Gb[(size_t)m * N + n]);
-  }
-  __device__ float gprep(float v) const { return __fmul_rn(v, v); }
-  __device__ float term(int p, int, int acc0, int acc1, float, float r,
-                        float g2) const {
-    return mm_term<MODE>(acc0, acc1, cands[p * Gh + g], fixed_int[g], s_hi,
-                         s_lo, r, g2);
-  }
-  __device__ int bin(int) const { return 0; }
-};
-
-__device__ __forceinline__ void store_words(int* dst, int4 v) {
-  dst[0] = v.x;
-  dst[1] = v.y;
-  dst[2] = v.z;
-  dst[3] = v.w;
-}
-
-// acc[l] = L_l tile @ R tileᵀ over all of Kp for candidate p.  Threads
-// 0-127 load the left tile(s), 128-255 the right tile, 16 bytes each.
-template <int NL>
-__device__ __forceinline__ void dot_tiles(const Levels& lev, int p, int z,
-                                          int M, int N, int m0, int n0,
-                                          int (*Ls)[TM][TKW + 1],
-                                          int (*Rs)[TKW + 1],
-                                          int (&acc)[NL][4][4]) {
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int nl = NL;
-  const int8_t* lb[2];
-  lb[0] = lev.L0 + (size_t)p * lev.L0p + (size_t)z * lev.Lz;
-  lb[1] = NL > 1 ? lev.L1 + (size_t)z * lev.Lz : lb[0];
-  const int8_t* rb = lev.R + (size_t)p * lev.Rp + (size_t)z * lev.Rz;
+  const int p1 = min(np, (int)(blockIdx.y + 1) * MM_LV_PLANES);
+  for (int p = blockIdx.y * MM_LV_PLANES; p < p1; ++p) {
+    const float d = src.scale(p, g);
+    int4* o = reinterpret_cast<int4*>(
+        out + (((size_t)p * Z + z) * rows + r) * Kp + 16 * c0);
 #pragma unroll
-  for (int l = 0; l < NL; ++l)
+    for (int w = 0; w < NW; ++w) {
+      if (w < nw) {
+        unsigned b[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[l][i][j] = 0;
-
-  const int row = (tid & 127) >> 1, half = tid & 1;
-  const int4 zero = make_int4(0, 0, 0, 0);
-  for (int k0 = 0; k0 < lev.Kp; k0 += TK) {
-    if (tid < 128) {
-      const int m = m0 + row;
-      for (int l = 0; l < nl; ++l) {
-        const int4 v = m < M ? *reinterpret_cast<const int4*>(
-                                   lb[l] + (size_t)m * lev.Kp + k0 + half * 16)
-                             : zero;
-        store_words(&Ls[l][row][half * 4], v);
-      }
-    } else {
-      const int n = n0 + row;
-      const int4 v = n < N ? *reinterpret_cast<const int4*>(
-                                 rb + (size_t)n * lev.Kp + k0 + half * 16)
-                           : zero;
-      store_words(&Rs[row][half * 4], v);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kw = 0; kw < TKW; ++kw) {
-      int bw[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bw[j] = Rs[tx + 16 * j][kw];
-      for (int l = 0; l < nl; ++l) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int aw = Ls[l][ty + 16 * i][kw];
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[l][i][j] = __dp4a(aw, bw[j], acc[l][i][j]);
-        }
+        for (int j = 0; j < 16; ++j)
+          if (16 * (c0 + w) + j < src.Ci)
+            b[j >> 2] |=
+                (unsigned)(uint8_t)src.quant(v[16 * w + j], d)
+                << (8 * (j & 3));
+        o[w] = make_int4((int)b[0], (int)b[1], (int)b[2], (int)b[3]);
       }
     }
-    __syncthreads();
   }
 }
 
-template <class Op>
-__global__ void __launch_bounds__(NT)
-    scored_gemm_kernel(Op op, Levels lev, float* __restrict__ partial) {
-  Op o = op;
-  const int z = blockIdx.z;
-  o.bind(z);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int n0 = blockIdx.x * TN, m0 = blockIdx.y * TM;
-  const int nb = gridDim.x * gridDim.y;
-  const int b = blockIdx.y * gridDim.x + blockIdx.x;
+template <class T, int WHICH, int NW>
+int launch_mm_levels(const MatmulLevels<T>& src, int8_t* out, int np,
+                     int Kp, cudaStream_t st) {
+  const int nq = (Kp / 16 + NW - 1) / NW;
+  const long long threads =
+      (long long)src.S * src.G * (WHICH == 0 ? src.R : src.Co) * nq;
+  if (threads >= (1LL << 31)) return kErrSize;
+  const dim3 grid((unsigned)((threads + 255) / 256),
+                  (unsigned)cdiv(np, MM_LV_PLANES));
+  mm_levels_kernel<T, WHICH, NW><<<grid, 256, 0, st>>>(src, out, np, Kp);
+  return (int)cudaGetLastError();
+}
 
-  __shared__ int Ls[Op::NL][TM][TKW + 1];
-  __shared__ int Rs[TN][TKW + 1];
-  __shared__ float red[16][TN];
-  __shared__ float colred[TN];
-
-  float rawv[4][4], gv[4][4];
-  if (Op::kRawProduct) {
-    // raw = A @ B in fp32 for this tile, computed once per call
-    __shared__ float As[TM][TK + 1];
-    __shared__ float Bs[TK][TN + 1];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) rawv[i][j] = 0.f;
-    for (int k0 = 0; k0 < o.K; k0 += TK) {
-      for (int idx = tid; idx < TM * TK; idx += NT) {
-        const int mm = idx / TK, kk = idx % TK, m = m0 + mm, k = k0 + kk;
-        As[mm][kk] = (m < o.M && k < o.K) ? o.rawA(m, k) : 0.f;
-      }
-      for (int idx = tid; idx < TK * TN; idx += NT) {
-        const int kk = idx / TN, nn = idx % TN, k = k0 + kk, n = n0 + nn;
-        Bs[kk][nn] = (n < o.N && k < o.K) ? o.rawB(k, n) : 0.f;
-      }
-      __syncthreads();
-      for (int kk = 0; kk < TK; ++kk) {
-        float av[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) av[i] = As[ty + 16 * i][kk];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            rawv[i][j] = __fmaf_rn(av[i], bv[j], rawv[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
-      const bool ok = m < o.M && n < o.N;
-      if (!Op::kRawProduct) rawv[i][j] = ok ? o.raw(m, n) : 0.f;
-      gv[i][j] = ok ? o.gprep(o.grad(m, n)) : 0.f;
-    }
-  }
-
-  int acc[Op::NL][4][4];
-  for (int p = 0; p < o.P; ++p) {
-    dot_tiles<Op::NL>(lev, p, z, o.M, o.N, m0, n0, Ls, Rs, acc);
-    float colsum[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
-        if (m < o.M && n < o.N)
-          colsum[j] = __fadd_rn(
-              colsum[j], o.term(p, n, acc[0][i][j],
-                                Op::NL > 1 ? acc[Op::NL - 1][i][j] : 0,
-                                0.f, rawv[i][j], gv[i][j]));
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) red[ty][tx + 16 * j] = colsum[j];
-    __syncthreads();
-    if (tid < TN) {
-      float s = 0.f;
-      for (int r = 0; r < 16; ++r) s = __fadd_rn(s, red[r][tid]);
-      colred[tid] = s;
-    }
-    __syncthreads();
-    if (tid < o.nbins) {
-      float s = 0.f;
-      for (int c = 0; c < TN; ++c) {
-        const int n = n0 + c;
-        if (n < o.N && o.bin(n) == tid) s = __fadd_rn(s, colred[c]);
-      }
-      partial[(((size_t)z * nb + b) * o.P + p) * o.nbins + tid] = s;
-    }
-    // red/colred are rewritten only after the next dot_tiles, whose
-    // __syncthreads orders those writes after the reads above
-  }
+// one word a thread, two along B's level rows past 64 bytes (measured:
+// Swin's matmul1 B side 0.53 ms at one word against 0.79 at two; its
+// matmul2's K = 144 rows 0.92 at two against 1.34 at one, NVIDIA H100)
+template <class T, int WHICH>
+int fill_mm_operand(const MatmulLevels<T>& src, int8_t* out, int np,
+                    int Kp, cudaStream_t st) {
+  if (WHICH == 1 && Kp > 64)
+    return launch_mm_levels<T, WHICH, 2>(src, out, np, Kp, st);
+  return launch_mm_levels<T, WHICH, 1>(src, out, np, Kp, st);
 }
 
 // out[p, g, bin] = -Σ_q partial[g, q, p, bin], summed in a fixed order
@@ -455,9 +286,6 @@ __global__ void reduce_partials(const float* __restrict__ partial,
   out[idx] = -(float)s;
 }
 
-int cdiv(int a, int b) { return (a + b - 1) / b; }
-int kpad(int K) { return cdiv(K, TK) * TK; }
-
 template <class Src>
 int fill_levels(const Src& src, int8_t* out, int P, int Z, int rows, int K,
                 cudaStream_t st) {
@@ -469,20 +297,6 @@ int fill_levels(const Src& src, int8_t* out, int P, int Z, int rows, int K,
   return (int)cudaGetLastError();
 }
 
-template <class Op>
-int launch(const Op& op, const Levels& lev, int M, int N, int Z, int ngroups,
-           int P, int nbins, float* partial, float* out, cudaStream_t st) {
-  dim3 grid(cdiv(N, TN), cdiv(M, TM), Z);
-  scored_gemm_kernel<Op><<<grid, NT, 0, st>>>(op, lev, partial);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int nper = (int)(grid.x * grid.y) * (Z / ngroups);
-  const int total = P * ngroups * nbins;
-  reduce_partials<<<cdiv(total, 128), 128, 0, st>>>(partial, out, ngroups,
-                                                   nper, P, nbins);
-  return (int)cudaGetLastError();
-}
-
 // Fills the level buffers of a B3 / B3f call: la (P | 1, Z, R, Kp) and
 // la2 (Z, R, Kp) from A, lb (1 | P, Z, Co, Kp) from B transposed.
 template <class T, int MODE>
@@ -490,366 +304,27 @@ int fill_mm_levels(const void* A, const void* B, const float* cands,
                    const float* fixed_int, float split, float a_int, int S,
                    int G, int R, int Ci, int Co, int P, int cq, int fq,
                    int8_t* la, int8_t* la2, int8_t* lb, cudaStream_t st) {
-  const int Z = G * S;
+  const int Kp = kpad(Ci);
   MatmulLevels<T> src;
   src.cands = cands; src.fixed = fixed_int; src.split = split;
   src.a_int = a_int; src.S = S; src.G = G; src.R = R; src.Ci = Ci;
   src.Co = Co;
   // left operand: A rows
-  src.X = (const T*)A; src.which = 0;
+  src.X = (const T*)A;
   src.kind = MODE == 0 ? 0 : (MODE == 1 ? 1 : 2);
   src.qmax = MODE == 0 ? cq : fq;
-  int err = fill_levels(src, la, MODE == 0 ? P : 1, Z, R, Ci, st);
+  int err = fill_mm_operand<T, 0>(src, la, MODE == 0 ? P : 1, Kp, st);
   if (err) return err;
   if (MODE == 2) {
     src.kind = 3;
-    err = fill_levels(src, la2, 1, Z, R, Ci, st);
+    err = fill_mm_operand<T, 0>(src, la2, 1, Kp, st);
     if (err) return err;
   }
   // right operand: B transposed
-  src.X = (const T*)B; src.which = 1;
+  src.X = (const T*)B;
   src.kind = MODE == 0 ? 1 : 0;
   src.qmax = MODE == 0 ? fq : cq;
-  return fill_levels(src, lb, MODE == 0 ? 1 : P, Z, Co, Ci, st);
-}
-
-template <class T, int MODE>
-int launch_mm(const void* A, const void* B, const void* grad,
-              const float* cands, const float* fixed_int, float split,
-              float a_int, float s_hi, float s_lo, int S, int G, int R,
-              int Ci, int Co, int P, int cq, int fq, int8_t* la, int8_t* la2,
-              int8_t* lb, float* partial, float* out, cudaStream_t st) {
-  const int Z = G * S, Kp = kpad(Ci);
-  int err = fill_mm_levels<T, MODE>(A, B, cands, fixed_int, split, a_int, S,
-                                    G, R, Ci, Co, P, cq, fq, la, la2, lb, st);
-  if (err) return err;
-
-  Levels lev;
-  lev.L0 = la; lev.L1 = la2; lev.R = lb; lev.Kp = Kp;
-  lev.Lz = (long long)R * Kp;
-  lev.Rz = (long long)Co * Kp;
-  lev.L0p = MODE == 0 ? (long long)Z * R * Kp : 0;
-  lev.Rp = MODE == 0 ? 0 : (long long)Z * Co * Kp;
-
-  MatmulOp<T, MODE> op;
-  op.A = (const T*)A; op.B = (const T*)B; op.Gr = (const T*)grad;
-  op.cands = cands; op.fixed_int = fixed_int; op.s_hi = s_hi; op.s_lo = s_lo;
-  op.S = S; op.Gh = G; op.M = R; op.N = Co; op.K = Ci; op.P = P;
-  op.nbins = 1; op.g = 0; op.Ab = op.A; op.Bb = op.B; op.Gb = op.Gr;
-  return launch(op, lev, R, Co, Z, G, P, 1, partial, out, st);
-}
-
-// ---------------------------------------------------------------------------
-// B3f: the per-head matmul scorer at window shapes
-// ---------------------------------------------------------------------------
-//
-// The TPU folds F heads into one block-diagonal dense-K dot because its
-// lanes pad Ci / Co below 128.  The card pads differently: B3's 64 x 64
-// output tile is mostly padding at Swin's window shapes (R = 144 rows and
-// Co = 32 columns fill 38% of three tiles; R = Co = 144 fill 56% of nine),
-// and B3 pays a block-wide reduction per candidate for every small tile.
-// So B3f does not fold heads.  A block owns whole (window, head) problems
-// -- a chunk of consecutive windows of one head, taken one after the other
-// -- with an output tile fitted to R x Co: 16 x 16 threads, each with
-// mi <= 9 rows and NJ columns (R = 144 -> 144 rows in one tile; Co = 32
-// -> 32 columns, Co = 144 -> three 48-column tiles).  Per problem the block
-// computes raw = A @ B and g² of its tile into registers and loads the
-// fixed operand's levels into shared memory once; then, for each
-// candidate, it streams only the candidate operand's level tile
-// (double-buffered, one __syncthreads per candidate), takes the __dp4a
-// products over all of K from 16-byte shared-memory loads, and adds the
-// squared errors to a per-warp, per-candidate accumulator in shared
-// memory (a shuffle reduction inside the warp, no block-wide reduction per
-// candidate).  The chunk length is picked so that a call has about 1024
-// blocks; the grid is one-dimensional (no S·G on grid.z).  Every block
-// writes, per candidate, one partial in a fixed order, and
-// reduce_partials sums them in double: no atomics, the same sims from run
-// to run.  The levels come from the same pre-pass as B3's, and the rescale
-// is B3's mm_term, bit for bit.
-
-constexpr int FMI = 9;    // rows per thread at most: tiles of <= 144 rows
-constexpr int FTK = 16;   // K chunk of the fp32 raw product
-constexpr int NWARP = NT / 32;
-
-struct FoldGeom {
-  int S, G, R, Ci, Co, P;
-  int Kp, KWS;        // level row bytes; shared-memory row stride in words
-                      // (K words + 4: 16-byte aligned, no bank conflicts)
-  int mi, nj;         // rows, columns per thread
-  int TMr, TNr;       // tile rows (16 mi), tile columns (16 nj)
-  int nrt, nct;       // row and column tiles per problem
-  int SB, nchunk;     // windows per block, window chunks per head
-  int nper;           // partials per head
-  int nblocks;
-  int nLbuf, nRbuf;   // level tiles held per side
-  size_t smem;
-};
-
-FoldGeom fold_geom(int S, int G, int R, int Ci, int Co, int P, int mode) {
-  FoldGeom q;
-  q.S = S; q.G = G; q.R = R; q.Ci = Ci; q.Co = Co; q.P = P;
-  q.Kp = kpad(Ci);
-  q.KWS = q.Kp / 4 + 4;
-  q.nrt = cdiv(R, 16 * FMI);
-  q.mi = cdiv(R, 16 * q.nrt);
-  q.nct = cdiv(Co, 48);
-  q.nj = cdiv(Co, 16 * q.nct) <= 2 ? 2 : 3;
-  q.TMr = 16 * q.mi;
-  q.TNr = 16 * q.nj;
-  const long long tiles = (long long)S * G * q.nrt * q.nct;
-  q.SB = tiles / 1024 > 1 ? (int)(tiles / 1024) : 1;   // ~1024 blocks
-  q.nchunk = cdiv(S, q.SB);
-  q.nper = q.nchunk * q.nrt * q.nct;
-  q.nblocks = G * q.nper;
-  q.nLbuf = mode == 0 ? 2 : (mode == 2 ? 2 : 1);
-  q.nRbuf = mode == 0 ? 1 : 2;
-  q.smem = sizeof(int) * (size_t)(q.nLbuf * q.TMr + q.nRbuf * q.TNr) * q.KWS
-           + sizeof(float) * ((size_t)q.TMr * (FTK + 1)
-                              + (size_t)FTK * (q.TNr + 1)
-                              + (size_t)NWARP * P);
-  return q;
-}
-
-template <class T>
-struct FoldArgs {
-  const T* A;
-  const T* B;
-  const T* Gr;
-  const float* cands;      // (P, G)
-  const float* fixed_int;  // (G,)
-  float s_hi, s_lo;
-  const int8_t* la;        // levels, as B3 (z = g * S + s)
-  const int8_t* la2;
-  const int8_t* lb;
-  FoldGeom q;
-};
-
-// rows [r0, r0 + nrows) of a (rows, Kp) level matrix into shared memory
-// (row stride KWS words); rows at or past nvalid are zero
-__device__ __forceinline__ void load_level_rows(int* dst, const int8_t* src,
-                                                int r0, int nrows,
-                                                int nvalid, int Kp,
-                                                int KWS) {
-  const int per_row = Kp / 16;
-  const int4 zero = make_int4(0, 0, 0, 0);
-  for (int idx = threadIdx.x; idx < nrows * per_row; idx += NT) {
-    const int r = idx / per_row, c = idx % per_row;
-    *reinterpret_cast<int4*>(dst + r * KWS + c * 4) =
-        r0 + r < nvalid ? *reinterpret_cast<const int4*>(
-                              src + (size_t)(r0 + r) * Kp + c * 16)
-                        : zero;
-  }
-}
-
-__device__ __forceinline__ int dp4a4(int4 a, int4 b, int c) {
-  c = __dp4a(a.x, b.x, c);
-  c = __dp4a(a.y, b.y, c);
-  c = __dp4a(a.z, b.z, c);
-  return __dp4a(a.w, b.w, c);
-}
-
-template <class T, int MODE, int NJ>
-__global__ void __launch_bounds__(NT)
-    folded_mm_kernel(FoldArgs<T> a, float* __restrict__ partial) {
-  constexpr int NL = MODE == 2 ? 2 : 1;
-  extern __shared__ int4 smem4[];
-  const FoldGeom& q = a.q;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int KWS = q.KWS, KW = q.Kp / 4, R = q.R, Co = q.Co, Ci = q.Ci;
-  const int P = q.P, mi = q.mi;
-  int* Lbuf = reinterpret_cast<int*>(smem4);          // nLbuf x TMr x KWS
-  int* Rbuf = Lbuf + q.nLbuf * q.TMr * KWS;           // nRbuf x TNr x KWS
-  float* As = reinterpret_cast<float*>(Rbuf + q.nRbuf * q.TNr * KWS);
-  float* Bs = As + q.TMr * (FTK + 1);                 // FTK x (TNr + 1)
-  float* wacc = Bs + FTK * (q.TNr + 1);               // NWARP x P
-
-  // block -> (head, window chunk, row tile, column tile)
-  int b = blockIdx.x;
-  const int ct = b % q.nct;
-  b /= q.nct;
-  const int rt = b % q.nrt;
-  b /= q.nrt;
-  const int chunk = b % q.nchunk;
-  const int g = b / q.nchunk;
-  const int m0 = rt * q.TMr, n0 = ct * q.TNr;
-  const int slot = (chunk * q.nrt + rt) * q.nct + ct;
-  const int s_lo = chunk * q.SB;
-  const int s_hi = s_lo + q.SB < q.S ? s_lo + q.SB : q.S;
-  const int Z = q.G * q.S;
-  const size_t Lz = (size_t)R * q.Kp, Rz = (size_t)Co * q.Kp;
-  const float fix = a.fixed_int[g];
-
-  for (int i = tid; i < NWARP * P; i += NT) wacc[i] = 0.f;
-  for (int s = s_lo; s < s_hi; ++s) {
-    const size_t sg = (size_t)s * q.G + g;            // operand index
-    const size_t z = (size_t)g * q.S + s;             // level index
-    const T* Ab = a.A + sg * R * Ci;
-    const T* Bb = a.B + sg * Ci * Co;
-    const T* Gb = a.Gr + sg * R * Co;
-
-    // raw = A @ B in fp32 for this tile (B3's order), and g²
-    float rawv[FMI][NJ], g2v[FMI][NJ];
-#pragma unroll
-    for (int i = 0; i < FMI; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) rawv[i][j] = 0.f;
-    for (int k0 = 0; k0 < Ci; k0 += FTK) {
-      for (int idx = tid; idx < q.TMr * FTK; idx += NT) {
-        const int mm = idx / FTK, kk = idx % FTK;
-        const int m = m0 + mm, k = k0 + kk;
-        As[mm * (FTK + 1) + kk] =
-            (m < R && k < Ci) ? to_f(Ab[(size_t)m * Ci + k]) : 0.f;
-      }
-      for (int idx = tid; idx < FTK * q.TNr; idx += NT) {
-        const int kk = idx / q.TNr, nn = idx % q.TNr;
-        const int k = k0 + kk, n = n0 + nn;
-        Bs[kk * (q.TNr + 1) + nn] =
-            (k < Ci && n < Co) ? to_f(Bb[(size_t)k * Co + n]) : 0.f;
-      }
-      __syncthreads();
-      for (int kk = 0; kk < FTK; ++kk) {
-        float bv[NJ];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) bv[j] = Bs[kk * (q.TNr + 1) + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < FMI; ++i) {
-          if (i < mi) {
-            const float av = As[(ty + 16 * i) * (FTK + 1) + kk];
-#pragma unroll
-            for (int j = 0; j < NJ; ++j)
-              rawv[i][j] = __fmaf_rn(av, bv[j], rawv[i][j]);
-          }
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < FMI; ++i) {
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
-        float gv = 0.f;
-        if (i < mi && m < R && n < Co) gv = to_f(Gb[(size_t)m * Co + n]);
-        g2v[i][j] = __fmul_rn(gv, gv);
-      }
-    }
-
-    // the fixed operand's levels, once per problem; candidate 0's tile
-    if (MODE == 0) {
-      load_level_rows(Rbuf, a.lb + z * Rz, n0, q.TNr, Co, q.Kp, KWS);
-      load_level_rows(Lbuf, a.la + z * Lz, m0, q.TMr, R, q.Kp, KWS);
-    } else {
-      load_level_rows(Lbuf, a.la + z * Lz, m0, q.TMr, R, q.Kp, KWS);
-      if (MODE == 2)
-        load_level_rows(Lbuf + q.TMr * KWS, a.la2 + z * Lz, m0, q.TMr, R,
-                        q.Kp, KWS);
-      load_level_rows(Rbuf, a.lb + z * Rz, n0, q.TNr, Co, q.Kp, KWS);
-    }
-    __syncthreads();
-
-    for (int p = 0; p < P; ++p) {
-      const int cur = p & 1;
-      if (p + 1 < P) {     // prefetch the next candidate's tile
-        const size_t off = (size_t)(p + 1) * Z + z;
-        if (MODE == 0)
-          load_level_rows(Lbuf + (1 - cur) * q.TMr * KWS, a.la + off * Lz,
-                          m0, q.TMr, R, q.Kp, KWS);
-        else
-          load_level_rows(Rbuf + (1 - cur) * q.TNr * KWS, a.lb + off * Rz,
-                          n0, q.TNr, Co, q.Kp, KWS);
-      }
-      const int* Lc = MODE == 0 ? Lbuf + cur * q.TMr * KWS : Lbuf;
-      const int* Rc = MODE == 0 ? Rbuf : Rbuf + cur * q.TNr * KWS;
-      int acc[NL][FMI][NJ];
-#pragma unroll
-      for (int l = 0; l < NL; ++l)
-#pragma unroll
-        for (int i = 0; i < FMI; ++i)
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) acc[l][i][j] = 0;
-      for (int kw = 0; kw < KW; kw += 4) {
-        int4 bw[NJ];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-          bw[j] = *reinterpret_cast<const int4*>(
-              Rc + (tx + 16 * j) * KWS + kw);
-#pragma unroll
-        for (int l = 0; l < NL; ++l) {
-#pragma unroll
-          for (int i = 0; i < FMI; ++i) {
-            if (i < mi) {
-              const int4 aw = *reinterpret_cast<const int4*>(
-                  Lc + (l * q.TMr + ty + 16 * i) * KWS + kw);
-#pragma unroll
-              for (int j = 0; j < NJ; ++j)
-                acc[l][i][j] = dp4a4(aw, bw[j], acc[l][i][j]);
-            }
-          }
-        }
-      }
-      const float d = a.cands[p * q.G + g];
-      float sum = 0.f;
-#pragma unroll
-      for (int i = 0; i < FMI; ++i) {
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
-          if (i < mi && m < R && n < Co)
-            sum = __fadd_rn(sum, mm_term<MODE>(acc[0][i][j],
-                                               acc[NL - 1][i][j], d, fix,
-                                               a.s_hi, a.s_lo, rawv[i][j],
-                                               g2v[i][j]));
-        }
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
-      if (lane == 0) wacc[warp * P + p] = __fadd_rn(wacc[warp * P + p], sum);
-      __syncthreads();     // the next tile may now overwrite this one
-    }
-  }
-  for (int p = tid; p < P; p += NT) {
-    float s = 0.f;
-    for (int w = 0; w < NWARP; ++w) s = __fadd_rn(s, wacc[w * P + p]);
-    partial[((size_t)g * q.nper + slot) * P + p] = s;
-  }
-}
-
-template <class T, int MODE, int NJ>
-int launch_folded(const FoldArgs<T>& a, float* partial, float* out,
-                  cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      folded_mm_kernel<T, MODE, NJ>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.q.smem);
-  if (err != cudaSuccess) return (int)err;
-  folded_mm_kernel<T, MODE, NJ><<<a.q.nblocks, NT, a.q.smem, st>>>(a,
-                                                                 partial);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int total = a.q.P * a.q.G;
-  reduce_partials<<<cdiv(total, 128), 128, 0, st>>>(partial, out, a.q.G,
-                                                   a.q.nper, a.q.P, 1);
-  return (int)cudaGetLastError();
-}
-
-template <class T, int MODE>
-int launch_mm_folded(const void* A, const void* B, const void* grad,
-                     const float* cands, const float* fixed_int, float split,
-                     float a_int, float s_hi, float s_lo, int S, int G,
-                     int R, int Ci, int Co, int P, int cq, int fq,
-                     int8_t* la, int8_t* la2, int8_t* lb, float* partial,
-                     float* out, cudaStream_t st) {
-  int err = fill_mm_levels<T, MODE>(A, B, cands, fixed_int, split, a_int, S,
-                                    G, R, Ci, Co, P, cq, fq, la, la2, lb, st);
-  if (err) return err;
-  FoldArgs<T> a;
-  a.A = (const T*)A; a.B = (const T*)B; a.Gr = (const T*)grad;
-  a.cands = cands; a.fixed_int = fixed_int; a.s_hi = s_hi; a.s_lo = s_lo;
-  a.la = la; a.la2 = la2; a.lb = lb;
-  a.q = fold_geom(S, G, R, Ci, Co, P, MODE);
-  if (a.q.nj == 2) return launch_folded<T, MODE, 2>(a, partial, out, st);
-  return launch_folded<T, MODE, 3>(a, partial, out, st);
+  return fill_mm_operand<T, 1>(src, lb, MODE == 0 ? 1 : P, Kp, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -881,9 +356,9 @@ int launch_mm_folded(const void* A, const void* B, const void* grad,
 // block's epilogue overlaps the other's products: a block's two phases do
 // not overlap.
 //
-// Epilogue, per candidate and element: the parent's arithmetic with
+// Epilogue, per candidate and element: the first design's arithmetic with
 // __fmul_rn / __fadd_rn in its order, so every squared error is bitwise
-// the dp4a kernel's; raw, grad (and B2's ws[n], B1's row-block index, and
+// that design's; raw, grad (and B2's ws[n], B1's row-block index, and
 // the post-GELU fixed product) are loaded once per tile into the
 // accumulator fragment's layout before the candidate loop.  Each warp
 // reduces its squared errors with shuffles into its own per-candidate,
@@ -993,33 +468,100 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // keeps the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma
-__device__ __forceinline__ void fence_acc(int (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
-// d += A(64 x 32) B(64 x 32)ᵀ, s8 x s8 -> s32
-__device__ __forceinline__ void wgmma_s8_m64n64k32(int (&d)[32], uint64_t da,
-                                                   uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p;\n"
-      "}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
-        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
-        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
-        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
-        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
+// d (+)= A(64 x 32) B(N x 32)ᵀ, s8 x s8 -> s32, both from shared memory;
+// scale_d = 0 ignores d's old value.  s8 wgmma takes N = 8, 16, 24,
+// 32 and then multiples of 16 up to 256.
+template <int N>
+struct WgmmaS8;
 
+template <>
+struct WgmmaS8<16> {
+  static __device__ __forceinline__ void mma(int (&d)[8], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}"
+        ", %8, %9, p;\n"
+        "}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaS8<24> {
+  static __device__ __forceinline__ void mma(int (&d)[12], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %14, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}"
+        ", %12, %13, p;\n"
+        "}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaS8<32> {
+  static __device__ __forceinline__ void mma(int (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+        "%13, %14, %15}"
+        ", %16, %17, p;\n"
+        "}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaS8<64> {
+  static __device__ __forceinline__ void mma(int (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+        "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, "
+        "%25, %26, %27, %28, %29, %30, %31}"
+        ", %32, %33, p;\n"
+        "}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+          "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -1175,9 +717,9 @@ __global__ void __launch_bounds__(LQ_THREADS, 2)
           const uint64_t dfix = sw128_desc(fx);
           const uint64_t dcand = sw128_desc(cand + 32u * k);
           if (KIND == 0)
-            wgmma_s8_m64n64k32(acc[l], dfix, dcand);
+            WgmmaS8<64>::mma(acc[l], dfix, dcand, 1);
           else
-            wgmma_s8_m64n64k32(acc[l], dcand, dfix);
+            WgmmaS8<64>::mma(acc[l], dcand, dfix, 1);
         }
       }
       wgmma_commit();
@@ -1281,10 +823,6 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-constexpr int kErrNoLibcuda = 9001;     // returned when libcuda is missing
-constexpr int kErrTensorMap = 9002;    // cuTensorMapEncodeTiled refused
-constexpr int kErrSmem = 9003;         // the plan exceeds shared memory
-
 // the (Kp, rows, planes) int8 level buffer at p in boxes of 128 x box_rows
 int level_map(CUtensorMap* map, const int8_t* p, int Kp, int rows,
               int planes, int box_rows) {
@@ -1346,6 +884,507 @@ LinArgs lin_args(int kind, const float* raw, const float* grad,
   r.p0 = 0; r.pc = P; r.nbl = nbl;
   r.nrt = cdiv(M, LQ_ROWS); r.nct = cdiv(N, LQ_ROWS);
   return r;
+}
+
+// ---------------------------------------------------------------------------
+// B3 / B3f: the attention-matmul scorers on the int8 tensor cores (wgmma)
+// ---------------------------------------------------------------------------
+//
+// They replace the two bodies of ptq4vit_tpu/ops/pallas_search.py
+// matmul_hessian_sims: _mm_kernel (B3, ViT's shapes) and _mm_kernel_folded
+// (B3f, Swin's window shapes).  For each candidate p and head g
+//     sims[p, g] = -Σ_(s, r, c) g²[s, g, r, c] (raw - out_p)²[s, g, r, c]
+// with raw = A @ B in fp32 and out_p the int8 x int8 -> int32 product of
+// the quantized operands rescaled once in fp32: mode "a" (candidates on
+// A), "b" (on B), "b_sos" (on B, the softmax side as SoS hi / lo levels).
+// The TPU folds heads into one block-diagonal dot to fill its 128 lanes;
+// the card does not need that: one kernel serves both bodies, and B3 /
+// B3f differ only in the wrapper that counts their launches.
+//
+// What bounds them on this card differs by matmul.  matmul1 (q·kᵀ, modes
+// a and b) has K = head dim (64 on ViT, 32 on Swin): its products take
+// 2 K int8 operations per (output, candidate) pair, its epilogue one
+// int32 -> fp32 conversion and five fp32 operations, none of them an FMA
+// -- so the epilogue, not the tensor cores, bounds it.  matmul2
+// (softmax·v, b_sos) has K = 577 or 144 and two products per output
+// against eight epilogue operations: the tensor cores bound it.
+//
+// Design.  A block owns one 64-row output tile of one (sample or window,
+// head) problem and walks all P candidates.  The tile's width W is an s8
+// wgmma N fitted to Co (mm_width: 32 for Co <= 32, 48 where it divides Co
+// and 64 does not -- Swin's 144 --, else 64; s8 wgmma takes N = 8, 16, 24,
+// 32 and then multiples of 16, so 72 is no width); two consumer
+// warpgroups split its columns, so an SM runs 16 to 24 consumer warps.
+// The levels come from the pre-pass above (mm_levels_kernel: each
+// division once, where quantizing in the block would repeat a candidate
+// row strip's divisions for every column tile).  A producer warp brings
+// them by TMA: the fixed operand's tile(s) once, resident in shared memory
+// for the whole candidate loop, and the candidates' K chunks (128 bytes of
+// each row) into a ring of mbarrier-guarded slots; rows past R or Co and
+// K past Kp zero-fill.  The consumers run wgmma m64n(W/2)k32 s8 x s8 ->
+// s32 from shared memory, 128-byte swizzled (linear_tc_kernel's layout).
+//
+// The epilogue is the floor at K <= 64, so what surrounds it is cut down:
+//   - raw = A @ B is computed once per tile in fp32 on the CUDA cores
+//     (__fmaf_rn, ascending k; no TF32), and g² loaded once, both into
+//     registers in the accumulator fragment's layout;
+//   - candidates go in pairs: one wgmma group, one wait, two epilogues and
+//     one shuffle tree for both sums; the other warpgroups of the SM cover
+//     the wait.  (Overlapping a candidate's products with the previous
+//     one's epilogue inside a warpgroup made ptxas serialize every wgmma,
+//     C7514, and was slower.)
+//   - no accumulator is touched on a divergent path, and no wait loop
+//     stands between a wgmma fence and a wgmma (either makes ptxas
+//     serialize the wgmma, C7520); past an odd P the pair's second half
+//     runs on stale data and is dropped;
+//   - k-steps per K chunk are compile-time (the last chunk's 1, 2 or 4), and
+//     the ring position, slot and phase advance by counters, not divisions;
+//   - where |acc| < 2^22 (K < 256 with int8 levels: every matmul1 and
+//     Swin's matmul2) the int32 -> fp32 conversion is an integer add to
+//     the bits of 1.5 * 2^23 and an fp32 subtraction, exact and the same
+//     value as the slow I2F; ViT's matmul2 (K = 577) keeps I2F;
+//   - each warp writes its own per-candidate partial: no block-wide
+//     barrier per candidate; 8-column groups past Co and warps whose 16
+//     rows all lie past R skip the arithmetic (their partial is 0).
+// The rescale keeps the TPU kernel's order with __fmul_rn / __fadd_rn
+// (d·f hoisted per candidate, f·d equal to it), so each squared error is
+// the plain version's up to the raw product's fp32 summation order.
+// Determinism: per-warp partials in a fixed layout, summed by reduce_rows
+// in double in a fixed order; no atomics.
+//
+// Shared memory (ops/search_kernels.py matmul_plan computes the same sum
+// and picks the ring's depth): 1 KB of alignment slack, the resident fixed
+// tile(s), the ring, the raw product's staging, the mbarriers, within an
+// SM's share for mm_min_blocks blocks; ViT's matmul2, whose two resident
+// SoS tiles take 80 KB at K = 577, runs one block an SM.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700 W, PERF.md): 4.4-5.9x the first
+// design at ViT-B/384's shapes, 2.1-3.2x at Swin-B/384's; what holds them
+// is the SM's issue of the epilogue and of the per-candidate bookkeeping
+// (clock64 phases: the candidate loop without products or epilogue took
+// a third of the kernel), and at Swin the 16-row tail of each 144-row
+// window, whose tiles pay the products for a quarter of the rows.
+
+constexpr int MM_ROWS = 64;        // output rows of a block (wgmma M)
+constexpr int MM_RK = 16;          // K chunk of the fp32 raw product
+constexpr int MM_MAX_STAGES = 16;  // ring slots, one 128-byte K chunk each
+constexpr int MM_FAST_K = 256;     // K below which |acc| < 2^22
+constexpr int MM_WGS = 2;          // consumer warpgroups: column halves
+constexpr int MM_CWARPS = 4 * MM_WGS;            // per-warp partials
+constexpr int MM_THREADS = 32 * MM_CWARPS + 32;  // + the producer warp
+
+// blocks an SM runs (ops/search_kernels.py mm_blocks_per_sm): three at the
+// narrow tiles, whose threads need at most 75 registers; two at W = 64,
+// which needs about 96; SoS, with two fixed tiles, three at W = 32 and
+// one past it (150 registers at W = 64)
+__host__ __device__ constexpr int mm_min_blocks(int W, bool sos) {
+  return sos ? (W <= 32 ? 3 : 1) : (W <= 48 ? 3 : 2);
+}
+
+// the column width of a block's output tile (ops/search_kernels.py
+// mm_width)
+int mm_width(int Co) {
+  return Co <= 32 ? 32 : (Co % 48 == 0 && Co % 64 != 0 ? 48 : 64);
+}
+
+size_t mm_smem_bytes(int mode, int Ci, int W, int stages) {
+  const size_t nc = cdiv(kpad(Ci), LQ_KC);
+  const size_t rows_fix = mode == 0 ? W : MM_ROWS;
+  const size_t rows_cand = mode == 0 ? MM_ROWS : W;
+  const size_t nl = mode == 2 ? 2 : 1;
+  return 1024 + nl * nc * rows_fix * LQ_KC + stages * rows_cand * LQ_KC
+         + sizeof(float) * MM_RK * ((MM_ROWS + 4) + (W + 4))
+         + 8 * (2 * (size_t)stages + 1);
+}
+
+struct MmArgs {
+  const void* A;           // (S, G, R, Ci) f32 or bf16
+  const void* B;           // (S, G, Ci, Co)
+  const void* grad;        // (S, G, R, Co)
+  const float* cands;      // (P, G)
+  const float* fixed_int;  // (G,)
+  float s_hi, s_lo;
+  int bf16;
+  int S, G, R, Ci, Co, P;
+  int cand_on_a;           // mode a: the candidate tile is wgmma's A
+  int NC;                  // 128-byte K chunks of a level row
+  int stages, nrt, nct;
+};
+
+__device__ __forceinline__ float load_f(const void* p, size_t i, int bf16) {
+  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+              : static_cast<const float*>(p)[i];
+}
+
+// int32 -> fp32, exact: |v| < 2^22 adds v to the bits of 1.5 * 2^23
+template <bool FAST>
+__device__ __forceinline__ float acc_to_f(int v) {
+  if (FAST)
+    return __fsub_rn(__int_as_float(v + 0x4B400000), 12582912.f);
+  return __int2float_rn(v);
+}
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * MM_CWARPS) : "memory");
+}
+
+// The ring's position: the next slot and its mbarrier phase.
+struct RingPos {
+  int slot;
+  uint32_t phase;
+  __device__ __forceinline__ void advance(int S) {
+    if (++slot == S) {
+      slot = 0;
+      phase ^= 1u;
+    }
+  }
+};
+
+// The products of one candidate into acc (NL sets: the SoS hi and lo
+// tiles share the candidate tile), its NC K chunks from the ring slots
+// from slot on (real false: past the last candidate, the same products on
+// whatever the ring holds, into a sum that is dropped, so that no wgmma
+// stands under a branch).  A chunk is four 32-byte k-steps, the last one
+// KL (past Kp the TMA box holds zeros): fixed counts let ptxas chain the
+// wgmma.  boff: this warpgroup's rows of the W-row tile (its half of the
+// output columns).
+template <int WH, int NL, int KL>
+__device__ __forceinline__ void mm_products(int (&acc)[NL][WH / 2],
+                                            bool real, int slot,
+                                            const MmArgs& a, uint32_t fixed,
+                                            uint32_t ring, uint32_t tile_f,
+                                            uint32_t tile_c, uint32_t boff) {
+  const uint32_t coff = a.cand_on_a ? 0u : boff;   // the candidate tile's
+  const uint32_t foff = a.cand_on_a ? boff : 0u;   // the fixed tile's
+  if (!real) slot = 0;
+  auto chunk = [&](int c, int ks) {
+    const uint32_t cand = ring + (uint32_t)slot * tile_c + coff;
+    if (++slot == a.stages) slot = 0;
+#pragma unroll
+    for (int k = 0; k < ks; ++k) {
+      const uint32_t ca = cand + 32u * k;
+#pragma unroll
+      for (int l = 0; l < NL; ++l) {
+        const uint32_t fa =
+            fixed + (uint32_t)(l * a.NC + c) * tile_f + foff + 32u * k;
+        WgmmaS8<WH>::mma(acc[l], sw128_desc(a.cand_on_a ? ca : fa),
+                         sw128_desc(a.cand_on_a ? fa : ca), (c | k) != 0);
+      }
+    }
+  };
+  for (int c = 0; c + 1 < a.NC; ++c) chunk(c, LQ_KC / 32);
+  chunk(a.NC - 1, KL);
+}
+
+// One candidate's squared errors, summed over this thread's outputs
+// (ngrp of its 8-column groups hold output columns; live: its warp has
+// rows and columns).  The accumulators are read on the uniform path only,
+// and the asm keeps the compiler from sinking those reads into the
+// branches below: an accumulator touched on a divergent path makes ptxas
+// serialize every wgmma of the kernel (C7520).
+template <int NA, int NL, bool FAST>
+__device__ __forceinline__ float mm_thread_sum(const int (&acc)[NL][NA],
+                                               const float (&raw)[NA],
+                                               const float (&g2)[NA],
+                                               float scale, float s_hi,
+                                               float s_lo, int ngrp,
+                                               bool live) {
+  float x[NL][NA];
+#pragma unroll
+  for (int l = 0; l < NL; ++l)
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      x[l][i] = acc_to_f<FAST>(acc[l][i]);
+      asm volatile("" : "+f"(x[l][i]));
+    }
+  // four independent sums (element i & 3): no chain of dependent adds
+  // runs the length of the tile
+  float part[4] = {0.f, 0.f, 0.f, 0.f};
+  auto term = [&](int i) {
+    const float out =
+        NL == 2 ? __fmul_rn(__fadd_rn(__fmul_rn(x[0][i], s_hi),
+                                      __fmul_rn(x[NL - 1][i], s_lo)),
+                            scale)
+                : __fmul_rn(x[0][i], scale);
+    const float diff = __fsub_rn(raw[i], out);
+    part[i & 3] =
+        __fadd_rn(part[i & 3], __fmul_rn(__fmul_rn(g2[i], diff), diff));
+  };
+  if (live) {
+    if (ngrp == NA / 4) {              // every column: no branch
+#pragma unroll
+      for (int i = 0; i < NA; ++i) term(i);
+    } else {
+#pragma unroll
+      for (int i = 0; i < NA; ++i)
+        if ((i >> 2) < ngrp) term(i);
+    }
+  }
+  return __fadd_rn(__fadd_rn(part[0], part[1]), __fadd_rn(part[2], part[3]));
+}
+
+// Two candidates' thread sums summed over the warp at once: lanes 0-15
+// end with u's sum, lanes 16-31 with v's (5 shuffles for both).
+__device__ __forceinline__ float pair_warp_sum(float u, float v, int lane) {
+  const bool hi = lane & 16;
+  float s = __fadd_rn(hi ? v : u,
+                      __shfl_xor_sync(0xffffffffu, hi ? u : v, 16));
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
+  return s;
+}
+
+// Accumulator element i of a consumer thread: row 16 w4 + lane/4 + 8
+// ((i >> 1) & 1), column 8 (i >> 2) + 2 (lane & 3) + (i & 1) of its
+// warpgroup's 64 x W/2 half of the block's tile.
+template <int W, bool SOS, bool FAST, int KL>
+__global__ void __launch_bounds__(MM_THREADS, mm_min_blocks(W, SOS))
+    mm_tc_kernel(const __grid_constant__ CUtensorMap tm_cand,
+                 const __grid_constant__ CUtensorMap tm_fix0,
+                 const __grid_constant__ CUtensorMap tm_fix1, MmArgs a,
+                 float* __restrict__ partial) {
+  constexpr int NL = SOS ? 2 : 1;    // fixed tiles: the SoS hi and lo
+  constexpr int WH = W / MM_WGS;     // columns of a warpgroup
+  constexpr int NA = WH / 2;         // accumulators a thread
+  extern __shared__ uint8_t mm_smem[];
+  const uint32_t base = (smem_u32(mm_smem) + 1023) & ~1023u;
+  uint8_t* gbase = mm_smem + (base - smem_u32(mm_smem));
+  const int S = a.stages, NC = a.NC;
+  const uint32_t tile_f = (a.cand_on_a ? W : MM_ROWS) * LQ_KC;
+  const uint32_t tile_c = (a.cand_on_a ? MM_ROWS : W) * LQ_KC;
+  const uint32_t fixed = base;
+  const uint32_t ring = fixed + (uint32_t)(NL * NC) * tile_f;
+  float* As = reinterpret_cast<float*>(gbase + (ring - base) +
+                                       (size_t)S * tile_c);
+  float* Bs = As + MM_RK * (MM_ROWS + 4);
+  const uint32_t bars = smem_u32(Bs + MM_RK * (W + 4));
+  const uint32_t fixbar = bars + 8u * (2 * S);
+
+  // block -> (problem, row tile, column tile); column tiles fastest, so
+  // the blocks that run together share the problem's levels
+  int b = blockIdx.x;
+  const int ct = b % a.nct;
+  b /= a.nct;
+  const int rt = b % a.nrt;
+  const int z = b / a.nrt;                  // level index g * S + s
+  const int g = z / a.S, s = z % a.S;
+  const int Z = a.S * a.G;
+  const int row_base = rt * MM_ROWS, col_base = ct * W;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(bars + 8u * i, 1);
+      mbar_init(bars + 8u * (S + i), MM_CWARPS);
+    }
+    mbar_init(fixbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 32 * MM_CWARPS) {            // the producer warp
+    if (threadIdx.x != 32 * MM_CWARPS) return;
+    const int frow0 = a.cand_on_a ? col_base : row_base;
+    const int crow0 = a.cand_on_a ? row_base : col_base;
+    mbar_expect_tx(fixbar, (int)(NL * NC * tile_f));
+    for (int l = 0; l < NL; ++l)
+      for (int c = 0; c < NC; ++c)
+        tma_load(fixed + (uint32_t)(l * NC + c) * tile_f,
+                 l == 0 ? &tm_fix0 : &tm_fix1, c * LQ_KC, frow0, z, fixbar);
+    // the candidates' K chunks, one a slot, in (candidate, chunk) order
+    RingPos pos{0, 1u};   // every slot starts free: its first wait passes
+    for (int p = 0; p < a.P; ++p)
+      for (int c = 0; c < NC; ++c) {
+        const uint32_t st = (uint32_t)pos.slot;
+        mbar_wait(bars + 8u * (S + st), pos.phase);
+        mbar_expect_tx(bars + 8u * st, (int)tile_c);
+        tma_load(ring + st * tile_c, &tm_cand, c * LQ_KC, crow0, p * Z + z,
+                 bars + 8u * st);
+        pos.advance(S);
+      }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg (its half of the columns), warp w4 ----
+  // wg through a shuffle: the compiler then knows it is warp-uniform and
+  // keeps the wgmma descriptors in uniform registers
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+  const int w4 = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  const int r0 = 16 * w4 + (lane >> 2), c0 = wg * WH + 2 * (lane & 3);
+  const int R = a.R, Ci = a.Ci, Co = a.Co;
+  const size_t sg = (size_t)s * a.G + g;   // operand index
+
+  // raw = A @ B in fp32 for this tile, one ascending-k chain per output
+  float raw[NA], g2[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) raw[i] = 0.f;
+  for (int k0 = 0; k0 < Ci; k0 += MM_RK) {
+    if (k0 > 0) consumer_sync();          // the last chunk has been read
+    for (int idx = threadIdx.x; idx < MM_ROWS * MM_RK;
+         idx += 32 * MM_CWARPS) {
+      const int r = idx / MM_RK, kk = idx % MM_RK;
+      const int m = row_base + r, k = k0 + kk;
+      As[kk * (MM_ROWS + 4) + r] =
+          m < R && k < Ci ? load_f(a.A, (sg * R + m) * Ci + k, a.bf16) : 0.f;
+    }
+    for (int idx = threadIdx.x; idx < MM_RK * W; idx += 32 * MM_CWARPS) {
+      const int kk = idx / W, c = idx % W;
+      const int k = k0 + kk, n = col_base + c;
+      Bs[kk * (W + 4) + c] =
+          k < Ci && n < Co ? load_f(a.B, (sg * Ci + k) * Co + n, a.bf16)
+                           : 0.f;
+    }
+    consumer_sync();
+#pragma unroll 4
+    for (int kk = 0; kk < MM_RK; ++kk) {
+      const float a0 = As[kk * (MM_ROWS + 4) + r0];
+      const float a1 = As[kk * (MM_ROWS + 4) + r0 + 8];
+#pragma unroll
+      for (int j = 0; j < WH / 8; ++j) {
+        const float2 bv =
+            *reinterpret_cast<const float2*>(&Bs[kk * (W + 4) + 8 * j + c0]);
+        raw[4 * j] = __fmaf_rn(a0, bv.x, raw[4 * j]);
+        raw[4 * j + 1] = __fmaf_rn(a0, bv.y, raw[4 * j + 1]);
+        raw[4 * j + 2] = __fmaf_rn(a1, bv.x, raw[4 * j + 2]);
+        raw[4 * j + 3] = __fmaf_rn(a1, bv.y, raw[4 * j + 3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NA; ++i) {
+    const int m = row_base + r0 + 8 * ((i >> 1) & 1);
+    const int n = col_base + 8 * (i >> 2) + c0 + (i & 1);
+    const float gv =
+        m < R && n < Co ? load_f(a.grad, (sg * R + m) * Co + n, a.bf16) : 0.f;
+    g2[i] = __fmul_rn(gv, gv);
+  }
+
+  const float f = a.fixed_int[g];
+  const int ngrp = max(0, min(WH / 8, (Co - col_base - wg * WH + 7) / 8));
+  const bool live = ngrp > 0 && row_base + 16 * w4 < R;
+  const int nper = a.S * a.nrt * a.nct * MM_CWARPS;
+  float* out = partial + (size_t)g * a.P * nper +
+               ((size_t)(s * a.nrt + rt) * a.nct + ct) * MM_CWARPS +
+               4 * wg + w4;
+  const uint32_t boff = (uint32_t)(wg * WH * LQ_KC);
+  const float* cand_d = a.cands + g;        // d of candidate p: [p * G]
+  // Candidates go in pairs: both products in one wgmma group, then both
+  // epilogues, summed over the warp at once.  A pair's wgmma latency is
+  // covered by the SM's other warpgroups; one wait a pair ends every
+  // accumulator's use, so ptxas chains the wgmma without serializing.
+  // Past an odd P the pair's second sum is taken all the same and dropped.
+  RingPos pos{0, 0u};       // the next chunk this warpgroup waits for
+  int accA[NL][NA], accB[NL][NA];
+#pragma unroll
+  for (int l = 0; l < NL; ++l)
+#pragma unroll
+    for (int i = 0; i < NA; ++i) accA[l][i] = accB[l][i] = 0;
+  float dA = cand_d[0];
+  mbar_wait(fixbar, 0);
+  for (int p = 0; p < a.P; p += 2) {
+    const bool two = p + 1 < a.P;
+    const int slotA = pos.slot;
+    for (int c = 0; c < (two ? 2 : 1) * NC; ++c) {
+      mbar_wait(bars + 8u * pos.slot, pos.phase);
+      pos.advance(S);
+    }
+    const int slotB = slotA + NC < S ? slotA + NC : slotA + NC - S;
+    const float dB = cand_d[(size_t)min(p + 1, a.P - 1) * a.G];
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      fence_acc(accA[l]);
+      fence_acc(accB[l]);
+    }
+    wgmma_fence();
+    mm_products<WH, NL, KL>(accA, true, slotA, a, fixed, ring, tile_f,
+                            tile_c, boff);
+    mm_products<WH, NL, KL>(accB, two, slotB, a, fixed, ring, tile_f,
+                            tile_c, boff);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      fence_acc(accA[l]);
+      fence_acc(accB[l]);
+    }
+    __syncwarp();
+    if (lane == 0)                     // the pair's slots are free
+      for (int c = 0, st = slotA; c < (two ? 2 : 1) * NC; ++c) {
+        mbar_arrive(bars + 8u * (S + st));
+        if (++st == S) st = 0;
+      }
+    const float su = mm_thread_sum<NA, NL, FAST>(
+        accA, raw, g2, SOS ? dA : __fmul_rn(dA, f), a.s_hi, a.s_lo, ngrp,
+        live);
+    const float sv = mm_thread_sum<NA, NL, FAST>(
+        accB, raw, g2, SOS ? dB : __fmul_rn(dB, f), a.s_hi, a.s_lo, ngrp,
+        live);
+    dA = cand_d[(size_t)min(p + 2, a.P - 1) * a.G];
+    const float sum = pair_warp_sum(su, sv, lane);
+    if (lane == 0) out[(size_t)p * nper] = sum;
+    if (lane == 16 && two) out[(size_t)(p + 1) * nper] = sum;
+  }
+}
+
+// out[p, g] = -Σ_q partial[(g * P + p) * nper + q]: one block an output,
+// each thread a strided run of q in double, then a fixed tree
+__global__ void reduce_rows(const float* __restrict__ partial,
+                            float* __restrict__ out, int G, int P,
+                            int nper) {
+  __shared__ double red[256];
+  const int p = blockIdx.x / G, g = blockIdx.x % G;
+  const float* src = partial + ((size_t)g * P + p) * nper;
+  double v = 0.0;
+  for (int q = threadIdx.x; q < nper; q += 256) v += (double)src[q];
+  red[threadIdx.x] = v;
+  __syncthreads();
+  for (int h = 128; h > 0; h >>= 1) {
+    if (threadIdx.x < h) red[threadIdx.x] += red[threadIdx.x + h];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[blockIdx.x] = -(float)red[0];
+}
+
+template <int W, bool SOS, bool FAST, int KL>
+int launch_mm_tc(const CUtensorMap (&maps)[3], const MmArgs& a, size_t smem,
+                 float* partial, float* out, cudaStream_t st) {
+  auto kern = mm_tc_kernel<W, SOS, FAST, KL>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nblocks = a.S * a.G * a.nrt * a.nct;
+  kern<<<nblocks, MM_THREADS, smem, st>>>(maps[0], maps[1], maps[2], a,
+                                          partial);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  reduce_rows<<<a.P * a.G, 256, 0, st>>>(partial, out, a.G, a.P,
+                                         a.S * a.nrt * a.nct * MM_CWARPS);
+  return (int)cudaGetLastError();
+}
+
+// the kernel for tile width W: SoS or not, the fast int32 conversion or
+// not, and the k-steps of the last K chunk (1, 2 or 4; 3 runs 4, the
+// fourth on zeros)
+template <int W>
+int launch_mm_width(const CUtensorMap (&maps)[3], const MmArgs& a, int sos,
+                    int ks_last, size_t smem, float* partial, float* out,
+                    cudaStream_t st) {
+  const bool fast = a.Ci < MM_FAST_K;
+#define PTQ_MM_KL(SOS, FAST)                                                 \
+  return ks_last == 1                                                        \
+             ? launch_mm_tc<W, SOS, FAST, 1>(maps, a, smem, partial, out, st) \
+         : ks_last == 2                                                      \
+             ? launch_mm_tc<W, SOS, FAST, 2>(maps, a, smem, partial, out, st) \
+             : launch_mm_tc<W, SOS, FAST, 4>(maps, a, smem, partial, out, st)
+  if (sos) {
+    if (fast) PTQ_MM_KL(true, true);
+    PTQ_MM_KL(true, false);
+  }
+  if (fast) PTQ_MM_KL(false, true);
+  PTQ_MM_KL(false, false);
+#undef PTQ_MM_KL
 }
 
 // ---------------------------------------------------------------------------
@@ -1772,10 +1811,6 @@ int launch_fp32(const Fp32Args& a, float* partial, float* out,
 
 extern "C" {
 
-// Number of 64 x 64 output tiles of an M x N product (the wrapper sizes
-// the partial-sum scratch as tiles * Z * P * bins floats).
-int ptq_num_tiles(int M, int N) { return cdiv(M, TM) * cdiv(N, TN); }
-
 // K rounded up to the level buffers' row length.
 int ptq_k_pad(int K) { return kpad(K); }
 
@@ -1926,67 +1961,85 @@ int ptq_linear_a_sims_f32(const float* x, const float* w_sim,
                   : launch_fp32<1>(a, partial, out, st);
 }
 
-// B3f: the partial-sum count per candidate (the wrapper sizes the
-// partial scratch as this times P floats).
-int ptq_fold_num_partials(int S, int G, int R, int Ci, int Co, int P,
-                          int mode) {
-  return G * fold_geom(S, G, R, Ci, Co, P, mode).nper;
+// B3 / B3f: the column width of a block's output tile; the per-warp
+// partial sums of a call per head and candidate (the wrapper sizes the
+// partial scratch as this times G * P floats); a block's dynamic shared
+// memory with a ring of `stages` slots (mode 0 "a", 1 "b", 2 "b_sos").
+int ptq_mm_width(int Co) { return mm_width(Co); }
+
+int ptq_mm_num_partials(int S, int R, int Co) {
+  return S * cdiv(R, MM_ROWS) * cdiv(Co, mm_width(Co)) * MM_CWARPS;
 }
 
-// B3.  A (S, G, R, Ci), B (S, G, Ci, Co), grad (S, G, R, Co), all f32
-// (bf16 = 0) or all bf16 (bf16 = 1); cands (P, G); fixed_int (G,);
-// mode 0 "a", 1 "b", 2 "b_sos" -> out (P, G).
+int ptq_mm_smem_bytes(int mode, int Ci, int Co, int stages) {
+  return (int)mm_smem_bytes(mode, Ci, mm_width(Co), stages);
+}
+
+// B3 and B3f.  A (S, G, R, Ci), B (S, G, Ci, Co), grad (S, G, R, Co), all
+// f32 (bf16 = 0) or all bf16 (bf16 = 1); cands (P, G); fixed_int (G,);
+// mode 0 "a", 1 "b", 2 "b_sos" -> out (P, G).  Plan
+// (ops/search_kernels.py matmul_plan): stages ring slots.
 // Scratch (Z = G * S): la (P, Z, R, Kp) in mode 0, else (Z, R, Kp);
 // la2 (Z, R, Kp) in mode 2, else NULL; lb (Z, Co, Kp) in mode 0, else
-// (P, Z, Co, Kp).
+// (P, Z, Co, Kp); partial ptq_mm_num_partials(S, R, Co) * G * P floats.
 int ptq_matmul_sims(const void* A, const void* B, const void* grad, int bf16,
                     const float* cands, const float* fixed_int, float split,
                     float a_int, float s_hi, float s_lo, int S, int G, int R,
                     int Ci, int Co, int P, int mode, int cand_qmax,
-                    int fixed_qmax, int8_t* la, int8_t* la2, int8_t* lb,
-                    float* partial, float* out, void* stream) {
+                    int fixed_qmax, int stages, int8_t* la, int8_t* la2,
+                    int8_t* lb, float* partial, float* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define PTQ_MM(T, MODE)                                                      \
-  return launch_mm<T, MODE>(A, B, grad, cands, fixed_int, split, a_int,     \
-                            s_hi, s_lo, S, G, R, Ci, Co, P, cand_qmax,      \
-                            fixed_qmax, la, la2, lb, partial, out, st)
+  const int W = mm_width(Co), Z = S * G, Kp = kpad(Ci);
+  const size_t smem = mm_smem_bytes(mode, Ci, W, stages);
+  if (stages < 2 * cdiv(Kp, LQ_KC) || stages > MM_MAX_STAGES ||
+      smem > LQ_SMEM_LIMIT)
+    return kErrSmem;     // two candidates' chunks must fit the ring
+  int err;
+#define PTQ_FILL(T, MODE)                                                    \
+  err = fill_mm_levels<T, MODE>(A, B, cands, fixed_int, split, a_int, S, G, \
+                                R, Ci, Co, P, cand_qmax, fixed_qmax, la,    \
+                                la2, lb, st)
   if (bf16) {
-    if (mode == 0) PTQ_MM(__nv_bfloat16, 0);
-    if (mode == 1) PTQ_MM(__nv_bfloat16, 1);
-    PTQ_MM(__nv_bfloat16, 2);
+    if (mode == 0) PTQ_FILL(__nv_bfloat16, 0);
+    else if (mode == 1) PTQ_FILL(__nv_bfloat16, 1);
+    else PTQ_FILL(__nv_bfloat16, 2);
+  } else {
+    if (mode == 0) PTQ_FILL(float, 0);
+    else if (mode == 1) PTQ_FILL(float, 1);
+    else PTQ_FILL(float, 2);
   }
-  if (mode == 0) PTQ_MM(float, 0);
-  if (mode == 1) PTQ_MM(float, 1);
-  PTQ_MM(float, 2);
-#undef PTQ_MM
-}
-
-// B3f.  Arguments, scratch and result as B3; partial holds
-// ptq_fold_num_partials(...) * P floats.  A shape whose block needs more
-// shared memory than the card has fails with the launch's CUDA error.
-int ptq_matmul_sims_folded(const void* A, const void* B, const void* grad,
-                           int bf16, const float* cands,
-                           const float* fixed_int, float split, float a_int,
-                           float s_hi, float s_lo, int S, int G, int R,
-                           int Ci, int Co, int P, int mode, int cand_qmax,
-                           int fixed_qmax, int8_t* la, int8_t* la2,
-                           int8_t* lb, float* partial, float* out,
-                           void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-#define PTQ_MMF(T, MODE)                                                     \
-  return launch_mm_folded<T, MODE>(A, B, grad, cands, fixed_int, split,     \
-                                   a_int, s_hi, s_lo, S, G, R, Ci, Co, P,   \
-                                   cand_qmax, fixed_qmax, la, la2, lb,      \
-                                   partial, out, st)
-  if (bf16) {
-    if (mode == 0) PTQ_MMF(__nv_bfloat16, 0);
-    if (mode == 1) PTQ_MMF(__nv_bfloat16, 1);
-    PTQ_MMF(__nv_bfloat16, 2);
+#undef PTQ_FILL
+  if (err) return err;
+  // maps: the candidate levels (planes p * Z + z), the fixed tile(s)
+  CUtensorMap maps[3];
+  if (mode == 0) {
+    if ((err = level_map(&maps[0], la, Kp, R, P * Z, MM_ROWS))) return err;
+    if ((err = level_map(&maps[1], lb, Kp, Co, Z, W))) return err;
+    maps[2] = maps[1];
+  } else {
+    if ((err = level_map(&maps[0], lb, Kp, Co, P * Z, W))) return err;
+    if ((err = level_map(&maps[1], la, Kp, R, Z, MM_ROWS))) return err;
+    if (mode == 2) {
+      if ((err = level_map(&maps[2], la2, Kp, R, Z, MM_ROWS))) return err;
+    } else {
+      maps[2] = maps[1];
+    }
   }
-  if (mode == 0) PTQ_MMF(float, 0);
-  if (mode == 1) PTQ_MMF(float, 1);
-  PTQ_MMF(float, 2);
-#undef PTQ_MMF
+  MmArgs a;
+  a.A = A; a.B = B; a.grad = grad; a.cands = cands; a.fixed_int = fixed_int;
+  a.s_hi = s_hi; a.s_lo = s_lo; a.bf16 = bf16;
+  a.S = S; a.G = G; a.R = R; a.Ci = Ci; a.Co = Co; a.P = P;
+  a.cand_on_a = mode == 0;
+  a.NC = cdiv(Kp, LQ_KC);
+  a.stages = stages; a.nrt = cdiv(R, MM_ROWS); a.nct = cdiv(Co, W);
+  const int sos = mode == 2, ks_last = (Kp - (a.NC - 1) * LQ_KC) / 32;
+  if (W == 32)
+    return launch_mm_width<32>(maps, a, sos, ks_last, smem, partial, out,
+                               st);
+  if (W == 48)
+    return launch_mm_width<48>(maps, a, sos, ks_last, smem, partial, out,
+                               st);
+  return launch_mm_width<64>(maps, a, sos, ks_last, smem, partial, out, st);
 }
 
 }  // extern "C"

@@ -35,23 +35,21 @@ _L = ctypes.c_longlong
 # argtypes of every C entry point, by library (pointers and the stream as
 # c_void_p, so ctypes never narrows them to 32 bits)
 _SEARCH = {
-    "ptq_num_tiles": [_I, _I],
     "ptq_k_pad": [_I],
     "ptq_linear_num_partials": [_I, _I],
     "ptq_linear_smem_bytes": [_I] * 6,
     "ptq_linear_w_sims": [_P, _P, _P, _P, _P, _P, _F, _F] + [_I] * 10
                          + [_P] * 6,
     "ptq_linear_a_sims": [_P, _P, _P, _P, _P, _P, _F] + [_I] * 9 + [_P] * 6,
-    "ptq_matmul_sims": [_P, _P, _P, _I, _P, _P, _F, _F, _F, _F, _I, _I, _I,
-                        _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "ptq_mm_width": [_I],
+    "ptq_mm_num_partials": [_I] * 3,
+    "ptq_mm_smem_bytes": [_I] * 4,
+    "ptq_matmul_sims": [_P, _P, _P, _I, _P, _P] + [_F] * 4 + [_I] * 10
+                       + [_P] * 6,
     "ptq_fp32_num_partials": [_I, _I],
     "ptq_fp32_smem_bytes": [_I, _I],
     "ptq_linear_w_sims_f32": [_P] * 5 + [_I] * 8 + [_P] * 4,
     "ptq_linear_a_sims_f32": [_P] * 5 + [_F] + [_I] * 8 + [_P] * 5,
-    "ptq_fold_num_partials": [_I] * 7,
-    "ptq_matmul_sims_folded": [_P, _P, _P, _I, _P, _P, _F, _F, _F, _F, _I,
-                               _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                               _P, _P, _P],
 }
 _SERVE = {
     "ptq_q8_linear": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _F,

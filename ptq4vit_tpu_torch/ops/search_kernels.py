@@ -6,10 +6,11 @@ hessian similarity sums ``-Σ (g·(raw − out))²`` per candidate:
 
   linear_w_hessian_sims_i8  <- linear_w_hessian_sims_i8 (B1)
   linear_a_hessian_sims_i8  <- linear_a_hessian_sims_i8 (B2)
-  matmul_hessian_sims       <- matmul_hessian_sims: B3 (body _mm_kernel)
-                               where ``mm_fold_factor`` is 1, B3f (body
-                               _mm_kernel_folded) where it is > 1, as the
-                               JAX function picks its body
+  matmul_hessian_sims       <- matmul_hessian_sims: counted as B3 (body
+                               _mm_kernel) where ``mm_fold_factor`` is 1,
+                               as B3f (body _mm_kernel_folded) where it is
+                               > 1, as the JAX function picks its body; one
+                               tensor-core kernel serves both
   linear_w_hessian_sims     <- linear_w_hessian_sims (B4w, exact scoring)
   linear_a_hessian_sims     <- linear_a_hessian_sims (B4a, exact scoring)
 
@@ -41,9 +42,10 @@ LQ_ROWS, LQ_KC = 64, 128
 LQ_TILE = LQ_ROWS * LQ_KC     # one chunk of either tile
 LQ_CWARPS = 4                 # consumer warps of a block (one warpgroup)
 SMEM_LIMIT = 232448           # dynamic shared memory a block may use
-# two blocks share an SM's 228 KB (each with 1 KB the system reserves), so
-# that one block's epilogue overlaps the other's products
-LQ_BLOCK_SMEM = 233472 // 2 - 1024
+SM_SMEM = 233472              # an SM's; each block's takes 1 KB more
+# two blocks share an SM's 228 KB, so that one block's epilogue overlaps
+# the other's products
+LQ_BLOCK_SMEM = SM_SMEM // 2 - 1024
 LQ_MAX_STAGES = 6
 LQ_WACC_BYTES = 16384         # per-warp, per-candidate sums of one launch
 
@@ -186,6 +188,95 @@ def fp32_plan(kind: str, M: int, N: int, K: int, P: int,
     return Fp32Plan(stages, pc, groups, tiles, tiles * groups, waves,
                     tiles * P / (slots * waves * pc),
                     fp32_smem_bytes(kind, twin, stages))
+
+
+# B3 / B3f on the int8 tensor cores (csrc MM_*): a block owns a 64-row
+# output tile of one (sample or window, head) problem, mm_width columns
+# wide, keeps the fixed operand's level tile(s) resident and streams the
+# candidates' tiles through a ring of slots, one 128-byte K chunk a slot
+MM_ROWS, MM_RK, MM_MAX_STAGES = 64, 16, 16
+MM_WARPS = 8  # per-warp partial sums of a block: two consumer warpgroups
+
+
+def mm_width(Co: int) -> int:
+    """The column width of a B3 / B3f block's tile, an s8 wgmma's N (8,
+    16, 24, 32, then multiples of 16): 32 for Co <= 32, 48 where it divides
+    Co and 64 does not (Swin's 144), else 64."""
+    if Co <= 32:
+        return 32
+    return 48 if Co % 48 == 0 and Co % 64 else 64
+
+
+class MatmulPlan(NamedTuple):
+    """How B3 / B3f runs one call on the card.
+
+    width: columns of a block's tile; row_tiles, col_tiles: tiles of one
+    problem's R x Co output; blocks: problems x tiles (each walks all P
+    candidates); per_head: per-warp partial sums per head and candidate;
+    stages: ring slots, one K chunk of a candidate tile each, at least two
+    candidates' chunks (a block waits for a pair of candidates at a time);
+    per_sm: blocks an SM holds, by shared memory; smem: dynamic shared
+    memory of a block, at most SM_SMEM // per_sm - 1024; fast: K < 256, so
+    the int32 sums convert without I2F."""
+    width: int
+    row_tiles: int
+    col_tiles: int
+    blocks: int
+    per_head: int
+    stages: int
+    per_sm: int
+    smem: int
+    fast: bool
+
+
+def mm_blocks_per_sm(W: int, mode: str) -> int:
+    """Blocks a B3 / B3f kernel is built to run on one SM (csrc
+    ``mm_min_blocks``): three at the narrow tiles (W <= 48, at most 75
+    registers a thread), two at W = 64; "b_sos", with two fixed tiles,
+    three at W = 32 and one past it."""
+    if mode == "b_sos":
+        return 3 if W <= 32 else 1
+    return 3 if W <= 48 else 2
+
+
+def matmul_smem_bytes(mode: str, Ci: int, Co: int, stages: int) -> int:
+    """A B3 / B3f block's dynamic shared memory (csrc ``mm_smem_bytes``):
+    1 KB of alignment slack, the resident fixed tile(s) (two in "b_sos"),
+    ``stages`` ring slots of one 128-byte K chunk of a candidate tile, the
+    raw product's staging, the mbarriers."""
+    W = mm_width(Co)
+    nc = -(-k_pad(Ci) // LQ_KC)
+    rows_fix, rows_cand = (W, MM_ROWS) if mode == "a" else (MM_ROWS, W)
+    nl = 2 if mode == "b_sos" else 1
+    return (1024 + nl * nc * rows_fix * LQ_KC
+            + stages * rows_cand * LQ_KC
+            + 4 * MM_RK * ((MM_ROWS + 4) + (W + 4)) + 8 * (2 * stages + 1))
+
+
+def matmul_plan(S: int, G: int, R: int, Ci: int, Co: int, P: int,
+                mode: str) -> MatmulPlan:
+    """The plan of a B3 / B3f call: the most ring slots (up to
+    MM_MAX_STAGES, at least two candidates' K chunks) within an SM's shared
+    memory shared by ``mm_blocks_per_sm`` blocks, or by fewer where two
+    candidates' chunks do not fit beside the fixed tile(s) (ViT's matmul2:
+    its two SoS tiles take 80 KB at K = 577, one block an SM)."""
+    if mode not in _MODES:
+        raise ValueError(f"unknown mode {mode}")
+    W = mm_width(Co)
+    stages = 2 * -(-k_pad(Ci) // LQ_KC)
+    need = matmul_smem_bytes(mode, Ci, Co, stages)
+    if stages > MM_MAX_STAGES or need > SMEM_LIMIT:
+        raise ValueError(f"K = {Ci} does not fit a block's shared memory")
+    per_sm = mm_blocks_per_sm(W, mode)
+    while need > SM_SMEM // per_sm - 1024:
+        per_sm -= 1
+    while (stages < MM_MAX_STAGES and matmul_smem_bytes(
+            mode, Ci, Co, stages + 1) <= SM_SMEM // per_sm - 1024):
+        stages += 1
+    nrt, nct = -(-R // MM_ROWS), -(-Co // W)
+    return MatmulPlan(W, nrt, nct, S * G * nrt * nct,
+                      S * nrt * nct * MM_WARPS, stages, per_sm,
+                      matmul_smem_bytes(mode, Ci, Co, stages), Ci < 256)
 
 
 def mm_fold_factor(G: int, Ci: int, Co: int) -> int:
@@ -592,14 +683,32 @@ def _matmul_args(A, B, grad, cands, fixed_int, mode, sos):
     return (S, G, R, Ci, Co, P), fixed_int, sv
 
 
-def _matmul_scratch(lib, dims, mode, dev):
-    """The level buffers of the shared B3 / B3f pre-pass."""
+def _matmul_launch(A, B, grad, cands, fixed_int, mode, cand_qmax,
+                   fixed_qmax, sos, return_levels=False):
+    """One B3 / B3f call on the card: the level pre-pass's buffers, the
+    plan, the per-warp partials, the kernel.  ``return_levels``: also
+    return the pre-pass's level buffers (la, la2, lb), for the card tests
+    to hold them to the plain levels bit for bit."""
+    from .build import load
+    lib = load()
+    dims, fixed_int, sv = _matmul_args(A, B, grad, cands, fixed_int, mode,
+                                       sos)
     S, G, R, Ci, Co, P = dims
+    dev = A.device
     kp, Z = lib.ptq_k_pad(Ci), S * G
     la = _levels_scratch((P if mode == "a" else 1, Z, R, kp), dev)
     la2 = _levels_scratch((Z, R, kp), dev) if mode == "b_sos" else None
     lb = _levels_scratch((1 if mode == "a" else P, Z, Co, kp), dev)
-    return la, la2, lb
+    plan = matmul_plan(S, G, R, Ci, Co, P, mode)
+    partial = torch.empty(lib.ptq_mm_num_partials(S, R, Co) * G * P,
+                          dtype=torch.float32, device=dev)
+    out = torch.empty(P, G, dtype=torch.float32, device=dev)
+    _launch(lib.ptq_matmul_sims, _ptr(A), _ptr(B), _ptr(grad),
+            int(A.dtype == torch.bfloat16), _ptr(cands), _ptr(fixed_int),
+            *sv, S, G, R, Ci, Co, P, _MODES[mode], cand_qmax, fixed_qmax,
+            plan.stages, _ptr(la), _ptr(la2), _ptr(lb), _ptr(partial),
+            _ptr(out), _stream())
+    return (out, (la, la2, lb)) if return_levels else out
 
 
 def matmul_hessian_sims(A, B, grad, cands, fixed_int, mode: str,
@@ -610,9 +719,11 @@ def matmul_hessian_sims(A, B, grad, cands, fixed_int, mode: str,
     A (S, G, R, Ci), B (S, G, Ci, Co), grad (S, G, R, Co): all fp32 or all
     bf16 (the calibration caches' stored dtype); cands (P, G) fp32;
     fixed_int (G,); mode "a" | "b" | "b_sos"; sos = (split, a_int, s_hi,
-    s_lo) scalars for "b_sos".  Returns (P, G).  On the card it launches
-    B3f where ``mm_fold_factor(G, Ci, Co) > 1`` (Swin windows) and B3
-    elsewhere."""
+    s_lo) scalars for "b_sos".  Returns (P, G).  On the card it counts the
+    launch as B3f where ``mm_fold_factor(G, Ci, Co) > 1`` (Swin windows),
+    as the JAX function picks its folded body there, and as B3 elsewhere;
+    both run the same tensor-core kernel (``matmul_plan``, see
+    csrc/search_kernels.cu)."""
     if not A.is_cuda:
         return matmul_hessian_sims_ref(A, B, grad, cands, fixed_int, mode,
                                        cand_qmax, fixed_qmax, sos)
@@ -626,25 +737,13 @@ def matmul_hessian_sims(A, B, grad, cands, fixed_int, mode: str,
 def matmul_hessian_sims_b3(A, B, grad, cands, fixed_int, mode: str,
                            cand_qmax: int, fixed_qmax: int,
                            sos: Optional[Sequence] = None):
-    """B3: the per-head scorer with 64 x 64 output tiles (body
-    ``_mm_kernel``); arguments as ``matmul_hessian_sims``."""
+    """B3: the per-head scorer where the JAX function runs its unfolded
+    body ``_mm_kernel`` (ViT); arguments as ``matmul_hessian_sims``."""
     if not A.is_cuda:
         return matmul_hessian_sims_ref(A, B, grad, cands, fixed_int, mode,
                                        cand_qmax, fixed_qmax, sos)
-    from .build import load
-    lib = load()
-    dims, fixed_int, sv = _matmul_args(A, B, grad, cands, fixed_int, mode,
-                                       sos)
-    S, G, R, Ci, Co, P = dims
-    la, la2, lb = _matmul_scratch(lib, dims, mode, A.device)
-    partial = torch.empty(lib.ptq_num_tiles(R, Co) * S * G * P,
-                          dtype=torch.float32, device=A.device)
-    out = torch.empty(P, G, dtype=torch.float32, device=A.device)
-    _launch(lib.ptq_matmul_sims, _ptr(A), _ptr(B), _ptr(grad),
-            int(A.dtype == torch.bfloat16), _ptr(cands), _ptr(fixed_int),
-            *sv, S, G, R, Ci, Co, P, _MODES[mode], cand_qmax, fixed_qmax,
-            _ptr(la), _ptr(la2), _ptr(lb), _ptr(partial), _ptr(out),
-            _stream())
+    out = _matmul_launch(A, B, grad, cands, fixed_int, mode, cand_qmax,
+                         fixed_qmax, sos)
     matmul_hessian_sims_b3.launches += 1
     return out
 
@@ -652,29 +751,15 @@ def matmul_hessian_sims_b3(A, B, grad, cands, fixed_int, mode: str,
 def matmul_hessian_sims_b3f(A, B, grad, cands, fixed_int, mode: str,
                             cand_qmax: int, fixed_qmax: int,
                             sos: Optional[Sequence] = None):
-    """B3f: the per-head scorer at window shapes (body
-    ``_mm_kernel_folded``).  It does not fold heads: a block owns whole
-    (window, head) problems, a chunk of windows of one head, with an output
-    tile fitted to R x Co (see csrc/search_kernels.cu).  Arguments and
-    result as ``matmul_hessian_sims``."""
+    """B3f: the per-head scorer where the JAX function runs its
+    head-folded body ``_mm_kernel_folded`` (Swin's windows).  The card
+    needs no fold: the tile's width fits Co instead (``mm_width``).
+    Arguments and result as ``matmul_hessian_sims``."""
     if not A.is_cuda:
         return matmul_hessian_sims_ref(A, B, grad, cands, fixed_int, mode,
                                        cand_qmax, fixed_qmax, sos)
-    from .build import load
-    lib = load()
-    dims, fixed_int, sv = _matmul_args(A, B, grad, cands, fixed_int, mode,
-                                       sos)
-    S, G, R, Ci, Co, P = dims
-    la, la2, lb = _matmul_scratch(lib, dims, mode, A.device)
-    partial = torch.empty(lib.ptq_fold_num_partials(
-        S, G, R, Ci, Co, P, _MODES[mode]) * P,
-                          dtype=torch.float32, device=A.device)
-    out = torch.empty(P, G, dtype=torch.float32, device=A.device)
-    _launch(lib.ptq_matmul_sims_folded, _ptr(A), _ptr(B), _ptr(grad),
-            int(A.dtype == torch.bfloat16), _ptr(cands), _ptr(fixed_int),
-            *sv, S, G, R, Ci, Co, P, _MODES[mode], cand_qmax, fixed_qmax,
-            _ptr(la), _ptr(la2), _ptr(lb), _ptr(partial), _ptr(out),
-            _stream())
+    out = _matmul_launch(A, B, grad, cands, fixed_int, mode, cand_qmax,
+                         fixed_qmax, sos)
     matmul_hessian_sims_b3f.launches += 1
     return out
 

@@ -18,7 +18,10 @@ is imported; each command prints JSON lines.
            --streamed, where the checkout has ``linear_plan``, also with
            the fixed tile streamed with every chunk.
   b3       B3 at chip_smoke.py's ViT-B/384 cases and B3f at its Swin
-           stage-1 cases (4 images), ms over 5 calls.
+           stage-1 and stage-3 cases (4 images): the wrapper's ms (CUDA
+           events, 20 calls) and the device ms of each kernel of one call
+           under torch.profiler (level pre-pass, scored kernel,
+           reduction), one JSON line a case.
   b4       B4w (fc1, post-GELU twin fc2, qkv n_V=3) and B4a (fc1,
            post-GELU fc2, qkv) at ViT-B/384 shapes with 4 and 32 images
            (or the --images given), P = 100: one JSON line a case with
@@ -27,10 +30,12 @@ is imported; each command prints JSON lines.
            under torch.profiler (level pre-pass, scored kernel,
            reduction), and the SHA-1 of the sims' bytes (equal between
            two checkouts where their sims are bitwise equal).
-  ptxas    ptxas's registers and spill bytes of each B4 kernel
+  ptxas    ptxas's registers and spill bytes of each B3 / B3f kernel
+           (``mm_tc_kernel<W, SOS, FAST, KL>``) and B4 kernel
            (``fp32_scored_kernel<KIND>``: 0 B4w, 1 B4a, 2 B4a post-GELU)
-           as the checkout's search_kernels.cu builds, one JSON line a
-           kernel.
+           as the checkout's search_kernels.cu builds, with the count of
+           IGMMA (int8 wgmma) and IDP.4A (dp4a) instructions in each
+           kernel's SASS (cuobjdump), one JSON line a kernel.
   qstates  PTQ4ViT W8A8 calibration of ViT-B/384 and Swin-B/384 on 8
            images (chip_smoke.py's seeds); pickles each qstate and every
            scorer call's sims, by op, in call order.  With --exact:
@@ -166,14 +171,18 @@ def b3(root):
     def t(a, dt=torch.float32):
         return torch.from_numpy(np.ascontiguousarray(a)).to("cuda", dt)
     rng = np.random.default_rng(0)
-    out = {}
-    for label, args in cs.matmul_cases(rng, GRID, 4, 12, 577, 64, Q, t):
-        out["b3 " + label] = cs.time_ms(
-            lambda: sk.matmul_hessian_sims_b3(*args), 5)
-    for label, args in cs.matmul_cases(rng, GRID, 4 * 64, 4, 144, 32, Q, t):
-        out["b3f stage 1 " + label] = cs.time_ms(
-            lambda: sk.matmul_hessian_sims_b3f(*args), 5)
-    print(json.dumps(out), flush=True)
+    cases = [("b3 " + label, sk.matmul_hessian_sims_b3, args)
+             for label, args in cs.matmul_cases(rng, GRID, 4, 12, 577, 64,
+                                                Q, t)]
+    for stage, nwin, G in ((1, 64, 4), (3, 4, 16)):
+        cases += [(f"b3f stage {stage} {label}", sk.matmul_hessian_sims_b3f,
+                   args)
+                  for label, args in cs.matmul_cases(rng, GRID, 4 * nwin, G,
+                                                     144, 32, Q, t)]
+    for name, fn, args in cases:
+        print(json.dumps({
+            "case": name, "ms": _time_ms(torch, lambda: fn(*args), 20),
+            "by_kernel": _device_ms(torch, lambda: fn(*args))}), flush=True)
 
 
 def b4(root, images_list=(4, 32)):
@@ -242,30 +251,58 @@ def ptxas(root):
             [build.nvcc_path(), *flags, "-Xptxas", "-v", "-cubin", "-o", cubin,
              build.source_path("search_kernels")],
             capture_output=True, text=True, check=True).stderr
+        cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()),
+                                 "cuobjdump")
+        sass = subprocess.run([cuobjdump, "-sass", cubin],
+                              capture_output=True, text=True,
+                              check=True).stdout
     finally:
         os.remove(cubin)
+    # SASS by mangled kernel name
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = {"igmma": 0, "idp4a": 0}
+        elif name is not None:
+            counts[name]["igmma"] += "IGMMA" in line
+            counts[name]["idp4a"] += "IDP.4A" in line
     kernel = None
     for line in out.splitlines():
+        if "arning" in line or "(C752" in line:   # C7520: serialized wgmma
+            print(json.dumps({"ptxas_warning": line.strip()}), flush=True)
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"fp32_scored_kernelILi(\d)E", m.group(1))
-            kernel = f"fp32_scored_kernel<{k.group(1)}>" if k else None
+            mangled = m.group(1)
+            k = re.search(r"fp32_scored_kernelILi(\d)E", mangled)
+            mm = re.search(r"mm_tc_kernelILi(\d+)ELb(\d)ELb(\d)ELi(\d)E",
+                           mangled)
+            kernel = (f"fp32_scored_kernel<{k.group(1)}>" if k else
+                      "mm_tc_kernel<" + ", ".join(mm.groups()) + ">"
+                      if mm else None)
             spills = None
             continue
         if kernel is None:
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m:
-            spills = [int(m.group(1)), int(m.group(2))]
+            spills = [int(m.group(2)), int(m.group(3)), int(m.group(1))]
         m = re.search(r"Used (\d+) registers", line)
         if m:
             print(json.dumps({"kernel": kernel,
                               "registers": int(m.group(1)),
                               "spill_stores": spills[0] if spills else 0,
-                              "spill_loads": spills[1] if spills else 0}),
+                              "spill_loads": spills[1] if spills else 0,
+                              "stack_frame": spills[2] if spills else 0,
+                              **counts.get(mangled, {})}),
                   flush=True)
             kernel = None
+    print(json.dumps({"library": "search_kernels", "kernels": len(counts),
+                      "igmma": sum(c["igmma"] for c in counts.values()),
+                      "idp4a": sum(c["idp4a"] for c in counts.values())}),
+          flush=True)
 
 
 def qstates(root, path, exact=False):

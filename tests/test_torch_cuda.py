@@ -48,9 +48,24 @@ FOLDED = [(3, 4, 49, 32, 49, 5), (2, 8, 144, 32, 144, 4),
           (2100, 2, 16, 16, 8, 3)]
 
 
-def matmul_case(rng, mode, dtype, shape=UNFOLDED):
+# (S, G, R, Ci, Co, P) of B3's edge cases on the card, taken as they are
+# in every mode: R and Co of 1, 63, 65, 144 and 577 (ragged row and column
+# tiles; 144 takes 48-wide tiles), K = 8, 32, 49, 64, 144 and 577 (K not a
+# multiple of the 32-byte pad; 577: five 128-byte chunks, the I2F
+# conversion, one block an SM), P = 1, 7 and 100.  G = 3 keeps the JAX
+# scorer unfolded (B3); S keeps at least ~1000 terms a head, so the raw
+# product's fp32 summation order stays inside rtol 1e-4.
+MM_EDGES = [(1000, 3, 1, 8, 1, 1), (2, 3, 63, 32, 65, 7),
+            (2, 3, 65, 49, 63, 7), (1, 3, 144, 64, 144, 100),
+            (1, 3, 577, 144, 577, 7), (1, 3, 577, 577, 64, 100),
+            (30, 3, 65, 577, 1, 7)]
+
+
+def matmul_case(rng, mode, dtype, shape=UNFOLDED, swap=True):
+    """Inputs of a B3 / B3f call; ``swap``: matmul2 (b_sos) takes the
+    shape's Ci as its Co and its Co as its K."""
     S, G, R, Ci, Co, P = shape
-    if mode == "b_sos":
+    if mode == "b_sos" and swap:
         Ci, Co = Co, Ci
     A = rng.standard_normal((S, G, R, Ci)).astype(np.float32)
     if mode == "b_sos":
@@ -90,11 +105,23 @@ LINEAR_EDGES = [(100, 64, 3 * 64, 1, False, 7), (100, 64, 3 * 64, 3, True, 7),
                 (200, 96, 120, 120, False, 20)]
 
 
+def near_tie(got, ref, tie=1e-4):
+    """Every head whose argmax differs has its two candidates' plain sims
+    within ``tie`` (relative): a near-tie the two sums may swap."""
+    for col in range(ref.shape[1]):
+        i, j = int(got[:, col].argmax()), int(ref[:, col].argmax())
+        if i != j and abs(float(ref[i, col] - ref[j, col])) > \
+                tie * abs(float(ref[j, col])):
+            return False
+    return True
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_the_card():
     """B1 and B2 on the tensor cores at LINEAR_EDGES, both post-GELU
-    twins, B3 in every mode; each within rtol 1e-4 of its plain version
-    (sums in another order), one launch per call."""
+    twins, B3 in every mode at MM_EDGES with f32 and bf16 operands; each
+    within rtol 1e-4 of its plain version (sums in another order), B3's
+    argmax equal unless a near-tie, one launch per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     rng = np.random.default_rng(40)
@@ -128,19 +155,28 @@ def test_kernels_match_plain_versions_on_the_card():
     # the cases reach both fixed-tile modes and a split candidate loop
     assert {r for r, _, _, _ in plans} == {True, False}
     assert any(pc < P for _, _, pc, P in plans)
-    for mode in ("a", "b", "b_sos"):
-        A, B, g, cands, fixed, sos = matmul_case(rng, mode, "bf16")
-        args = (T(A, torch.bfloat16).to(dev), T(B, torch.bfloat16).to(dev),
-                T(g, torch.bfloat16).to(dev), T(cands).to(dev),
-                T(fixed).to(dev), mode, Q, Q,
-                None if sos is None else [float(v) for v in sos])
-        torch.testing.assert_close(sk.matmul_hessian_sims(*args),
-                                   sk.matmul_hessian_sims_ref(*args),
-                                   rtol=1e-4, atol=0)
+    n_mm = 0
+    for shape in MM_EDGES:
+        for mode in ("a", "b", "b_sos"):
+            for dtype in ("f32", "bf16"):
+                td = torch.bfloat16 if dtype == "bf16" else torch.float32
+                A, B, g, cands, fixed, sos = matmul_case(rng, mode, dtype,
+                                                         shape, swap=False)
+                args = (T(A, td).to(dev), T(B, td).to(dev), T(g, td).to(dev),
+                        T(cands).to(dev), T(fixed).to(dev), mode, Q, Q,
+                        None if sos is None else [float(v) for v in sos])
+                got = sk.matmul_hessian_sims(*args)
+                ref = sk.matmul_hessian_sims_ref(*args)
+                torch.testing.assert_close(got, ref, rtol=1e-4, atol=0,
+                                           msg=f"B3 {shape} {mode} {dtype}")
+                assert torch.equal(got.argmax(0), ref.argmax(0)) or \
+                    near_tie(got, ref), (shape, mode, dtype)
+                n_mm += 1
     n = len(LINEAR_EDGES)
+    assert n_mm == 3 * 2 * len(MM_EDGES)
     assert sk.launch_counts() == {"linear_w_hessian_sims_i8": n,
                                   "linear_a_hessian_sims_i8": n,
-                                  "matmul_hessian_sims_b3": 3,
+                                  "matmul_hessian_sims_b3": n_mm,
                                   "matmul_hessian_sims_b3f": 0,
                                   "linear_w_hessian_sims": 0,
                                   "linear_a_hessian_sims": 0}
@@ -264,6 +300,186 @@ def test_folded_kernel_matches_plain_version_on_the_card():
                     atol=0, msg=f"{shape} {mode} {dtype}")
                 n += 1
     assert n == 3 * 3 * 2
+
+
+def matmul_calls(name, images):
+    """(S, G, R, Ci, Co, P, mode) of every B3 / B3f call a PTQ4ViT W8A8
+    calibration of ``name`` on ``images`` images makes: modes a and b at
+    matmul1, b_sos at the SoS matmul2."""
+    from ptq4vit_tpu_torch.configs import ptq4vit
+    from ptq4vit_tpu_torch.models import model_config, swin, vit
+    cfg = model_config(name)
+    mod = swin if name.startswith("swin") else vit
+    pol = ptq4vit()
+    shapes = mod.op_shapes(cfg)
+    for op, mtype in mod.op_inventory(cfg):
+        info = shapes[op]
+        if info["kind"] != "matmul":
+            continue
+        p = pol.op_policy(mtype)
+        modes = ("b_sos",) if p.quantizer == "sos_matmul" else ("a", "b")
+        for mode in modes:
+            yield (info.get("windows", 1) * images, info["heads"],
+                   info["rows"], info["inner"], info["cols"], p.eq_n, mode)
+
+
+def plain_levels(x, d, lo, hi, kp):
+    """clip(round(x / d), lo, hi) along the last axis, K-padded to kp, as
+    int8 (the CPU's IEEE division)."""
+    lv = torch.clamp(torch.round(x.float().cpu() / d), lo, hi).to(torch.int8)
+    return torch.nn.functional.pad(lv, (0, kp - lv.shape[-1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["a", "b", "b_sos"])
+def test_matmul_level_prepass_is_exact_on_the_card(mode):
+    """The B3 / B3f level pre-pass writes bit for bit the plain levels,
+    K-padded with zeros, in every buffer of the mode, with many values at
+    and next to a rounding boundary: power-of-two scales put x / d exactly
+    on a half, and the values one float step either side of it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    rng = np.random.default_rng(47)
+    S, G, R, Ci, Co, P = 3, 2, 33, 49, 40, 5
+    if mode == "b_sos":
+        Ci, Co = Co, Ci
+    A = rng.standard_normal((S, G, R, Ci)).astype(np.float32)
+    if mode == "b_sos":
+        A = np.exp(A) / np.exp(A).sum(-1, keepdims=True)
+    B = rng.standard_normal((S, G, Ci, Co)).astype(np.float32)
+    scales = np.array([0.25, 0.0625, 0.03125, 1 / 3, 0.0173], np.float32)
+    # a third of the values on a half of the first scale, a step either
+    # side, or 0.5 itself
+    halves = (rng.integers(-200, 200, A.shape) + 0.5) * np.float32(0.25)
+    pick = rng.integers(0, 4, A.shape)
+    A = np.where(pick == 1, halves, A)
+    A = np.where(pick == 2, np.nextafter(halves, np.float32(np.inf)), A)
+    A = np.where(pick == 3, np.nextafter(halves, np.float32(-np.inf)), A)
+    A = A.astype(np.float32)
+    halves_b = (rng.integers(-200, 200, B.shape) + 0.5) * np.float32(0.25)
+    B = np.where(rng.integers(0, 2, B.shape) == 1, halves_b, B) \
+        .astype(np.float32)
+    cands = np.tile(scales[:P, None], (1, G)).astype(np.float32)
+    fixed = np.full(G, 0.0625, np.float32)
+    sos = None
+    if mode == "b_sos":
+        A = np.abs(A) / np.float32(60)       # softmax-range values
+        split = np.float32(2.0 ** -4)
+        a_int = np.float32(split / np.float32(Q - 1))
+        sos = [float(split), float(a_int),
+               float(np.float32(1) / np.float32(Q - 1)), float(a_int)]
+    g = rng.standard_normal((S, G, R, Co)).astype(np.float32)
+    dev = "cuda"
+    _, (la, la2, lb) = sk._matmul_launch(
+        T(A).to(dev), T(B).to(dev), T(g).to(dev), T(cands).to(dev),
+        T(fixed).to(dev), mode, Q, Q, sos, return_levels=True)
+    kp = sk.k_pad(Ci)
+    At = torch.from_numpy(A).permute(1, 0, 2, 3)        # (G, S, R, Ci): z
+    Bt = torch.from_numpy(B).permute(1, 0, 3, 2)        # (G, S, Co, Ci)
+    f4 = torch.from_numpy(fixed).reshape(G, 1, 1, 1)
+    if mode == "a":
+        want_a = torch.stack([plain_levels(
+            At, torch.from_numpy(cands[p]).reshape(G, 1, 1, 1), -Q, Q - 1,
+            kp) for p in range(P)]).reshape(la.shape)
+        want_b = plain_levels(Bt, f4, -Q, Q - 1, kp).reshape(lb.shape)
+    else:
+        want_b = torch.stack([plain_levels(
+            Bt, torch.from_numpy(cands[p]).reshape(G, 1, 1, 1), -Q, Q - 1,
+            kp) for p in range(P)]).reshape(lb.shape)
+        if mode == "b":
+            want_a = plain_levels(At, f4, -Q, Q - 1, kp).reshape(la.shape)
+        else:
+            split, a_int = np.float32(sos[0]), np.float32(sos[1])
+            hi = torch.clamp(torch.round(torch.clamp(At, min=float(split),
+                                                     max=1.0) * (Q - 1)),
+                             0, Q - 1).to(torch.int8)
+            want_a = torch.nn.functional.pad(hi, (0, kp - Ci)) \
+                .reshape(la.shape)
+            lo = plain_levels(torch.clamp(At, min=0.0, max=float(split)),
+                              torch.tensor(a_int), 0, Q - 1, kp)
+            assert torch.equal(la2.cpu(), lo.reshape(la2.shape))
+    torch.cuda.synchronize()
+    assert torch.equal(la.cpu(), want_a)
+    assert torch.equal(lb.cpu(), want_b)
+
+
+@pytest.mark.cuda
+def test_matmul_plan_matches_the_library_on_the_card():
+    """The wrappers size B3's / B3f's partial sums from the library's
+    count, and the library picks the tile width and sizes a block's shared
+    memory as matmul_plan does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from ptq4vit_tpu_torch.ops.build import load
+    lib = load()
+    calls = set(matmul_calls("vit_base_patch16_384", 32)) | set(
+        matmul_calls("swin_base_patch4_window12_384", 32))
+    calls |= {shape + (mode,) for shape in MM_EDGES + FOLDED
+              for mode in ("a", "b", "b_sos")}
+    for S, G, R, Ci, Co, P, mode in calls:
+        plan = sk.matmul_plan(S, G, R, Ci, Co, P, mode)
+        assert lib.ptq_mm_width(Co) == plan.width
+        assert lib.ptq_mm_num_partials(S, R, Co) == plan.per_head
+        assert lib.ptq_mm_smem_bytes(("a", "b", "b_sos").index(mode), Ci, Co,
+                                     plan.stages) == plan.smem
+
+
+@pytest.mark.parametrize("name", ["vit_base_patch16_384",
+                                  "swin_base_patch4_window12_384"])
+@pytest.mark.parametrize("images", [4, 8, 32])
+def test_matmul_plans_cover_outputs_and_fit(name, images):
+    """Every B3 / B3f plan of the model's calibration: the blocks, decoded
+    as the kernel decodes blockIdx (column tiles fastest, then row tiles,
+    then the problem), cover each (problem, row, column) output once, and
+    each block walks all P candidates, so every (problem, tile, candidate)
+    is scored once; the tile width is an s8 wgmma N; shared memory fits
+    three blocks an SM at Swin's narrow tiles, two at ViT's matmul1 and
+    one at ViT's matmul2, whose SoS tiles at K = 577 take 80 KB, with a
+    ring of at least two candidates' K chunks;
+    the int32 sums convert without I2F exactly where K < 256."""
+    calls = set(matmul_calls(name, images))
+    assert {c[-1] for c in calls} == {"a", "b", "b_sos"}
+    for S, G, R, Ci, Co, P, mode in calls:
+        plan = sk.matmul_plan(S, G, R, Ci, Co, P, mode)
+        W = plan.width
+        assert W in (8, 16, 24, 32) or (W % 16 == 0 and W <= 256)
+        assert plan.row_tiles * sk.MM_ROWS >= R > (plan.row_tiles - 1) \
+            * sk.MM_ROWS
+        assert plan.col_tiles * W >= Co > (plan.col_tiles - 1) * W
+        assert plan.blocks == S * G * plan.row_tiles * plan.col_tiles
+        assert plan.per_head == S * plan.row_tiles * plan.col_tiles \
+            * sk.MM_WARPS
+        seen = np.zeros((plan.row_tiles * sk.MM_ROWS, plan.col_tiles * W),
+                        np.int32)
+        problems = set()
+        for b in range(plan.row_tiles * plan.col_tiles * 3):  # 3 problems
+            ct = b % plan.col_tiles
+            rt = (b // plan.col_tiles) % plan.row_tiles
+            problems.add(b // (plan.col_tiles * plan.row_tiles))
+            seen[rt * sk.MM_ROWS:(rt + 1) * sk.MM_ROWS,
+                 ct * W:(ct + 1) * W] += 1
+        assert problems == {0, 1, 2}
+        assert (seen == 3).all()
+        chunks = -(-sk.k_pad(Ci) // sk.LQ_KC)
+        assert 2 * chunks <= plan.stages <= sk.MM_MAX_STAGES
+        assert plan.smem <= sk.SM_SMEM // plan.per_sm - 1024
+        assert plan.per_sm == (1 if Ci > 512 and mode == "b_sos" else
+                               3 if W <= 48 else 2), (mode, Ci, Co)
+        assert plan.per_sm == sk.mm_blocks_per_sm(W, mode)
+        assert plan.fast == (Ci < 256)
+        assert P == 100
+
+
+def test_mm_width_fits_the_output_columns():
+    """B3's tile width: 32 for Co <= 32, 48 at Swin's 144 columns, 64 at
+    ViT's 577 and 64; never a width s8 wgmma refuses."""
+    assert [sk.mm_width(c) for c in (1, 8, 32, 33, 49, 63, 64, 65, 96,
+                                     144, 577)] == \
+        [32, 32, 32, 64, 64, 64, 64, 64, 48, 48, 64]
+    with pytest.raises(ValueError):
+        sk.matmul_plan(1, 1, 64, 64, 64, 1, "c")
+    with pytest.raises(ValueError):
+        sk.matmul_plan(1, 1, 64, 4096, 64, 1, "b_sos")
 
 
 @pytest.mark.cuda

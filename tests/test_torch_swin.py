@@ -233,7 +233,8 @@ def test_kernel_scratch_bytes_at_swin_b384():
     the per-candidate input levels of B2 and B4a at stage-1 fc2 dominate
     (eq_n x M x K-padded ic bytes, M = 9216 tokens x images), B4a's with
     its fp32 fake-quant weight (oc x ic x 4 bytes) beside them; the SoS
-    matmul2 runs only mode b_sos."""
+    matmul2 runs only mode b_sos, with B3f's per-warp partial sums (4
+    bytes x P x heads x windows-samples x 3 x 1 tiles x 8 warps)."""
     cfg = model_config("swin_base_patch4_window12_384")
     pol = pptq4vit()
     shapes, inv = pswin.op_shapes(cfg), dict(pswin.op_inventory(cfg))
@@ -244,7 +245,8 @@ def test_kernel_scratch_bytes_at_swin_b384():
     mm2 = "layers.0.blocks.0.attn.matmul2"
     Z = 4 * 64 * 8
     assert kernel_scratch_bytes(shapes[mm2], 8, pol.op_policy(inv[mm2])) \
-        == 2 * Z * 144 * 160 + 100 * Z * 32 * 160
+        == 2 * Z * 144 * 160 + 100 * Z * 32 * 160 \
+        + 4 * 100 * 4 * (64 * 8) * 3 * 1 * 8
     worst = max(kernel_scratch_bytes(i, 32, pol.op_policy(inv[n]))
                 for n, i in shapes.items())
     assert worst == kernel_scratch_bytes(shapes[fc2], 32,
