@@ -23,12 +23,14 @@ Phases (any failure raises, so the exit code is non-zero):
      images (float outputs of B6 bitwise; float attention outputs rtol
      1e-5, atol 2e-5 max|ref|, except in at most 0.05% of the elements,
      each off by at most one probability level's contribution; int8
-     outputs one level off in at most 0.1%), beside torch._int_mm and
-     SDPA as context; B10 and B11 at Swin-B/384 stages 1 and 3 and B9 int8
+     outputs one level off in at most 0.1%), beside torch._int_mm (on the
+     (K, N) row-major weight and on its K-major layout, cuBLAS's int8
+     preference) and SDPA as context; B10 and B11 at Swin-B/384 stages 1
+     and 3 and B9 int8
      -> int8 on stage 1's shifted block (64 masks) and stage 4's one
      window, float -> float (SoS and per-head) on stage 1, with 32 images
      (B11 bitwise, B9 and B10 under the same rules), beside torch._int_mm
-     and SDPA with the same additive mask;
+     (both layouts) and SDPA with the same additive mask;
   4. the ViT path: quantize("vit_base_patch16_384", 8 images, PTQ4ViT W8A8)
      with random weights from a seeded generator; B1, B2 and B3 must be
      launched and every interval finite and positive; serve 4 images with
@@ -628,6 +630,29 @@ def nbytes(*ts):
     return out
 
 
+# B6's cases at ViT-B/384 with SERVE_BATCH images (M = 18,464 token
+# rows): (label, M, K, N, input mode, LayerNorm, GELU, output, dtype); the
+# first is its headline
+_M, _D, _HID = SERVE_BATCH * 577, 768, 3072
+B6_CASES = (
+    ("qkv: LN, quantize -> int8 per column", _M, _D, 3 * _D, "f", True,
+     False, "vec", torch.bfloat16),
+    ("proj: int8 in -> + residual", _M, _D, _D, "q8", False, False,
+     "residual", torch.bfloat16),
+    ("fc1: LN, quantize -> GELU -> twin int8", _M, _D, _HID, "f", True, True,
+     "twin", torch.bfloat16),
+    ("fc2: twin int8 in -> + residual", _M, _HID, _D, "q8twin", False, False,
+     "residual", torch.bfloat16),
+    ("head: quantize -> float", SERVE_BATCH, _D, 1000, "f", False, False,
+     "float", torch.bfloat16),
+    ("qkv fp32 engine: LN, quantize -> int8 per column", _M, _D, 3 * _D,
+     "f", True, False, "vec", torch.float32),
+    ("fc2 per op: post-GELU twin quantize -> float", _M, _HID, _D, "f_twin",
+     False, False, "float", torch.float32))
+# B10 / B11's Swin-B/384 stages: (stage, resolution, channels)
+WINDOW_STAGES = ((1, 96, 128), (3, 24, 512))
+
+
 def q8_inputs(rng, M, K, N, mode, ln, gelu, out, dtype, q=128):
     """(args, kwargs) of q8_linear at one of the block's modes, with
     scales that keep the output about unit size."""
@@ -665,6 +690,26 @@ def q8_inputs(rng, M, K, N, mode, ln, gelu, out, dtype, q=128):
             torch.tensor(0.16997124254703522 / q, device=dev) if twin
             else None)
     return args, kw
+
+
+def kmajor_levels(levels):
+    from ptq4vit_tpu_torch.ops.pack import kmajor_levels as kmajor
+    return kmajor(levels)
+
+
+def int_mm_calls(lv, w):
+    """torch._int_mm of the (M, K) levels with the (K, N) weight levels,
+    row-major and K-major (the (N, K) contiguous copy seen as (K, N),
+    cuBLAS's int8 preference): context calls, never the port's."""
+    wk = w.t().contiguous().t()
+    return {"int_mm_ms": lambda: torch._int_mm(lv, w),
+            "int_mm_kmajor_ms": lambda: torch._int_mm(lv, wk)}
+
+
+def call_bytes(args, kw):
+    """Bytes of a call's inputs, the weight levels once (``w_kmaj`` is the
+    kernel's copy of ``args[1]``)."""
+    return nbytes(args, [v for k, v in kw.items() if k != "w_kmaj"])
 
 
 def attn_level_step(ph, sos, qmax=128):
@@ -711,32 +756,18 @@ def compare_outputs(name, got, ref, atol=0.0, rtol=0.0, step=None):
 
 def serve_kernel_phase(sv, dev):
     """B6, B7 and B8 against their plain versions at ViT-B/384 shapes with
-    32 images (M = 18,464 token rows), beside torch._int_mm (B6) and
+    32 images (M = 18,464 token rows), beside torch._int_mm on both weight
+    layouts (B6) and
     scaled_dot_product_attention (B7, B8) on the same shapes, for context
     only: neither computes the quantized function, and the port never
     calls them."""
     from ptq4vit_tpu_torch.quant.qparams import MatMulQP
     rng = np.random.default_rng(5)
-    B, N, d, hid, H, hd = SERVE_BATCH, 577, 768, 3072, 12, 64
-    M = B * N
-    bf = torch.bfloat16
+    B, N, d, H, hd = SERVE_BATCH, 577, 768, 12, 64
     cases = []
-    for label, m, K, Nn, mode, ln, gelu, out, dt in (
-            ("qkv: LN, quantize -> int8 per column", M, d, 3 * d, "f",
-             True, False, "vec", bf),
-            ("proj: int8 in -> + residual", M, d, d, "q8", False, False,
-             "residual", bf),
-            ("fc1: LN, quantize -> GELU -> twin int8", M, d, hid, "f", True,
-             True, "twin", bf),
-            ("fc2: twin int8 in -> + residual", M, hid, d, "q8twin", False,
-             False, "residual", bf),
-            ("head: quantize -> float", B, d, 1000, "f", False, False,
-             "float", bf),
-            ("qkv fp32 engine: LN, quantize -> int8 per column", M, d, 3 * d,
-             "f", True, False, "vec", torch.float32),
-            ("fc2 per op: post-GELU twin quantize -> float", M, hid, d,
-             "f_twin", False, False, "float", torch.float32)):
+    for label, m, K, Nn, mode, ln, gelu, out, dt in B6_CASES:
         args, kw = q8_inputs(rng, m, K, Nn, mode, ln, gelu, out, dt)
+        kw["w_kmaj"] = kmajor_levels(args[1].t())    # as pack_weights keeps it
         twin = mode in ("f_twin", "q8twin")
         # the int8 levels _int_mm would multiply: (M, K) x (K, N)
         lv = args[0] if args[0].dtype == torch.int8 else torch.clamp(
@@ -744,7 +775,7 @@ def serve_kernel_phase(sv, dev):
             .to(torch.int8)
         ops = {"int8": 2 * m * K * Nn * (2 if twin else 1)}
         cases.append(("q8_linear", label, args, kw, ops,
-                      lambda lv=lv, w=args[1]: torch._int_mm(lv, w), None))
+                      int_mm_calls(lv, args[1]), None))
 
     qkv = torch.from_numpy(rng.standard_normal((B, N, 3 * d))
                            .astype(np.float32)).to(dev)
@@ -768,8 +799,8 @@ def serve_kernel_phase(sv, dev):
                # max, subtract, exp, sum, divide per logit
                "fp32": 5 * B * H * N * N}
         tag = "SoS" if sos else "per-head"
-        sdpa = (lambda: torch.nn.functional.scaled_dot_product_attention(
-            q4, k4, v4))
+        sdpa = {"sdpa_ms": lambda: torch.nn.functional
+                .scaled_dot_product_attention(q4, k4, v4)}
         step = attn_level_step(ph, sos)
         cases.append(("fused_attention_qkv", f"int8 in -> int8 out, {tag}",
                       (lv, H, qp1, qp2, hd ** -0.5),
@@ -809,18 +840,18 @@ def serve_kernel_phase(sv, dev):
          lambda kname=kname, args=args, kw=kw: getattr(sv, kname)(*args,
                                                                   **kw),
          lambda kname=kname, args=args, kw=kw: plain(kname, args, kw),
-         nbytes(args, list(kw.values())), ops, lib_fn, step)
+         call_bytes(args, kw), ops, lib_fn, step)
         for kname, label, args, kw, ops, lib_fn, step in cases])
 
 
 def measure_serving(cases):
     """Each serving kernel case (kernel, label, call, plain call, bytes of
-    the inputs, operations, context call, step) against its plain version
-    (``compare_outputs``; attention float outputs under the FLIP_SHARE
-    rule, other float outputs bitwise), then timed beside the plain
-    version, the bound and the context call (torch._int_mm for the
-    linears, SDPA for the attentions).  Returns the stats by kernel; a
-    kernel's first case is its headline."""
+    the inputs, operations, context calls by key, step) against its plain
+    version (``compare_outputs``; attention float outputs under the
+    FLIP_SHARE rule, other float outputs bitwise), then timed beside the
+    plain version, the bound and the context calls (torch._int_mm on both
+    weight layouts for the linears, SDPA for the attentions).  Returns the
+    stats by kernel; a kernel's first case is its headline."""
     stats = {}
     for kname, label, fn, plain, in_bytes, ops, lib_fn, step in cases:
         got = fn()
@@ -834,23 +865,22 @@ def measure_serving(cases):
                                      step=step)
         ms = time_ms(fn, 5)
         plain_ms = time_ms(plain, 1, 0)
-        lib_ms = time_ms(lib_fn, 5)
+        lib = {k: time_ms(f, 5) for k, f in lib_fn.items()}
         bound_ms, bound_by = bound(ops, in_bytes + nbytes(got))
         peak = peak_share(ops, ms)
-        lib_key = "sdpa_ms" if attention else "int_mm_ms"
         entry = {"case": label, "ms": ms, "plain_ms": plain_ms,
                  "bound_ms": bound_ms, "bound_by": bound_by,
                  "peak_share": peak,
                  "out": str(got.dtype).replace("torch.", ""),
-                 "max_abs_err": err, "level_flip_share": share,
-                 lib_key: lib_ms}
+                 "max_abs_err": err, "level_flip_share": share, **lib}
         log(f"[kernel] {kname} {label}: {entry['out']} out, max_abs_err "
             f"{err:.3e}" + (" levels" if got.dtype == torch.int8 else "")
             + f" ({share:.4%} of the outputs off by a level or beyond "
             "tolerance)"
             + f", kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by}), {share_text(peak)}, "
-            f"{lib_key} {lib_ms:.3f} (context only)")
+            + ", ".join(f"{k} {v:.3f}" for k, v in lib.items())
+            + " (context only)")
         st = stats.setdefault(kname, {"max_abs_err": 0.0, "cases": []})
         st["max_abs_err"] = max(st["max_abs_err"], err
                                 if got.dtype != torch.int8 else 0.0)
@@ -864,11 +894,41 @@ def measure_serving(cases):
     return stats
 
 
+def window_linear_inputs(rng, res, C, B=SERVE_BATCH, ws=12, q=128):
+    """The positional arguments of B10 (q8_win_qkv: LayerNorm, quantize,
+    int8 per column) and of B11 (q8_win_proj: int8 in, residual) at one
+    Swin stage (``res`` x ``res`` tokens of C channels an image, windows of
+    ``ws``), bf16 activations, with scales that keep the outputs about
+    unit size."""
+    dev = "cuda"
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
+    bf = torch.bfloat16
+    x4 = t(rng.standard_normal((B, res, res, C)) * 2 + 0.3, bf)
+    a = torch.tensor(3.0 / (q - 0.5), device=dev)
+    w = t(rng.integers(-q, q, (C, 3 * C)), torch.int8)
+    wsc = t((rng.random(3 * C) + 0.5) / (float(a) * q * q * np.sqrt(C) / 3))
+    qkv = (x4, w, wsc, t(rng.standard_normal(3 * C) * 0.1), a,
+           (t(1 + 0.1 * rng.standard_normal(C)),
+            t(0.1 * rng.standard_normal(C)), 1e-5), ws,
+           t((rng.random(3 * C) + 1.5) / (q - 0.5)))
+    N = ws * ws
+    y_q = t(rng.integers(-q, q, (B * res * res // N, N, C)), torch.int8)
+    wp = t(rng.integers(-q, q, (C, C)), torch.int8)
+    proj = (y_q, wp, t((rng.random(C) + 0.5) / (0.03 * q * q * np.sqrt(C)
+                                                / 3)),
+            t(rng.standard_normal(C) * 0.1), torch.tensor(0.03, device=dev),
+            ws, res, t(rng.standard_normal((B, res, res, C)), bf))
+    return qkv, proj
+
+
 def window_kernel_phase(sv, dev):
     """B10, B9 and B11 against their plain versions at Swin-B/384 shapes
     with 32 images (window 12: N = 144 tokens, head dim 32), beside
-    torch._int_mm on the same levels (B10, B11) and SDPA with the same
-    additive bias and mask on the float q, k, v (B9), for context only.
+    torch._int_mm on the same levels, both weight layouts (B10, B11), and
+    SDPA with the same additive bias and mask on the float q, k, v (B9),
+    for context only.
     B10 and B11 at stage 1 (res 96, C 128, 64 windows an image) and stage
     3 (res 24, C 512); B9 int8 -> int8 on stage 1's shifted block (64
     masks) and stage 4's one unshifted window (32 heads), and float ->
@@ -878,7 +938,6 @@ def window_kernel_phase(sv, dev):
     rng = np.random.default_rng(6)
     B, ws, hd, q = SERVE_BATCH, 12, 32, 128
     N = ws * ws
-    bf = torch.bfloat16
 
     def t(a, dt=torch.float32):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
@@ -888,39 +947,29 @@ def window_kernel_phase(sv, dev):
             .to(torch.int8)
 
     cases = []        # as measure_serving takes them
-    for stage, res, C in ((1, 96, 128), (3, 24, 512)):
+    for stage, res, C in WINDOW_STAGES:
         M = B * res * res
-        x4 = t(rng.standard_normal((B, res, res, C)) * 2 + 0.3, bf)
-        a = torch.tensor(3.0 / (q - 0.5), device=dev)
-        w = t(rng.integers(-q, q, (C, 3 * C)), torch.int8)
-        wsc = t((rng.random(3 * C) + 0.5) / (float(a) * q * q * np.sqrt(C)
-                                              / 3))
-        args = (x4, w, wsc, t(rng.standard_normal(3 * C) * 0.1), a,
-                (t(1 + 0.1 * rng.standard_normal(C)),
-                 t(0.1 * rng.standard_normal(C)), 1e-5), ws,
-                t((rng.random(3 * C) + 1.5) / (q - 0.5)))
+        args, proj_args = window_linear_inputs(rng, res, C)
+        x4, w, a = args[0], args[1], args[4]
         lv = levels(x4.reshape(M, C), a)
+        kw = dict(a_qmax=q, out_qmax=q, w_kmaj=kmajor_levels(w.t()))
         cases.append(("q8_win_qkv", f"stage {stage}: LN, quantize -> int8 "
-                      "per column", lambda args=args: sv.q8_win_qkv(
-                          *args, a_qmax=q, out_qmax=q),
-                      lambda args=args: sv.q8_win_qkv_ref(
-                          *args, a_qmax=q, out_qmax=q), nbytes(args),
-                      {"int8": 2 * M * C * 3 * C},
-                      lambda lv=lv, w=w: torch._int_mm(lv, w), None))
-        y_q = t(rng.integers(-q, q, (M // N, N, C)), torch.int8)
-        a = torch.tensor(0.03, device=dev)
-        wp = t(rng.integers(-q, q, (C, C)), torch.int8)
-        args = (y_q, wp, t((rng.random(C) + 0.5) / (0.03 * q * q
-                                                    * np.sqrt(C) / 3)),
-                t(rng.standard_normal(C) * 0.1), a, ws, res,
-                t(rng.standard_normal((B, res, res, C)), bf))
+                      "per column", lambda args=args, kw=kw: sv.q8_win_qkv(
+                          *args, **kw),
+                      lambda args=args, kw=kw: sv.q8_win_qkv_ref(
+                          *args, **kw), nbytes(args),
+                      {"int8": 2 * M * C * 3 * C}, int_mm_calls(lv, w),
+                      None))
+        args = proj_args
+        y_q, wp = args[0], args[1]
+        kw = dict(a_qmax=q, w_kmaj=kmajor_levels(wp.t()))
         cases.append(("q8_win_proj", f"stage {stage}: int8 in -> + residual "
                       "(image layout)",
-                      lambda args=args: sv.q8_win_proj(*args, a_qmax=q),
-                      lambda args=args: sv.q8_win_proj_ref(*args, a_qmax=q),
+                      lambda args=args, kw=kw: sv.q8_win_proj(*args, **kw),
+                      lambda args=args, kw=kw: sv.q8_win_proj_ref(*args,
+                                                                  **kw),
                       nbytes(args), {"int8": 2 * M * C * C},
-                      lambda y=y_q.reshape(M, C), w=wp: torch._int_mm(y, w),
-                      None))
+                      int_mm_calls(y_q.reshape(M, C), wp), None))
 
     for stage, res, H, shift, modes in (
             (1, 96, 4, ws // 2, ("int8 SoS", "float SoS", "float per-head")),
@@ -976,8 +1025,9 @@ def window_kernel_phase(sv, dev):
                 {"int8": 2 * B_ * H * N * N * hd * (3 if sos else 2),
                  # the bias and mask adds, max, subtract, exp, sum, divide
                  "fp32": 7 * B_ * H * N * N},
-                lambda qkv4=(q4, k4, v4), m=sdpa_mask: torch.nn.functional
-                .scaled_dot_product_attention(*qkv4, attn_mask=m), step))
+                {"sdpa_ms": lambda qkv4=(q4, k4, v4), m=sdpa_mask: torch.nn
+                 .functional.scaled_dot_product_attention(
+                     *qkv4, attn_mask=m)}, step))
 
     return measure_serving(cases)
 

@@ -66,15 +66,13 @@
 #include <dlfcn.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int TK = 32;        // K pad unit of the level rows (bytes)
 constexpr int NT = 256;       // threads of a B4 block
 
-// error codes of the C entry points beside CUDA's own
-constexpr int kErrNoLibcuda = 9001;     // returned when libcuda is missing
-constexpr int kErrTensorMap = 9002;    // cuTensorMapEncodeTiled refused
-constexpr int kErrSmem = 9003;         // the plan exceeds shared memory
 constexpr int kErrSize = 9004;         // a level buffer past 2^31 words
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -371,7 +369,7 @@ int fill_mm_levels(const void* A, const void* B, const float* cands,
 // column tiles fastest (they share candidate p's input rows).
 
 constexpr int LQ_ROWS = 64;             // rows of the fixed and candidate tiles
-constexpr int LQ_KC = 128;              // K bytes of one TMA box
+constexpr int LQ_KC = TMA_BOX_K;        // K bytes of one TMA box
 constexpr int LQ_TILE = LQ_ROWS * LQ_KC;          // one chunk: 8 KB
 constexpr int LQ_CWARPS = 4;            // consumer warps: one warpgroup
 constexpr int LQ_THREADS = 32 * LQ_CWARPS + 32;   // + the producer warp
@@ -401,167 +399,6 @@ struct LinArgs {
   int nrt, nct;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// one box (K bytes [k, k + 128), rows [row, row + box rows), candidate p)
-// of a level buffer into shared memory, completing on bar
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int k, int row, int p,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
-      "l"((uint64_t)map), "r"(k), "r"(row), "r"(p), "r"(bar)
-      : "memory");
-}
-
-// wgmma descriptor of a K-major tile, 128-byte swizzle: rows 128 bytes
-// apart, 8-row groups 1024 bytes apart (SBO), LBO unused (1)
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma
-template <int N>
-__device__ __forceinline__ void fence_acc(int (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-// d (+)= A(64 x 32) B(N x 32)ᵀ, s8 x s8 -> s32, both from shared memory;
-// scale_d = 0 ignores d's old value.  s8 wgmma takes N = 8, 16, 24,
-// 32 and then multiples of 16 up to 256.
-template <int N>
-struct WgmmaS8;
-
-template <>
-struct WgmmaS8<16> {
-  static __device__ __forceinline__ void mma(int (&d)[8], uint64_t da,
-                                             uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %10, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}"
-        ", %8, %9, p;\n"
-        "}\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
-          "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
-        : "l"(da), "l"(db), "r"(scale_d));
-  }
-};
-
-template <>
-struct WgmmaS8<24> {
-  static __device__ __forceinline__ void mma(int (&d)[12], uint64_t da,
-                                             uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %14, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n24k32.s32.s8.s8 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}"
-        ", %12, %13, p;\n"
-        "}\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
-          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
-          "+r"(d[10]), "+r"(d[11])
-        : "l"(da), "l"(db), "r"(scale_d));
-  }
-};
-
-template <>
-struct WgmmaS8<32> {
-  static __device__ __forceinline__ void mma(int (&d)[16], uint64_t da,
-                                             uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
-        "%13, %14, %15}"
-        ", %16, %17, p;\n"
-        "}\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
-          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
-          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
-          "+r"(d[15])
-        : "l"(da), "l"(db), "r"(scale_d));
-  }
-};
-
-template <>
-struct WgmmaS8<64> {
-  static __device__ __forceinline__ void mma(int (&d)[32], uint64_t da,
-                                             uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
-        "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, "
-        "%25, %26, %27, %28, %29, %30, %31}"
-        ", %32, %33, p;\n"
-        "}\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
-          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
-          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
-          "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
-          "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-          "+r"(d[30]), "+r"(d[31])
-        : "l"(da), "l"(db), "r"(scale_d));
-  }
-};
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -803,44 +640,6 @@ __global__ void __launch_bounds__(LQ_THREADS, 2)
   }
 }
 
-// cuTensorMapEncodeTiled from libcuda, which the CUDA runtime has already
-// loaded (no link against it)
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
-    if (h != nullptr)
-      fn = (EncodeTiledFn)dlsym(h, "cuTensorMapEncodeTiled");
-  }
-  return fn;
-}
-
-// the (Kp, rows, planes) int8 level buffer at p in boxes of 128 x box_rows
-int level_map(CUtensorMap* map, const int8_t* p, int Kp, int rows,
-              int planes, int box_rows) {
-  EncodeTiledFn enc = encode_tiled();
-  if (enc == nullptr) return kErrNoLibcuda;
-  const cuuint64_t dims[3] = {(cuuint64_t)Kp, (cuuint64_t)rows,
-                              (cuuint64_t)planes};
-  const cuuint64_t strides[2] = {(cuuint64_t)Kp, (cuuint64_t)rows * Kp};
-  const cuuint32_t box[3] = {(cuuint32_t)LQ_KC, (cuuint32_t)box_rows, 1};
-  const cuuint32_t estr[3] = {1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, (void*)p,
-                         dims, strides, box, estr,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kErrTensorMap;
-}
 
 // one launch per chunk of pc candidates, then the fixed-order reduction
 template <int KIND, int NL, bool PG>
@@ -1028,17 +827,6 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(32 * MM_CWARPS) : "memory");
 }
 
-// The ring's position: the next slot and its mbarrier phase.
-struct RingPos {
-  int slot;
-  uint32_t phase;
-  __device__ __forceinline__ void advance(int S) {
-    if (++slot == S) {
-      slot = 0;
-      phase ^= 1u;
-    }
-  }
-};
 
 // The products of one candidate into acc (NL sets: the SoS hi and lo
 // tiles share the candidate tile), its NC K chunks from the ring slots

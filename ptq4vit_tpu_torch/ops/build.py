@@ -3,10 +3,12 @@
 Each source (``search_kernels.cu``: the calibration scorers;
 ``serve_kernels.cu``: the fused serving kernels) is compiled with ``nvcc``
 into a shared library with a plain C interface at first use (never at
-import), and loaded with ``ctypes``.  The libraries land in
-``ptq4vit_tpu_torch/_build/`` (git-ignored), named by a hash of their source
-and flags, so an edited source rebuilds and a rebuilt checkout reuses
-nothing stale.  ``build_all`` starts one ``nvcc`` per source, all at once.
+import), and loaded with ``ctypes``.  Both include ``hopper.cuh``, the
+Hopper building blocks they share (mbarriers, TMA, wgmma).  The libraries
+land in ``ptq4vit_tpu_torch/_build/`` (git-ignored), named by a hash of
+their source, the shared headers and the flags, so an edited source or
+header rebuilds and a rebuilt checkout reuses nothing stale.  ``build_all``
+starts one ``nvcc`` per source, all at once.
 """
 from __future__ import annotations
 
@@ -52,15 +54,17 @@ _SEARCH = {
     "ptq_linear_a_sims_f32": [_P] * 5 + [_F] + [_I] * 8 + [_P] * 5,
 }
 _SERVE = {
-    "ptq_q8_linear": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _F,
-                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "ptq_q8_smem_bytes": [_I] * 3,
+    "ptq_q8_linear": [_P, _I, _P, _I] + [_P] * 7 + [_I, _P, _F, _P]
+                     + [_I] * 12 + [_P],
     "ptq_fused_attention": [_P, _P, _P, _I, _L, _L, _L, _P, _I, _L, _L, _L,
                             _P, _P, _F] + [_I] * 10 + [_P],
     "ptq_window_attention": [_P, _P, _P, _I, _L, _L, _L, _P, _I, _L, _L, _L,
                              _P, _P, _F, _P, _P, _I] + [_I] * 10 + [_P],
-    "ptq_q8_win_qkv": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _F] + [_I] * 7
+    "ptq_q8_win_qkv": [_P, _I, _P, _I] + [_P] * 7 + [_F, _P] + [_I] * 9
                       + [_P],
-    "ptq_q8_win_proj": [_P, _P, _P, _P, _P, _P, _I, _P] + [_I] * 6 + [_P],
+    "ptq_q8_win_proj": [_P, _P, _I] + [_P] * 4 + [_I, _P, _P] + [_I] * 9
+                       + [_P],
 }
 LIBRARIES = {"search_kernels": _SEARCH, "serve_kernels": _SERVE}
 
@@ -84,10 +88,17 @@ def nvcc_path() -> str:
                        "machine with the CUDA toolkit")
 
 
+def headers() -> list:
+    """The shared headers under ``csrc/`` every library includes."""
+    return sorted(os.path.join(CSRC, n) for n in os.listdir(CSRC)
+                  if n.endswith(".cuh"))
+
+
 def _library_path(source: str) -> str:
     h = hashlib.sha256()
-    with open(source, "rb") as f:
-        h.update(f.read())
+    for path in [source] + headers():
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")

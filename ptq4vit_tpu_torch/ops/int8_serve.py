@@ -25,6 +25,10 @@ For CUDA tensors the wrappers launch the hand-written kernels of
 PyTorch versions beside them (the ``*_ref`` functions), which follow the
 same formulas with the int8 dot as an exact float64 matmul of the levels.
 Each kernel wrapper counts its launches in ``<function>.launches``.
+B6, B10 and B11 are one tensor-core kernel (``q8_tc_kernel``), after a
+pre-pass that quantizes a float input once a row (``q8_levels_kernel``);
+``q8_plan`` sizes it on the host, and it reads the weight levels K-major
+(``w_kmaj``, ops/pack.kmajor_levels).
 
 Scope (the JAX rules about semantics): LinearQP with n_H == 1, n_a == 1 and
 bits <= 8; matmul QPs with per-head scales and no operand block grids; the
@@ -36,14 +40,16 @@ epilogues) is not ported.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..quant import fakequant as fq
 from .int8 import int_dot, levels
-from .pack import linear_w_levels, linear_w_scale
-from .search_kernels import _check, _launch, _ptr, _stream
+from .pack import K_ALIGN, kmajor_levels, linear_w_levels, linear_w_scale
+from .search_kernels import (NUM_SMS, SM_SMEM, SMEM_LIMIT, _check, _launch,
+                             _num_sms, _ptr, _stream)
 
 _IN_MODES = {"f": 0, "f_twin": 1, "q8": 2, "q8twin": 3}
 _OUT_Q = {None: 0, "vec": 1, "twin": 2}
@@ -52,7 +58,16 @@ SQRT_HALF = 0.7071067811865476          # 2 ** -0.5, rounded to float32
 
 
 def _f32(v, device) -> torch.Tensor:
+    """v as a float32 tensor on ``device``; a Python number as a cached
+    constant, so that a wrapper makes no host-to-device copy a call."""
+    if isinstance(v, (int, float)):
+        return _const(float(v), torch.device(device))
     return torch.as_tensor(v, dtype=torch.float32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _const(v: float, device: torch.device) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -74,8 +89,9 @@ def q8_linear_ref(x, w_intT, w_scale, b, a_interval, a_neg_interval, *,
                   a_qmax: int, postgelu: bool, epilogue: str = None,
                   ln=None, in_q: str = None, out_q: str = None,
                   out_scale=None, out_qmax: int = 128, float_dtype=None,
-                  residual=None):
-    """Plain version of B6; arguments and result as ``q8_linear``."""
+                  residual=None, w_kmaj=None):
+    """Plain version of B6; arguments and result as ``q8_linear``
+    (``w_kmaj``, the kernel's copy of the levels, is not read)."""
     dev = x.device
     K, N = w_intT.shape
     lead = x.shape[:-1]
@@ -196,7 +212,8 @@ def fused_window_attention_ref(qkv, heads: int, nW: int, ph, split,
 
 
 def q8_win_qkv_ref(x4, w_intT, w_scale, b, a_interval, ln, ws: int,
-                   col_scales, *, a_qmax: int, out_qmax: int = 128):
+                   col_scales, *, a_qmax: int, out_qmax: int = 128,
+                   w_kmaj=None):
     """Plain version of B10: B6's LN / quantize / int8 dot / per-column
     requant on ``window_partition(x4, ws)``."""
     from ..models.swin import window_partition
@@ -207,7 +224,7 @@ def q8_win_qkv_ref(x4, w_intT, w_scale, b, a_interval, ln, ws: int,
 
 
 def q8_win_proj_ref(y_q, w_intT, w_scale, b, a_interval, ws: int, res: int,
-                    residual4, *, a_qmax: int):
+                    residual4, *, a_qmax: int, w_kmaj=None):
     """Plain version of B11: B6's int8-input product in fp32, reversed to
     the image layout, plus the residual, cast to its dtype."""
     from ..models.swin import window_reverse
@@ -219,18 +236,124 @@ def q8_win_proj_ref(y_q, w_intT, w_scale, b, a_interval, ws: int, res: int,
 
 
 # ---------------------------------------------------------------------------
-# kernel wrappers
+# B6 / B10 / B11's tile plan (csrc/serve_kernels.cu q8_tc_kernel)
 # ---------------------------------------------------------------------------
+
+Q_ROWS, Q_COLS, Q_KC = 64, 128, 128   # a block's rows, a tile's columns,
+                                       # the K bytes of a chunk
+Q_A_TILE = Q_ROWS * Q_KC               # one K chunk of the input levels
+Q_W_TILE = Q_COLS * Q_KC               # one K chunk of the weight levels
+Q_STAGE_BYTES = Q_ROWS * 36 * 4        # one epilogue pass's staging
+Q_RES_BYTES = Q_ROWS * Q_COLS * 2      # a tile's bf16 residual
+Q_ROW_BYTES = Q_ROWS * 4               # the output rows
+Q_MAX_STAGES = 6                       # ring slots, at most
+Q_PER_SM, Q_TWIN_PER_SM = 3, 2         # blocks an SM (csrc: its registers)
+TWIN_MODES = ("f_twin", "q8twin")
+
+
+def q8_smem_bytes(twin: bool, stages: int, res_tile: bool = False) -> int:
+    """A q8_tc_kernel block's dynamic shared memory (csrc
+    ``q8_smem_bytes``): 1 KB of alignment slack, ``stages`` ring slots (a
+    weight chunk and the input's levels beside it, twice for the twin: c
+    and pos), the epilogue's staging (twice for the twin), the tile's bf16
+    residual copied ahead (``res_tile``), the output rows, the
+    mbarriers."""
+    na = 2 if twin else 1
+    return (1024 + stages * (Q_W_TILE + na * Q_A_TILE) + na * Q_STAGE_BYTES
+            + (Q_RES_BYTES if res_tile else 0) + Q_ROW_BYTES + 8 * 2 * stages)
+
+
+class Q8Plan(NamedTuple):
+    """How B6 / B10 / B11 runs one call on the card.
+
+    stages: ring slots; per_sm: blocks an SM holds (three, two for the
+    twin, whose accumulators take more registers); smem: a block's dynamic
+    shared memory; row_tiles, col_tiles: 64-row and 128-column tiles of the
+    output; blocks: the grid, each block a contiguous run of the row-major
+    tile sequence."""
+    stages: int
+    per_sm: int
+    smem: int
+    row_tiles: int
+    col_tiles: int
+    blocks: int
+    res_tile: bool
+
+
+@functools.lru_cache(maxsize=None)
+def q8_plan(M: int, N: int, in_mode: str, res_tile: bool = False,
+            num_sms: int = NUM_SMS) -> Q8Plan:
+    """The plan of a B6 / B10 / B11 call: the blocks an SM holds, the
+    deepest ring (2 to Q_MAX_STAGES slots) their shared memory leaves room
+    for, and a grid that fills the card (``num_sms`` SMs) once.  A call of
+    no more tiles than SMs (the head) runs one block an SM, with the
+    deepest ring: nothing else shares its SM, and its K chunks wait on
+    TMA.  ``res_tile``: a bf16 residual whose tiles the kernel copies to
+    shared memory ahead of the epilogue (``q8_res_tile``)."""
+    if in_mode not in _IN_MODES:
+        raise ValueError(f"unknown input mode {in_mode}")
+    if min(M, N) < 1:
+        raise ValueError(f"empty output ({M}, {N})")
+    twin = in_mode in TWIN_MODES
+    rt, ct = -(-M // Q_ROWS), -(-N // Q_COLS)
+    per_sm = (1 if rt * ct <= num_sms else
+              Q_TWIN_PER_SM if twin else Q_PER_SM)
+    budget = min(SM_SMEM // per_sm - 1024, SMEM_LIMIT)
+    stages = max(s for s in range(2, Q_MAX_STAGES + 1)
+                 if q8_smem_bytes(twin, s, res_tile) <= budget)
+    return Q8Plan(stages, per_sm, q8_smem_bytes(twin, stages, res_tile), rt,
+                  ct, min(rt * ct, num_sms * per_sm), res_tile)
+
+
+def q8_res_tile(residual, N: int) -> bool:
+    """Whether the kernel copies the residual's tiles to shared memory
+    ahead of the epilogue (16 bytes a copy): a bf16 residual whose rows
+    start 16-byte aligned."""
+    return (residual is not None and residual.dtype == torch.bfloat16
+            and N % 8 == 0 and residual.data_ptr() % 16 == 0)
+
+
+def q8_needs_levels(x, K: int, in_mode: str) -> bool:
+    """Whether a call's input goes through the level pre-pass (csrc
+    ``q8_levels_kernel``) into an (M, Kp) int8 scratch: float input
+    (LayerNorm and quantization), and int8 rows that TMA cannot read (not
+    16-byte aligned)."""
+    return (in_mode not in ("q8", "q8twin") or K % K_ALIGN != 0
+            or x.data_ptr() % 16 != 0)
+
+
+def _levels(x, K: int, in_mode: str):
+    """The pre-pass's (M, Kp) int8 scratch, or None."""
+    if not q8_needs_levels(x, K, in_mode):
+        return None
+    M = x.numel() // K
+    return torch.empty((M, -(-K // K_ALIGN) * K_ALIGN), dtype=torch.int8,
+                       device=x.device)
+
+
+def _kmajor(w_kmaj, w_intT):
+    """The (N, Kp) K-major levels the kernel reads: ``w_kmaj`` as given
+    (checked), else made from w_intT (K, N) -- a transposed copy each
+    call, which the packed weights spare."""
+    K, N = w_intT.shape
+    if w_kmaj is None:
+        w_kmaj = kmajor_levels(w_intT.t())
+    _check(w_kmaj, "w_kmaj", torch.int8, (N, -(-K // K_ALIGN) * K_ALIGN),
+           w_intT.device)
+    return w_kmaj
 
 def q8_linear(x, w_intT, w_scale, b, a_interval, a_neg_interval, *,
               a_qmax: int, postgelu: bool, epilogue: str = None,
               ln=None, in_q: str = None, out_q: str = None,
               out_scale=None, out_qmax: int = 128, float_dtype=None,
-              residual=None):
+              residual=None, w_kmaj=None):
     """B6: fused quantize -> int8 matmul -> rescale linear.
 
     x:        (..., K) float32 / bfloat16, or int8 when ``in_q`` is set
     w_intT:   (K, N) int8 weight levels (ops/pack.pack_weights)
+    w_kmaj:   optional (N, Kp) K-major copy of them (the packed
+              ``w_kmaj``), the operand the card's kernel reads; without
+              it, on the card, the wrapper makes it on every call
     w_scale:  (N,) per-out-channel dequant scale; b: (N,) or None
     a_interval / a_neg_interval: the input scale(s)
     ln:       optional (weight (K,), bias (K,), eps) LayerNorm prologue
@@ -262,6 +385,7 @@ def q8_linear(x, w_intT, w_scale, b, a_interval, a_neg_interval, *,
     if x2.dtype not in want:
         raise TypeError(f"x: expected one of {want}, got {x2.dtype}")
     _check(w_intT, "w_intT", torch.int8, (K, N), dev)
+    wk = _kmajor(w_kmaj, w_intT)
     ws = w_scale.float().contiguous()
     _check(ws, "w_scale", torch.float32, (N,), dev)
     bias = b.float().contiguous() if b is not None else None
@@ -291,12 +415,16 @@ def q8_linear(x, w_intT, w_scale, b, a_interval, a_neg_interval, *,
         res = residual.reshape(M, N).contiguous()
         _check(res, "residual", fdt, (M, N), dev)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
-    _launch(lib.ptq_q8_linear, _ptr(x2), _KINDS[x2.dtype], _ptr(w_intT),
-            _ptr(ws), _ptr(bias), _ptr(lnw), _ptr(lnb), _ptr(osc), _ptr(res),
-            _ptr(out), _KINDS[out_dtype], _ptr(scal),
-            float(ln[2]) if ln else 0.0, M, K, N, _IN_MODES[mode],
-            int(bool(ln)), int(epilogue == "gelu"), _OUT_Q[out_q], a_qmax,
-            out_qmax, _stream())
+    if M:
+        plan = q8_plan(M, N, mode, q8_res_tile(res, N), _num_sms(dev))
+        _launch(lib.ptq_q8_linear, _ptr(x2), _KINDS[x2.dtype], _ptr(wk),
+                wk.shape[1], _ptr(ws), _ptr(bias), _ptr(lnw), _ptr(lnb),
+                _ptr(osc), _ptr(res), _ptr(out), _KINDS[out_dtype],
+                _ptr(scal), float(ln[2]) if ln else 0.0,
+                _ptr(_levels(x2, K, mode)), M, K, N, _IN_MODES[mode],
+                int(bool(ln)), int(epilogue == "gelu"), _OUT_Q[out_q],
+                a_qmax, out_qmax, plan.stages, int(plan.res_tile),
+                plan.blocks, _stream())
     q8_linear.launches += 1
     return out.reshape(lead + (N,))
 
@@ -455,14 +583,15 @@ def fused_window_attention_qkv(qkv, heads: int, nW: int, qp1, qp2,
 
 
 def q8_win_qkv(x4, w_intT, w_scale, b, a_interval, ln, ws: int, col_scales,
-               *, a_qmax: int, out_qmax: int = 128):
+               *, a_qmax: int, out_qmax: int = 128, w_kmaj=None):
     """B10: the Swin qkv linear over the unshifted window grid of the
     (B, res, res, C) image layout (a shifted block passes its rolled
     stream): LayerNorm ``ln`` = (weight, bias, eps), quantize at
     ``a_interval``, int8 dot with w_intT (C, 3C), rescale, and requantize
     per column at ``col_scales`` (3C,) (the attention's a1/s, b1, b2, each
     repeated hd times).  Windows are read in place, in window_partition's
-    order.  Returns (B·(res/ws)², ws², 3C) int8."""
+    order.  ``w_kmaj`` as in ``q8_linear``.  Returns (B·(res/ws)², ws²,
+    3C) int8."""
     B, res, res2, C = x4.shape
     if res != res2 or res % ws:
         raise ValueError(f"x4 {tuple(x4.shape)}: not square whole "
@@ -478,6 +607,7 @@ def q8_win_qkv(x4, w_intT, w_scale, b, a_interval, ln, ws: int, col_scales,
         raise TypeError(f"x4: expected float32 or bfloat16, got {x4.dtype}")
     _check(x4, "x4", x4.dtype, (B, res, res, C), dev)
     _check(w_intT, "w_intT", torch.int8, (C, N3), dev)
+    wk = _kmajor(w_kmaj, w_intT)
     wsc = w_scale.float().contiguous()
     _check(wsc, "w_scale", torch.float32, (N3,), dev)
     bias = b.float().contiguous() if b is not None else None
@@ -492,21 +622,25 @@ def q8_win_qkv(x4, w_intT, w_scale, b, a_interval, ln, ws: int, col_scales,
     M = B * res * res
     out = torch.empty((B * (res // ws) ** 2, ws * ws, N3), dtype=torch.int8,
                       device=dev)
-    _launch(lib.ptq_q8_win_qkv, _ptr(x4), _KINDS[x4.dtype], _ptr(w_intT),
-            _ptr(wsc), _ptr(bias), _ptr(lnw), _ptr(lnb), _ptr(osc),
-            _ptr(out), _ptr(scal), float(ln[2]), M, C, N3, a_qmax, out_qmax,
-            ws, res, _stream())
+    if M:
+        plan = q8_plan(M, N3, "f", num_sms=_num_sms(dev))
+        _launch(lib.ptq_q8_win_qkv, _ptr(x4), _KINDS[x4.dtype], _ptr(wk),
+                wk.shape[1], _ptr(wsc), _ptr(bias), _ptr(lnw), _ptr(lnb),
+                _ptr(osc), _ptr(out), _ptr(scal), float(ln[2]),
+                _ptr(_levels(x4, C, "f")), M, C, N3, a_qmax, out_qmax, ws,
+                res, plan.stages, plan.blocks, _stream())
     q8_win_qkv.launches += 1
     return out
 
 
 def q8_win_proj(y_q, w_intT, w_scale, b, a_interval, ws: int, res: int,
-                residual4, *, a_qmax: int):
+                residual4, *, a_qmax: int, w_kmaj=None):
     """B11: the Swin proj linear over the window-layout int8 context
     y_q (B·(res/ws)², ws², C) at ``a_interval``, written to the (B, res,
     res, C) image layout with ``residual4`` (that layout, float32 or
     bfloat16; a shifted block's rolled stream) added in the epilogue.
-    Returns (B, res, res, C) in the residual's dtype."""
+    ``w_kmaj`` as in ``q8_linear``.  Returns (B, res, res, C) in the
+    residual's dtype."""
     B_, N, C = y_q.shape
     B = residual4.shape[0]
     Co = w_intT.shape[1]
@@ -522,6 +656,7 @@ def q8_win_proj(y_q, w_intT, w_scale, b, a_interval, ws: int, res: int,
     dev = y_q.device
     _check(y_q, "y_q", torch.int8, (B_, N, C), dev)
     _check(w_intT, "w_intT", torch.int8, (C, Co), dev)
+    wk = _kmajor(w_kmaj, w_intT)
     wsc = w_scale.float().contiguous()
     _check(wsc, "w_scale", torch.float32, (Co,), dev)
     bias = b.float().contiguous() if b is not None else None
@@ -533,9 +668,14 @@ def q8_win_proj(y_q, w_intT, w_scale, b, a_interval, ws: int, res: int,
     _check(residual4, "residual4", residual4.dtype, (B, res, res, Co), dev)
     scal = _scalars(dev, a_interval)
     out = torch.empty_like(residual4)
-    _launch(lib.ptq_q8_win_proj, _ptr(y_q), _ptr(w_intT), _ptr(wsc),
-            _ptr(bias), _ptr(residual4), _ptr(out), _KINDS[out.dtype],
-            _ptr(scal), B_ * N, C, Co, a_qmax, ws, res, _stream())
+    if B_ * N:
+        plan = q8_plan(B_ * N, Co, "q8", q8_res_tile(residual4, Co),
+                       _num_sms(dev))
+        _launch(lib.ptq_q8_win_proj, _ptr(y_q), _ptr(wk), wk.shape[1],
+                _ptr(wsc), _ptr(bias), _ptr(residual4), _ptr(out),
+                _KINDS[out.dtype], _ptr(scal), _ptr(_levels(y_q, C, "q8")),
+                B_ * N, C, Co, a_qmax, ws, res, plan.stages,
+                int(plan.res_tile), plan.blocks, _stream())
     q8_win_proj.launches += 1
     return out
 
@@ -609,13 +749,25 @@ def linear_scope(qp) -> bool:
             and qp.a_bit <= 8 and qp.w_bit <= 8)
 
 
-def packed_or_compute(w, qp, pk):
-    """(w_intT, w_scale) from the packed dict, else from the weight."""
+class Q8Weights(NamedTuple):
+    """A linear's weight as the fused kernels take it: the (K, N) levels,
+    the (N,) scale, and the (N, Kp) K-major levels the card reads (None
+    where a packed dict lacks them: the kernel wrapper then makes them)."""
+    w_intT: torch.Tensor
+    w_scale: torch.Tensor
+    w_kmaj: Optional[torch.Tensor]
+
+
+def packed_or_compute(w, qp, pk) -> Q8Weights:
+    """The packed dict's levels, scale and K-major levels, else all three
+    from the weight, its levels quantized once."""
     w_intT, w_scale = pk.get("w_intT"), pk.get("w_scale")
     if w_intT is None or w_scale is None:
-        w_intT = linear_w_levels(w, qp).t().contiguous()
-        w_scale = linear_w_scale(qp, w.shape[0]).contiguous()
-    return w_intT, w_scale
+        lv = linear_w_levels(w, qp)
+        return Q8Weights(lv.t().contiguous(),
+                         linear_w_scale(qp, w.shape[0]).contiguous(),
+                         kmajor_levels(lv))
+    return Q8Weights(w_intT, w_scale, pk.get("w_kmaj"))
 
 
 def fused_linear(x, w, b, qp, pk, epilogue: str = None):
@@ -623,10 +775,11 @@ def fused_linear(x, w, b, qp, pk, epilogue: str = None):
     exact int8 path."""
     if not linear_scope(qp):
         return None
-    w_intT, w_scale = packed_or_compute(w, qp, pk)
-    return q8_linear(x, w_intT, w_scale, b, qp.a_interval[0, 0],
+    pw = packed_or_compute(w, qp, pk)
+    return q8_linear(x, pw.w_intT, pw.w_scale, b, qp.a_interval[0, 0],
                      qp.a_neg_interval, a_qmax=qp.a_qmax,
-                     postgelu=qp.postgelu, epilogue=epilogue)
+                     postgelu=qp.postgelu, epilogue=epilogue,
+                     w_kmaj=pw.w_kmaj)
 
 
 # ---------------------------------------------------------------------------
@@ -658,7 +811,7 @@ def _block_scope(qps, heads: int):
 
 
 def _block_weights(blk, qs, pks):
-    """(w_intT, w_scale) of the block's qkv, proj, fc1 and fc2."""
+    """Q8Weights of the block's qkv, proj, fc1 and fc2."""
     attn, mlp = blk["attn"], blk["mlp"]
     return [packed_or_compute(p["weight"], qp, pks.get(k) or {})
             for p, qp, k in ((attn["qkv"], qs[0], "qkv"),
@@ -679,18 +832,19 @@ def _fused_mlp(x, blk, qp_fc1, qp_fc2, w_fc1, w_fc2, ln_eps):
     """LN2 -> fc1 / GELU -> twin-packed int8 -> fc2 + residual, two B6
     launches."""
     mlp = blk["mlp"]
-    z_q = q8_linear(x, *w_fc1, mlp["fc1"]["bias"], qp_fc1.a_interval[0, 0],
-                    None, a_qmax=qp_fc1.a_qmax, postgelu=False,
+    z_q = q8_linear(x, w_fc1.w_intT, w_fc1.w_scale, mlp["fc1"]["bias"],
+                    qp_fc1.a_interval[0, 0], None, a_qmax=qp_fc1.a_qmax,
+                    postgelu=False,
                     ln=(blk["norm2"]["weight"], blk["norm2"]["bias"],
                         ln_eps),
                     epilogue="gelu", out_q="twin",
                     out_scale=(qp_fc2.a_interval[0, 0],
                                qp_fc2.a_neg_interval),
-                    out_qmax=qp_fc2.a_qmax)
-    return q8_linear(z_q, *w_fc2, mlp["fc2"]["bias"],
+                    out_qmax=qp_fc2.a_qmax, w_kmaj=w_fc1.w_kmaj)
+    return q8_linear(z_q, w_fc2.w_intT, w_fc2.w_scale, mlp["fc2"]["bias"],
                      qp_fc2.a_interval[0, 0], qp_fc2.a_neg_interval,
                      a_qmax=qp_fc2.a_qmax, postgelu=True, in_q="q8twin",
-                     float_dtype=x.dtype, residual=x)
+                     float_dtype=x.dtype, residual=x, w_kmaj=w_fc2.w_kmaj)
 
 
 def fused_vit_block(x, blk, qps, pks, heads: int, scale, ln_eps):
@@ -711,21 +865,23 @@ def fused_vit_block(x, blk, qps, pks, heads: int, scale, ln_eps):
     hd = x.shape[-1] // heads
     w_qkv, w_proj, w_fc1, w_fc2 = _block_weights(blk, qs, pks)
     attn = blk["attn"]
-    qkv_q = q8_linear(x, *w_qkv, attn["qkv"]["bias"], qp_qkv.a_interval[0, 0],
-                      None, a_qmax=qp_qkv.a_qmax, postgelu=False,
+    qkv_q = q8_linear(x, w_qkv.w_intT, w_qkv.w_scale, attn["qkv"]["bias"],
+                      qp_qkv.a_interval[0, 0], None, a_qmax=qp_qkv.a_qmax,
+                      postgelu=False,
                       ln=(blk["norm1"]["weight"], blk["norm1"]["bias"],
                           ln_eps),
                       out_q="vec",
                       out_scale=_col_scales(head_scalar(qp1.A_interval,
                                                         heads),
                                             qp1, qp2, heads, hd),
-                      out_qmax=qp1.A_qmax)
+                      out_qmax=qp1.A_qmax, w_kmaj=w_qkv.w_kmaj)
     y_q = fused_attention_qkv(qkv_q, heads, qp1, qp2, scale, in_q8=True,
                               out_scale=qp_proj.a_interval[0, 0],
                               out_qmax=qp_proj.a_qmax)
-    x = q8_linear(y_q, *w_proj, attn["proj"]["bias"],
+    x = q8_linear(y_q, w_proj.w_intT, w_proj.w_scale, attn["proj"]["bias"],
                   qp_proj.a_interval[0, 0], None, a_qmax=qp_proj.a_qmax,
-                  postgelu=False, in_q="q8", float_dtype=x.dtype, residual=x)
+                  postgelu=False, in_q="q8", float_dtype=x.dtype, residual=x,
+                  w_kmaj=w_proj.w_kmaj)
     return _fused_mlp(x, blk, qp_fc1, qp_fc2, w_fc1, w_fc2, ln_eps)
 
 
@@ -769,18 +925,19 @@ def fused_swin_block(x, blk, qps, pks, heads: int, ws: int, shift: int,
     x4 = x.reshape(B, res, res, C)
     if shift:
         x4 = torch.roll(x4, (-shift, -shift), dims=(1, 2))
-    qkv_q = q8_win_qkv(x4, *w_qkv, attn["qkv"]["bias"],
+    qkv_q = q8_win_qkv(x4, w_qkv.w_intT, w_qkv.w_scale, attn["qkv"]["bias"],
                        qp_qkv.a_interval[0, 0],
                        (blk["norm1"]["weight"], blk["norm1"]["bias"], ln_eps),
                        ws, _col_scales(a1, qp1, qp2, heads, hd),
-                       a_qmax=qp_qkv.a_qmax, out_qmax=qp1.A_qmax)
+                       a_qmax=qp_qkv.a_qmax, out_qmax=qp1.A_qmax,
+                       w_kmaj=w_qkv.w_kmaj)
     y_q = fused_window_attention_qkv(
         qkv_q, heads, 1 if mask is None else mask.shape[0], qp1, qp2, s,
         bias, mask, in_q8=True, out_scale=qp_proj.a_interval[0, 0],
         out_qmax=qp_proj.a_qmax)
-    y4 = q8_win_proj(y_q, *w_proj, attn["proj"]["bias"],
-                     qp_proj.a_interval[0, 0], ws, res, x4,
-                     a_qmax=qp_proj.a_qmax)
+    y4 = q8_win_proj(y_q, w_proj.w_intT, w_proj.w_scale,
+                     attn["proj"]["bias"], qp_proj.a_interval[0, 0], ws, res,
+                     x4, a_qmax=qp_proj.a_qmax, w_kmaj=w_proj.w_kmaj)
     if shift:
         y4 = torch.roll(y4, (shift, shift), dims=(1, 2))
     return _fused_mlp(y4.reshape(B, T, C), blk, qp_fc1, qp_fc2, w_fc1, w_fc2,

@@ -7,8 +7,12 @@ every forward:
     packed[name] = {"w_intT": int8 (ic_flat, oc), "w_scale": f32 (oc,)}
 
 for every LinearQP with n_H == 1 and every ConvQP that is not blocked.  The
-levels are stored transposed, (in, out), the layout the fused linear
-(``ops/int8_serve.q8_linear``) reads.  The bytes equal the JAX package's.
+levels are stored transposed, (in, out), as the JAX package stores them;
+those two entries equal its bytes.  A linear's entry also holds
+``"w_kmaj"``: the same levels K-major, (out, in) with ``in`` padded by
+zero levels to a multiple of ``K_ALIGN``, the operand the fused linear's
+tensor-core kernel reads (``ops/int8_serve.q8_linear``).  It is the
+port's own: no export (``utils/integer.py``) reads it.
 """
 from __future__ import annotations
 
@@ -42,6 +46,20 @@ def linear_w_scale(qp: LinearQP, oc: int) -> torch.Tensor:
         .reshape(oc)
 
 
+K_ALIGN = 16    # bytes: a TMA row stride is a multiple of 16
+
+
+def kmajor_levels(levels: torch.Tensor) -> torch.Tensor:
+    """(oc, ic) int8 levels as the contiguous (oc, Kp) K-major operand of
+    the fused linear: Kp = ic rounded up to K_ALIGN, the padding zero
+    levels (their products are 0)."""
+    oc, ic = levels.shape
+    kp = -(-ic // K_ALIGN) * K_ALIGN
+    out = torch.zeros((oc, kp), dtype=torch.int8, device=levels.device)
+    out[:, :ic] = levels
+    return out
+
+
 def linear_w_levels(w, qp: LinearQP) -> torch.Tensor:
     """(oc, ic) int8 levels of a linear weight with n_H == 1."""
     n_V = qp.w_interval.shape[0]
@@ -62,9 +80,11 @@ def pack_weights(params: Dict[str, Any],
             if qp.w_interval.shape[2] != 1:
                 continue          # column-block scales don't factor out
             w = _weight(params, name)
+            lv = linear_w_levels(w, qp)
             packed[name] = {
-                "w_intT": linear_w_levels(w, qp).t().contiguous(),
-                "w_scale": linear_w_scale(qp, w.shape[0]).contiguous()}
+                "w_intT": lv.t().contiguous(),
+                "w_scale": linear_w_scale(qp, w.shape[0]).contiguous(),
+                "w_kmaj": kmajor_levels(lv)}
         elif isinstance(qp, ConvQP) and not qp.blocked:
             w = _weight(params, name)
             oc = w.shape[0]

@@ -27,6 +27,8 @@ their plain version.  Each kernel wrapper counts its kernel launches in
 """
 from __future__ import annotations
 
+import functools
+
 from typing import NamedTuple, Optional, Sequence
 
 import torch
@@ -492,7 +494,12 @@ def _stream() -> int:
 
 
 def _num_sms(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    return _sm_count(torch.device(device).index or 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _levels_scratch(shape, device):

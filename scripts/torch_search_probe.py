@@ -4,7 +4,7 @@
     python scripts/torch_search_probe.py profile ROOT [--streamed]
     python scripts/torch_search_probe.py b3 ROOT
     python scripts/torch_search_probe.py b4 ROOT [--images=4,32]
-    python scripts/torch_search_probe.py ptxas ROOT
+    python scripts/torch_search_probe.py ptxas ROOT [LIBRARY]
     python scripts/torch_search_probe.py qstates ROOT OUT.pkl [--exact]
     python scripts/torch_search_probe.py compare PARENT.pkl CHANGE.pkl
 
@@ -30,12 +30,15 @@ is imported; each command prints JSON lines.
            under torch.profiler (level pre-pass, scored kernel,
            reduction), and the SHA-1 of the sims' bytes (equal between
            two checkouts where their sims are bitwise equal).
-  ptxas    ptxas's registers and spill bytes of each B3 / B3f kernel
-           (``mm_tc_kernel<W, SOS, FAST, KL>``) and B4 kernel
-           (``fp32_scored_kernel<KIND>``: 0 B4w, 1 B4a, 2 B4a post-GELU)
-           as the checkout's search_kernels.cu builds, with the count of
+  ptxas    ptxas's registers and spill bytes of each kernel as the
+           checkout's search_kernels.cu (or LIBRARY: serve_kernels)
+           builds -- B3 / B3f ``mm_tc_kernel<W, SOS, FAST, KL>``, B4
+           ``fp32_scored_kernel<KIND>`` (0 B4w, 1 B4a, 2 B4a post-GELU),
+           B6 / B10 / B11 ``q8_tc_kernel<TWIN>``, ... --, with the count of
            IGMMA (int8 wgmma) and IDP.4A (dp4a) instructions in each
-           kernel's SASS (cuobjdump), one JSON line a kernel.
+           kernel's SASS (cuobjdump) and of its WARPGROUP.DEPBAR waits,
+           one JSON line a kernel, and every ptxas warning (C7510-C7520:
+           serialized wgmma).
   qstates  PTQ4ViT W8A8 calibration of ViT-B/384 and Swin-B/384 on 8
            images (chip_smoke.py's seeds); pickles each qstate and every
            scorer call's sims, by op, in call order.  With --exact:
@@ -235,7 +238,7 @@ def b4(root, images_list=(4, 32)):
             torch.cuda.empty_cache()
 
 
-def ptxas(root):
+def ptxas(root, library="search_kernels"):
     import os
     import subprocess
     import tempfile
@@ -249,7 +252,7 @@ def ptxas(root):
     try:
         out = subprocess.run(
             [build.nvcc_path(), *flags, "-Xptxas", "-v", "-cubin", "-o", cubin,
-             build.source_path("search_kernels")],
+             build.source_path(library)],
             capture_output=True, text=True, check=True).stderr
         cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()),
                                  "cuobjdump")
@@ -264,13 +267,15 @@ def ptxas(root):
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            counts[name] = {"igmma": 0, "idp4a": 0}
+            counts[name] = {"igmma": 0, "idp4a": 0, "wg_depbar": 0}
         elif name is not None:
             counts[name]["igmma"] += "IGMMA" in line
             counts[name]["idp4a"] += "IDP.4A" in line
+            counts[name]["wg_depbar"] += "WARPGROUP.DEPBAR" in line
     kernel = None
     for line in out.splitlines():
-        if "arning" in line or "(C752" in line:   # C7520: serialized wgmma
+        if "arning" in line or "(C75" in line:   # C751x / C752x: serialized
+            # wgmma
             print(json.dumps({"ptxas_warning": line.strip()}), flush=True)
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
@@ -278,9 +283,18 @@ def ptxas(root):
             k = re.search(r"fp32_scored_kernelILi(\d)E", mangled)
             mm = re.search(r"mm_tc_kernelILi(\d+)ELb(\d)ELb(\d)ELi(\d)E",
                            mangled)
+            other = None       # a name its mangled length prefix gives
+            for c in re.finditer(r"\d+(?=[a-z])", mangled):
+                for i in range(len(c.group(0))):     # the length's digits
+                    end = c.end() + int(c.group(0)[i:])
+                    if mangled[c.end():end].endswith("_kernel"):
+                        tail = re.match(r"I\w*?EE", mangled[end:])
+                        other = (mangled[c.end():end], ", ".join(re.findall(
+                            r"L[bi](\d+)E", tail.group(0) if tail else "")))
             kernel = (f"fp32_scored_kernel<{k.group(1)}>" if k else
                       "mm_tc_kernel<" + ", ".join(mm.groups()) + ">"
-                      if mm else None)
+                      if mm else f"{other[0]}<{other[1]}>"
+                      if other else mangled)
             spills = None
             continue
         if kernel is None:
@@ -299,7 +313,7 @@ def ptxas(root):
                               **counts.get(mangled, {})}),
                   flush=True)
             kernel = None
-    print(json.dumps({"library": "search_kernels", "kernels": len(counts),
+    print(json.dumps({"library": library, "kernels": len(counts),
                       "igmma": sum(c["igmma"] for c in counts.values()),
                       "idp4a": sum(c["idp4a"] for c in counts.values())}),
           flush=True)
@@ -409,7 +423,7 @@ def main(argv):
         b4(args[0], *[tuple(int(n) for n in a.split("=", 1)[1].split(","))
                       for a in args[1:] if a.startswith("--images=")])
     elif cmd == "ptxas":
-        ptxas(args[0])
+        ptxas(*args[:2])
     elif cmd == "qstates":
         qstates(args[0], args[1], "--exact" in args)
     elif cmd == "compare":

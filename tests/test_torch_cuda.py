@@ -919,3 +919,275 @@ def test_fp32_plans_cover_candidates_and_fill_the_card(name, images):
         assert plan.waves == -(-plan.blocks // slots)
         if plan.tiles * P >= 10 * slots:
             assert plan.fill >= 0.9, (kind, M, N, K, plan)
+
+
+# ---------------------------------------------------------------------------
+# B6 / B10 / B11 on the tensor cores (q8_tc_kernel): the plan on the CPU,
+# the kernel at ragged shapes on the card
+# ---------------------------------------------------------------------------
+
+def serve_linear_calls(name, images):
+    """(M, K, N) of every linear a served forward of ``name`` on
+    ``images`` images runs through B6, B10 or B11 (the block paths and
+    the per-op paths: qkv, proj, fc1, fc2, Swin's reductions, the head)."""
+    from ptq4vit_tpu_torch.models import model_config, swin, vit
+    cfg = model_config(name)
+    mod = swin if name.startswith("swin") else vit
+    for info in mod.op_shapes(cfg).values():
+        if info["kind"] == "linear":
+            yield (info["tokens"] * images, info["in_features"],
+                   info["out_features"])
+
+
+@pytest.mark.parametrize("name", ["vit_base_patch16_384",
+                                  "swin_base_patch4_window12_384"])
+@pytest.mark.parametrize("images", [1, 8, 32])
+def test_q8_plans_cover_outputs_and_fit(name, images):
+    """Every B6 / B10 / B11 plan of the model's serving linears, in each
+    input mode, with the residual tile or without: a block's shared memory
+    fits its share of an SM (three blocks an SM, two for the twin, one
+    where the call has no more tiles than SMs) within 232,448 bytes, with
+    the deepest ring of 2 to 6 slots that does; the blocks' contiguous
+    runs of the row-major tile sequence, split as the kernel splits it
+    (block b takes tiles [T b / G, T (b + 1) / G)), cover every 64 x 128
+    output tile exactly once; the grid fills the card's block slots once
+    (or holds one block a tile) and stays within a 1-D grid's 2^31 - 1
+    blocks."""
+    from ptq4vit_tpu_torch.ops import int8_serve as sv
+    calls = set(serve_linear_calls(name, images))
+    assert calls
+    for M, K, N in calls:
+        for mode in ("f", "f_twin", "q8", "q8twin"):
+            for res_tile in (False, True):
+                plan = sv.q8_plan(M, N, mode, res_tile)
+                twin = mode in sv.TWIN_MODES
+                T = plan.row_tiles * plan.col_tiles
+                assert plan.per_sm == (1 if T <= sk.NUM_SMS else
+                                       2 if twin else 3)
+                assert plan.res_tile == res_tile
+                assert plan.smem == sv.q8_smem_bytes(twin, plan.stages,
+                                                     res_tile)
+                budget = sk.SM_SMEM // plan.per_sm - 1024
+                assert plan.smem <= budget <= sk.SMEM_LIMIT
+                assert 2 <= plan.stages <= sv.Q_MAX_STAGES == 6
+                assert plan.stages == sv.Q_MAX_STAGES or sv.q8_smem_bytes(
+                    twin, plan.stages + 1, res_tile) > budget
+                assert plan.row_tiles == -(-M // sv.Q_ROWS)
+                assert plan.col_tiles == -(-N // sv.Q_COLS)
+                G = plan.blocks
+                assert G == min(T, sk.NUM_SMS * plan.per_sm) < 2 ** 31 - 1
+                runs = [(T * b // G, T * (b + 1) // G) for b in range(G)]
+                assert runs[0][0] == 0 and runs[-1][1] == T
+                assert all(r[1] == n[0] for r, n in zip(runs, runs[1:]))
+                assert all(r[1] - r[0] in (T // G, -(-T // G)) for r in runs)
+
+
+def test_q8_plan_and_level_pre_pass_at_vit_shapes():
+    """ViT-B/384 at 32 images (M = 18,464): two ring slots of 24 KB, three
+    blocks an SM, 396 blocks; the twin fc2 two slots of 32 KB, two blocks
+    an SM; the head (32 rows, eight tiles) one block a tile, six slots.
+    The level pre-pass
+    runs for float input and for int8 rows TMA cannot read (K not a
+    multiple of 16, or a misaligned start), not for the block's int8
+    handoffs; a refused mode or an empty call raises."""
+    from ptq4vit_tpu_torch.ops import int8_serve as sv
+    M = 32 * 577
+    p = sv.q8_plan(M, 2304, "f")
+    assert (p.stages, p.per_sm, p.blocks) == (2, 3, 3 * sk.NUM_SMS)
+    assert p.smem == 1024 + 2 * 24576 + 9216 + 256 + 32
+    p = sv.q8_plan(M, 768, "q8twin")
+    assert (p.stages, p.per_sm, p.blocks) == (2, 2, 2 * sk.NUM_SMS)
+    p = sv.q8_plan(32, 1000, "f")                           # the head
+    assert (p.stages, p.per_sm, p.blocks) == (6, 1, 8)
+    x8 = torch.zeros((4, 96), dtype=torch.int8)
+    assert not sv.q8_needs_levels(x8, 96, "q8")
+    assert sv.q8_needs_levels(x8[:, :95].contiguous(), 95, "q8twin")
+    assert sv.q8_needs_levels(x8.view(-1)[1:353].view(11, 32), 32, "q8")
+    assert sv.q8_needs_levels(torch.zeros((4, 96)), 96, "f")
+    with pytest.raises(ValueError):
+        sv.q8_plan(M, 768, "int4")
+    with pytest.raises(ValueError):
+        sv.q8_plan(0, 768, "f")
+
+
+@pytest.mark.cuda
+def test_q8_plan_matches_the_library_on_the_card():
+    """The library sizes a B6 / B10 / B11 block's shared memory as
+    q8_plan does, twin or not, with the residual tile or not, at every
+    ring depth."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from ptq4vit_tpu_torch.ops import int8_serve as sv
+    from ptq4vit_tpu_torch.ops.build import load
+    lib = load("serve_kernels")
+    for twin in (False, True):
+        for stages in range(2, 7):
+            for res_tile in (False, True):
+                assert lib.ptq_q8_smem_bytes(
+                    int(twin), stages, int(res_tile)) == \
+                    sv.q8_smem_bytes(twin, stages, res_tile)
+
+
+# chip_smoke.py's seven B6 cases: (label, input mode, LayerNorm, GELU,
+# output); its fp32 engine's qkv is qkv at float32
+Q8_SMOKE_MODES = [("qkv", "f", True, False, "vec"),
+                  ("proj", "q8", False, False, "residual"),
+                  ("fc1", "f", True, True, "twin"),
+                  ("fc2", "q8twin", False, False, "residual"),
+                  ("head", "f", False, False, "float"),
+                  ("per-op fc2", "f_twin", False, False, "float")]
+
+
+def layer_norm_kernel_order(x, w, b, eps):
+    """LayerNorm of the rows of x (M, K) in the kernel's order: 32 lanes
+    each sum every 32nd element in turn, then a butterfly of the lanes'
+    sums; the mean, then the mean of squared deviations; every step one
+    fp32 rounding, the reciprocal square root correctly rounded (the
+    kernel's __frsqrt_rn).  Fed to the plain version without its own
+    LayerNorm, it makes the kernel's outputs comparable bitwise."""
+    x = x.float()
+    M, K = x.shape
+    kp = -(-K // 32) * 32
+    lanes = torch.arange(32, device=x.device)
+
+    def lane_mean(v):
+        v = torch.nn.functional.pad(v, (0, kp - K)).reshape(M, kp // 32, 32)
+        s = torch.zeros((M, 32), device=x.device)
+        for j in range(kp // 32):
+            s = s + v[:, j]
+        for off in (16, 8, 4, 2, 1):
+            s = s + s[:, lanes ^ off]
+        # a tensor divisor: PyTorch divides by a Python number through its
+        # reciprocal, which is not the kernel's IEEE division
+        return s[:, :1] / torch.full_like(s[:, :1], K)
+    mu = lane_mean(x)
+    d = x - mu
+    var = lane_mean(d * d)
+    rs = (1.0 / torch.sqrt((var + eps).double())).float()
+    return (x - mu) * rs * w.float()[None] + b.float()[None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_q8_kernel_matches_plain_version_at_ragged_shapes(dtype):
+    """The tensor-core kernel in chip_smoke.py's seven B6 modes (qkv in
+    float32 is its fp32 engine's) at M 1, 63, 65 and 129 (ragged 64-row
+    tiles), K 32, 100 (not a multiple of 16: int8 input through the level
+    pre-pass, scalar loads) and 3072 (24 K chunks), N 8, 24 (narrower than
+    one wgmma tile), 1000 and 2304:
+    bitwise the plain version's, the LayerNorm computed in the kernel's
+    order (layer_norm_kernel_order) -- float and int8 outputs alike."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from ptq4vit_tpu_torch.ops import int8_serve as sv
+    rng = np.random.default_rng(47)
+    sv.reset_launch_counts()
+    n = 0
+    for label, mode, ln, gelu, out in Q8_SMOKE_MODES:
+        for M in (1, 63, 65, 129):
+            for K in (32, 100, 3072):
+                for N in (8, 24, 1000, 2304):
+                    args, kw = q8_case(rng, mode, ln, gelu, out, M, K, N, Q,
+                                       dtype)
+                    got = sv.q8_linear(*args, **kw)
+                    ref_kw = dict(kw, ln=None,
+                                  float_dtype=kw["float_dtype"] or dtype)
+                    x = args[0]
+                    if ln:
+                        x = layer_norm_kernel_order(x, *kw["ln"])
+                    ref = sv.q8_linear_ref(x, *args[1:], **ref_kw)
+                    torch.cuda.synchronize()
+                    assert got.dtype == ref.dtype
+                    assert torch.equal(got, ref), (label, M, K, N)
+                    n += 1
+    assert sv.launch_counts()["q8_linear"] == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res,ws,C", [(14, 7, 72), (12, 12, 100),
+                                      (24, 12, 128)])
+def test_q8_row_maps_match_plain_version_on_the_card(res, ws, C):
+    """The kernel on its three row maps -- B6's rows as they are, B10's
+    input rows gathered from the image layout, B11's output and residual
+    rows scattered to it -- in float32 and bfloat16, C = 72 and 100 (no
+    16-byte rows) and 128: every output bitwise the plain version's, with
+    B10's LayerNorm in the kernel's order; and B6 given the window-ordered
+    rows equals B10."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from ptq4vit_tpu_torch.models.swin import window_partition
+    from ptq4vit_tpu_torch.ops import int8_serve as sv
+    rng = np.random.default_rng(48)
+    dev = "cuda"
+    B = 3
+    nwin = B * (res // ws) ** 2
+    sv.reset_launch_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        x4 = T(rng.standard_normal((B, res, res, C)) * 2 + 0.3, dtype).to(dev)
+        a = torch.tensor(float(np.float32(3.0 / (Q - 0.5))), device=dev)
+        w = T(rng.integers(-Q, Q, (C, 3 * C)), torch.int8).to(dev)
+        ws_ = T((rng.random(3 * C) + 0.5) / (float(a) * Q * Q * np.sqrt(C)
+                                            / 3)).to(dev)
+        b = T(rng.standard_normal(3 * C) * 0.1).to(dev)
+        ln = (T(1 + 0.1 * rng.standard_normal(C)).to(dev),
+              T(0.1 * rng.standard_normal(C)).to(dev), 1e-5)
+        cols = T((rng.random(3 * C) + 1.5) / (Q - 0.5)).to(dev)
+        got = sv.q8_win_qkv(x4, w, ws_, b, a, ln, ws, cols, a_qmax=Q,
+                            out_qmax=Q)
+        xw = window_partition(x4, ws)
+        ref = sv.q8_linear_ref(
+            layer_norm_kernel_order(xw.reshape(-1, C), *ln), w, ws_, b, a,
+            None, a_qmax=Q, postgelu=False, out_q="vec", out_scale=cols,
+            out_qmax=Q).reshape(got.shape)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+        same = sv.q8_linear(xw.contiguous(), w, ws_, b, a, None, a_qmax=Q,
+                            postgelu=False, ln=ln, out_q="vec",
+                            out_scale=cols, out_qmax=Q)
+        assert torch.equal(got, same)
+        y_q = T(rng.integers(-Q, Q, (nwin, ws * ws, C)), torch.int8).to(dev)
+        r4 = T(rng.standard_normal((B, res, res, C)), dtype).to(dev)
+        args = (y_q, w[:, :C].contiguous(), ws_[:C].contiguous(),
+                b[:C].contiguous(), torch.tensor(0.03, device=dev), ws, res,
+                r4)
+        got = sv.q8_win_proj(*args, a_qmax=Q)
+        ref = sv.q8_win_proj_ref(*args, a_qmax=Q)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and torch.equal(got, ref)
+    assert sv.launch_counts()["q8_win_qkv"] == 2
+    assert sv.launch_counts()["q8_win_proj"] == 2
+    assert sv.launch_counts()["q8_linear"] == 2
+
+
+@pytest.mark.cuda
+def test_q8_refuses_what_it_cannot_run_on_the_card():
+    """A K-major weight of the wrong shape, a plan beyond shared memory
+    and a float input without the level scratch are refused; nothing
+    falls back to the plain version on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from ptq4vit_tpu_torch.ops import int8_serve as sv
+    from ptq4vit_tpu_torch.ops.build import load
+    rng = np.random.default_rng(49)
+    args, kw = q8_case(rng, "f", False, False, "float", 70, 40, 24, Q,
+                       torch.float32)
+    with pytest.raises(ValueError):
+        sv.q8_linear(*args, **kw,
+                     w_kmaj=torch.zeros((24, 40), dtype=torch.int8,
+                                        device="cuda"))
+    lib = load("serve_kernels")
+    out = torch.empty((70, 24), device="cuda")
+    wk = torch.zeros((24, 48), dtype=torch.int8, device="cuda")
+    lv = torch.empty((70, 48), dtype=torch.int8, device="cuda")
+    scal = torch.ones(4, device="cuda")
+    ws = torch.ones(24, device="cuda")
+
+    def call(stages, levels):
+        return lib.ptq_q8_linear(
+            args[0].data_ptr(), 0, wk.data_ptr(), 48, ws.data_ptr(), None,
+            None, None, None, None, out.data_ptr(), 0, scal.data_ptr(), 0.0,
+            levels, 70, 40, 24, 0, 0, 0, 0, Q, Q, stages, 0, 1, None)
+    assert call(40, lv.data_ptr()) == 9003     # 40 ring slots do not fit
+    assert call(2, None) != 0                  # float input, no scratch
+    assert call(2, lv.data_ptr()) == 0

@@ -20,6 +20,7 @@ from ptq4vit_tpu.quant.qparams import LinearQP as JLinearQP
 from ptq4vit_tpu.quant.qparams import MatMulQP as JMatMulQP
 from ptq4vit_tpu_torch.ops import int8 as pi8
 from ptq4vit_tpu_torch.ops.pack import pack_weights
+from ptq4vit_tpu_torch.quant.qparams import LinearQP
 from ptq4vit_tpu_torch.utils.convert import packed_to, qstate_from_numpy
 from tests.torch_port_helpers import (TINY, assert_logits_close, images,
                                       jax_net, minmax_qstate, port_net)
@@ -150,6 +151,49 @@ def test_pack_weights_bytes_equal_jax(bits):
     moved = packed_to(ppk, "cpu")
     assert torch.equal(pnet.apply(xt, qstate=pq, int8=True, packed=moved),
                        pnet.apply(xt, qstate=pq, int8=True))
+
+
+@pytest.mark.parametrize("bits", [8, 6])
+def test_packed_kmajor_levels_pad_w_intT(bits):
+    """Each linear's packed entry keeps JAX's two entries and adds the
+    K-major copy the tensor-core kernel reads: w_intT transposed, (out,
+    in) with ``in`` padded by zero levels to a multiple of 16 bytes; conv
+    entries keep JAX's keys only.  packed_or_compute hands the packed
+    copy on, and without a packed entry computes the same three tensors
+    from the weight."""
+    from ptq4vit_tpu_torch.ops.int8_serve import packed_or_compute
+    from ptq4vit_tpu_torch.ops.pack import K_ALIGN, kmajor_levels
+    jnet = jax_net(TINY)
+    pnet = port_net(jnet)
+    pq = qstate_from_numpy(minmax_qstate(jnet, images(2, TINY["img_size"]),
+                                         bits))
+    packed = pack_weights(pnet.params, pq)
+    linears = [n for n, qp in pq.items() if isinstance(qp, LinearQP)]
+    assert linears
+    for name, entry in packed.items():
+        if name not in linears:
+            assert set(entry) == {"w_intT", "w_scale"}, name
+            continue
+        assert set(entry) == {"w_intT", "w_scale", "w_kmaj"}, name
+        K, N = entry["w_intT"].shape
+        kp = -(-K // K_ALIGN) * K_ALIGN
+        wk = entry["w_kmaj"]
+        assert wk.dtype == torch.int8 and tuple(wk.shape) == (N, kp)
+        assert wk.is_contiguous()
+        assert torch.equal(wk[:, :K], entry["w_intT"].t())
+        assert not wk[:, K:].any()
+        node = pnet.params
+        for part in name.split("."):
+            node = node[int(part)] if isinstance(node, list) else node[part]
+        pw = packed_or_compute(node["weight"], pq[name], entry)
+        assert pw.w_kmaj is entry["w_kmaj"]
+        fresh = packed_or_compute(node["weight"], pq[name], {})
+        for got, want in zip(fresh, (entry["w_intT"], entry["w_scale"], wk)):
+            assert torch.equal(got, want), name
+    lv = torch.arange(-60, 60, dtype=torch.int8).reshape(3, 40)
+    wk = kmajor_levels(lv)
+    assert tuple(wk.shape) == (3, 48) and torch.equal(wk[:, :40], lv)
+    assert not wk[:, 40:].any()
 
 
 def test_int8_forward_of_tiny_vit_matches_jax():
