@@ -30,7 +30,10 @@ Phases (any failure raises, so the exit code is non-zero):
      -> int8 on stage 1's shifted block (64 masks) and stage 4's one
      window, float -> float (SoS and per-head) on stage 1, with 32 images
      (B11 bitwise, B9 and B10 under the same rules), beside torch._int_mm
-     (both layouts) and SDPA with the same additive mask;
+     (both layouts) and SDPA with the same additive mask; each attention
+     case's [kernel] line also gives its CUDA-core floor (a model, not a
+     measurement: the softmax's instructions a logit at the card's issue
+     rate, ``cuda_core_floor``; it stays out of the JSON kernels line);
   4. the ViT path: quantize("vit_base_patch16_384", 8 images, PTQ4ViT W8A8)
      with random weights from a seeded generator; B1, B2 and B3 must be
      launched and every interval finite and positive; serve 4 images with
@@ -761,9 +764,7 @@ def serve_kernel_phase(sv, dev):
     scaled_dot_product_attention (B7, B8) on the same shapes, for context
     only: neither computes the quantized function, and the port never
     calls them."""
-    from ptq4vit_tpu_torch.quant.qparams import MatMulQP
     rng = np.random.default_rng(5)
-    B, N, d, H, hd = SERVE_BATCH, 577, 768, 12, 64
     cases = []
     for label, m, K, Nn, mode, ln, gelu, out, dt in B6_CASES:
         args, kw = q8_inputs(rng, m, K, Nn, mode, ln, gelu, out, dt)
@@ -774,9 +775,65 @@ def serve_kernel_phase(sv, dev):
             torch.round(args[0].float() / args[4]), -128, 127) \
             .to(torch.int8)
         ops = {"int8": 2 * m * K * Nn * (2 if twin else 1)}
-        cases.append(("q8_linear", label, args, kw, ops,
-                      int_mm_calls(lv, args[1]), None))
+        cases.append((
+            "q8_linear", label,
+            lambda args=args, kw=kw: sv.q8_linear(*args, **kw),
+            lambda args=args, kw=kw: sv.q8_linear_ref(*args, **kw),
+            call_bytes(args, kw), ops, int_mm_calls(lv, args[1]), None,
+            None))
+    return measure_serving(cases + vit_attention_cases(sv, dev, rng))
 
+
+# CUDA-core instructions a logit of the quantized softmax needs, whatever
+# the kernel's design: the function's own steps, one SASS instruction each
+# (expf and the IEEE division's fast path 8 each): convert, scale, max,
+# subtract, expf, sum, divide (21); then SoS's hi level (2 clamps,
+# multiply, rint, 2 clamps, convert: 7) and lo level (2 clamps, divide,
+# rint, 2 clamps, convert: 14), or the per-head level (divide, rint, 2
+# clamps, convert: 12); a byte packed per level; B9's bias and mask adds 2
+SOFTMAX_INSTR = {True: 44, False: 34}
+WINDOW_INSTR = 2
+# one such instruction a lane a clock: the fp32 peak counts an FMA as two
+LANE_RATE = PEAK_OPS["fp32"] / 2
+
+
+def cuda_core_floor(logits, sos, window=False):
+    """The least ms the CUDA cores take for the softmax and the levels of
+    ``logits`` logits (SOFTMAX_INSTR at LANE_RATE); the products run
+    beside them on the tensor cores."""
+    return logits * (SOFTMAX_INSTR[sos] + (WINDOW_INSTR if window else 0)) \
+        / LANE_RATE * 1e3
+
+
+def attention_plain(sv, kname, args, kw):
+    """The plain version of a B7 / B8 call."""
+    if kname == "fused_attention":
+        q_, k_, v_, p1, p2, sc = args
+        ph, sos = sv.attn_scope(p1, p2, q_.shape[1])
+        return sv.fused_attention_ref(
+            q_, k_, v_, ph, p2.split if sos else None, sc, None, sos=sos,
+            in_q8=False, qmaxes=sv.attn_qmaxes(p1, p2, 128),
+            out_dtype=q_.dtype)
+    x, heads, p1, p2, sc = args
+    Bx, Nx, d3 = x.shape
+    ph, sos = sv.attn_scope(p1, p2, heads)
+    c = x.reshape(Bx, Nx, 3, heads, d3 // 3 // heads) \
+        .permute(2, 0, 3, 1, 4)
+    out = sv.fused_attention_ref(
+        c[0], c[1], c[2], ph, p2.split if sos else None, sc,
+        kw.get("out_scale"), sos=sos, in_q8=kw.get("in_q8", False),
+        qmaxes=sv.attn_qmaxes(p1, p2, 128),
+        out_dtype=x.dtype if x.is_floating_point() else torch.float32)
+    return out.transpose(1, 2).reshape(Bx, Nx, d3 // 3)
+
+
+def vit_attention_cases(sv, dev, rng):
+    """B7 (int8 -> int8 and float -> float, SoS and per-head) and B8
+    (float, SoS) at ViT-B/384 shapes with SERVE_BATCH images, as
+    measure_serving takes them, with SDPA on the same q, k, v as
+    context."""
+    from ptq4vit_tpu_torch.quant.qparams import MatMulQP
+    B, N, d, H, hd = SERVE_BATCH, 577, 768, 12, 64
     qkv = torch.from_numpy(rng.standard_normal((B, N, 3 * d))
                            .astype(np.float32)).to(dev)
     t = qkv.reshape(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
@@ -788,6 +845,7 @@ def serve_kernel_phase(sv, dev):
     split = torch.tensor(2.0 ** -6, device=dev)
     a_out = torch.tensor(0.02, device=dev)
     q4, k4, v4 = (c.contiguous() for c in t)
+    cases = []
     for sos in (True, False):
         qp2 = MatMulQP(A_interval=(split / 127 if sos else
                                    torch.full(shape, 1 / 127.5, device=dev)),
@@ -798,62 +856,45 @@ def serve_kernel_phase(sv, dev):
         ops = {"int8": 2 * B * H * N * N * hd * (3 if sos else 2),
                # max, subtract, exp, sum, divide per logit
                "fp32": 5 * B * H * N * N}
+        floor = cuda_core_floor(B * H * N * N, sos)
         tag = "SoS" if sos else "per-head"
         sdpa = {"sdpa_ms": lambda: torch.nn.functional
                 .scaled_dot_product_attention(q4, k4, v4)}
         step = attn_level_step(ph, sos)
-        cases.append(("fused_attention_qkv", f"int8 in -> int8 out, {tag}",
-                      (lv, H, qp1, qp2, hd ** -0.5),
-                      dict(in_q8=True, out_scale=a_out), ops, sdpa, None))
-        cases.append(("fused_attention_qkv", f"float in -> float out, {tag}",
-                      (qkv, H, qp1, qp2, hd ** -0.5), {}, ops, sdpa,
-                      step.repeat_interleave(hd)))
+        calls = [("fused_attention_qkv", f"int8 in -> int8 out, {tag}",
+                  (lv, H, qp1, qp2, hd ** -0.5),
+                  dict(in_q8=True, out_scale=a_out), None),
+                 ("fused_attention_qkv", f"float in -> float out, {tag}",
+                  (qkv, H, qp1, qp2, hd ** -0.5), {},
+                  step.repeat_interleave(hd))]
         if sos:
-            cases.append(("fused_attention", "(B, H, N, hd) float, SoS",
-                          (q4, k4, v4, qp1, qp2, hd ** -0.5), {}, ops, sdpa,
+            calls.append(("fused_attention", "(B, H, N, hd) float, SoS",
+                          (q4, k4, v4, qp1, qp2, hd ** -0.5), {},
                           step.reshape(1, H, 1, 1)))
-
-    def plain(kname, args, kw):
-        if kname == "q8_linear":
-            return sv.q8_linear_ref(*args, **kw)
-        if kname == "fused_attention":
-            q_, k_, v_, p1, p2, sc = args
-            ph, sos = sv.attn_scope(p1, p2, q_.shape[1])
-            return sv.fused_attention_ref(
-                q_, k_, v_, ph, p2.split if sos else None, sc, None, sos=sos,
-                in_q8=False, qmaxes=sv.attn_qmaxes(p1, p2, 128),
-                out_dtype=q_.dtype)
-        x, heads, p1, p2, sc = args
-        Bx, Nx, d3 = x.shape
-        ph, sos = sv.attn_scope(p1, p2, heads)
-        c = x.reshape(Bx, Nx, 3, heads, d3 // 3 // heads) \
-            .permute(2, 0, 3, 1, 4)
-        out = sv.fused_attention_ref(
-            c[0], c[1], c[2], ph, p2.split if sos else None, sc,
-            kw.get("out_scale"), sos=sos, in_q8=kw.get("in_q8", False),
-            qmaxes=sv.attn_qmaxes(p1, p2, 128),
-            out_dtype=x.dtype if x.is_floating_point() else torch.float32)
-        return out.transpose(1, 2).reshape(Bx, Nx, d3 // 3)
-
-    return measure_serving([
-        (kname, label,
-         lambda kname=kname, args=args, kw=kw: getattr(sv, kname)(*args,
-                                                                  **kw),
-         lambda kname=kname, args=args, kw=kw: plain(kname, args, kw),
-         call_bytes(args, kw), ops, lib_fn, step)
-        for kname, label, args, kw, ops, lib_fn, step in cases])
+        for kname, label, args, kw, st in calls:
+            cases.append((
+                kname, label,
+                lambda kname=kname, args=args, kw=kw: getattr(sv, kname)(
+                    *args, **kw),
+                lambda kname=kname, args=args, kw=kw: attention_plain(
+                    sv, kname, args, kw),
+                call_bytes(args, kw), ops, sdpa, st, floor))
+    return cases
 
 
 def measure_serving(cases):
     """Each serving kernel case (kernel, label, call, plain call, bytes of
-    the inputs, operations, context calls by key, step) against its plain
-    version (``compare_outputs``; attention float outputs under the
-    FLIP_SHARE rule, other float outputs bitwise), then timed beside the
-    plain version, the bound and the context calls (torch._int_mm on both
-    weight layouts for the linears, SDPA for the attentions).  Returns the
-    stats by kernel; a kernel's first case is its headline."""
+    the inputs, operations, context calls by key, step, CUDA-core floor
+    ms or None) against its plain version (``compare_outputs``; attention
+    float outputs under the FLIP_SHARE rule, other float outputs bitwise),
+    then timed beside the plain version, the bound, the attentions'
+    CUDA-core floor (``cuda_core_floor``) and the context calls
+    (torch._int_mm on both weight layouts for the linears, SDPA for the
+    attentions).  Returns the stats by kernel; a kernel's first case is
+    its headline."""
     stats = {}
-    for kname, label, fn, plain, in_bytes, ops, lib_fn, step in cases:
+    for kname, label, fn, plain, in_bytes, ops, lib_fn, step, floor \
+            in cases:
         got = fn()
         ref = plain()
         torch.cuda.synchronize()
@@ -878,7 +919,9 @@ def measure_serving(cases):
             + f" ({share:.4%} of the outputs off by a level or beyond "
             "tolerance)"
             + f", kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}), {share_text(peak)}, "
+            f"{bound_ms:.4f} ms ({bound_by})"
+            + (f", CUDA-core floor {floor:.4f} ms" if floor is not None
+               else "") + f", {share_text(peak)}, "
             + ", ".join(f"{k} {v:.3f}" for k, v in lib.items())
             + " (context only)")
         st = stats.setdefault(kname, {"max_abs_err": 0.0, "cases": []})
@@ -923,19 +966,15 @@ def window_linear_inputs(rng, res, C, B=SERVE_BATCH, ws=12, q=128):
     return qkv, proj
 
 
-def window_kernel_phase(sv, dev):
-    """B10, B9 and B11 against their plain versions at Swin-B/384 shapes
-    with 32 images (window 12: N = 144 tokens, head dim 32), beside
-    torch._int_mm on the same levels, both weight layouts (B10, B11), and
-    SDPA with the same additive bias and mask on the float q, k, v (B9),
-    for context only.
-    B10 and B11 at stage 1 (res 96, C 128, 64 windows an image) and stage
-    3 (res 24, C 512); B9 int8 -> int8 on stage 1's shifted block (64
-    masks) and stage 4's one unshifted window (32 heads), and float ->
-    float (SoS and per-head) on stage 1's shifted block."""
+def window_attention_cases(sv, dev, rng):
+    """B9 int8 -> int8 on Swin-B/384 stage 1's shifted block (64 masks) and
+    stage 4's one unshifted window (32 heads), and float -> float (SoS and
+    per-head) on stage 1's shifted block, with SERVE_BATCH images (window
+    12: N = 144 tokens, head dim 32), as measure_serving takes them, with
+    SDPA on the float q, k, v and the same additive bias and mask as
+    context."""
     from ptq4vit_tpu_torch.models.swin import shifted_window_mask
     from ptq4vit_tpu_torch.quant.qparams import MatMulQP
-    rng = np.random.default_rng(6)
     B, ws, hd, q = SERVE_BATCH, 12, 32, 128
     N = ws * ws
 
@@ -946,31 +985,7 @@ def window_kernel_phase(sv, dev):
         return torch.clamp(torch.round(x.float() / a), -q, q - 1) \
             .to(torch.int8)
 
-    cases = []        # as measure_serving takes them
-    for stage, res, C in WINDOW_STAGES:
-        M = B * res * res
-        args, proj_args = window_linear_inputs(rng, res, C)
-        x4, w, a = args[0], args[1], args[4]
-        lv = levels(x4.reshape(M, C), a)
-        kw = dict(a_qmax=q, out_qmax=q, w_kmaj=kmajor_levels(w.t()))
-        cases.append(("q8_win_qkv", f"stage {stage}: LN, quantize -> int8 "
-                      "per column", lambda args=args, kw=kw: sv.q8_win_qkv(
-                          *args, **kw),
-                      lambda args=args, kw=kw: sv.q8_win_qkv_ref(
-                          *args, **kw), nbytes(args),
-                      {"int8": 2 * M * C * 3 * C}, int_mm_calls(lv, w),
-                      None))
-        args = proj_args
-        y_q, wp = args[0], args[1]
-        kw = dict(a_qmax=q, w_kmaj=kmajor_levels(wp.t()))
-        cases.append(("q8_win_proj", f"stage {stage}: int8 in -> + residual "
-                      "(image layout)",
-                      lambda args=args, kw=kw: sv.q8_win_proj(*args, **kw),
-                      lambda args=args, kw=kw: sv.q8_win_proj_ref(*args,
-                                                                  **kw),
-                      nbytes(args), {"int8": 2 * M * C * C},
-                      int_mm_calls(y_q.reshape(M, C), wp), None))
-
+    cases = []
     for stage, res, H, shift, modes in (
             (1, 96, 4, ws // 2, ("int8 SoS", "float SoS", "float per-head")),
             (4, 12, 32, 0, ("int8 SoS",))):
@@ -1027,9 +1042,55 @@ def window_kernel_phase(sv, dev):
                  "fp32": 7 * B_ * H * N * N},
                 {"sdpa_ms": lambda qkv4=(q4, k4, v4), m=sdpa_mask: torch.nn
                  .functional.scaled_dot_product_attention(
-                     *qkv4, attn_mask=m)}, step))
+                     *qkv4, attn_mask=m)}, step,
+                cuda_core_floor(B_ * H * N * N, sos, window=True)))
 
-    return measure_serving(cases)
+    return cases
+
+
+def window_kernel_phase(sv, dev):
+    """B10, B9 and B11 against their plain versions at Swin-B/384 shapes
+    with 32 images (window 12: N = 144 tokens, head dim 32), beside
+    torch._int_mm on the same levels, both weight layouts (B10, B11), and
+    SDPA with the same additive bias and mask on the float q, k, v (B9),
+    for context only.
+    B10 and B11 at stage 1 (res 96, C 128, 64 windows an image) and stage
+    3 (res 24, C 512); B9 int8 -> int8 on stage 1's shifted block (64
+    masks) and stage 4's one unshifted window (32 heads), and float ->
+    float (SoS and per-head) on stage 1's shifted block."""
+    rng = np.random.default_rng(6)
+    B, q = SERVE_BATCH, 128
+
+    def levels(x, a):
+        return torch.clamp(torch.round(x.float() / a), -q, q - 1) \
+            .to(torch.int8)
+
+    cases = []        # as measure_serving takes them
+    for stage, res, C in WINDOW_STAGES:
+        M = B * res * res
+        args, proj_args = window_linear_inputs(rng, res, C)
+        x4, w, a = args[0], args[1], args[4]
+        lv = levels(x4.reshape(M, C), a)
+        kw = dict(a_qmax=q, out_qmax=q, w_kmaj=kmajor_levels(w.t()))
+        cases.append(("q8_win_qkv", f"stage {stage}: LN, quantize -> int8 "
+                      "per column", lambda args=args, kw=kw: sv.q8_win_qkv(
+                          *args, **kw),
+                      lambda args=args, kw=kw: sv.q8_win_qkv_ref(
+                          *args, **kw), nbytes(args),
+                      {"int8": 2 * M * C * 3 * C}, int_mm_calls(lv, w),
+                      None, None))
+        args = proj_args
+        y_q, wp = args[0], args[1]
+        kw = dict(a_qmax=q, w_kmaj=kmajor_levels(wp.t()))
+        cases.append(("q8_win_proj", f"stage {stage}: int8 in -> + residual "
+                      "(image layout)",
+                      lambda args=args, kw=kw: sv.q8_win_proj(*args, **kw),
+                      lambda args=args, kw=kw: sv.q8_win_proj_ref(*args,
+                                                                  **kw),
+                      nbytes(args), {"int8": 2 * M * C * C},
+                      int_mm_calls(y_q.reshape(M, C), wp), None, None))
+
+    return measure_serving(cases + window_attention_cases(sv, dev, rng))
 
 
 def profile_call(fn):

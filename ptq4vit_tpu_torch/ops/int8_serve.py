@@ -28,7 +28,9 @@ Each kernel wrapper counts its launches in ``<function>.launches``.
 B6, B10 and B11 are one tensor-core kernel (``q8_tc_kernel``), after a
 pre-pass that quantizes a float input once a row (``q8_levels_kernel``);
 ``q8_plan`` sizes it on the host, and it reads the weight levels K-major
-(``w_kmaj``, ops/pack.kmajor_levels).
+(``w_kmaj``, ops/pack.kmajor_levels).  B7, B8 and B9 are one kernel
+(``attention_kernel``) with q·kᵀ and p·v on the int8 tensor cores;
+``attn_plan`` gives its padding, warps and shared memory.
 
 Scope (the JAX rules about semantics): LinearQP with n_H == 1, n_a == 1 and
 bits <= 8; matmul QPs with per-head scales and no operand block grids; the
@@ -429,11 +431,78 @@ def q8_linear(x, w_intT, w_scale, b, a_interval, a_neg_interval, *,
     return out.reshape(lead + (N,))
 
 
+# ---------------------------------------------------------------------------
+# B7 / B8 / B9's plan (csrc/serve_kernels.cu attention_kernel, attn_plan)
+# ---------------------------------------------------------------------------
+
+AT_ROWS, AT_KEYS = 16, 32     # query rows of a warp's strip, keys of a chunk
+AT_PARK_CHUNKS = 5            # N <= 160: a strip's logits parked in shared
+                              # memory between the passes
+AT_WARPS, AT_PARK_WARPS = 8, 4  # warps a block at most
+AT_MAX_HD = 64
+
+
+class AttnPlan(NamedTuple):
+    """How B7 / B8 / B9 runs on the card, per (image or window, head)
+    block.
+
+    hdp: the head dim padded with zero levels (32 or 64); keys: N padded to
+    a multiple of 32 (zero v levels, zero probability levels); kstr, vstr:
+    the byte strides of the k rows (hdp + 16) and of the transposed v rows
+    (keys + 16), 16 times an odd number so that ldmatrix's 8 rows hit
+    distinct banks; parked: a strip's logits wait in shared memory between
+    the passes, each lane's in its own places (N <= 160), instead of being
+    recomputed; strips: 16-row query strips, which a block's warps take
+    in turn; warps: a block's; smem: a block's shared memory (k, the
+    transposed v, and parked: 64 bytes a key and warp)."""
+    hdp: int
+    keys: int
+    kstr: int
+    vstr: int
+    parked: bool
+    strips: int
+    warps: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def attn_plan(N: int, hd: int) -> AttnPlan:
+    """The plan of an attention over N keys with head dim ``hd`` (csrc
+    ``attn_plan`` computes the same): one block an (image or window, head),
+    whose warps are the most the variant takes (8, or 4 with the logits
+    parked) with the fewest idle strip slots, down to half of that.
+    A head dim past 64 or k and v beyond a block's shared memory raise
+    ValueError: there is no other kernel."""
+    if N < 1 or not 1 <= hd <= AT_MAX_HD:
+        raise ValueError(f"attention of {N} keys, head dim {hd}: the kernel "
+                         f"takes 1 to {AT_MAX_HD} head dims")
+    hdp = 32 if hd <= 32 else 64
+    keys = -(-N // AT_KEYS) * AT_KEYS
+    parked = N <= AT_KEYS * AT_PARK_CHUNKS
+    strips = -(-N // AT_ROWS)
+    wmax = AT_PARK_WARPS if parked else AT_WARPS
+    hi, lo = min(strips, wmax), max(1, min(strips, wmax // 2))
+    warps = hi
+    for w in range(hi - 1, lo - 1, -1):
+        if -(-strips // w) * w < -(-strips // warps) * warps:
+            warps = w
+    smem = (keys * (hdp + 16) + hdp * (keys + 16)
+            + (warps * keys * AT_ROWS * 4 if parked else 0))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"attention of {N} keys: k and v take {smem} bytes "
+                         f"of shared memory, more than {SMEM_LIMIT}")
+    return AttnPlan(hdp, keys, hdp + 16, keys + 16, parked, strips, warps,
+                    smem)
+
+
 def _attn_launch(q, k, v, strides, out, ostrides, ph, split, scale, a_out,
                  B, H, N, hd, sos, qmaxes, in_dtype, window=None):
     """Launch the B7 / B8 kernel, or B9's with ``window`` = (bias (H, N,
-    N), mask (nW, N, N) or None, nW); q, k, v are element addresses."""
+    N), mask (nW, N, N) or None, nW); q, k, v are element addresses.  The
+    library plans the call as ``attn_plan`` does; a shape it refuses
+    raises here first."""
     from .build import load
+    attn_plan(N, hd)
     lib = load("serve_kernels")
     dev = out.device
     ph = ph.float().contiguous()
@@ -451,11 +520,14 @@ def _attn_launch(q, k, v, strides, out, ostrides, ph, split, scale, a_out,
     bias, mask, nW = window
     bias = bias.float().contiguous()
     _check(bias, "bias", torch.float32, (H, N, N), dev)
+    term, period = bias, 1
     if mask is not None:
         mask = mask.float().contiguous()
         _check(mask, "mask", torch.float32, (nW, N, N), dev)
-    _launch(lib.ptq_window_attention, *head, _ptr(bias), _ptr(mask), nW,
-            *tail)
+        # bias[h] + mask[w] in fp32, that order (JAX's extra), summed once
+        # a call: the kernel then reads one float a logit
+        term, period = (bias[None] + mask[:, None]).contiguous(), nW
+    _launch(lib.ptq_window_attention, *head, _ptr(term), period, *tail)
 
 
 def fused_attention_qkv(qkv, heads: int, qp1, qp2, scale, *,

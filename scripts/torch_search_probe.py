@@ -34,8 +34,10 @@ is imported; each command prints JSON lines.
            checkout's search_kernels.cu (or LIBRARY: serve_kernels)
            builds -- B3 / B3f ``mm_tc_kernel<W, SOS, FAST, KL>``, B4
            ``fp32_scored_kernel<KIND>`` (0 B4w, 1 B4a, 2 B4a post-GELU),
-           B6 / B10 / B11 ``q8_tc_kernel<TWIN>``, ... --, with the count of
-           IGMMA (int8 wgmma) and IDP.4A (dp4a) instructions in each
+           B6 / B10 / B11 ``q8_tc_kernel<TWIN>``, B7 / B8 / B9
+           ``attention_kernel<WINDOW, HDP, SOS, PARK>``, ... --, with the
+           count of IGMMA (int8 wgmma), IMMA (int8 mma.sync) and IDP.4A
+           (dp4a) instructions in each
            kernel's SASS (cuobjdump) and of its WARPGROUP.DEPBAR waits,
            one JSON line a kernel, and every ptxas warning (C7510-C7520:
            serialized wgmma).
@@ -267,9 +269,11 @@ def ptxas(root, library="search_kernels"):
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            counts[name] = {"igmma": 0, "idp4a": 0, "wg_depbar": 0}
+            counts[name] = {"igmma": 0, "imma": 0, "idp4a": 0,
+                            "wg_depbar": 0}
         elif name is not None:
             counts[name]["igmma"] += "IGMMA" in line
+            counts[name]["imma"] += "IMMA" in line
             counts[name]["idp4a"] += "IDP.4A" in line
             counts[name]["wg_depbar"] += "WARPGROUP.DEPBAR" in line
     kernel = None
@@ -315,6 +319,7 @@ def ptxas(root, library="search_kernels"):
             kernel = None
     print(json.dumps({"library": library, "kernels": len(counts),
                       "igmma": sum(c["igmma"] for c in counts.values()),
+                      "imma": sum(c["imma"] for c in counts.values()),
                       "idp4a": sum(c["idp4a"] for c in counts.values())}),
           flush=True)
 

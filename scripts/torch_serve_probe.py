@@ -20,8 +20,10 @@ command prints JSON lines.
            images seed 1), each qstate saved as a directory under OUT_DIR
            (calib/calibrator.save_qstate).
   run      with ROOT's package: B6 at chip_smoke.py's seven ViT-B/384 cases
-           (B6_CASES) and B10 / B11 at its Swin-B/384 stages
-           (WINDOW_STAGES), 32 images, inputs from fixed seeds: each
+           (B6_CASES), B10 / B11 at its Swin-B/384 stages (WINDOW_STAGES),
+           and its attention cases (vit_attention_cases: B7 int8 and
+           float, SoS and per-head, B8; window_attention_cases: B9 at
+           stages 1 and 4), 32 images, inputs from fixed seeds: each
            kernel's ms (CUDA events over at least 100 ms of launches) and
            the SHA-1 of its output's bytes; then the bf16 ServingEngine on
            ViT-B/384 and Swin-B/384 (weights seed 0, the prepared
@@ -99,8 +101,9 @@ def prepare(out_dir):
 
 
 def _kernel_cases(torch, sv, cs):
-    """(kernel, label, call) of B6's seven cases and B10 / B11's stages,
-    on this tree's inputs, with the K-major weight where ROOT takes it."""
+    """(kernel, label, call) of B6's seven cases, B10 / B11's stages and
+    the attention cases (B7, B8, B9), on this tree's inputs, with the
+    K-major weight where ROOT takes it."""
     takes = {fn: "w_kmaj" in inspect.signature(getattr(sv, fn)).parameters
              for fn in ("q8_linear", "q8_win_qkv", "q8_win_proj")}
     rng = np.random.default_rng(5)
@@ -123,6 +126,12 @@ def _kernel_cases(torch, sv, cs):
                lambda a=qkv, kw=kq: sv.q8_win_qkv(*a, **kw))
         yield ("q8_win_proj", f"stage {stage}",
                lambda a=proj, kw=kp: sv.q8_win_proj(*a, **kw))
+    # B7 / B8 at ViT-B/384 and B9 at Swin-B/384's stages 1 and 4, 32
+    # images: chip_smoke.py's attention cases
+    rng = np.random.default_rng(7)
+    for build_cases in (cs.vit_attention_cases, cs.window_attention_cases):
+        for case in build_cases(sv, "cuda", rng):
+            yield case[0], case[1], case[2]
 
 
 def run(root, out_dir, tag, keep):

@@ -707,16 +707,24 @@ def test_q8_linear_matches_plain_version_on_the_card(dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H,N,hd", [(2, 37, 64), (3, 130, 24)])
+@pytest.mark.parametrize("H,N,hd", [(2, 37, 64), (3, 130, 24),
+                                    (12, 577, 64)])
 def test_fused_attention_matches_plain_version_on_the_card(H, N, hd):
-    """B7 (float or int8 in, float or int8 out) and B8, SoS and per-head,
-    against the plain version: float outputs rtol 1e-5, atol 2e-5 of max
-    |ref| except in at most 0.5% of the elements (the softmax sums in
-    another order, so a probability may round to the neighbouring level),
-    and those off by at most one probability level's contribution more;
-    int8 outputs within one level in at most 1% of the elements.  N = 130
-    spans several row tiles of the kernel, with a ragged last one; hd = 24
-    is not a multiple of the 4-level words."""
+    """B7 (float or int8 in, float or int8 out) and B8, SoS (split 2^-4;
+    0.5, where the hi level of a probability 0 is 64: a padded key wrongly
+    let into the levels or the sum would move the output; and 2^-35,
+    below the fast division's range: the IEEE division path) and per
+    head, against the plain version, int8 out also at a_out = 2^30 (the
+    output's IEEE division path): float outputs rtol 1e-5, atol 2e-5
+    of max |ref| except in at most 0.5% of the elements (the softmax sums
+    in another order, so a probability may round to the neighbouring
+    level), and those off by at most one probability level's contribution
+    more; int8 outputs within one level in at most 1% of the elements.
+    N = 130 spans several 16-row strips and 32-key chunks, with ragged
+    last ones (the logits parked in shared memory); hd = 24 is not a
+    multiple of 16 (the head dim padded to 32); N = 577, hd = 64 is a
+    full-width ViT-B/384 head (37 strips, the last of one row; 19 chunks,
+    the last of one key; logits recomputed per pass)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     from ptq4vit_tpu_torch.ops import int8_serve as sv
@@ -733,8 +741,9 @@ def test_fused_attention_matches_plain_version_on_the_card(H, N, hd):
         return (v.abs().amax((0, 2, 3)) / 127.5).reshape(shape)
     qp1 = MatMulQP(A_interval=hmax(t[0]), B_interval=hmax(t[1]))
     sv.reset_launch_counts()
-    for sos in (True, False):
-        split = torch.tensor(2.0 ** -4, device=dev)
+    for sos, sp in ((True, 2.0 ** -4), (True, 0.5), (True, 2.0 ** -35),
+                    (False, 2.0 ** -4)):
+        split = torch.tensor(sp, device=dev)
         qp2 = MatMulQP(A_interval=(split / 127 if sos else
                                    torch.full(shape, 1 / 127.5, device=dev)),
                        B_interval=hmax(t[2]), split=split if sos else None)
@@ -745,6 +754,8 @@ def test_fused_attention_matches_plain_version_on_the_card(H, N, hd):
         a_out = torch.tensor(0.02, device=dev)
         for x, in_q8, out_scale in ((qkv, False, None), (qkv, False, a_out),
                                     (lv, True, None), (lv, True, a_out),
+                                    (lv, True, torch.tensor(2.0 ** 30,
+                                                            device=dev)),
                                     (qkv.bfloat16(), False, None)):
             got = sv.fused_attention_qkv(x, H, qp1, qp2, hd ** -0.5,
                                          in_q8=in_q8, out_scale=out_scale)
@@ -769,8 +780,8 @@ def test_fused_attention_matches_plain_version_on_the_card(H, N, hd):
                                      hd ** -0.5, None, sos=sos, in_q8=False,
                                      qmaxes=(128,) * 5, out_dtype=q.dtype)
         assert_float_close(got, ref, 1e-5, step.reshape(1, H, 1, 1))
-    assert sv.launch_counts() == {"q8_linear": 0, "fused_attention_qkv": 10,
-                                  "fused_attention": 2,
+    assert sv.launch_counts() == {"q8_linear": 0, "fused_attention_qkv": 24,
+                                  "fused_attention": 4,
                                   "fused_window_attention_qkv": 0,
                                   "q8_win_qkv": 0, "q8_win_proj": 0}
 
@@ -826,16 +837,25 @@ def test_window_linears_match_plain_versions_on_the_card(res, ws):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nW,N,hd", [(4, 49, 32), (1, 144, 32), (2, 16, 24)])
-def test_window_attention_matches_plain_version_on_the_card(nW, N, hd):
+@pytest.mark.parametrize("nW,N,hd,shifted",
+                         [(4, 49, 32, False), (1, 144, 32, False),
+                          (2, 16, 24, False), (4, 144, 32, True),
+                          (2, 196, 32, False)])
+def test_window_attention_matches_plain_version_on_the_card(nW, N, hd,
+                                                            shifted):
     """B9 (float or int8 in, float or int8 out, float32 or bfloat16), SoS
-    and per-head, with the rel-pos bias and (nW > 1) the shifted mask,
+    (split 2^-4 and 0.5) and per-head, with the rel-pos bias and (nW > 1)
+    a mask -- random, or ``shifted``: Swin's shifted-window mask of a
+    24 x 24 grid of 12 x 12 windows (N = 144, hd = 32, four windows) --;
+    N = 196 (a 14 x 14 window) is past the logits parked in shared memory,
+    so the bias and mask are read in each pass --
     against the plain version, under B7's rules: float outputs rtol 1e-5
     (bf16: one bf16 step), atol 2e-5 of max |ref|, except in at most 0.5%
     of the elements, off by at most one probability level's contribution
     more; int8 outputs within one level in at most 1%."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from ptq4vit_tpu_torch.models.swin import shifted_window_mask
     from ptq4vit_tpu_torch.ops import int8_serve as sv
     from ptq4vit_tpu_torch.quant.qparams import MatMulQP
     rng = np.random.default_rng(46)
@@ -845,8 +865,13 @@ def test_window_attention_matches_plain_version_on_the_card(nW, N, hd):
     s = hd ** -0.5
     qkv = T(rng.standard_normal((B_, N, 3 * C))).to(dev)
     bias = T(rng.standard_normal((H, N, N)) * 0.5).to(dev)
-    mask = (T(np.where(rng.random((nW, N, N)) > 0.7, -100.0, 0.0)).to(dev)
-            if nW > 1 else None)
+    if shifted:
+        ws = int(round(N ** 0.5))
+        mask = T(shifted_window_mask(2 * ws, ws, ws // 2)).to(dev)
+        assert mask.shape == (nW, N, N)
+    else:
+        mask = (T(np.where(rng.random((nW, N, N)) > 0.7, -100.0, 0.0))
+                .to(dev) if nW > 1 else None)
     t = qkv.reshape(B_, N, 3, H, hd).permute(2, 0, 3, 1, 4)
     shape = (1, H, 1, 1, 1, 1, 1)
 
@@ -855,8 +880,8 @@ def test_window_attention_matches_plain_version_on_the_card(nW, N, hd):
     qp1 = MatMulQP(A_interval=hmax(t[0] * s), B_interval=hmax(t[1]))
     sv.reset_launch_counts()
     n = 0
-    for sos in (True, False):
-        split = torch.tensor(2.0 ** -4, device=dev)
+    for sos, sp in ((True, 2.0 ** -4), (True, 0.5), (False, 2.0 ** -4)):
+        split = torch.tensor(sp, device=dev)
         qp2 = MatMulQP(A_interval=(split / 127 if sos else
                                    torch.full(shape, 1 / 127.5, device=dev)),
                        B_interval=hmax(t[2]), split=split if sos else None)
@@ -1191,3 +1216,199 @@ def test_q8_refuses_what_it_cannot_run_on_the_card():
     assert call(40, lv.data_ptr()) == 9003     # 40 ring slots do not fit
     assert call(2, None) != 0                  # float input, no scratch
     assert call(2, lv.data_ptr()) == 0
+
+
+def attention_shapes(name):
+    """(N, hd, heads) of each attention a served forward of ``name``
+    runs: ViT / DeiT one (tokens, with the class and distillation tokens),
+    Swin one a stage (window tokens)."""
+    from ptq4vit_tpu_torch.models import model_config
+    cfg = model_config(name)
+    if name.startswith("swin"):
+        return [(cfg.window_size ** 2, cfg.embed_dim * 2 ** i // h, h)
+                for i, h in enumerate(cfg.num_heads)]
+    n = (cfg.img_size // cfg.patch_size) ** 2 + (2 if cfg.distilled else 1)
+    return [(n, cfg.embed_dim // cfg.num_heads, cfg.num_heads)]
+
+
+@pytest.mark.parametrize("name,stage", [
+    ("vit_base_patch16_384", 0), ("deit_small_patch16_224", 0),
+    ("swin_base_patch4_window12_384", 0),
+    ("swin_base_patch4_window12_384", 1),
+    ("swin_base_patch4_window12_384", 2),
+    ("swin_base_patch4_window12_384", 3)])
+def test_attn_plans_fit_at_serving_shapes(name, stage):
+    """B7 / B8 / B9's plan at each serving attention: ViT-B/384 (N = 577,
+    hd = 64), DeiT-S/224 (N = 197, hd = 64) and Swin-B/384's four stages
+    (N = 144, hd = 32; 4, 8, 16 and 32 heads).  k and the transposed v fit
+    232,448 bytes of shared memory, and two blocks an SM at these shapes;
+    the head dim is padded with zero levels to 32 or 64 and the keys to a
+    multiple of 32, both by less than one step; the row strides are 16
+    bytes times an odd number (ldmatrix's 8 rows on distinct banks); the
+    16-row strips fill a block's warps (one block an image or window and
+    head) with fewer idle slots than a warp, 8 warps at most (4 where the
+    logits are parked in shared memory, which they are at N <= 160:
+    Swin's windows, 10 KB a warp); the 32-image grid of (image or window,
+    head) blocks stays within 2^31 - 1."""
+    from ptq4vit_tpu_torch.ops import int8_serve as sv
+    N, hd, heads = attention_shapes(name)[stage]
+    p = sv.attn_plan(N, hd)
+    assert p.smem == p.keys * p.kstr + p.hdp * p.vstr + (
+        p.warps * p.keys * 16 * 4 if p.parked else 0)
+    assert p.smem <= sk.SM_SMEM // 2 - 1024 < sk.SMEM_LIMIT == 232448
+    assert p.hdp in (32, 64) and hd <= p.hdp < hd + 32
+    assert p.keys % 32 == 0 and N <= p.keys < N + 32
+    assert (p.kstr, p.vstr) == (p.hdp + 16, p.keys + 16)
+    assert p.kstr // 16 % 2 == 1 and p.vstr // 16 % 2 == 1
+    assert p.strips == -(-N // 16)
+    assert p.parked == (N <= 160)
+    assert 1 <= p.warps <= (4 if p.parked else 8)
+    assert -(-p.strips // p.warps) * p.warps - p.strips < p.warps
+    windows = (32 * (384 // 4 // 2 ** stage // 12) ** 2
+               if name.startswith("swin") else 32)
+    assert windows * heads < 2 ** 31 - 1
+    expect = {"vit_base_patch16_384": (64, 608, False, 8, 88576),
+              "deit_small_patch16_224": (64, 224, False, 7, 33280),
+              "swin_base_patch4_window12_384": (32, 160, True, 3, 44032)}
+    assert (p.hdp, p.keys, p.parked, p.warps, p.smem) == expect[name]
+
+
+def test_attn_plan_pads_keys_and_head_dim():
+    """Head dims 1-32 pad to 32 and 33-64 to 64; keys to the next multiple
+    of 32 (1 -> 32, 32 -> 32, 33 -> 64, 577 -> 608); the logits are
+    parked up to N = 160 (five 32-key chunks), at any head dim; one 16-row
+    strip runs one warp."""
+    from ptq4vit_tpu_torch.ops import int8_serve as sv
+    assert [sv.attn_plan(50, hd).hdp for hd in (1, 24, 32, 33, 64)] == \
+        [32, 32, 32, 64, 64]
+    assert [sv.attn_plan(n, 32).keys for n in (1, 32, 33, 577)] == \
+        [32, 32, 64, 608]
+    assert sv.attn_plan(160, 32).parked
+    assert not sv.attn_plan(161, 32).parked
+    assert sv.attn_plan(50, 64).parked
+    assert sv.attn_plan(16, 24).warps == 1
+    assert sv.attn_plan(49, 32).warps == 4
+
+
+def test_attn_plan_refuses_what_does_not_fit():
+    """A head dim past 64 (or none), no keys, and keys whose k and
+    transposed v exceed a block's shared memory raise ValueError: the
+    kernel has no other plan and nothing to fall back to.  1,600 keys at
+    hd 64 are the most that fit."""
+    from ptq4vit_tpu_torch.ops import int8_serve as sv
+    for N, hd in ((577, 65), (577, 0), (0, 64), (1601, 64), (4000, 32)):
+        with pytest.raises(ValueError):
+            sv.attn_plan(N, hd)
+    assert sv.attn_plan(1600, 64).smem <= sk.SMEM_LIMIT
+
+
+
+
+@pytest.mark.parametrize("library", ["search_kernels", "serve_kernels"])
+def test_ctypes_signatures_match_the_c_entries(library):
+    """Every C entry point of the library's source (its extern "C" block)
+    has the ctypes argument types ops/build.py gives it, one for one: a
+    pointer (and the stream) c_void_p, int c_int, float c_float, long long
+    c_longlong; and build.py names no entry the source lacks."""
+    import ctypes
+    import re
+    from ptq4vit_tpu_torch.ops import build
+    c_types = {"int": ctypes.c_int, "float": ctypes.c_float,
+               "long long": ctypes.c_longlong}
+    with open(build.source_path(library)) as f:
+        src = f.read()
+    block = src[src.index('extern "C" {'):]
+    found = {}
+    for m in re.finditer(r"^int (ptq_\w+)\(([^)]*)\)\s*\{", block, re.M):
+        types = []
+        for arg in m.group(2).split(","):
+            words = arg.split()
+            ctype = " ".join(w for w in words[:-1] if w != "const")
+            types.append(ctypes.c_void_p if "*" in arg else c_types[ctype])
+        found[m.group(1)] = types
+    assert found == build.LIBRARIES[library]
+
+
+@pytest.mark.cuda
+def test_attn_plan_matches_the_library_on_the_card():
+    """The library plans an attention as attn_plan does (padded head dim
+    and keys, row strides, parking, warps, shared memory) and refuses what
+    it refuses."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from ptq4vit_tpu_torch.ops import int8_serve as sv
+    from ptq4vit_tpu_torch.ops.build import load
+    lib = load("serve_kernels")
+    out = torch.zeros(7, dtype=torch.int32)
+    for N in (1, 16, 37, 49, 130, 144, 160, 161, 197, 577, 1600, 1601):
+        for hd in (24, 32, 64, 65):
+            err = lib.ptq_attn_plan(N, hd, out.data_ptr())
+            try:
+                p = sv.attn_plan(N, hd)
+            except ValueError:
+                assert err != 0, (N, hd)
+                continue
+            assert err == 0, (N, hd)
+            assert out.tolist() == [p.hdp, p.keys, p.kstr, p.vstr,
+                                    int(p.parked), p.warps, p.smem]
+
+
+def test_fast_division_is_the_ieee_quotient():
+    """The attention kernel's ``div_rn_fast`` (csrc/serve_kernels.cu),
+    emulated in exact rational arithmetic with float32 rounding: from y =
+    RN(1 / b), q = RN(a y) and two Markstein corrections q = RN(q + RN(a -
+    b q) y) (each an FMA, one rounding) give RN(a / b), the IEEE quotient
+    ``__fdiv_rn`` returns, on the range the kernel takes it (a in [2^-42,
+    2^40], quotients above 2^-80): random operands, divisors with all-ones
+    significands, and numerators whose quotient lies next to a rounding
+    midpoint.  The uncorrected product RN(a y) is wrong on some of them,
+    so the cases can tell a weaker sequence from the kernel's."""
+    import math
+    from fractions import Fraction as Fr
+
+    def rn(x):
+        if x == 0:
+            return Fr(0)
+        sign, x = (-1 if x < 0 else 1), abs(x)
+        e = x.numerator.bit_length() - x.denominator.bit_length()
+        while Fr(2) ** e > x:
+            e -= 1
+        while Fr(2) ** (e + 1) <= x:
+            e += 1
+        assert e >= -126
+        m = x * Fr(2) ** (23 - e)
+        f = math.floor(m)
+        if m - f > Fr(1, 2) or (m - f == Fr(1, 2) and f % 2):
+            f += 1
+        return sign * Fr(f) / Fr(2) ** (23 - e)
+
+    def fast(a, b, steps=2):
+        y = rn(1 / b)
+        q = rn(a * y)
+        for _ in range(steps):
+            q = rn(q + rn(a - b * q) * y)
+        return q
+
+    rng = np.random.default_rng(50)
+
+    def mant(lo=2 ** 23, hi=2 ** 24):
+        return Fr(int(rng.integers(lo, hi)), 2 ** 23)
+    cases = []
+    for _ in range(600):      # the sum s and the level scales as divisors
+        b = rn(mant() * Fr(2) ** int(rng.integers(-40, 11)))
+        cases.append((rn(mant() * Fr(2) ** -int(rng.integers(1, 40))), b))
+    for k in range(40):       # all-ones significands
+        b = Fr(2 ** 24 - 1 - k, 2 ** 23) * Fr(2) ** int(rng.integers(0, 10))
+        cases.append((rn(mant() * Fr(2) ** -int(rng.integers(1, 40))), b))
+    one_step_wrong = 0
+    for _ in range(1500):     # quotients next to a midpoint
+        b = mant() * Fr(2) ** int(rng.integers(0, 10))
+        mid = Fr(2 * int(rng.integers(2 ** 23, 2 ** 24)) + 1, 2 ** 24) \
+            * Fr(2) ** -int(rng.integers(1, 30))
+        a = rn(b * mid)
+        if 0 < a <= 1:
+            cases.append((a, b))
+    for a, b in cases:
+        assert fast(a, b) == rn(a / b), (float(a), float(b))
+        one_step_wrong += fast(a, b, steps=0) != rn(a / b)
+    assert len(cases) > 1500 and one_step_wrong > 0
