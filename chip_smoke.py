@@ -68,7 +68,26 @@ Phases (any failure raises, so the exit code is non-zero):
      net_from_config: BasePTQ W6A6 (cosine metric: plain torch, no kernel)
      and PTQ4ViT W8A8 sequential (B1, B2 and B3 launched); finite positive
      intervals and finite logits;
-  9. print the kernels' JSON line (all twelve kernels), the card line,
+  9. the calibration surface, on ViT-B/384 at full width and depth with
+     random weights from a seeded generator: an ImageFolder (train/ and
+     val/, 2 classes x 24 JPEGs of 500 x 375 and 375 x 500) written to a
+     temporary directory; examples/torch_test_vit.py's experiment_basic
+     on it (ViTImageNetLoaderGenerator -> calib_batch of 8 -> PTQ4ViT
+     W8A8 into a checkpoint directory -> test_classification, 2
+     batches), with B1, B2 and B3 launched; whether the native data
+     plane ran, and the loader's img/s; the patch-embed conv and blocks
+     0-5 calibrated into a fresh checkpoint directory (wrapped_modules),
+     then every op on it: only blocks 6-11 and the head are searched, B1
+     and B2 launched 75 times and B3 54 (25 linears and 6 + 6 matmuls
+     over 3 rounds, resume_launches), and the resumed qstate equal to
+     experiment_basic's uninterrupted one in every interval slot; W6A6 on the
+     same directory searches every op again; minmax_calib (finite
+     positive intervals, finite logits) and apply_bias_correction (some
+     bias changed, net.params untouched, finite logits), cosines to the
+     fp32 logits logged; the raw fp32 net on the val images through the
+     float route (EvalTransform(use_native="never")) and the uint8 route
+     (raw_uint8 through Evaluator(data_config=)), logits bitwise equal;
+  10. print the kernels' JSON line (all twelve kernels), the card line,
      then the result line.
 Each path is driven with the launch counts set to 0 just before it and
 read just after.
@@ -122,6 +141,8 @@ KERNELS = {
 }
 SEARCH = tuple(k for k, (src, _) in KERNELS.items() if src == SEARCH_SOURCE)
 # the kernels each path must launch (None: at least once) and must not
+EXAMPLE_PATH = "vit_base_patch16_384 examples/torch_test_vit.py"
+RESUME_PATH = f"{EXAMPLE_PATH}, resumed from blocks 0-5"
 INT8 = ("linear_w_hessian_sims_i8", "linear_a_hessian_sims_i8",
         "matmul_hessian_sims_b3", "matmul_hessian_sims_b3f")
 PATHS = {
@@ -140,6 +161,23 @@ PATHS = {
     "swin_base_patch4_window12_384 depths (2, 2, 2, 2) no_postgelu": (
         {"linear_w_hessian_sims_i8": None, "linear_a_hessian_sims_i8": None,
          "matmul_hessian_sims_b3f": None}, ()),
+    # the calibration surface (phase 9): experiment_basic on an
+    # ImageFolder, the part calibrated first, the resumed rest (exact
+    # counts set by resume_launches), the changed scope, min-max and bias
+    # correction
+    EXAMPLE_PATH: (
+        {"linear_w_hessian_sims_i8": None, "linear_a_hessian_sims_i8": None,
+         "matmul_hessian_sims_b3": None},
+        ("matmul_hessian_sims_b3f", "linear_w_hessian_sims",
+         "linear_a_hessian_sims")),
+    f"{EXAMPLE_PATH}, blocks 0-5 into a checkpoint": (
+        {"linear_w_hessian_sims_i8": None, "linear_a_hessian_sims_i8": None,
+         "matmul_hessian_sims_b3": None}, ()),
+    RESUME_PATH: ({}, ()),
+    f"{EXAMPLE_PATH}, W6A6 on the same checkpoint": (
+        {"linear_w_hessian_sims_i8": None, "linear_a_hessian_sims_i8": None,
+         "matmul_hessian_sims_b3": None}, ()),
+    f"{EXAMPLE_PATH}, minmax_calib and apply_bias_correction": ({}, SEARCH),
 }
 # launches of the serving kernels a request makes (every other kernel: 0).
 # ViT-B/384: B6 for qkv, proj, fc1 and fc2 of 12 blocks and the head, B7
@@ -1328,6 +1366,304 @@ def window_per_op_path(sk, sv):
     return {path: calib_launches, f"{path} serving": launches}, summary
 
 
+def write_image_folder(root, per_class=24):
+    """An ImageFolder of JPEGs: train/ and val/, 2 classes x ``per_class``
+    images each, landscape (500 x 375) and portrait (375 x 500) in turn,
+    smooth colour fields plus noise from a seeded generator."""
+    import os
+    from PIL import Image
+    rng = np.random.default_rng(7)
+    yy, xx = np.mgrid[0:500, 0:500] / 500.0
+    for split in ("train", "val"):
+        for cls in ("n01440764", "n01443537"):
+            d = os.path.join(root, split, cls)
+            os.makedirs(d)
+            for i in range(per_class):
+                w, h = (500, 375) if i % 2 else (375, 500)
+                c = rng.random((3, 3))
+                img = np.stack([c[k, 0] * xx[:h, :w] + c[k, 1] * yy[:h, :w]
+                                + c[k, 2] for k in range(3)], -1) * 160
+                img = img + rng.normal(0, 12, (h, w, 3))
+                Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                    os.path.join(d, f"{split}_{i:03d}.jpg"), quality=90)
+
+
+def resume_launches(cfg, inventory, ops):
+    """B1 / B2 / B3 launches that searching ``ops`` takes under int8
+    scoring: each linear launches B1 and B2 once a round; each attention
+    matmul B3 twice a round (its A side, then its B side), except the SoS
+    matmul, whose split search is plain PyTorch (B side only)."""
+    n = {"linear_w_hessian_sims_i8": 0, "linear_a_hessian_sims_i8": 0,
+         "matmul_hessian_sims_b3": 0}
+    for op, mtype in inventory:
+        if op not in ops:
+            continue
+        pol = cfg.op_policy(mtype)
+        if "qmatmul" in mtype:
+            n["matmul_hessian_sims_b3"] += pol.search_round * (
+                1 if pol.quantizer == "sos_matmul" else 2)
+        elif mtype != "qconv":
+            n["linear_w_hessian_sims_i8"] += pol.search_round
+            n["linear_a_hessian_sims_i8"] += pol.search_round
+    return n
+
+
+def slot_diff(a, b):
+    """[(op, field, flat slot, a value, b value)] where two qstates differ."""
+    out = []
+    for op, qp in a.items():
+        for f, v in vars(qp).items():
+            if torch.is_tensor(v):
+                w = getattr(b[op], f)
+                for i in torch.nonzero((v != w).reshape(-1)).reshape(-1):
+                    out.append((op, f, int(i), float(v.reshape(-1)[i]),
+                                float(w.reshape(-1)[i])))
+    return out
+
+
+def calibrate_counted(path, sk, net, calib, cfg, **kw):
+    """One HessianQuantCalibrator run with the launch counts set to 0 just
+    before and read just after; returns (qstate, report, launches, s)."""
+    from ptq4vit_tpu_torch.calib.calibrator import HessianQuantCalibrator
+    torch.cuda.synchronize()
+    sk.reset_launch_counts()
+    t0 = time.time()
+    c = HessianQuantCalibrator(net, cfg, calib, batch_size=4, **kw)
+    qstate = c.batching_quant_calib()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = sk.launch_counts()
+    log(f"[calib] {path}: {wall:.2f} s wall, {len(c.report.search_seconds)} "
+        f"ops searched in {sum(c.report.search_seconds.values()):.2f} s, "
+        f"{len(qstate)} in the qstate, launches {launches}")
+    check_launches(path, launches)
+    return qstate, c.report, launches, wall
+
+
+def calibration_surface_phase(sk):
+    """Phase 9, the calibration surface on ViT-B/384 at full width and
+    depth (random weights from a seeded generator), through the port's
+    entry points: an ImageFolder written to a temporary directory,
+    examples/torch_test_vit.py's experiment_basic on it (loader ->
+    calib_batch -> PTQ4ViT W8A8 into a checkpoint -> test_classification),
+    the data plane and the loader's img/s; then a calibration of the conv
+    and blocks 0-5 into a fresh checkpoint directory and a resumed one of
+    every op (only the rest searched, B1 / B2 / B3 exactly as their
+    searches need, the qstate equal to experiment_basic's uninterrupted one in
+    every slot), a W6A6 calibration on the same directory (every op
+    searched again), min-max calibration, bias correction, and the raw
+    net on the float route and the uint8 route (bitwise equal logits).
+    Returns ({path: launches}, summary)."""
+    import os
+    import tempfile
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "examples"))
+    import torch_test_vit as tv
+    from ptq4vit_tpu_torch import native
+    from ptq4vit_tpu_torch.calib.calibrator import (apply_bias_correction,
+                                                    minmax_calib)
+    from ptq4vit_tpu_torch.configs import ptq4vit
+    from ptq4vit_tpu_torch.models.net_wrap import wrap_certain_modules_in_net
+    from ptq4vit_tpu_torch.parallel import Evaluator
+    from ptq4vit_tpu_torch.utils import datasets as D
+    name = "vit_base_patch16_384"
+    by_path, summary = {}, {"path": EXAMPLE_PATH}
+    with tempfile.TemporaryDirectory(prefix="ptq4vit_smoke_") as tmp:
+        root = os.path.join(tmp, "imagenet")
+        t0 = time.time()
+        write_image_folder(root)
+        log(f"[data] wrote an ImageFolder of 2 x 2 classes x 24 JPEGs "
+            f"(500 x 375 and 375 x 500) in {time.time() - t0:.2f} s")
+
+        # examples/torch_test_vit.py, as a user calls it
+        args = tv.parse_args(argv=[
+            "--dataset_root", root, "--calib_size", str(NUM_CALIB),
+            "--max_iteration", "2",
+            "--checkpoint_dir", os.path.join(tmp, "ck_example")])
+        torch.cuda.synchronize()
+        sk.reset_launch_counts()
+        t0 = time.time()
+        out = tv.experiment_basic(net=name, config="PTQ4ViT", args=args)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = sk.launch_counts()
+        by_path[EXAMPLE_PATH] = launches
+        net, whole, calib = out["net"], out["qstate"], out["calib"]
+        ops = [n for n, _ in net.op_inventory]
+        report = out["report"]
+        log(f"[calib] {EXAMPLE_PATH} on the ImageFolder ({NUM_CALIB} calib "
+            f"images, 2 x 32 val images): {wall:.2f} s wall, capture "
+            f"{report.capture_seconds:.2f} s, search "
+            f"{sum(report.search_seconds.values()):.2f} s, accuracy "
+            f"{out['accuracy']:.4f}, launches {launches}")
+        check_launches(EXAMPLE_PATH, launches)
+        check_qstate(net, whole, EXAMPLE_PATH)
+        if sorted(os.listdir(args.checkpoint_dir)) != sorted(
+                f"{n}.npz" for n in ops):
+            raise AssertionError("experiment_basic's checkpoint directory "
+                                 "does not hold one file per op")
+        summary.update(example_wall_s=wall, accuracy=out["accuracy"],
+                       capture_s=report.capture_seconds,
+                       search_s=sum(report.search_seconds.values()))
+
+        # the data plane and the loader's rate (the files were just
+        # written, so they are in the page cache)
+        g = D.ViTImageNetLoaderGenerator(root, "imagenet", 32, 32, 16,
+                                         kwargs={"model": net})
+        rates = []
+        for _ in range(2):
+            t0 = time.time()
+            n_img = sum(len(y) for _, y in g.test_loader())
+            rates.append(n_img / (time.time() - t0))
+        summary.update(native=native.available(),
+                       native_path=g.test_transform.wants_bytes,
+                       loader_img_per_s=rates)
+        log(f"[data] native data plane available: {native.available()}, "
+            f"the loader's transform takes it: "
+            f"{g.test_transform.wants_bytes}; loader of {n_img} val images "
+            f"(batch 32, 16 threads): {rates[0]:.1f} then {rates[1]:.1f} "
+            "img/s")
+
+        # part of the ops into a fresh directory, then every op resumed
+        cfg = ptq4vit()
+        ck = os.path.join(tmp, "ck_resume")
+        # the head has no block index, so wrap_certain_modules_in_net
+        # would keep it in any block subset: leave it to the second part
+        part = wrap_certain_modules_in_net(
+            net, cfg, layers=range(6),
+            modules_to_wrap=sorted({n.rsplit(".", 1)[-1] for n in ops}
+                                   - {"head"}),
+            wrap_embedding=True)
+        path = f"{EXAMPLE_PATH}, blocks 0-5 into a checkpoint"
+        q1, r1, launches, _ = calibrate_counted(
+            path, sk, net, calib, cfg, checkpoint_dir=ck,
+            wrapped_modules=part)
+        by_path[path] = launches
+        if set(r1.search_seconds) != set(part) or set(q1) != set(part):
+            raise AssertionError(f"{path}: searched other ops than the part")
+        rest = [n for n in ops if n not in part]
+        resumed, r2, launches, wall = calibrate_counted(
+            RESUME_PATH, sk, net, calib, cfg, checkpoint_dir=ck)
+        by_path[RESUME_PATH] = launches
+        if sorted(r2.search_seconds) != sorted(rest):
+            raise AssertionError(f"{RESUME_PATH}: searched "
+                                 f"{sorted(r2.search_seconds)}, expected "
+                                 f"the {len(rest)} ops of blocks 6-11 and "
+                                 "the head")
+        expect = resume_launches(cfg, net.op_inventory, set(rest))
+        for k, v in launches.items():
+            if v != expect.get(k, 0):
+                raise AssertionError(f"{k} was launched {v} times by the "
+                                     f"{RESUME_PATH} path, expected "
+                                     f"{expect.get(k, 0)}")
+        diff = slot_diff(resumed, whole)
+        summary.update(resume_searched=len(rest), resume_wall_s=wall,
+                       resume_launches=launches, resume_slot_diffs=len(diff))
+        log(f"[calib] {RESUME_PATH}: {len(rest)} ops searched, launches "
+            f"{launches} (expected {expect}); slots that differ from the "
+            f"uninterrupted qstate of experiment_basic: {len(diff)} "
+            f"{diff[:8]}")
+        if diff or list(resumed) != ops:
+            raise AssertionError(f"{RESUME_PATH}: the resumed qstate differs "
+                                 "from the uninterrupted one")
+
+        # a changed scope: every op searched again
+        path = f"{EXAMPLE_PATH}, W6A6 on the same checkpoint"
+        q6, r6, launches, _ = calibrate_counted(
+            path, sk, net, calib, ptq4vit().set_bits(6, 6),
+            checkpoint_dir=ck)
+        by_path[path] = launches
+        if sorted(r6.search_seconds) != sorted(ops) or \
+                q6["blocks.0.attn.qkv"].w_bit != 6:
+            raise AssertionError(f"{path}: not every op was searched again")
+        check_qstate(net, q6, path)
+
+        # min-max and bias correction (plain PyTorch, no kernel)
+        path = f"{EXAMPLE_PATH}, minmax_calib and apply_bias_correction"
+        x4 = torch.from_numpy(calib[:4]).cuda()
+        snapshot = [t.clone() for t in _leaves(net.params)]
+        torch.cuda.synchronize()
+        sk.reset_launch_counts()
+        mm = minmax_calib(net, cfg, calib)
+        corrected = apply_bias_correction(net, resumed, calib)
+        torch.cuda.synchronize()
+        launches = sk.launch_counts()
+        by_path[path] = launches
+        check_launches(path, launches)
+        check_qstate(net, mm, "minmax_calib")
+        with torch.no_grad():
+            fp = net.apply(x4)
+            mm_logits = net.apply(x4, qstate=mm)
+            q_logits = net.apply(x4, qstate=resumed)
+            bc_logits = net.forward(corrected, x4, net.cfg, qstate=resumed)
+        if not (torch.isfinite(mm_logits).all()
+                and torch.isfinite(bc_logits).all()):
+            raise AssertionError("min-max or bias-corrected logits are not "
+                                 "finite")
+        if any(not torch.equal(a, b) for a, b in
+               zip(snapshot, _leaves(net.params))):
+            raise AssertionError("apply_bias_correction changed net.params")
+        changed = sum(not torch.equal(a, b) for a, b in
+                      zip(_leaves(net.params), _leaves(corrected)))
+        if changed == 0:
+            raise AssertionError("apply_bias_correction changed no bias")
+
+        def cos(a, b):
+            return [round(float(c), 5) for c in
+                    torch.nn.functional.cosine_similarity(a, b, dim=-1)]
+        summary.update(minmax_cosine=cos(mm_logits, fp),
+                       bias_corrected_cosine=cos(bc_logits, fp),
+                       searched_cosine=cos(q_logits, fp),
+                       biases_changed=changed)
+        log(f"[calib] minmax_calib W8A8, 4 images: cosine(quant, fp32) "
+            f"{summary['minmax_cosine']}; the searched qstate's "
+            f"{summary['searched_cosine']}; apply_bias_correction changed "
+            f"{changed} biases, cosine(corrected, fp32) "
+            f"{summary['bias_corrected_cosine']}")
+        del snapshot, corrected
+
+        # the raw net on the float route and the uint8 route
+        dc = net.data_config
+        kw = dict(crop_pct=dc.crop_pct, mean=dc.mean, std=dc.std,
+                  interpolation=dc.interpolation)
+        routes = []
+        for ev, tf in (
+                (Evaluator(net), D.EvalTransform(dc.input_size,
+                                                 use_native="never", **kw)),
+                (Evaluator(net, data_config=dc),
+                 D.EvalTransform(dc.input_size, raw_uint8=True, **kw))):
+            ds = D.ImageFolderDataset(os.path.join(root, "val"), tf)
+            logits, ys = [], []
+            for x, y in D.Loader(ds, 16, num_workers=16):
+                logits.append(ev.logits(x))
+                ys.append(torch.from_numpy(y).cuda())
+            logits, ys = torch.cat(logits), torch.cat(ys)
+            routes.append((logits, float((logits.argmax(-1) == ys)
+                                         .float().mean())))
+        (lf, acc_f), (lu, acc_u) = routes
+        n_diff = int((lf != lu).sum())
+        summary.update(float_route_accuracy=acc_f, uint8_route_accuracy=acc_u,
+                       route_logits_differing=n_diff)
+        log(f"[data] raw fp32 net on the {len(lf)} val images: float route "
+            f"accuracy {acc_f:.4f}, uint8 route (Evaluator(data_config=)) "
+            f"accuracy {acc_u:.4f}, logits that differ: {n_diff} of "
+            f"{lf.numel()}")
+        if n_diff:
+            raise AssertionError("the float and uint8 routes' logits differ")
+    del net, whole, resumed, q1, q6, mm
+    torch.cuda.empty_cache()
+    return by_path, summary
+
+
+def _leaves(tree):
+    """The tensors of a param tree, in a fixed order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1388,6 +1724,9 @@ def main() -> int:
     for path, (launches, summary) in policy_phase(sk).items():
         by_path[path] = launches
         summaries.append(summary)
+    launches, summary = calibration_surface_phase(sk)
+    by_path.update(launches)
+    summaries.append(summary)
     log("[paths] " + json.dumps({"card": card, "paths": summaries}))
 
     stats.update(serve_stats)

@@ -16,6 +16,12 @@ op before it already in fake-quant, then searched.  The probe target comes
 from the raw net, once (calibrator.py:267-279).  The JAX package shares
 one compiled capture between the steps (``SequentialCapturePlan``,
 ``GatedQP``) only to avoid recompiles; eager PyTorch needs a plain loop.
+
+Either paradigm resumes from a ``checkpoint_dir``: one npz per op in the
+JAX package's format, stamped with the net, the config and the op's
+policy, so each package resumes from the other's directory.
+``minmax_calib`` (no search) and ``apply_bias_correction`` (opt-in) are
+the module's other entries.
 """
 from __future__ import annotations
 
@@ -30,10 +36,13 @@ import torch
 
 from ..configs.policy import QuantConfig
 from ..models.net_wrap import reference_wrap_order
+from ..models.registry import resolve_device
 from ..ops import search_kernels as K
+from ..quant import fakequant as fq
+from ..quant.qparams import ConvQP, LinearQP, MatMulQP
 from ..utils.convert import qp_from_fields
 from . import search as S
-from .capture import capture, draw_probe_u, probe_target
+from .capture import OpCapture, capture, draw_probe_u, probe_target
 
 
 def params_for_op(params: Dict[str, Any], name: str):
@@ -119,14 +128,35 @@ class CalibReport:
 
 class HessianQuantCalibrator:
     """Calibrator of the parallel (default) or the sequential paradigm;
-    ``batching_quant_calib`` returns the calibrated qstate dict."""
+    ``batching_quant_calib`` returns the calibrated qstate dict.
 
-    def __init__(self, net, quant_cfg: QuantConfig, calib_x, *,
-                 sequential: bool = False, batch_size: int = 4, device=None,
+    The arguments up to ``mesh`` are the JAX package's, in its order
+    (calibrator.py:139-150); the port's own follow as keywords.
+    ``checkpoint_dir`` saves each op's QP as soon as its search ends and
+    loads, instead of searching, every op found there under the same
+    scope; ``wrapped_modules`` ({op: module type}) is the op subset and
+    its order; ``cache_budget_bytes`` caps a capture group's caches;
+    ``search_budget_bytes`` bounds a search's candidate-chunk scratch;
+    ``device_resident=False`` holds the captured caches in host memory
+    (pinned), each op's going to the device only for its search;
+    ``profile_dir`` runs the calibration under ``torch.profiler`` and
+    writes a Chrome trace there; ``mesh`` waits for multi-GPU."""
+
+    def __init__(self, net, quant_cfg: QuantConfig, calib_x,
+                 sequential: bool = False, batch_size: int = 4,
+                 cache_budget_bytes: Optional[int] = None,
+                 search_budget_bytes: int = S.DEFAULT_BUDGET,
                  probe_seed: int = 3, probe_sigma: float = 1e-3,
-                 probe_u=None, cache_dtype=None,
+                 checkpoint_dir: Optional[str] = None,
+                 wrapped_modules: Optional[Dict[str, str]] = None,
+                 device_resident: bool = True, cache_dtype=None,
+                 profile_dir: Optional[str] = None, mesh=None, *,
+                 device=None, probe_u=None,
                  int8_score: Optional[bool] = None,
                  use_kernels: Optional[bool] = None):
+        if mesh is not None:
+            raise NotImplementedError("calibration over a device mesh needs "
+                                      "multi-GPU (ROADMAP A12)")
         self.net = net
         self.cfg = quant_cfg
         self.calib_x = np.asarray(calib_x, np.float32)
@@ -136,65 +166,131 @@ class HessianQuantCalibrator:
             device if device is not None
             else net.params["head"]["weight"].device)
         self.cache_dtype = resolve_cache_dtype(cache_dtype, self.device)
+        self.cache_budget = cache_budget_bytes
+        self.search_budget = search_budget_bytes
+        self.device_resident = device_resident
         self.probe_seed = probe_seed
         self.probe_sigma = probe_sigma
         self.probe_u = probe_u
+        self.checkpoint_dir = checkpoint_dir
+        self.profile_dir = profile_dir
         self.int8_score = int8_score
         self.use_kernels = use_kernels
+        self.wrapped_modules = (list(wrapped_modules.items())
+                                if wrapped_modules is not None
+                                else list(net.op_inventory))
+        if sequential:
+            self.wrapped_modules = reference_wrap_order(self.wrapped_modules)
         self.report = CalibReport(model=net.name, config=quant_cfg.name)
 
+    # -- checkpoint / resume (calibrator.py:207-235) ------------------------
+    def _ckpt_path(self, name: str) -> Optional[str]:
+        if self.checkpoint_dir is None:
+            return None
+        return os.path.join(self.checkpoint_dir,
+                            name.replace("/", "_") + ".npz")
+
+    def _ckpt_scope(self, mtype: str) -> str:
+        """Identity stamp of a checkpoint: a directory reused across models
+        or configs (bits, n_V, ...) must not return stale QPs."""
+        return f"{self.net.name}|{self.cfg.name}|{self.cfg.op_policy(mtype)}"
+
+    def _load_ckpt(self, name: str, mtype: str):
+        p = self._ckpt_path(name)
+        if p is None or not os.path.exists(p):
+            return None
+        with np.load(p) as data:
+            meta = json.loads(str(data["__meta__"]))
+        if meta.get("scope") != self._ckpt_scope(mtype):
+            return None                      # another model or config
+        return load_op_qp(p, self.device)
+
+    def _save_ckpt(self, name: str, mtype: str, qp) -> None:
+        p = self._ckpt_path(name)
+        if p is None:
+            return
+        os.makedirs(self.checkpoint_dir, exist_ok=True)
+        save_op_qp(p, qp, scope=self._ckpt_scope(mtype))
+
     def _group_budget(self, need_grad: bool, policies) -> int:
-        """Cache bytes one capture group may hold: the free device memory
-        less the largest search working set (its caches in fp32, its
-        kernel's level buffers, the candidate-chunk scratch) and 1 GiB for
-        the capture forward and backward."""
+        """Cache bytes one capture group may hold: an explicit
+        ``cache_budget_bytes``; 48 GiB of host memory for host-held caches;
+        else the free device memory less the largest search working set
+        (its caches in fp32, its kernel's level buffers, the candidate-chunk
+        scratch) and 1 GiB for the capture forward and backward."""
+        if self.cache_budget is not None:
+            return self.cache_budget
+        if not self.device_resident:
+            return 48 << 30
         if self.device.type != "cuda":
             return 8 << 30
         free, _ = torch.cuda.mem_get_info(self.device)
         n = len(self.calib_x)
         work = tap_bytes(self.net, n, need_grad, True, 4)
         reserve = max(work[name] + kernel_scratch_bytes(
-            info, n, policies[name])
-            for name, info in self.net.op_shapes.items()) \
-            + S.DEFAULT_BUDGET + (1 << 30)
+            self.net.op_shapes[name], n, policies[name])
+            for name in policies) + self.search_budget + (1 << 30)
         return max(1 << 30, int(0.85 * free) - reserve)
 
+    def quant_calib(self, verbose: bool = False) -> Dict[str, Any]:
+        """The reference's non-batching entry (quant_calib.py:95-104): it
+        differs from the batching one only in memory staging, which the
+        group planner covers."""
+        return self.batching_quant_calib(verbose=verbose)
+
     def batching_quant_calib(self, verbose: bool = False) -> Dict[str, Any]:
-        net, cfg = self.net, self.cfg
-        mtypes = dict(net.op_inventory)
-        policies = {n: cfg.op_policy(t) for n, t in net.op_inventory}
+        if self.profile_dir is None:
+            return self._batching_quant_calib(verbose)
+        from ..utils.tracing import device_trace
+        with device_trace(self.profile_dir, self.device, "calibration"):
+            return self._batching_quant_calib(verbose)
+
+    def _batching_quant_calib(self, verbose: bool) -> Dict[str, Any]:
+        policies = {n: self.cfg.op_policy(t) for n, t in self.wrapped_modules}
         need_grad = any(p.metric == "hessian" for p in policies.values())
+        qstate: Dict[str, Any] = {}
+        todo = []
+        for name, mtype in self.wrapped_modules:
+            qp = self._load_ckpt(name, mtype)
+            if qp is None:
+                todo.append((name, mtype))
+            else:
+                qstate[name] = qp
         if self.sequential:
-            return self._sequential_calib(policies, need_grad, verbose)
+            return self._sequential_calib(qstate, todo, policies, need_grad,
+                                          verbose)
         elem = torch.tensor([], dtype=self.cache_dtype).element_size()
-        sizes = tap_bytes(net, len(self.calib_x), need_grad, False, elem)
+        sizes = tap_bytes(self.net, len(self.calib_x), need_grad, False, elem)
         budget = self._group_budget(need_grad, policies)
-        groups: List[List[str]] = [[]]
+        groups: List[List[str]] = []
         acc = 0
-        for name, _ in net.op_inventory:
-            if groups[-1] and acc + sizes[name] > budget:
+        for name, _ in todo:
+            if not groups or acc + sizes[name] > budget:
                 groups.append([])
                 acc = 0
             groups[-1].append(name)
             acc += sizes[name]
         self.report.num_groups = len(groups)
 
-        qstate: Dict[str, Any] = {}
+        mtypes = dict(todo)
         for group in groups:
             raw = self._capture(group, need_grad, probe_seed=self.probe_seed,
                                 probe_u=self.probe_u)
             for name in group:
-                qstate[name] = self._search_one(name, mtypes[name],
-                                                policies[name], raw.pop(name),
-                                                verbose)
-        return qstate
+                qp = self._search_one(name, mtypes[name], policies[name],
+                                      raw.pop(name), verbose)
+                qstate[name] = qp
+                self._save_ckpt(name, mtypes[name], qp)
+        return {n: qstate[n] for n, _ in self.wrapped_modules}
 
-    def _sequential_calib(self, policies, need_grad: bool, verbose: bool):
-        """One capture and one search per op, in the reference's module
-        order, each capture with the ops before it in fake-quant."""
+    def _sequential_calib(self, qstate, todo, policies, need_grad: bool,
+                          verbose: bool):
+        """One capture and one search per op still to calibrate, in the
+        reference's module order, each capture with every op calibrated
+        or loaded so far in fake-quant."""
         net = self.net
         target = None
-        if need_grad:
+        if need_grad and todo:
             # the probe target from the RAW net, once, in chunks of 8
             # (calibrator.py:267-279)
             x = torch.from_numpy(self.calib_x).to(self.device)
@@ -208,14 +304,15 @@ class HessianQuantCalibrator:
                 logits, torch.as_tensor(np.array(u, np.float32),
                                         device=self.device),
                 self.probe_sigma)
-        qstate: Dict[str, Any] = {}
-        for name, mtype in reference_wrap_order(net.op_inventory):
+        for name, mtype in todo:
             raw = self._capture([name], need_grad, qstate=dict(qstate),
                                 target_probs=target)
-            qstate[name] = self._search_one(name, mtype, policies[name],
-                                            raw.pop(name), verbose)
-        self.report.num_groups = len(qstate)
-        return qstate
+            qp = self._search_one(name, mtype, policies[name], raw.pop(name),
+                                  verbose)
+            qstate[name] = qp
+            self._save_ckpt(name, mtype, qp)
+        self.report.num_groups = len(todo)
+        return {n: qstate[n] for n, _ in self.wrapped_modules}
 
     def _capture(self, ops, need_grad: bool, **kw):
         """One capture pass over ``ops``; its seconds and the peak device
@@ -224,7 +321,8 @@ class HessianQuantCalibrator:
         raw = capture(self.net, self.calib_x, batch_size=self.batch_size,
                       need_grad=need_grad, probe_sigma=self.probe_sigma,
                       ops=ops, store_raw_out=False,
-                      cache_dtype=self.cache_dtype, device=self.device, **kw)
+                      cache_dtype=self.cache_dtype, device=self.device,
+                      to_host=not self.device_resident, **kw)
         self._sync()
         self.report.capture_seconds += time.time() - t0
         if self.device.type == "cuda":
@@ -238,17 +336,21 @@ class HessianQuantCalibrator:
             torch.cuda.synchronize(self.device)
 
     def _search_one(self, name: str, mtype: str, policy, cap, verbose: bool):
-        """Search one op; its seconds go to the report."""
+        """Search one op (its host-held caches moved to the device first);
+        its seconds go to the report."""
         t0 = time.time()
+        if not self.device_resident:
+            cap = cap_to(cap, self.device)
         if "qmatmul" in mtype:
-            qp = S.search_matmul(cap, policy, int8_score=self.int8_score,
+            qp = S.search_matmul(cap, policy, self.search_budget,
+                                 int8_score=self.int8_score,
                                  use_kernels=self.use_kernels)
         else:
             w, b = params_for_op(self.net.params, name)
             if mtype == "qconv":
-                qp = S.search_conv(w, b, cap, policy)
+                qp = S.search_conv(w, b, cap, policy, self.search_budget)
             else:
-                qp = S.search_linear(w, b, cap, policy,
+                qp = S.search_linear(w, b, cap, policy, self.search_budget,
                                      calib_bs=self.batch_size,
                                      int8_score=self.int8_score,
                                      use_kernels=self.use_kernels)
@@ -260,14 +362,105 @@ class HessianQuantCalibrator:
         return qp
 
 
+# the reference's base class name (quant_calib.py:9)
+QuantCalibrator = HessianQuantCalibrator
+
+
+def cap_to(cap: OpCapture, device) -> OpCapture:
+    """An OpCapture with every cache on ``device`` (asynchronous from
+    pinned host memory)."""
+    def move(t):
+        return None if t is None else t.to(device, non_blocking=True)
+    return OpCapture(cap.kind, {k: move(v) for k, v in cap.inputs.items()},
+                     out=move(cap.out), grad=move(cap.grad))
+
+
+def minmax_calib(net, quant_cfg: QuantConfig, calib_x,
+                 batch_size: int = 8) -> Dict[str, Any]:
+    """Plain min-max calibration, no search (reference MinMaxQuant*
+    calibration_step2, linear.py:86-92, matmul.py:54-60; JAX
+    calibrator.py:679-715), on the net's device."""
+    raw = capture(net, calib_x, batch_size=batch_size, need_grad=False)
+    qstate: Dict[str, Any] = {}
+    for name, mtype in net.op_inventory:
+        pol = quant_cfg.op_policy(mtype)
+        cap = raw.pop(name)
+        if "qmatmul" in mtype:
+            A, B = cap.inputs["a"], cap.inputs["b"]
+            G = A.shape[1]
+            qstate[name] = MatMulQP(
+                A_interval=fq.matmul_operand_interval_init(
+                    A, G, 1, 1, fq.qmax_for_bit(pol.a_bit)),
+                B_interval=fq.matmul_operand_interval_init(
+                    B, G, 1, 1, fq.qmax_for_bit(pol.b_bit)),
+                A_bit=pol.a_bit, B_bit=pol.b_bit)
+            continue
+        w, _ = params_for_op(net.params, name)
+        if mtype == "qconv":
+            qstate[name] = ConvQP(
+                w_interval=fq.minmax_interval(w, fq.qmax_for_bit(pol.w_bit)),
+                a_interval=None, w_bit=pol.w_bit, a_bit=32)
+            continue
+        qmax_a = fq.qmax_for_bit(pol.a_bit)
+        qstate[name] = LinearQP(
+            w_interval=fq.minmax_interval(
+                w, fq.qmax_for_bit(pol.w_bit)).reshape(1, 1, 1, 1),
+            a_interval=fq.exact_div(torch.amax(torch.abs(cap.inputs["x"])),
+                                    qmax_a - 0.5).reshape(1, 1),
+            w_bit=pol.w_bit, a_bit=pol.a_bit)
+    return qstate
+
+
+def _copy_tree(node):
+    """The param tree's dicts and lists copied, its tensors shared."""
+    if isinstance(node, dict):
+        return {k: _copy_tree(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_copy_tree(v) for v in node]
+    return node
+
+
+def apply_bias_correction(net, qstate: Dict[str, Any], calib_x,
+                          batch_size: int = 8) -> Dict[str, Any]:
+    """One-shot bias correction (reference _bias_correction_quant_forward,
+    linear.py:69-77; JAX calibrator.py:718-751): subtract the mean
+    quantization-induced output error from each calibrated linear's bias.
+    Opt-in, as the reference's flag is inert in its shipped pipeline.
+
+    Returns a NEW param tree; ``net.params`` and ``qstate`` are untouched."""
+    ops = [n for n, t in net.op_inventory
+           if t.startswith("qlinear") and qstate.get(n) is not None
+           and params_for_op(net.params, n)[1] is not None]
+    raw = capture(net, calib_x, batch_size=batch_size, need_grad=False,
+                  ops=ops, store_raw_out=False)
+    params = _copy_tree(net.params)
+    for name in ops:
+        qp = qstate[name]
+        w, b = params_for_op(net.params, name)
+        x = raw.pop(name).inputs["x"]
+        x_sim = qp.quant_input(x.reshape(-1, x.shape[-1]))
+        eps = torch.mean(torch.matmul(x_sim, (qp.quant_weight(w) - w).t()),
+                         dim=0)
+        node = params
+        for part in name.split("."):
+            node = node[int(part)] if isinstance(node, list) else node[part]
+        node["bias"] = b - eps
+    return params
+
+
 # ---------------------------------------------------------------------------
 # qstate persistence: the JAX package's npz format, one file per op
 # (calibrator.py:762-798), so the two packages load each other's qstates
 # ---------------------------------------------------------------------------
 
-def save_op_qp(path: str, qp) -> None:
+def save_op_qp(path: str, qp, scope: Optional[str] = None) -> None:
+    """One op's QP as an npz: its arrays, and a JSON ``__meta__`` with the
+    kind, the resume ``scope`` when given and the other fields, in the JAX
+    package's key order."""
     arrays = {}
     meta = {"kind": type(qp).__name__}
+    if scope is not None:
+        meta["scope"] = scope
     for f in dataclasses.fields(qp):
         v = getattr(qp, f.name)
         if v is None:
@@ -279,7 +472,10 @@ def save_op_qp(path: str, qp) -> None:
     np.savez(path, __meta__=np.asarray(json.dumps(meta)), **arrays)
 
 
-def load_op_qp(path: str, device="cpu"):
+def load_op_qp(path: str, device=None):
+    """One op's QP from an npz of either package, on ``device`` (default:
+    the card; ``device="cpu"`` off it)."""
+    device = resolve_device(device)
     with np.load(path) as data:
         meta = json.loads(str(data["__meta__"]))
         meta.pop("scope", None)
@@ -297,7 +493,9 @@ def save_qstate(dirpath: str, qstate: Dict[str, Any]) -> None:
         save_op_qp(os.path.join(dirpath, name.replace("/", "_") + ".npz"), qp)
 
 
-def load_qstate(dirpath: str, device="cpu") -> Dict[str, Any]:
+def load_qstate(dirpath: str, device=None) -> Dict[str, Any]:
+    """Every op's QP in ``dirpath``, on ``device`` (default: the card)."""
+    device = resolve_device(device)
     out = {}
     for fn in sorted(os.listdir(dirpath)):
         if fn.endswith(".npz"):

@@ -61,12 +61,12 @@ def capture(net, calib_x, *, batch_size: int = 8, need_grad: bool = True,
             probe_u=None, ops: Optional[Sequence[str]] = None,
             store_raw_out: bool = True, cache_dtype=None,
             device=None, qstate=None,
-            target_probs: Optional[torch.Tensor] = None
-            ) -> Dict[str, OpCapture]:
+            target_probs: Optional[torch.Tensor] = None,
+            to_host: bool = False) -> Dict[str, OpCapture]:
     """Run the capture pass over ``calib_x`` (num, 3, H, W).
 
     Returns {op name: OpCapture} with every cache on ``device`` (the net's
-    params' device by default), concatenated over the micro-batches, in
+    params' device by default), the micro-batches in order, in
     ``cache_dtype`` (default: float32).  ``store_raw_out=False`` drops the
     op outputs (the searches recompute them).  Swin's window-matmul caches
     are (images x windows)-major, since the forward emits them so.
@@ -75,7 +75,9 @@ def capture(net, calib_x, *, batch_size: int = 8, need_grad: bool = True,
     probe gradient dies at their ``round`` (its derivative is 0, with no
     straight-through estimator), as in the reference.  ``target_probs``
     (num, classes) is the probe target; without it the target comes from
-    the pass's own logits and ``probe_u``."""
+    the pass's own logits and ``probe_u``.  ``to_host=True`` keeps the
+    caches in host memory (pinned when ``device`` is the card), copied
+    there micro-batch by micro-batch."""
     params, cfg, fwd = net.params, net.cfg, net.forward
     if device is None:
         device = net.params["head"]["weight"].device
@@ -97,13 +99,23 @@ def capture(net, calib_x, *, batch_size: int = 8, need_grad: bool = True,
             probe_u = draw_probe_u(num, cfg.num_classes, probe_seed)
         u_all = torch.from_numpy(np.array(probe_u, np.float32)).to(device)
 
-    chunks: Dict[str, Dict[str, list]] = {n: {} for n in names}
+    n_micro = num // batch_size
+    pin = to_host and device.type == "cuda"
+    bufs: Dict[str, Dict[str, torch.Tensor]] = {n: {} for n in names}
 
-    def keep(n, field, t):
-        chunks[n].setdefault(field, []).append(t.detach().to(dtype)
-                                              .contiguous())
+    def keep(n, field, t, mb):
+        """Copy micro-batch ``mb``'s tap into its slot of the full cache
+        (a micro-batch's leading dim is bs, or bs x windows for Swin)."""
+        t = t.detach().to(dtype)
+        buf = bufs[n].get(field)
+        if buf is None:
+            buf = bufs[n][field] = torch.empty(
+                (n_micro * t.shape[0],) + tuple(t.shape[1:]), dtype=dtype,
+                device="cpu" if to_host else device, pin_memory=pin)
+        m = t.shape[0]
+        buf[mb * m:(mb + 1) * m].copy_(t, non_blocking=pin)
 
-    for s0 in range(0, num, batch_size):
+    for mb, s0 in enumerate(range(0, num, batch_size)):
         xb = x_all[s0:s0 + batch_size]
         if need_grad:
             with torch.no_grad():
@@ -124,22 +136,22 @@ def capture(net, calib_x, *, batch_size: int = 8, need_grad: bool = True,
                 loss = _kl_batchmean(logits, target)
                 grads = torch.autograd.grad(loss, [eps[n] for n in names])
             for n, g in zip(names, grads):
-                keep(n, "grad", g)
+                keep(n, "grad", g, mb)
         else:
             with torch.no_grad():
                 _, taps = fwd(params, xb, cfg, qstate=qstate, capture=True)
         for n in names:
             for field in TAP_FIELDS[kinds[n]]:
-                keep(n, field, taps[n][field])
+                keep(n, field, taps[n][field], mb)
             if store_raw_out:
-                keep(n, "out", taps[n]["out"])
+                keep(n, "out", taps[n]["out"], mb)
         del taps
 
     result: Dict[str, OpCapture] = {}
     for n in names:
-        cat = {k: torch.cat(v, dim=0) for k, v in chunks.pop(n).items()}
+        full = bufs.pop(n)
         result[n] = OpCapture(
             kind=kinds[n],
-            inputs={k: cat[k] for k in TAP_FIELDS[kinds[n]]},
-            out=cat.get("out"), grad=cat.get("grad"))
+            inputs={k: full[k] for k in TAP_FIELDS[kinds[n]]},
+            out=full.get("out"), grad=full.get("grad"))
     return result

@@ -40,17 +40,21 @@ class Evaluator:
                              device=self.device)
                 for v in (data_config.mean, data_config.std))
 
-    def _n_correct_dev(self, x, y) -> torch.Tensor:
-        """The count of correct predictions as a device scalar (no sync)."""
+    def logits(self, x) -> torch.Tensor:
+        """The forward's logits of a batch (uint8 images normalized on the
+        device first when ``data_config`` was given)."""
         x = torch.as_tensor(x).to(self.device)
-        y = torch.as_tensor(y).to(self.device)
         if self._norm is not None:
             mean, std = self._norm
             x = exact_div(exact_div(x.float(), 255.0) - mean, std)
         with torch.no_grad():
-            logits = self.net.forward(self._params, x, self.net.cfg,
-                                      qstate=self._qstate, int8=self.int8)
-        return torch.sum(torch.argmax(logits, -1) == y)
+            return self.net.forward(self._params, x, self.net.cfg,
+                                    qstate=self._qstate, int8=self.int8)
+
+    def _n_correct_dev(self, x, y) -> torch.Tensor:
+        """The count of correct predictions as a device scalar (no sync)."""
+        y = torch.as_tensor(y).to(self.device)
+        return torch.sum(torch.argmax(self.logits(x), -1) == y)
 
     def n_correct(self, x, y) -> int:
         return int(self._n_correct_dev(x, y))

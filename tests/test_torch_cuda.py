@@ -1412,3 +1412,48 @@ def test_fast_division_is_the_ieee_quotient():
         assert fast(a, b) == rn(a / b), (float(a), float(b))
         one_step_wrong += fast(a, b, steps=0) != rn(a / b)
     assert len(cases) > 1500 and one_step_wrong > 0
+
+
+@pytest.mark.cuda
+def test_partial_resume_equals_uninterrupted_on_the_card(tmp_path):
+    """A small ViT (embed 128, 2 heads, depth 2) calibrated on the card in
+    two parts through a checkpoint directory -- the patch-embed conv and
+    block 0, then every op -- equals one uninterrupted calibration in
+    every interval slot, bitwise; the second part searches only block 1
+    and the head, and ``load_qstate`` lands on the card by default."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from ptq4vit_tpu_torch.calib.calibrator import (HessianQuantCalibrator,
+                                                    load_qstate)
+    from ptq4vit_tpu_torch.configs import ptq4vit
+    from ptq4vit_tpu_torch.models import net_from_config, vit
+    from ptq4vit_tpu_torch.models.net_wrap import wrap_certain_modules_in_net
+    cfg = vit.ViTConfig(name="card_vit", img_size=64, patch_size=16,
+                        embed_dim=128, depth=2, num_heads=2, num_classes=10)
+    net = net_from_config(cfg, vit.init_params(
+        cfg, np.random.default_rng(0), device="cuda"))
+    x = np.random.default_rng(1).standard_normal(
+        (8, 3, 64, 64)).astype(np.float32)
+    d = str(tmp_path / "ck")
+
+    def calib(**kw):
+        c = HessianQuantCalibrator(net, ptq4vit(), x, batch_size=4, **kw)
+        return c.batching_quant_calib(), c.report
+
+    part = wrap_certain_modules_in_net(       # the head has no block index
+        net, ptq4vit(), layers=[0], modules_to_wrap=list(
+            {n.rsplit(".", 1)[-1] for n, _ in net.op_inventory} - {"head"}),
+        wrap_embedding=True)
+    assert "head" not in part and "blocks.1.attn.qkv" not in part
+    calib(checkpoint_dir=d, wrapped_modules=part)
+    resumed, report = calib(checkpoint_dir=d)
+    assert set(report.search_seconds) == {
+        n for n, _ in net.op_inventory if n not in part}
+    whole, _ = calib()
+    assert list(resumed) == list(whole)
+    for n in whole:
+        for f, v in vars(whole[n]).items():
+            if torch.is_tensor(v):
+                assert torch.equal(getattr(resumed[n], f), v), (n, f)
+    loaded = load_qstate(d)
+    assert loaded["head"].w_interval.is_cuda

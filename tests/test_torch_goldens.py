@@ -97,7 +97,7 @@ def test_jax_qstate_cross_loads_into_the_port(golden, tmp_path):
     z, _, jnet, mods = golden
     jq = jax_qstate_from_golden(jnet, mods)
     jax_save_qstate(str(tmp_path), jq)
-    pq = load_qstate(str(tmp_path))
+    pq = load_qstate(str(tmp_path), device="cpu")
     assert set(pq) == set(jq)
     assert pq["blocks.0.mlp.fc2"].postgelu
     assert pq["blocks.1.attn.matmul2"].split is not None

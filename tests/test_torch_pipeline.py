@@ -81,7 +81,7 @@ def test_quantized_logits_match_jax(calibrated):
 def test_qstate_save_load_roundtrip(calibrated, tmp_path):
     _, pnet, x, _, _, pq, _ = calibrated
     save_qstate(str(tmp_path), pq)
-    back = load_qstate(str(tmp_path))
+    back = load_qstate(str(tmp_path), device="cpu")
     assert set(back) == set(pq)
     for n in pq:
         assert type(back[n]) is type(pq[n])
