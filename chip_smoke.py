@@ -87,23 +87,41 @@ Phases (any failure raises, so the exit code is non-zero):
      fp32 logits logged; the raw fp32 net on the val images through the
      float route (EvalTransform(use_native="never")) and the uint8 route
      (raw_uint8 through Evaluator(data_config=)), logits bitwise equal;
-  10. print the kernels' JSON line (all twelve kernels), the card line,
+  10. the drivers, in process at full width and depth (drivers_phase):
+     bench_torch.py on ViT-B/384 (32 images, 2 repeats) and Swin-B/384
+     (32 images), B1 / B2 / B3 (B3f) launched exactly as the searches
+     need, intervals finite and positive, peak memory below the card's;
+     bench_infer_torch.py and scripts/torch_serve_e2e_bench.py on
+     ViT-B/384 (B6 / B7 exactly as the fused forwards need; the uint8
+     route's logits bitwise the float route's); one cell each of
+     examples/torch_test_all.py (BasePTQ W6A6) and
+     torch_test_ablation.py (no_softmax, no_postgelu) on 32 synthetic
+     images; torch_get_int.py --activations (its npz reread) and
+     torch_stability.py (2 seeds, --quick) on phase 9's ImageFolder;
+  11. print the kernels' JSON line (all twelve kernels), the card line,
      then the result line.
 Each path is driven with the launch counts set to 0 just before it and
 read just after.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
+import types
 
 import numpy as np
 import torch
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 SIMS_RTOL = 1e-4       # reordered fp32 sums of up to ~7M terms
 ARGMAX_TIE = 1e-4      # top-two sims closer than this may swap
 LEVEL_SHARE = 1e-3     # int8 outputs: at most this share one level off
@@ -179,6 +197,41 @@ PATHS = {
          "matmul_hessian_sims_b3": None}, ()),
     f"{EXAMPLE_PATH}, minmax_calib and apply_bias_correction": ({}, SEARCH),
 }
+# the drivers (phase 10): the bench scripts in process, one cell of each
+# grid, the integer export and the stability study; bench_torch's paths
+# are checked exactly by resume_launches, its serving ones by
+# SERVE_LAUNCHES
+BENCH_CALIB, BENCH_REPEATS = 32, 2
+INFER_ITERS, E2E_BATCHES = 3, 4
+BENCH_VIT = (f"vit_base_patch16_384 bench_torch.py, {BENCH_CALIB} images, "
+             f"{BENCH_REPEATS} repeats")
+BENCH_SWIN = f"swin_base_patch4_window12_384 bench_torch.py, {BENCH_CALIB} images"
+INFER_PATH = "vit_base_patch16_384 bench_infer_torch.py"
+E2E_PATH = "vit_base_patch16_384 scripts/torch_serve_e2e_bench.py"
+TEST_ALL_PATH = ("vit_base_patch16_384 examples/torch_test_all.py, BasePTQ "
+                 "W6A6")
+ABLATION_PATH = ("vit_base_patch16_384 examples/torch_test_ablation.py, "
+                 "no_softmax no_postgelu")
+GET_INT_PATH = "vit_base_patch16_384 examples/torch_get_int.py --activations"
+STABILITY_PATH = "vit_base_patch16_384 examples/torch_stability.py, 2 seeds"
+EXACT = ("linear_w_hessian_sims", "linear_a_hessian_sims")
+PATHS.update({
+    TEST_ALL_PATH: ({"linear_w_hessian_sims_i8": None,
+                     "linear_a_hessian_sims_i8": None},
+                    ("matmul_hessian_sims_b3f",) + EXACT),
+    ABLATION_PATH: ({"linear_w_hessian_sims_i8": None,
+                     "linear_a_hessian_sims_i8": None,
+                     "matmul_hessian_sims_b3": None},
+                    ("matmul_hessian_sims_b3f",) + EXACT),
+    GET_INT_PATH: ({"linear_w_hessian_sims_i8": None,
+                    "linear_a_hessian_sims_i8": None,
+                    "matmul_hessian_sims_b3": None},
+                   ("matmul_hessian_sims_b3f",) + EXACT),
+    STABILITY_PATH: ({"linear_w_hessian_sims_i8": None,
+                      "linear_a_hessian_sims_i8": None,
+                      "matmul_hessian_sims_b3": None},
+                     ("matmul_hessian_sims_b3f",) + EXACT),
+})
 # launches of the serving kernels a request makes (every other kernel: 0).
 # ViT-B/384: B6 for qkv, proj, fc1 and fc2 of 12 blocks and the head, B7
 # in each block.  Swin-B/384: each of its 24 blocks runs B10 (qkv), B9
@@ -510,6 +563,14 @@ def check_launches(path, launches):
     for k in absent:
         if launches[k]:
             raise AssertionError(f"{k} was launched by the {path} path")
+
+
+def check_exact_launches(path, launches, expect):
+    """Every kernel launched exactly ``expect``'s count (absent: 0)."""
+    for k, v in launches.items():
+        if v != expect.get(k, 0):
+            raise AssertionError(f"{k} was launched {v} times by the {path} "
+                                 f"path, expected {expect.get(k, 0)}")
 
 
 def run_path(path, sk, net, calib, **qkw):
@@ -1196,11 +1257,8 @@ def serving_phase(sk, sv, name, qcpu):
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {**sk.launch_counts(), **sv.launch_counts()}
-    expect = {k: SERVE_REQUESTS * n for k, n in SERVE_LAUNCHES[name].items()}
-    for k, v in launches.items():
-        if v != expect.get(k, 0):
-            raise AssertionError(f"{k} was launched {v} times by the {path} "
-                                 f"path, expected {expect.get(k, 0)}")
+    check_exact_launches(path, launches, {
+        k: SERVE_REQUESTS * n for k, n in SERVE_LAUNCHES[name].items()})
     for o in outs:
         if o.shape != (SERVE_BATCH, classes) or not torch.isfinite(
                 o.float()).all():
@@ -1370,7 +1428,6 @@ def write_image_folder(root, per_class=24):
     """An ImageFolder of JPEGs: train/ and val/, 2 classes x ``per_class``
     images each, landscape (500 x 375) and portrait (375 x 500) in turn,
     smooth colour fields plus noise from a seeded generator."""
-    import os
     from PIL import Image
     rng = np.random.default_rng(7)
     yy, xx = np.mgrid[0:500, 0:500] / 500.0
@@ -1388,19 +1445,20 @@ def write_image_folder(root, per_class=24):
                     os.path.join(d, f"{split}_{i:03d}.jpg"), quality=90)
 
 
-def resume_launches(cfg, inventory, ops):
+def resume_launches(cfg, inventory, ops, matmul="matmul_hessian_sims_b3"):
     """B1 / B2 / B3 launches that searching ``ops`` takes under int8
     scoring: each linear launches B1 and B2 once a round; each attention
-    matmul B3 twice a round (its A side, then its B side), except the SoS
-    matmul, whose split search is plain PyTorch (B side only)."""
+    matmul B3 (``matmul``: B3f at Swin's window shapes) twice a round (its
+    A side, then its B side), except the SoS matmul, whose split search is
+    plain PyTorch (B side only)."""
     n = {"linear_w_hessian_sims_i8": 0, "linear_a_hessian_sims_i8": 0,
-         "matmul_hessian_sims_b3": 0}
+         matmul: 0}
     for op, mtype in inventory:
         if op not in ops:
             continue
         pol = cfg.op_policy(mtype)
         if "qmatmul" in mtype:
-            n["matmul_hessian_sims_b3"] += pol.search_round * (
+            n[matmul] += pol.search_round * (
                 1 if pol.quantizer == "sos_matmul" else 2)
         elif mtype != "qconv":
             n["linear_w_hessian_sims_i8"] += pol.search_round
@@ -1440,11 +1498,11 @@ def calibrate_counted(path, sk, net, calib, cfg, **kw):
     return qstate, c.report, launches, wall
 
 
-def calibration_surface_phase(sk):
+def calibration_surface_phase(sk, sv, root):
     """Phase 9, the calibration surface on ViT-B/384 at full width and
     depth (random weights from a seeded generator), through the port's
-    entry points: an ImageFolder written to a temporary directory,
-    examples/torch_test_vit.py's experiment_basic on it (loader ->
+    entry points: examples/torch_test_vit.py's experiment_basic on the
+    ImageFolder at ``root`` (loader ->
     calib_batch -> PTQ4ViT W8A8 into a checkpoint -> test_classification),
     the data plane and the loader's img/s; then a calibration of the conv
     and blocks 0-5 into a fresh checkpoint directory and a resumed one of
@@ -1454,8 +1512,6 @@ def calibration_surface_phase(sk):
     searched again), min-max calibration, bias correction, and the raw
     net on the float route and the uint8 route (bitwise equal logits).
     Returns ({path: launches}, summary)."""
-    import os
-    import tempfile
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "examples"))
     import torch_test_vit as tv
@@ -1469,12 +1525,6 @@ def calibration_surface_phase(sk):
     name = "vit_base_patch16_384"
     by_path, summary = {}, {"path": EXAMPLE_PATH}
     with tempfile.TemporaryDirectory(prefix="ptq4vit_smoke_") as tmp:
-        root = os.path.join(tmp, "imagenet")
-        t0 = time.time()
-        write_image_folder(root)
-        log(f"[data] wrote an ImageFolder of 2 x 2 classes x 24 JPEGs "
-            f"(500 x 375 and 375 x 500) in {time.time() - t0:.2f} s")
-
         # examples/torch_test_vit.py, as a user calls it
         args = tv.parse_args(argv=[
             "--dataset_root", root, "--calib_size", str(NUM_CALIB),
@@ -1551,11 +1601,7 @@ def calibration_surface_phase(sk):
                                  f"the {len(rest)} ops of blocks 6-11 and "
                                  "the head")
         expect = resume_launches(cfg, net.op_inventory, set(rest))
-        for k, v in launches.items():
-            if v != expect.get(k, 0):
-                raise AssertionError(f"{k} was launched {v} times by the "
-                                     f"{RESUME_PATH} path, expected "
-                                     f"{expect.get(k, 0)}")
+        check_exact_launches(RESUME_PATH, launches, expect)
         diff = slot_diff(resumed, whole)
         summary.update(resume_searched=len(rest), resume_wall_s=wall,
                        resume_launches=launches, resume_slot_diffs=len(diff))
@@ -1655,6 +1701,226 @@ def calibration_surface_phase(sk):
     return by_path, summary
 
 
+def driver_call(fn, *a, **kw):
+    """``fn(*a, **kw)`` with its stdout caught and logged line by line
+    under a ``[driver]`` prefix (this script's own JSON lines stay the
+    only ones); returns ``fn``'s result."""
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            return fn(*a, **kw)
+    finally:
+        for line in buf.getvalue().splitlines():
+            if line.strip():
+                log(f"[driver] {line}")
+
+
+def counted(path, sk, sv, fn, *a, **kw):
+    """``driver_call(fn, ...)`` with every launch count set to 0 just
+    before and read just after; returns (result, launches, wall s)."""
+    torch.cuda.synchronize()
+    sk.reset_launch_counts()
+    sv.reset_launch_counts()
+    t0 = time.time()
+    out = driver_call(fn, *a, **kw)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {**sk.launch_counts(), **sv.launch_counts()}
+    log(f"[drivers] {path}: {wall:.2f} s wall, launches {launches}")
+    return out, launches, wall
+
+
+def inventory(name):
+    from ptq4vit_tpu_torch.models import model_config, swin, vit
+    cfg = model_config(name)
+    mod = swin if isinstance(cfg, swin.SwinConfig) else vit
+    return mod.op_inventory(cfg)
+
+
+def drivers_phase(sk, sv, root):
+    """Phase 10, the measurement and experiment drivers, in process, at
+    full width and depth (random weights from a seeded generator), each
+    path with the launch counts set to 0 just before and read just after:
+    bench_torch.py on ViT-B/384 (BENCH_CALIB images, BENCH_REPEATS
+    repeats) and Swin-B/384 (one repeat), each final row logged as a
+    [bench] line, its intervals finite and positive, its peak memory below
+    the card's, B1 / B2 / B3 (B3f) launched exactly as the searches need;
+    bench_infer_torch.py at ViT-B/384 (INFER_ITERS timed calls and one
+    warm-up a mode; finite logits, img/s a mode; B6 and B7 exactly as the
+    fused forwards need); scripts/torch_serve_e2e_bench.py at ViT-B/384
+    (E2E_BATCHES batches and one warm-up a mode; the uint8 route's logits
+    bitwise the float route's); one cell of examples/torch_test_all.py
+    (BasePTQ W6A6, hessian, BENCH_CALIB synthetic images) and of
+    examples/torch_test_ablation.py (hessian, no_softmax and no_postgelu,
+    W8A8); examples/torch_get_int.py with --activations on the
+    ImageFolder at ``root`` (8 calibration images), its npz reread; and
+    examples/torch_stability.py, 2 seeds, --quick, on the ImageFolder.
+    Returns ({path: launches}, summary)."""
+    for d in (ROOT, os.path.join(ROOT, "examples"),
+              os.path.join(ROOT, "scripts")):
+        if d not in sys.path:
+            sys.path.insert(0, d)
+    import bench_infer_torch
+    import bench_torch
+    import torch_get_int
+    import torch_serve_e2e_bench
+    import torch_stability
+    import torch_test_ablation
+    import torch_test_all
+    import torch_test_vit as tv
+    from ptq4vit_tpu_torch.configs import ptq4vit
+    by_path, summary = {}, {"path": "drivers"}
+    card_gib = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+
+    # bench_torch.py, in process, its stdout contract caught
+    for path, model, repeats, matmul in (
+            (BENCH_VIT, "vit_base_patch16_384", BENCH_REPEATS,
+             "matmul_hessian_sims_b3"),
+            (BENCH_SWIN, "swin_base_patch4_window12_384", 1,
+             "matmul_hessian_sims_b3f")):
+        out, err = io.StringIO(), io.StringIO()
+        (rc, row, qstate), launches, wall = counted(
+            path, sk, sv, bench_torch.run,
+            {"BENCH_MODEL": model, "BENCH_CALIB": str(BENCH_CALIB),
+             "BENCH_REPEATS": str(repeats)}, out, err)
+        by_path[path] = launches
+        for line in err.getvalue().splitlines():
+            log(f"[bench] {line}")
+        lines = out.getvalue().splitlines()
+        log(f"[bench] {lines[-1]}")
+        if rc != 0 or len(lines) != 2 or not json.loads(lines[0])["startup"]:
+            raise AssertionError(f"{path}: bench_torch exited {rc}: "
+                                 f"{lines[-1]}")
+        inv = inventory(model)
+        per_run = resume_launches(ptq4vit(), inv, {n for n, _ in inv},
+                                  matmul)
+        check_exact_launches(path, launches,
+                             {k: v * repeats for k, v in per_run.items()})
+        check_qstate(types.SimpleNamespace(op_inventory=inv), qstate, path)
+        for k in ("value", "median", "capture_s", "search_s", "peak_gib"):
+            if not (math.isfinite(row[k]) and row[k] > 0):
+                raise AssertionError(f"{path}: {k} = {row[k]}")
+        if row["peak_gib"] >= card_gib:
+            raise AssertionError(f"{path}: peak {row['peak_gib']:.2f} GiB "
+                                 f"of a {card_gib:.2f} GiB card")
+        summary[path] = {k: row[k] for k in (
+            "value", "median", "all_minutes", "capture_s", "search_s",
+            "other_s", "num_groups", "peak_gib", "build_s")}
+        del qstate
+        torch.cuda.empty_cache()
+
+    # bench_infer_torch.py and the end-to-end serving bench, ViT-B/384
+    (rc, row, logits), launches, _ = counted(
+        INFER_PATH, sk, sv, bench_infer_torch.run,
+        {"BENCH_ITERS": str(INFER_ITERS)})
+    by_path[INFER_PATH] = launches
+    if rc != 0:
+        raise AssertionError(f"{INFER_PATH}: {row.get('error')}")
+    check_exact_launches(INFER_PATH, launches, {
+        k: n * (INFER_ITERS + 1)
+        for k, n in SERVE_LAUNCHES["vit_base_patch16_384"].items()})
+    summary[INFER_PATH] = {m: row[m] for m in bench_infer_torch.MODES}
+    log(f"[bench_infer] img/s at 32 images: " + ", ".join(
+        f"{m} {row[m]:.1f}" for m in bench_infer_torch.MODES))
+    del logits
+    (rc, row, logits), launches, _ = counted(
+        E2E_PATH, sk, sv, torch_serve_e2e_bench.run,
+        {"BENCH_NBATCH": str(E2E_BATCHES)})
+    by_path[E2E_PATH] = launches
+    if rc != 0 or row["u8_equals_f32"] is not True:
+        raise AssertionError(f"{E2E_PATH}: the uint8 route's logits differ "
+                             f"from the float route's, or it failed: {row}")
+    modes = torch_serve_e2e_bench.MODES
+    check_exact_launches(E2E_PATH, launches, {
+        k: n * len(modes) * (E2E_BATCHES + 1)
+        for k, n in SERVE_LAUNCHES["vit_base_patch16_384"].items()})
+    summary[E2E_PATH] = {m: row[m] for m in modes}
+    log(f"[serve_e2e] img/s, {E2E_BATCHES} batches of 32 a mode, the copy "
+        "included: " + ", ".join(f"{m} {row[m]:.1f}" for m in modes)
+        + "; uint8 logits bitwise the float ones")
+    del logits
+    torch.cuda.empty_cache()
+
+    # one cell each of the grids, on synthetic images
+    args = tv.parse_args(torch_test_all.grid_filters, argv=[
+        "--synthetic", "--calib_size", str(BENCH_CALIB),
+        "--max_iteration", "1"])
+    out, launches, wall = counted(
+        TEST_ALL_PATH, sk, sv, torch_test_all.test_all,
+        "vit_base_patch16_384", torch_test_all.CfgModifier(
+            linear_ptq_setting=(1, 1, 1), metric="hessian",
+            bit_setting=(6, 6)),
+        calib_size=BENCH_CALIB, config_name="BasePTQ", args=args)
+    by_path[TEST_ALL_PATH] = launches
+    check_launches(TEST_ALL_PATH, launches)
+    check_qstate(out["net"], out["qstate"], TEST_ALL_PATH)
+    if out["qstate"]["blocks.0.mlp.fc1"].w_bit != 6:
+        raise AssertionError(f"{TEST_ALL_PATH}: not W6A6")
+    summary[TEST_ALL_PATH] = {k: out[k] for k in (
+        "calib_minutes", "capture_seconds", "search_seconds", "peak_gib")}
+    del out
+    out, launches, wall = counted(
+        ABLATION_PATH, sk, sv, torch_test_ablation.test_all_ablation,
+        "vit_base_patch16_384", torch_test_ablation.CfgModifier(
+            linear_ptq_setting=(1, 1, 1), metric="hessian", search_round=3,
+            bit_setting=(8, 8), no_softmax=True, no_postgelu=True),
+        calib_size=BENCH_CALIB, args=args)
+    by_path[ABLATION_PATH] = launches
+    check_launches(ABLATION_PATH, launches)
+    q = out["qstate"]
+    check_qstate(out["net"], q, ABLATION_PATH)
+    if q["blocks.0.mlp.fc2"].postgelu or \
+            q["blocks.0.attn.matmul2"].split is not None:
+        raise AssertionError(f"{ABLATION_PATH}: a twin quantizer is left")
+    summary[ABLATION_PATH] = {"wall_s": wall}
+    del out, q
+    torch.cuda.empty_cache()
+
+    # get_int and stability on the ImageFolder
+    with tempfile.TemporaryDirectory(prefix="ptq4vit_smoke_int_") as tmp:
+        args = tv.parse_args(argv=["--dataset_root", root, "--calib_size",
+                                   "8", "--max_iteration", "1"])
+        npz, launches, _ = counted(
+            GET_INT_PATH, sk, sv, torch_get_int.get_int_weights,
+            "vit_base_patch16_384", "PTQ4ViT", args=args,
+            out_dir=os.path.join(tmp, "int_weights"), activations=True)
+        by_path[GET_INT_PATH] = launches
+        check_launches(GET_INT_PATH, launches)
+        inv = inventory("vit_base_patch16_384")
+        with np.load(npz) as z:
+            kinds = {}
+            for k in z.files:
+                kinds.setdefault(k.split(":")[0], []).append(z[k])
+        weighted = [n for n, t in inv if "qmatmul" not in t]
+        if len(kinds.get("weight", [])) != len(weighted) or any(
+                a.dtype != np.int8 for a in kinds["weight"]):
+            raise AssertionError(f"{GET_INT_PATH}: {len(kinds['weight'])} "
+                                 f"int8 weights, expected {len(weighted)}")
+        if any(a.dtype != np.float32 or not np.all(np.isfinite(a))
+               or not np.all(a > 0) for a in kinds["interval"]):
+            raise AssertionError(f"{GET_INT_PATH}: an interval is not "
+                                 "finite positive float32")
+        if not kinds.get("act") or any(a.dtype not in (np.int8, np.uint8)
+                                       for a in kinds["act"]):
+            raise AssertionError(f"{GET_INT_PATH}: no int activations")
+        summary[GET_INT_PATH] = {k: len(v) for k, v in kinds.items()}
+        log(f"[get_int] {os.path.basename(npz)} reread: "
+            f"{summary[GET_INT_PATH]} arrays by kind")
+    args = tv.parse_args(argv=["--dataset_root", root, "--calib_size", "8",
+                               "--max_iteration", "1", "--quick"])
+    accs, launches, _ = counted(STABILITY_PATH, sk, sv,
+                                torch_stability.stability,
+                                "vit_base_patch16_384", "PTQ4ViT", seeds=2,
+                                args=args)
+    by_path[STABILITY_PATH] = launches
+    check_launches(STABILITY_PATH, launches)
+    if len(accs) != 2 or not all(0.0 <= a <= 1.0 for a in accs):
+        raise AssertionError(f"{STABILITY_PATH}: top-1 {accs}")
+    summary[STABILITY_PATH] = {"top1": accs}
+    torch.cuda.empty_cache()
+    return by_path, summary
+
+
 def _leaves(tree):
     """The tensors of a param tree, in a fixed order."""
     if isinstance(tree, dict):
@@ -1699,8 +1965,7 @@ def main() -> int:
         qstates[path], by_path[path], summary = calibrate_and_serve(
             path, name, sk, **qkw)
         summaries.append(summary)
-    from ptq4vit_tpu_torch.models import model_config, vit
-    flips = flip_count(vit.op_inventory(model_config("vit_base_patch16_384")),
+    flips = flip_count(inventory("vit_base_patch16_384"),
                        qstates["vit_base_patch16_384"],
                        qstates["vit_base_patch16_384 exact"])
     total = [sum(v[0] for v in flips.values()),
@@ -1724,9 +1989,16 @@ def main() -> int:
     for path, (launches, summary) in policy_phase(sk).items():
         by_path[path] = launches
         summaries.append(summary)
-    launches, summary = calibration_surface_phase(sk)
-    by_path.update(launches)
-    summaries.append(summary)
+    with tempfile.TemporaryDirectory(prefix="ptq4vit_smoke_data_") as tmp:
+        root = os.path.join(tmp, "imagenet")
+        t0 = time.time()
+        write_image_folder(root)
+        log(f"[data] wrote an ImageFolder of 2 x 2 classes x 24 JPEGs "
+            f"(500 x 375 and 375 x 500) in {time.time() - t0:.2f} s")
+        for phase in (calibration_surface_phase, drivers_phase):
+            launches, summary = phase(sk, sv, root)
+            by_path.update(launches)
+            summaries.append(summary)
     log("[paths] " + json.dumps({"card": card, "paths": summaries}))
 
     stats.update(serve_stats)

@@ -3,8 +3,10 @@
 its other example scripts share: the counterpart of
 ``examples/test_vit.py`` (the reference's example/test_vit.py in
 hahnyuan/PTQ4ViT) on ``ptq4vit_tpu_torch`` -- parse_args, init_config,
-test_classification, experiment-level multiprocessing,
-build_net_and_data, experiment_basic.
+apply_quick, test_classification, experiment-level multiprocessing,
+build_net_and_data, experiment_basic.  The other drivers beside it:
+``torch_test_all.py``, ``torch_test_ablation.py``, ``torch_get_int.py``
+and ``torch_stability.py``.
 
     # on the card, an ImageFolder with train/ and val/ under the root:
     python examples/torch_test_vit.py --dataset_root /datasets/imagenet
@@ -57,6 +59,16 @@ def init_config(config_name, **overrides):
     """Config loader (reference test_vit.py:82-90)."""
     from ptq4vit_tpu_torch.configs import get_config
     return get_config(config_name, **overrides)
+
+
+def apply_quick(quant_cfg, args):
+    """``--quick``: shrink the search to eq_n=8 and one round (smoke
+    runs, not the job)."""
+    if getattr(args, "quick", False):
+        for kw in (quant_cfg.ptqsl_conv2d_kwargs, quant_cfg.ptqsl_linear_kwargs,
+                   quant_cfg.ptqsl_matmul_kwargs):
+            kw.update(eq_n=8, search_round=1)
+    return quant_cfg
 
 
 def test_classification(net, test_loader, qstate=None, max_iteration=None,
@@ -115,7 +127,15 @@ def multiprocess(experiment_process, cfg_list=None, n_workers=1,
 
 def build_net_and_data(name, args, calib_size):
     """Model + (test_loader, calib_batch) on ``args.device``; synthetic
-    mode uses random weights and gaussian inputs."""
+    mode uses random weights and gaussian inputs.  The card's cached
+    blocks go back to the driver first: an experiment that follows
+    another in the same process would otherwise place its params inside
+    the earlier one's cached blocks, which then can be neither freed nor
+    used for a large allocation (ROADMAP C7)."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
     from ptq4vit_tpu_torch.models import get_net
     from ptq4vit_tpu_torch.utils.datasets import ViTImageNetLoaderGenerator
     from ptq4vit_tpu_torch.utils.synthetic import synthetic_images
@@ -142,11 +162,7 @@ def experiment_basic(net="vit_base_patch16_384", config="PTQ4ViT",
     Returns {"net", "qstate", "calib", "accuracy", "report"}."""
     from ptq4vit_tpu_torch.calib.calibrator import HessianQuantCalibrator
     args = args or parse_args()
-    quant_cfg = init_config(config)
-    if getattr(args, "quick", False):
-        for kw in (quant_cfg.ptqsl_conv2d_kwargs, quant_cfg.ptqsl_linear_kwargs,
-                   quant_cfg.ptqsl_matmul_kwargs):
-            kw.update(eq_n=8, search_round=1)
+    quant_cfg = apply_quick(init_config(config), args)
     model, test_loader, calib = build_net_and_data(net, args, args.calib_size)
     calibrator = HessianQuantCalibrator(
         model, quant_cfg, calib, sequential=False, batch_size=4,

@@ -115,15 +115,31 @@ def resolve_cache_dtype(cache_dtype, device: torch.device):
 @dataclasses.dataclass
 class CalibReport:
     """Wall-clock breakdown of one calibration (host clock, each phase
-    ending in a device synchronize)."""
+    ending in a device synchronize), with the JAX package's fields in its
+    order (calibrator.py:109-131)."""
     model: str
     config: str
     capture_seconds: float = 0.0
-    capture_peak_bytes: int = 0     # CUDA: peak allocated by the end of a
-                                    # capture pass (0 on the CPU)
+    # the probe target from the raw net, computed once by the sequential
+    # paradigm; the parallel capture computes it inside its own
+    # forward+backward pass, so it stays 0.0 there
+    target_seconds: float = 0.0
+    # always 0.0: every capture and search ends in its own synchronize,
+    # so no device time is left to wait for at a group's end
+    sync_seconds: float = 0.0
+    # checkpoint loading and group planning, before the first capture
+    setup_seconds: float = 0.0
     num_groups: int = 0             # capture passes (one per op when
                                     # sequential)
     search_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+    capture_peak_bytes: int = 0     # CUDA: peak allocated by the end of a
+                                    # capture pass (0 on the CPU)
+
+    @property
+    def total_seconds(self) -> float:
+        return (self.capture_seconds + self.target_seconds +
+                self.sync_seconds + self.setup_seconds +
+                sum(self.search_seconds.values()))
 
 
 class HessianQuantCalibrator:
@@ -212,25 +228,38 @@ class HessianQuantCalibrator:
         os.makedirs(self.checkpoint_dir, exist_ok=True)
         save_op_qp(p, qp, scope=self._ckpt_scope(mtype))
 
-    def _group_budget(self, need_grad: bool, policies) -> int:
+    def _group_budget(self, need_grad: bool, policies, need: int = 0) -> int:
         """Cache bytes one capture group may hold: an explicit
         ``cache_budget_bytes``; 48 GiB of host memory for host-held caches;
         else the free device memory less the largest search working set
         (its caches in fp32, its kernel's level buffers, the candidate-chunk
-        scratch) and 1 GiB for the capture forward and backward."""
+        scratch) and 1 GiB for the capture forward and backward.  When that
+        cannot hold the ``need`` bytes of caches in one group and
+        PyTorch's caching allocator holds blocks with no tensor in them (an
+        earlier calibration in this process leaves them, and the driver
+        counts them as used), they go back to the driver and the free
+        memory is read again."""
         if self.cache_budget is not None:
             return self.cache_budget
         if not self.device_resident:
             return 48 << 30
         if self.device.type != "cuda":
             return 8 << 30
-        free, _ = torch.cuda.mem_get_info(self.device)
         n = len(self.calib_x)
         work = tap_bytes(self.net, n, need_grad, True, 4)
         reserve = max(work[name] + kernel_scratch_bytes(
             self.net.op_shapes[name], n, policies[name])
             for name in policies) + self.search_budget + (1 << 30)
-        return max(1 << 30, int(0.85 * free) - reserve)
+
+        def budget():
+            free, _ = torch.cuda.mem_get_info(self.device)
+            return max(1 << 30, int(0.85 * free) - reserve)
+        out = budget()
+        if out < need and torch.cuda.memory_reserved(self.device) > \
+                torch.cuda.memory_allocated(self.device):
+            torch.cuda.empty_cache()
+            out = budget()
+        return out
 
     def quant_calib(self, verbose: bool = False) -> Dict[str, Any]:
         """The reference's non-batching entry (quant_calib.py:95-104): it
@@ -246,6 +275,7 @@ class HessianQuantCalibrator:
             return self._batching_quant_calib(verbose)
 
     def _batching_quant_calib(self, verbose: bool) -> Dict[str, Any]:
+        t_setup = time.time()
         policies = {n: self.cfg.op_policy(t) for n, t in self.wrapped_modules}
         need_grad = any(p.metric == "hessian" for p in policies.values())
         qstate: Dict[str, Any] = {}
@@ -257,11 +287,13 @@ class HessianQuantCalibrator:
             else:
                 qstate[name] = qp
         if self.sequential:
+            self.report.setup_seconds = time.time() - t_setup
             return self._sequential_calib(qstate, todo, policies, need_grad,
                                           verbose)
         elem = torch.tensor([], dtype=self.cache_dtype).element_size()
         sizes = tap_bytes(self.net, len(self.calib_x), need_grad, False, elem)
-        budget = self._group_budget(need_grad, policies)
+        budget = self._group_budget(need_grad, policies,
+                                    sum(sizes[name] for name, _ in todo))
         groups: List[List[str]] = []
         acc = 0
         for name, _ in todo:
@@ -271,11 +303,18 @@ class HessianQuantCalibrator:
             groups[-1].append(name)
             acc += sizes[name]
         self.report.num_groups = len(groups)
+        self.report.setup_seconds = time.time() - t_setup
 
         mtypes = dict(todo)
         for group in groups:
             raw = self._capture(group, need_grad, probe_seed=self.probe_seed,
                                 probe_u=self.probe_u)
+            if self.device.type == "cuda":
+                # the capture's freed blocks go back to the driver before
+                # the searches: left cached, they fragmented the card so
+                # that B3's 50 GiB mode-a scratch of ViT-B/384 BasePTQ at
+                # 128 images found no room (ROADMAP C7)
+                torch.cuda.empty_cache()
             for name in group:
                 qp = self._search_one(name, mtypes[name], policies[name],
                                       raw.pop(name), verbose)
@@ -293,6 +332,7 @@ class HessianQuantCalibrator:
         if need_grad and todo:
             # the probe target from the RAW net, once, in chunks of 8
             # (calibrator.py:267-279)
+            t0 = time.time()
             x = torch.from_numpy(self.calib_x).to(self.device)
             with torch.no_grad():
                 logits = torch.cat([net.forward(net.params, x[s0:s0 + 8],
@@ -304,6 +344,8 @@ class HessianQuantCalibrator:
                 logits, torch.as_tensor(np.array(u, np.float32),
                                         device=self.device),
                 self.probe_sigma)
+            self._sync()
+            self.report.target_seconds = time.time() - t0
         for name, mtype in todo:
             raw = self._capture([name], need_grad, qstate=dict(qstate),
                                 target_probs=target)

@@ -7,6 +7,7 @@
     python scripts/torch_search_probe.py ptxas ROOT [LIBRARY]
     python scripts/torch_search_probe.py qstates ROOT OUT.pkl [--exact]
     python scripts/torch_search_probe.py compare PARENT.pkl CHANGE.pkl
+    python scripts/torch_search_probe.py flips ROOT [--images=32]
 
 ROOT is the checkout whose ``ptq4vit_tpu_torch`` (and ``chip_smoke.py``)
 is imported; each command prints JSON lines.
@@ -48,6 +49,11 @@ is imported; each command prints JSON lines.
   compare  the interval slots where two such qstates differ, and for
            each op the first scorer call whose argmax differs, with its
            top-two gap (a near-tie when within chip_smoke.ARGMAX_TIE).
+  flips    bench_torch.py's ViT-B/384 run (one repeat, 32 images or the
+           --images given) under int8 scoring, then under exact scoring
+           (PTQ4VIT_TPU_INT8_SCORE=0), each final row printed, then the
+           interval slots where the two qstates differ, by op type
+           (chip_smoke.flip_count).
 """
 from __future__ import annotations
 
@@ -415,6 +421,30 @@ def compare(path_a, path_b, tie=1e-4):
                           "first_divergences": first}), flush=True)
 
 
+def flips(root, images=32):
+    _import(root)
+    import bench_torch
+    import chip_smoke
+    from ptq4vit_tpu_torch.models import model_config, vit
+    qstates = {}
+    for label, env in (("int8", {}), ("exact",
+                                      {"PTQ4VIT_TPU_INT8_SCORE": "0"})):
+        rc, row, q = bench_torch.run(dict(env, BENCH_CALIB=str(images),
+                                          BENCH_REPEATS="1"))
+        if rc != 0:
+            raise SystemExit(f"the {label} run failed: {row.get('error')}")
+        qstates[label] = q
+    counts = chip_smoke.flip_count(
+        vit.op_inventory(model_config("vit_base_patch16_384")),
+        qstates["int8"], qstates["exact"])
+    print(json.dumps({"flips": "int8 vs exact scoring",
+                      "model": "vit_base_patch16_384", "images": images,
+                      "by_op_type": counts,
+                      "total": [sum(v[0] for v in counts.values()),
+                                sum(v[1] for v in counts.values())]}),
+          flush=True)
+
+
 def main(argv):
     if len(argv) < 2:
         print(__doc__, file=sys.stderr)
@@ -433,6 +463,9 @@ def main(argv):
         qstates(args[0], args[1], "--exact" in args)
     elif cmd == "compare":
         compare(args[0], args[1])
+    elif cmd == "flips":
+        flips(args[0], *[int(a.split("=", 1)[1]) for a in args[1:]
+                         if a.startswith("--images=")])
     else:
         print(__doc__, file=sys.stderr)
         return 2

@@ -9,6 +9,7 @@ two packages both ways), ``wrapped_modules``, the memory knobs
 Port-only runs on the CPU are deterministic, so two port qstates must be
 equal bit for bit; port against JAX goes through the f64 tie oracles
 (``assert_qstate_matches``), as in tests/test_torch_pipeline.py."""
+import dataclasses
 import inspect
 import json
 import os
@@ -113,6 +114,66 @@ def test_signature_takes_jax_arguments_in_order():
             assert p.default == j.default, p.name
         assert p.kind == inspect.Parameter.POSITIONAL_OR_KEYWORD, p.name
     assert P.QuantCalibrator is P.HessianQuantCalibrator
+    # the report: JAX's fields in JAX's order, then the port's peak memory
+    jf = [f.name for f in dataclasses.fields(J.CalibReport)]
+    pf = [f.name for f in dataclasses.fields(P.CalibReport)]
+    assert pf == jf + ["capture_peak_bytes"]
+    assert isinstance(inspect.getattr_static(P.CalibReport, "total_seconds"),
+                      property)
+
+
+def test_group_budget_counts_the_allocators_free_blocks(tiny, monkeypatch):
+    """Memory the caching allocator holds with no tensor in it is free to
+    the calibration: after an earlier calibration in the same process left
+    48 GiB cached, caches that need more than the driver's free memory get
+    the budget of a fresh process.  (They did not: the second of four
+    ViT-B/384 cells at 128 images planned 49 capture groups instead of 2,
+    ROADMAP C7.)  Caches that fit leave the allocator's blocks cached (a
+    warm repeat of the headline job pays no release).  A fake driver and
+    allocator stand in for the card."""
+    _, pnet, x = tiny
+    c = P.HessianQuantCalibrator(pnet, shrink(pptq4vit()), x, device="cpu")
+    c.device = torch.device("cuda")      # the planner's card branch
+    policies = {n: c.cfg.op_policy(t) for n, t in c.wrapped_modules}
+    gib = 1 << 30
+    card = {"free": 0, "cached": 0, "allocated": gib}
+
+    def empty_cache():
+        card["free"] += card["cached"]
+        card["cached"] = 0
+
+    monkeypatch.setattr(torch.cuda, "empty_cache", empty_cache)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda d=None: (card["free"], 80 * gib))
+    monkeypatch.setattr(torch.cuda, "memory_allocated",
+                        lambda d=None: card["allocated"])
+    monkeypatch.setattr(torch.cuda, "memory_reserved",
+                        lambda d=None: card["allocated"] + card["cached"])
+
+    def budget(free, cached, need):
+        card.update(free=free, cached=cached)
+        return c._group_budget(True, policies, need)
+    fresh = budget(60 * gib, 0, 0)
+    assert fresh > 40 * gib
+    assert budget(12 * gib, 48 * gib, 50 * gib) == fresh
+    assert card["cached"] == 0
+    kept = budget(12 * gib, 48 * gib, gib)
+    assert gib <= kept < fresh and card["cached"] == 48 * gib
+    assert budget(12 * gib, 0, 50 * gib) == kept
+
+
+@pytest.mark.parametrize("sequential", [False, True])
+def test_report_seconds_add_up(tiny, sequential):
+    """setup_seconds is filled in both paradigms, target_seconds only where
+    the port computes the probe target on its own (sequential), and
+    total_seconds sums the phases as JAX's property does."""
+    _, pnet, x = tiny
+    _, r = port_calib(pnet, x, sequential=sequential)
+    assert r.setup_seconds > 0.0 and r.sync_seconds == 0.0
+    assert (r.target_seconds > 0.0) == sequential
+    assert r.total_seconds == pytest.approx(
+        r.capture_seconds + r.target_seconds + r.setup_seconds
+        + sum(r.search_seconds.values()), rel=1e-12)
 
 
 def test_resume_whole_directory(tiny, port_default, tmp_path):
