@@ -1,6 +1,13 @@
 """Card check of the PyTorch / CUDA port (ptq4vit_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --mesh [--micro-batch N]
+
+``--mesh`` runs phase 11 alone, after what it reads (the build, phases 4
+and 5's calibrations, phase 7's first request through the engine), its
+mesh calibrations on micro-batches of N images (default 8: 4 a rank, the
+single device's micro-batch shape), then the phase's summary as JSON and
+the result line; about 3 minutes.
 
 Phases (any failure raises, so the exit code is non-zero):
   1. the card's name and power limit; CUDA is required, TF32 is off;
@@ -98,7 +105,31 @@ Phases (any failure raises, so the exit code is non-zero):
      torch_test_ablation.py (no_softmax, no_postgelu) on 32 synthetic
      images; torch_get_int.py --activations (its npz reread) and
      torch_stability.py (2 seeds, --quick) on phase 9's ImageFolder;
-  11. print the kernels' JSON line (all twelve kernels), the card line,
+  11. the device mesh (mesh_phase): the exact-scoring ViT-B/384 at depth
+     2 on one device, then two ranks (parallel.launch.spawn: gloo on the
+     one card, NCCL on cards of their own when there are two) that only
+     load the libraries built in phase 2: ViT-B/384 and Swin-B/384
+     PTQ4ViT W8A8 calibrated over data=2 on phase 4 / 5's images (4
+     images a rank a micro-batch, the single device's micro-batch), and
+     the depth-2 ViT under exact scoring; each rank launches exactly the
+     kernels the single device's path does, its qstate is the other
+     rank's byte for byte, and every slot that differs from phases 4 / 5
+     (or the depth-2 run) by more than rtol 1e-5 must be a tie: at the
+     first pick where the two runs part, the single device's sims of the
+     two picks within 1e-5 (the searches' argmax_trace); ViT-B/384 at
+     phase 4's micro-batch over the mesh (2 images a rank) held the same
+     way against one device calibrating 2-image micro-batches (the rank's
+     shapes), and both against phase 4, the slots that move with the
+     capture's micro-batch printed; ServingEngine(mesh=) on
+     phase 7's first request of both nets (B6 / B7, B6 / B9-B11, exact
+     counts a rank), the gathered logits within rtol 1e-5, atol 1e-5
+     max|logit| of phase 7's (elements that differ counted);
+     Evaluator(tensor_parallel=True) over model=2 on ViT-B/384, 8 images,
+     fake-quant by cosine >= 0.99 and int8=True bitwise; then a one-rank
+     NCCL world: ServingEngine(mesh=) bitwise phase 7's and
+     Evaluator(mesh=)'s count the single device's; [mesh] lines give the
+     backend, ranks -> devices and seconds;
+  12. print the kernels' JSON line (all twelve kernels), the card line,
      then the result line.
 Each path is driven with the launch counts set to 0 just before it and
 read just after.
@@ -573,15 +604,16 @@ def check_exact_launches(path, launches, expect):
                                  f"path, expected {expect.get(k, 0)}")
 
 
-def run_path(path, sk, net, calib, **qkw):
-    """Quantize ``net`` with the launch counts set to 0 just before and
-    read just after; returns (qstate, launches, summary)."""
+def run_path(path, sk, net, calib, batch_size=4, **qkw):
+    """Quantize ``net`` on ``batch_size``-image micro-batches with the
+    launch counts set to 0 just before and read just after; returns
+    (qstate, launches, summary)."""
     from ptq4vit_tpu_torch import quantize
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     sk.reset_launch_counts()
     t0 = time.time()
-    net, qstate, report = quantize(net, calib, batch_size=4,
+    net, qstate, report = quantize(net, calib, batch_size=batch_size,
                                    device=torch.device("cuda"),
                                    return_report=True, **qkw)
     torch.cuda.synchronize()
@@ -1311,9 +1343,10 @@ def serving_phase(sk, sv, name, qcpu):
         f"{prof['span_ms']:.2f} ms span and {prof['wall_ms']:.2f} ms wall; "
         "by kernel (ms, launches): " + ", ".join(
             f"{k} {ms:.2f} x{n}" for k, ms, n in prof["by_kernel"][:10]))
+    first = outs[0].cpu()
     del engine, packed, outs, logits
     torch.cuda.empty_cache()
-    return launches, summary, (net, qstate, x0)
+    return launches, summary, (net, qstate, x0, first)
 
 
 def layout_path(sk, sv, net, qstate, x):
@@ -1921,6 +1954,429 @@ def drivers_phase(sk, sv, root):
     return by_path, summary
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the device mesh (parallel/): ranks over torch.distributed
+# ---------------------------------------------------------------------------
+
+MESH_WORLD = 2
+MESH_TIMEOUT_S = 300          # a collective waiting longer fails the rank
+MESH_TP_IMAGES = 8            # the tensor-parallel evaluation's images
+SLOT_RTOL = 1e-5              # qstate slots: JAX's mesh tolerance
+TIE_RTOL = 1e-5               # a flipped pick's two sims within this
+# micro-batches of 4 images a rank: each rank's capture runs the single
+# device's micro-batch shapes (phase 4's 4 images), so its caches are the
+# single device's bitwise (the KL mean over 8 halves every gradient
+# exactly) and only the searches' sums over the ranks reorder
+MESH_MICRO_BATCH = 4 * MESH_WORLD
+MESH_EXACT_PATH = "vit_base_patch16_384 depth 2 exact"
+PATHS[MESH_EXACT_PATH] = ({k: None for k in EXACT}, INT8)
+# phase 4's micro-batch over the mesh, what quantize(batch_size=4, mesh=)
+# gives: 2 images a rank, held against one device on 2-image micro-batches
+# (SHARD_PATH, the rank's shapes); both are compared with phase 4, whose
+# 4-image forward rounds the captured gradients differently
+USER_MICRO_BATCH = 4
+USER_KEY = "mesh vit_base_patch16_384 calibration, micro-batch 4"
+SHARD_PATH = "vit_base_patch16_384 micro-batch 2"
+PATHS[SHARD_PATH] = PATHS["vit_base_patch16_384"]
+
+
+def exact_depth2_net():
+    """ViT-B/384 at full width and depth 2, seeded, on this process's
+    card, with phase 4's 8 calibration images."""
+    from ptq4vit_tpu_torch.models import model_config, net_from_config, vit
+    cfg = dataclasses.replace(model_config("vit_base_patch16_384"), depth=2)
+    net = net_from_config(cfg, vit.init_params(
+        cfg, np.random.default_rng(0), device="cuda"))
+    calib = np.random.default_rng(1).standard_normal(
+        (NUM_CALIB, 3, cfg.img_size, cfg.img_size)).astype(np.float32)
+    return net, calib
+
+
+def first_request(size):
+    """Phase 7's first request (SERVE_BATCH images)."""
+    return np.random.default_rng(10).standard_normal(
+        (SERVE_BATCH, 3, size, size)).astype(np.float32)
+
+
+def host_trace(trace):
+    """An argmax_trace's records (kept on the card while tracing) on the
+    host."""
+    return {op: [(s.cpu(), p.cpu()) for s, p in picks]
+            for op, picks in trace.items()}
+
+
+def _counts(sk, sv):
+    return {**sk.launch_counts(), **sv.launch_counts()}
+
+
+def _reset(sk, sv):
+    torch.cuda.synchronize()
+    sk.reset_launch_counts()
+    sv.reset_launch_counts()
+
+
+def mesh_rank(rank, job_path, out_dir):
+    """One rank of phase 11 (started by parallel.launch.spawn): mesh
+    calibration of ViT-B/384 and Swin-B/384 and of the exact-scoring
+    depth-2 ViT (and of ViT-B/384 at USER_MICRO_BATCH), data-parallel
+    serving of both nets on phase 7's first request, and tensor-parallel
+    evaluation of ViT-B/384; the results, the
+    argmax traces and each path's launches go to rank{r}.pt."""
+    from ptq4vit_tpu_torch import ServingEngine, quantize
+    from ptq4vit_tpu_torch.calib import search as S
+    from ptq4vit_tpu_torch.configs import ptq4vit
+    from ptq4vit_tpu_torch.models import get_net
+    from ptq4vit_tpu_torch.ops import build
+    from ptq4vit_tpu_torch.ops import int8_serve as sv
+    from ptq4vit_tpu_torch.ops import search_kernels as sk
+    from ptq4vit_tpu_torch.parallel import Evaluator, make_mesh
+    from ptq4vit_tpu_torch.utils.convert import qstate_to
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for name in build.LIBRARIES:          # built by the parent
+        build.load(name)
+    job = torch.load(job_path, weights_only=False)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(MESH_WORLD)
+    out = {"device": str(dev), "paths": {}}
+
+    def calibrate(key, net, calib, micro_batch=MESH_MICRO_BATCH, **kw):
+        _reset(sk, sv)
+        t0 = time.time()
+        with S.argmax_trace() as trace:
+            _, q = quantize(net, calib, config=ptq4vit(),
+                            batch_size=micro_batch, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        out["paths"][key] = {
+            "seconds": time.time() - t0, "launches": _counts(sk, sv),
+            "qstate": qstate_to(q, "cpu"), "trace": host_trace(trace)}
+
+    nets, calibs = {}, {}
+    for name in SERVE_LAUNCHES:
+        net = nets[name] = get_net(name, seed=0)
+        size = net.cfg.img_size
+        calibs[name] = np.random.default_rng(1).standard_normal(
+            (NUM_CALIB, 3, size, size)).astype(np.float32)
+        calibrate(f"mesh {name} calibration", net, calibs[name])
+    name = "vit_base_patch16_384"
+    calibrate(USER_KEY, nets[name], calibs[name], USER_MICRO_BATCH)
+    net2, calib2 = exact_depth2_net()
+    calibrate(f"mesh {MESH_EXACT_PATH} calibration", net2, calib2,
+              int8_score=False)
+    del net2
+    for name, net in nets.items():
+        engine = ServingEngine(net, qstate_to(job["qstates"][name], dev),
+                               mesh=mesh)
+        x = first_request(net.cfg.img_size)
+        engine(x)                                       # warm-up
+        _reset(sk, sv)
+        t0 = time.time()
+        logits = engine(x)
+        torch.cuda.synchronize()
+        out["paths"][f"mesh {name} serving"] = {
+            "seconds": time.time() - t0, "launches": _counts(sk, sv),
+            "logits": logits.cpu()}
+        del engine
+    name = "vit_base_patch16_384"
+    tp = make_mesh(MESH_WORLD, model_parallel=MESH_WORLD)
+    x = first_request(nets[name].cfg.img_size)[:MESH_TP_IMAGES]
+    for mode in ("fake-quant", "int8"):
+        ev = Evaluator(nets[name], qstate_to(job["qstates"][name], dev),
+                       mesh=tp, tensor_parallel=True, int8=mode == "int8")
+        _reset(sk, sv)
+        t0 = time.time()
+        logits = ev.logits(x)
+        torch.cuda.synchronize()
+        out["paths"][f"mesh {name} tensor-parallel {mode}"] = {
+            "seconds": time.time() - t0, "launches": _counts(sk, sv),
+            "logits": logits.cpu()}
+        del ev
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def nccl_rank(rank, job_path, out_dir):
+    """The one-rank NCCL world: ServingEngine(mesh=) on phase 7's first
+    request and Evaluator(mesh=) on its first images, ViT-B/384."""
+    from ptq4vit_tpu_torch import ServingEngine
+    from ptq4vit_tpu_torch.models import get_net
+    from ptq4vit_tpu_torch.ops import build
+    from ptq4vit_tpu_torch.ops import int8_serve as sv
+    from ptq4vit_tpu_torch.ops import search_kernels as sk
+    from ptq4vit_tpu_torch.parallel import Evaluator, make_mesh
+    from ptq4vit_tpu_torch.utils.convert import qstate_to
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for name in build.LIBRARIES:
+        build.load(name)
+    job = torch.load(job_path, weights_only=False)
+    mesh = make_mesh(1)
+    name = "vit_base_patch16_384"
+    net = get_net(name, seed=0)
+    q = qstate_to(job["qstates"][name], "cuda")
+    x = first_request(net.cfg.img_size)
+    engine = ServingEngine(net, q, mesh=mesh)
+    engine(x)
+    _reset(sk, sv)
+    logits = engine(x)
+    torch.cuda.synchronize()
+    serve_launches = _counts(sk, sv)
+    n_correct = Evaluator(net, q, mesh=mesh).n_correct(
+        x[:MESH_TP_IMAGES], job["labels"])
+    torch.save({"backend": torch.distributed.get_backend(),
+                "logits": logits.cpu(), "launches": serve_launches,
+                "n_correct": n_correct},
+               os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def slot_flips(q_ref, q_mesh):
+    """{op: differing slots} where the two qstates' slots differ by more
+    than SLOT_RTOL, and the count of all slots."""
+    flips, total = {}, 0
+    for op, qp in q_ref.items():
+        for f, v in vars(qp).items():
+            if not torch.is_tensor(v):
+                continue
+            w = getattr(q_mesh[op], f)
+            same = torch.isclose(w.reshape(-1).float(), v.reshape(-1).float(),
+                                 rtol=SLOT_RTOL, atol=0)
+            total += same.numel()
+            if not same.all():
+                flips[op] = flips.get(op, 0) + int((~same).sum())
+    return flips, total
+
+
+def first_divergence_is_tie(trace_ref, trace_mesh, op):
+    """The op's picks in the two runs: at the first pick where they
+    differ, every differing choice must be a tie of the reference's sims
+    (the two candidates' sims within TIE_RTOL); the later picks follow
+    from it.  Returns (is a tie, a description)."""
+    a, b = trace_ref.get(op, []), trace_mesh.get(op, [])
+    if len(a) != len(b):
+        return False, f"{len(a)} vs {len(b)} picks"
+    for k, ((sims, pa), (_, pb)) in enumerate(zip(a, b)):
+        if torch.equal(pa, pb):
+            continue
+        if pa.ndim == 0:
+            s = sims.reshape(-1, 1)
+            pa, pb = pa.reshape(1), pb.reshape(1)
+        else:
+            s = sims.reshape(sims.shape[0], -1)
+            pa, pb = pa.reshape(-1), pb.reshape(-1)
+        worst = 0.0
+        for c in torch.nonzero(pa != pb).reshape(-1).tolist():
+            hi, lo = float(s[pa[c], c]), float(s[pb[c], c])
+            worst = max(worst, abs(hi - lo) / max(abs(hi), 1e-30))
+        return worst <= TIE_RTOL, (f"pick {k}: {int((pa != pb).sum())} "
+                                   f"columns, largest relative sim gap "
+                                   f"{worst:.2e}")
+    return False, "every pick equal, yet the slots differ"
+
+
+def qstate_diff(q_ref, trace_ref, q, trace):
+    """The slots of ``q`` that differ from ``q_ref`` by more than
+    SLOT_RTOL, split by whether the op's first differing pick is a tie of
+    the reference's sims: (differing slots, all slots, {op: tie},
+    {op: not a tie})."""
+    flips, total = slot_flips(q_ref, q)
+    ties, bad = {}, {}
+    for op in flips:
+        tie, what = first_divergence_is_tie(trace_ref, trace, op)
+        (ties if tie else bad)[op] = f"{flips[op]} slots, {what}"
+    return sum(flips.values()), total, ties, bad
+
+
+def check_mesh_qstate(key, ref, q_ref, trace_ref, ranks):
+    """Every rank's qstate the same bytes; against ``ref``'s (one
+    device's), every differing slot a tie under TIE_RTOL.  Returns the
+    summary."""
+    q0 = ranks[0]["paths"][key]["qstate"]
+    for r in ranks[1:]:
+        for op, qp in r["paths"][key]["qstate"].items():
+            for f, v in vars(qp).items():
+                if torch.is_tensor(v) and not torch.equal(
+                        v, getattr(q0[op], f)):
+                    raise AssertionError(f"{key}: rank qstates differ at "
+                                         f"{op}.{f}")
+    n, total, ties, bad = qstate_diff(q_ref, trace_ref, q0,
+                                      ranks[0]["paths"][key]["trace"])
+    log(f"[mesh] {key[5:]}: qstate identical on {len(ranks)} ranks; {n} "
+        f"of {total} slots differ from {ref} (rtol {SLOT_RTOL}); ties "
+        f"{json.dumps(ties)}; not ties {json.dumps(bad)}")
+    if bad:
+        raise AssertionError(f"{key}: {sorted(bad)} differ from {ref} by "
+                             "more than a tie")
+    return {"slots_differing": n, "slots": total, "ties": ties}
+
+
+def mesh_phase(sk, sv, qstates, traces, launches, served):
+    """Phase 11: the exact-scoring depth-2 ViT-B/384 and ViT-B/384 on
+    2-image micro-batches on one device, then MESH_WORLD ranks (gloo on
+    this card, or NCCL on cards of their own) against them and against
+    phases 4, 5 and 7 (their qstates, argmax traces, calibration launches
+    and served logits), then a one-rank NCCL world.  Returns ({path:
+    launches}, summary)."""
+    import datetime
+    from ptq4vit_tpu_torch.calib import search as S
+    from ptq4vit_tpu_torch.configs import ptq4vit
+    from ptq4vit_tpu_torch.models import get_net
+    from ptq4vit_tpu_torch.parallel import Evaluator, launch
+    from ptq4vit_tpu_torch.utils.convert import qstate_to
+    t_phase = time.time()
+    by_path, summary = {}, {"path": "mesh"}
+    net2, calib2 = exact_depth2_net()
+    with S.argmax_trace() as trace_exact:
+        q_exact, by_path[MESH_EXACT_PATH], _ = run_path(
+            MESH_EXACT_PATH, sk, net2, calib2, config=ptq4vit(),
+            int8_score=False)
+    q_exact, trace_exact = qstate_to(q_exact, "cpu"), host_trace(trace_exact)
+    del net2
+    name = "vit_base_patch16_384"
+    net = get_net(name, seed=0)
+    calib = np.random.default_rng(1).standard_normal(
+        (NUM_CALIB, 3, net.cfg.img_size, net.cfg.img_size)).astype(np.float32)
+    with S.argmax_trace() as trace_shard:
+        q_shard, by_path[SHARD_PATH], _ = run_path(
+            SHARD_PATH, sk, net, calib, config=ptq4vit(),
+            batch_size=USER_MICRO_BATCH // MESH_WORLD)
+    q_shard, trace_shard = qstate_to(q_shard, "cpu"), host_trace(trace_shard)
+    x_tp = first_request(net.cfg.img_size)[:MESH_TP_IMAGES]
+    ref_tp = {}
+    for mode in ("fake-quant", "int8"):
+        ref_tp[mode] = Evaluator(net, qstate_to(qstates[name], "cuda"),
+                                 int8=mode == "int8").logits(x_tp).cpu()
+    labels = ref_tp["fake-quant"].argmax(-1).numpy()
+    labels[::2] = (labels[::2] + 1) % net.cfg.num_classes
+    n_correct_ref = int((ref_tp["fake-quant"].argmax(-1).numpy()
+                         == labels).sum())
+    del net
+    torch.cuda.empty_cache()
+
+    devices = launch.default_devices(MESH_WORLD)
+    backend = launch.choose_backend(devices)
+    with tempfile.TemporaryDirectory(prefix="ptq4vit_smoke_mesh_") as tmp:
+        job = os.path.join(tmp, "job.pt")
+        torch.save({"qstates": {k: qstates[k] for k in SERVE_LAUNCHES},
+                    "labels": labels}, job)
+        t0 = time.time()
+        launch.spawn(mesh_rank, MESH_WORLD, devices=devices, args=(job, tmp),
+                     timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+        ranks_s = time.time() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(MESH_WORLD)]
+        t0 = time.time()
+        launch.spawn(nccl_rank, 1, devices=["cuda:0"], args=(job, tmp),
+                     timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+        nccl_s = time.time() - t0
+        one = torch.load(os.path.join(tmp, "rank0.pt"), weights_only=False)
+    log(f"[mesh] {MESH_WORLD} ranks, backend {backend}, ranks -> devices "
+        f"{[r['device'] for r in ranks]}: {ranks_s:.1f} s with start-up; "
+        "seconds by path on rank 0: " + ", ".join(
+            f"{k} {v['seconds']:.2f}" for k, v in ranks[0]["paths"].items()))
+    summary.update(backend=backend, devices=[r["device"] for r in ranks],
+                   ranks_s=ranks_s, nccl_one_rank_s=nccl_s)
+
+    # calibrations: launches and qstates; each rank's shard launches
+    # exactly what the single device's path does
+    refs = {f"mesh {p} calibration": (
+                f"the single device's ({p})", qstates[p], traces[p],
+                launches[p]) for p in SERVE_LAUNCHES}
+    refs[f"mesh {MESH_EXACT_PATH} calibration"] = (
+        "the single device's", q_exact, trace_exact,
+        by_path[MESH_EXACT_PATH])
+    refs[USER_KEY] = ("one device's on 2-image micro-batches", q_shard,
+                      trace_shard, by_path[SHARD_PATH])
+    for key, (ref, q_ref, trace_ref, expect) in refs.items():
+        for r, res in enumerate(ranks):
+            check_exact_launches(f"rank {r} {key}",
+                                 res["paths"][key]["launches"], expect)
+        summary[key] = check_mesh_qstate(key, ref, q_ref, trace_ref, ranks)
+    # the witness: one device on 2-image micro-batches and the mesh at
+    # phase 4's micro-batch part from phase 4 at the same picks when a
+    # captured gradient's last bits follow the forward's shape
+    witness = {}
+    for label, q, trace in (
+            (SHARD_PATH, q_shard, trace_shard),
+            (USER_KEY, ranks[0]["paths"][USER_KEY]["qstate"],
+             ranks[0]["paths"][USER_KEY]["trace"])):
+        n, total, ties, bad = qstate_diff(qstates[name], traces[name], q,
+                                          trace)
+        witness[label] = {"slots_differing": n, "ties": ties,
+                          "not_ties": bad}
+        log(f"[mesh] witness, {label} against phase 4 (4-image "
+            f"micro-batches): {n} of {total} slots differ; ties "
+            f"{json.dumps(ties)}; not ties {json.dumps(bad)}")
+    ops = [sorted({**w["ties"], **w["not_ties"]}) for w in witness.values()]
+    log(f"[mesh] witness: the two part from phase 4 at "
+        f"{'the same' if ops[0] == ops[1] else 'different'} ops "
+        f"({len(ops[0])} and {len(ops[1])})")
+    summary["micro-batch witness"] = witness
+
+    # data-parallel serving against phase 7's first request
+    for name in SERVE_LAUNCHES:
+        key = f"mesh {name} serving"
+        ref = served[name]
+        for r, res in enumerate(ranks):
+            check_exact_launches(f"rank {r} {key}", res["paths"][key][
+                "launches"], SERVE_LAUNCHES[name])
+            got = res["paths"][key]["logits"]
+            if not torch.equal(got, ranks[0]["paths"][key]["logits"]):
+                raise AssertionError(f"{key}: ranks gathered different "
+                                     "logits")
+        got = ranks[0]["paths"][key]["logits"].float()
+        refl = ref.float()
+        diff = int((got != refl).sum())
+        log(f"[mesh] {name} serving: {SERVE_BATCH} images over {MESH_WORLD} "
+            "ranks, "
+            f"{diff} of {got.numel()} logits differ from phase 7's "
+            f"(max abs {float((got - refl).abs().max()):.3e})")
+        torch.testing.assert_close(got, refl, rtol=1e-5,
+                                   atol=1e-5 * float(refl.abs().max()))
+        summary[key] = {"elements_differing": diff}
+
+    # tensor-parallel evaluation against the single device's
+    for mode in ("fake-quant", "int8"):
+        key = f"mesh vit_base_patch16_384 tensor-parallel {mode}"
+        got = ranks[0]["paths"][key]["logits"]
+        for r, res in enumerate(ranks):
+            if not torch.equal(res["paths"][key]["logits"], got):
+                raise AssertionError(f"{key}: ranks differ")
+        ref = ref_tp[mode]
+        diff = int((got != ref).sum())
+        cos = float(torch.nn.functional.cosine_similarity(
+            got, ref, dim=-1).min())
+        same_pred = int((got.argmax(-1) == ref.argmax(-1)).sum())
+        log(f"[mesh] {key[5:]}: {MESH_TP_IMAGES} images, model axis "
+            f"{MESH_WORLD}: {diff} of {got.numel()} logits differ from the "
+            f"single device's, min cosine {cos:.6f}, argmax equal on "
+            f"{same_pred} of {MESH_TP_IMAGES}")
+        if mode == "int8" and diff:
+            raise AssertionError("tensor-parallel int8=True logits are not "
+                                 "the single device's bitwise")
+        if cos < 0.99:
+            raise AssertionError(f"{key}: cosine {cos:.4f} < 0.99")
+        summary[key] = {"elements_differing": diff, "min_cosine": cos}
+
+    # the one-rank NCCL world
+    ref = served["vit_base_patch16_384"]
+    check_exact_launches("one-rank NCCL serving", one["launches"],
+                         SERVE_LAUNCHES["vit_base_patch16_384"])
+    diff = int((one["logits"] != ref).sum())
+    log(f"[mesh] one-rank world, backend {one['backend']}: ServingEngine("
+        f"mesh=) {diff} of {ref.numel()} logits differ from phase 7's; "
+        f"Evaluator(mesh=) n_correct {one['n_correct']} (single device "
+        f"{n_correct_ref}); {nccl_s:.1f} s with start-up")
+    if one["backend"] != "nccl" or diff or one["n_correct"] != n_correct_ref:
+        raise AssertionError("the one-rank NCCL world disagrees with the "
+                             "single device")
+    for r, res in enumerate(ranks):
+        for k, v in res["paths"].items():
+            by_path[f"{k}, rank {r}"] = v["launches"]
+    by_path["mesh vit_base_patch16_384 serving, one-rank NCCL"] = \
+        one["launches"]
+    summary["wall_s"] = time.time() - t_phase
+    log(f"[mesh] phase 11: {summary['wall_s']:.1f} s")
+    return by_path, summary
+
+
 def _leaves(tree):
     """The tensors of a param tree, in a fixed order."""
     if isinstance(tree, dict):
@@ -1930,7 +2386,34 @@ def _leaves(tree):
     return [tree]
 
 
+def mesh_only(sk, sv):
+    """``--mesh``: phase 11 after the calibrations and the first request
+    it reads (phases 4, 5 and 7's)."""
+    from ptq4vit_tpu_torch import ServingEngine
+    from ptq4vit_tpu_torch.calib import search as S
+    from ptq4vit_tpu_torch.models import get_net
+    from ptq4vit_tpu_torch.utils.convert import qstate_to
+    qstates, traces, launches, served = {}, {}, {}, {}
+    for name in SERVE_LAUNCHES:
+        with S.argmax_trace() as trace:
+            qstates[name], launches[name], _ = calibrate_and_serve(
+                name, name, sk)
+        traces[name] = host_trace(trace)
+        net = get_net(name, seed=0)
+        engine = ServingEngine(net, qstate_to(qstates[name], "cuda"))
+        served[name] = engine(first_request(net.cfg.img_size)).cpu()
+        del engine, net
+        torch.cuda.empty_cache()
+    _, summary = mesh_phase(sk, sv, qstates, traces, launches, served)
+    print(json.dumps(summary))
+
+
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Card check of the port.")
+    ap.add_argument("--mesh", action="store_true",
+                    help="phase 11 alone, after what it reads")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1951,19 +2434,31 @@ def main() -> int:
         f"{nvcc_s:.1f} s (nvcc, in parallel), {time.time() - t0:.1f} s "
         "with loading")
 
+    if args.mesh:
+        mesh_only(sk, sv)
+        log(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
     stats = kernel_phase(sk, torch.device("cuda"))
     serve_stats = serve_kernel_phase(sv, torch.device("cuda"))
     serve_stats.update(window_kernel_phase(sv, torch.device("cuda")))
 
-    by_path, summaries, qstates = {}, [], {}
+    from ptq4vit_tpu_torch.calib import search as S
+    by_path, summaries, qstates, traces, served = {}, [], {}, {}, {}
     for path, name, qkw in (
             ("vit_base_patch16_384", "vit_base_patch16_384", {}),
             ("swin_base_patch4_window12_384",
              "swin_base_patch4_window12_384", {}),
             ("vit_base_patch16_384 exact", "vit_base_patch16_384",
              {"int8_score": False})):
-        qstates[path], by_path[path], summary = calibrate_and_serve(
-            path, name, sk, **qkw)
+        # every candidate pick, for phase 11's tie test
+        with S.argmax_trace() as trace:
+            qstates[path], by_path[path], summary = calibrate_and_serve(
+                path, name, sk, **qkw)
+        traces[path] = host_trace(trace)
         summaries.append(summary)
     flips = flip_count(inventory("vit_base_patch16_384"),
                        qstates["vit_base_patch16_384"],
@@ -1973,7 +2468,7 @@ def main() -> int:
     log("[flips] int8 vs exact scoring, vit_base_patch16_384, 8 images: "
         + json.dumps({"by_op_type": flips, "total": total}))
     for name in SERVE_LAUNCHES:
-        launches, summary, (net, qstate, x0) = serving_phase(
+        launches, summary, (net, qstate, x0, served[name]) = serving_phase(
             sk, sv, name, qstates[name])
         by_path[summary["path"]] = launches
         summaries.append(summary)
@@ -1999,6 +2494,9 @@ def main() -> int:
             launches, summary = phase(sk, sv, root)
             by_path.update(launches)
             summaries.append(summary)
+    launches, summary = mesh_phase(sk, sv, qstates, traces, by_path, served)
+    by_path.update(launches)
+    summaries.append(summary)
     log("[paths] " + json.dumps({"card": card, "paths": summaries}))
 
     stats.update(serve_stats)

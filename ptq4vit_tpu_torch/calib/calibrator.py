@@ -21,7 +21,14 @@ Either paradigm resumes from a ``checkpoint_dir``: one npz per op in the
 JAX package's format, stamped with the net, the config and the op's
 policy, so each package resumes from the other's directory.
 ``minmax_calib`` (no search) and ``apply_bias_correction`` (opt-in) are
-the module's other entries.
+the module's other entries; like the JAX package's, they take no mesh.
+
+Over a mesh (``mesh=``, ``parallel/mesh.make_mesh``) every rank runs this
+code on the whole calibration set: the captures take the rank's samples
+(calib/capture.py), the searches sum over the ranks (calib/search.py), and
+every rank ends with the same qstate.  Group planning sees the rank's
+share of the samples and of its card; rank 0 decides what a checkpoint
+directory resumes and writes each npz once every rank has reached it.
 """
 from __future__ import annotations
 
@@ -33,11 +40,13 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs.policy import QuantConfig
 from ..models.net_wrap import reference_wrap_order
 from ..models.registry import resolve_device
 from ..ops import search_kernels as K
+from ..parallel.mesh import all_gather, axis_size, check_mesh, pmin
 from ..quant import fakequant as fq
 from ..quant.qparams import ConvQP, LinearQP, MatMulQP
 from ..utils.convert import qp_from_fields
@@ -156,7 +165,8 @@ class HessianQuantCalibrator:
     ``device_resident=False`` holds the captured caches in host memory
     (pinned), each op's going to the device only for its search;
     ``profile_dir`` runs the calibration under ``torch.profiler`` and
-    writes a Chrome trace there; ``mesh`` waits for multi-GPU."""
+    writes a Chrome trace there; ``mesh`` (a ("data", "model")
+    DeviceMesh) calibrates data-parallel over its "data" axis."""
 
     def __init__(self, net, quant_cfg: QuantConfig, calib_x,
                  sequential: bool = False, batch_size: int = 4,
@@ -170,9 +180,7 @@ class HessianQuantCalibrator:
                  device=None, probe_u=None,
                  int8_score: Optional[bool] = None,
                  use_kernels: Optional[bool] = None):
-        if mesh is not None:
-            raise NotImplementedError("calibration over a device mesh needs "
-                                      "multi-GPU (ROADMAP A12)")
+        self.mesh = check_mesh(mesh)
         self.net = net
         self.cfg = quant_cfg
         self.calib_x = np.asarray(calib_x, np.float32)
@@ -211,20 +219,45 @@ class HessianQuantCalibrator:
         or configs (bits, n_V, ...) must not return stale QPs."""
         return f"{self.net.name}|{self.cfg.name}|{self.cfg.op_policy(mtype)}"
 
-    def _load_ckpt(self, name: str, mtype: str):
+    def _ckpt_valid(self, name: str, mtype: str) -> bool:
         p = self._ckpt_path(name)
         if p is None or not os.path.exists(p):
-            return None
+            return False
         with np.load(p) as data:
             meta = json.loads(str(data["__meta__"]))
-        if meta.get("scope") != self._ckpt_scope(mtype):
-            return None                      # another model or config
-        return load_op_qp(p, self.device)
+        # another model or config does not resume
+        return meta.get("scope") == self._ckpt_scope(mtype)
+
+    def _distributed(self) -> bool:
+        return self.mesh is not None and dist.get_world_size() > 1
+
+    def _resume(self) -> Dict[str, Any]:
+        """{op: QP} of every op the checkpoint directory holds under this
+        scope; over a mesh rank 0 decides and broadcasts the list, so every
+        rank skips the same searches (and their collectives)."""
+        if self.checkpoint_dir is None:
+            return {}
+        found = None
+        if not self._distributed() or dist.get_rank() == 0:
+            found = [n for n, t in self.wrapped_modules
+                     if self._ckpt_valid(n, t)]
+        if self._distributed():
+            box = [found]
+            dist.broadcast_object_list(box, src=0)
+            found = box[0]
+        return {n: load_op_qp(self._ckpt_path(n), self.device)
+                for n in found}
 
     def _save_ckpt(self, name: str, mtype: str, qp) -> None:
+        """The op's npz; over a mesh rank 0 writes it once every rank has
+        searched the op."""
         p = self._ckpt_path(name)
         if p is None:
             return
+        if self._distributed():
+            dist.barrier()
+            if dist.get_rank() != 0:
+                return
         os.makedirs(self.checkpoint_dir, exist_ok=True)
         save_op_qp(p, qp, scope=self._ckpt_scope(mtype))
 
@@ -238,28 +271,44 @@ class HessianQuantCalibrator:
         PyTorch's caching allocator holds blocks with no tensor in them (an
         earlier calibration in this process leaves them, and the driver
         counts them as used), they go back to the driver and the free
-        memory is read again."""
+        memory is read again.  Over a mesh it plans on this rank's samples
+        and its share of a card that ranks share, and the ranks take the
+        smallest budget, so they plan the same groups."""
         if self.cache_budget is not None:
             return self.cache_budget
         if not self.device_resident:
             return 48 << 30
         if self.device.type != "cuda":
             return 8 << 30
-        n = len(self.calib_x)
+        n = self._local_samples()
         work = tap_bytes(self.net, n, need_grad, True, 4)
         reserve = max(work[name] + kernel_scratch_bytes(
             self.net.op_shapes[name], n, policies[name])
             for name in policies) + self.search_budget + (1 << 30)
 
+        sharing = 1
+        if self.mesh is not None:
+            # the ranks on this card (its free memory is theirs together)
+            idx = torch.tensor([torch.cuda.current_device()],
+                               device=self.device)
+            sharing = int((all_gather(idx, self.mesh, "data") == idx).sum())
+
         def budget():
             free, _ = torch.cuda.mem_get_info(self.device)
-            return max(1 << 30, int(0.85 * free) - reserve)
+            return max(1 << 30, int(0.85 * free / sharing) - reserve)
         out = budget()
         if out < need and torch.cuda.memory_reserved(self.device) > \
                 torch.cuda.memory_allocated(self.device):
             torch.cuda.empty_cache()
             out = budget()
+        if self.mesh is not None:
+            out = int(pmin(torch.tensor([out], device=self.device),
+                           self.mesh, "data"))
         return out
+
+    def _local_samples(self) -> int:
+        """The calibration samples this rank captures."""
+        return len(self.calib_x) // axis_size(self.mesh, "data")
 
     def quant_calib(self, verbose: bool = False) -> Dict[str, Any]:
         """The reference's non-batching entry (quant_calib.py:95-104): it
@@ -278,20 +327,16 @@ class HessianQuantCalibrator:
         t_setup = time.time()
         policies = {n: self.cfg.op_policy(t) for n, t in self.wrapped_modules}
         need_grad = any(p.metric == "hessian" for p in policies.values())
-        qstate: Dict[str, Any] = {}
-        todo = []
-        for name, mtype in self.wrapped_modules:
-            qp = self._load_ckpt(name, mtype)
-            if qp is None:
-                todo.append((name, mtype))
-            else:
-                qstate[name] = qp
+        qstate: Dict[str, Any] = self._resume()
+        todo = [(name, mtype) for name, mtype in self.wrapped_modules
+                if name not in qstate]
         if self.sequential:
             self.report.setup_seconds = time.time() - t_setup
             return self._sequential_calib(qstate, todo, policies, need_grad,
                                           verbose)
         elem = torch.tensor([], dtype=self.cache_dtype).element_size()
-        sizes = tap_bytes(self.net, len(self.calib_x), need_grad, False, elem)
+        sizes = tap_bytes(self.net, self._local_samples(), need_grad, False,
+                          elem)
         budget = self._group_budget(need_grad, policies,
                                     sum(sizes[name] for name, _ in todo))
         groups: List[List[str]] = []
@@ -364,7 +409,7 @@ class HessianQuantCalibrator:
                       need_grad=need_grad, probe_sigma=self.probe_sigma,
                       ops=ops, store_raw_out=False,
                       cache_dtype=self.cache_dtype, device=self.device,
-                      to_host=not self.device_resident, **kw)
+                      to_host=not self.device_resident, mesh=self.mesh, **kw)
         self._sync()
         self.report.capture_seconds += time.time() - t0
         if self.device.type == "cuda":
@@ -383,25 +428,27 @@ class HessianQuantCalibrator:
         t0 = time.time()
         if not self.device_resident:
             cap = cap_to(cap, self.device)
-        if "qmatmul" in mtype:
-            qp = S.search_matmul(cap, policy, self.search_budget,
-                                 int8_score=self.int8_score,
-                                 use_kernels=self.use_kernels)
-        else:
-            w, b = params_for_op(self.net.params, name)
-            if mtype == "qconv":
-                qp = S.search_conv(w, b, cap, policy, self.search_budget)
-            else:
-                qp = S.search_linear(w, b, cap, policy, self.search_budget,
-                                     calib_bs=self.batch_size,
-                                     int8_score=self.int8_score,
-                                     use_kernels=self.use_kernels)
+        with S.traced_op(name):
+            qp = self._search_op(name, mtype, policy, cap)
         self._sync()
         self.report.search_seconds[name] = time.time() - t0
         if verbose:
             print(f"[calib] {name}: {self.report.search_seconds[name]:.2f}s",
                   flush=True)
         return qp
+
+    def _search_op(self, name: str, mtype: str, policy, cap):
+        if "qmatmul" in mtype:
+            return S.search_matmul(cap, policy, self.search_budget,
+                                   int8_score=self.int8_score,
+                                   use_kernels=self.use_kernels)
+        w, b = params_for_op(self.net.params, name)
+        if mtype == "qconv":
+            return S.search_conv(w, b, cap, policy, self.search_budget)
+        return S.search_linear(w, b, cap, policy, self.search_budget,
+                               calib_bs=self.batch_size,
+                               int8_score=self.int8_score,
+                               use_kernels=self.use_kernels)
 
 
 # the reference's base class name (quant_calib.py:9)
@@ -414,7 +461,7 @@ def cap_to(cap: OpCapture, device) -> OpCapture:
     def move(t):
         return None if t is None else t.to(device, non_blocking=True)
     return OpCapture(cap.kind, {k: move(v) for k, v in cap.inputs.items()},
-                     out=move(cap.out), grad=move(cap.grad))
+                     out=move(cap.out), grad=move(cap.grad), shard=cap.shard)
 
 
 def minmax_calib(net, quant_cfg: QuantConfig, calib_x,

@@ -39,9 +39,19 @@ grid candidates are scored; per-batch similarities are summed, then
 argmaxed with the first maximum winning (``torch.argmax``); the pearson
 linear's means are chunk-local, with the batch chunk pinned to the
 calibrator's batch size (``calib_bs``) when it divides the calib size.
+
+Over a mesh the caches hold this rank's samples (``OpCapture.shard``,
+calib/capture.py), and every reduction over samples becomes a collective
+over "data" where JAX's psums are (search.py:79-102, 293-294): each
+scorer, kernel or plain, sums its rank's samples, then the sums are
+``all_reduce``-d before the division and the argmax; the interval inits'
+amax becomes a max over the ranks; the pearson means of a batch chunk
+that spans the ranks are summed over them; the quantile conv gathers
+every sample.  Every rank then picks the same candidates.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -149,9 +159,63 @@ def _defaults(device, int8_score, use_kernels):
             on_cuda if use_kernels is None else use_kernels)
 
 
+def _sum(shard, t):
+    """``t`` summed over the ranks holding the other samples."""
+    return t if shard is None else shard.sum(t)
+
+
+def _max(shard, t):
+    """``t``'s maximum over the ranks holding the other samples."""
+    return t if shard is None else shard.max(t)
+
+
+def _max_fn(shard):
+    """The interval inits' reduce: the amax over the ranks."""
+    return None if shard is None else shard.max
+
+
+_TRACE: Optional[dict] = None  # {op: [(sims, pick), ...]} while tracing
+_TRACE_OP: Optional[str] = None
+
+
+@contextlib.contextmanager
+def argmax_trace():
+    """Record every candidate pick of the searches run inside, by op
+    (``traced_op``): the sims and the index picked, in order.  Two runs'
+    traces tell a tie (top sims within rounding, which a reordered sum may
+    flip) from a disagreement.  The records stay on the sims' device (the
+    sims copied), so tracing adds no host synchronization."""
+    global _TRACE
+    prev, _TRACE = _TRACE, {}
+    try:
+        yield _TRACE
+    finally:
+        _TRACE = prev
+
+
+@contextlib.contextmanager
+def traced_op(name: str):
+    """The op the picks inside belong to in an ``argmax_trace``."""
+    global _TRACE_OP
+    prev, _TRACE_OP = _TRACE_OP, name
+    try:
+        yield
+    finally:
+        _TRACE_OP = prev
+
+
+def _argmax(sims, dim=None):
+    """torch.argmax (the first maximum wins), recorded while tracing."""
+    best = torch.argmax(sims) if dim is None else torch.argmax(sims, dim=dim)
+    if _TRACE is not None:
+        _TRACE.setdefault(_TRACE_OP, []).append(
+            (sims.detach().to(torch.float32, copy=True), best))
+    return best
+
+
 def _argmax_take(cands2d, sims2d):
     """Per-column argmax of (eq_n, n) sims -> the chosen (n,) candidates."""
-    best = torch.argmax(sims2d, dim=0)
+    best = _argmax(sims2d, dim=0)
     return torch.gather(cands2d, 0, best[None])[0]
 
 
@@ -165,33 +229,45 @@ def _levels(x, d, qmax: int):
 # linear search
 # ---------------------------------------------------------------------------
 
-def _pearson_w(raw, sim):
+def _chunk_mean(shard):
+    """The pearson chunk mean over axes (0, 1): local, or over a chunk
+    whose samples every rank holds a block of (summed over the ranks)."""
+    if shard is None:
+        return lambda t: torch.mean(t, dim=(0, 1), keepdim=True)
+    return lambda t: shard.sum(torch.sum(t, dim=(0, 1), keepdim=True)) \
+        / (t.shape[0] * shard.size * t.shape[1])
+
+
+def _pearson_w(raw, sim, mean):
     """Reference _get_pearson_w (linear.py:426-439) with chunk-global
     means.  raw: (bs,T,1,n_V,crb); sim: (bs,T,P,n_V,crb) -> (bs,P,n_V)."""
     bs, T, P, n_V, crb = sim.shape
     s = sim.permute(0, 1, 4, 3, 2).reshape(bs, T * crb, n_V, P)
     r = raw.permute(0, 1, 4, 3, 2).reshape(bs, T * crb, n_V, 1)
-    s = s - torch.mean(s, dim=(0, 1), keepdim=True)
-    r = r - torch.mean(r, dim=(0, 1), keepdim=True)
+    s = s - mean(s)
+    r = r - mean(r)
     return cosine_similarity(r, s, axis=1).permute(0, 2, 1)
 
 
-def _pearson_a(raw, sim):
+def _pearson_a(raw, sim, mean):
     """Reference _get_pearson_a (linear.py:441-453).  raw: (bs,T,1,oc);
     sim: (bs,T,P,oc) -> (bs,P)."""
     bs, T, P, oc = sim.shape
     s = sim.permute(0, 1, 3, 2).reshape(bs, T * oc, P)
     r = raw.permute(0, 1, 3, 2).reshape(bs, T * oc, 1)
-    s = s - torch.mean(s, dim=(0, 1), keepdim=True)
-    r = r - torch.mean(r, dim=(0, 1), keepdim=True)
+    s = s - mean(s)
+    r = r - mean(r)
     return cosine_similarity(r, s, axis=1)
 
 
 def _linear_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
-                   bs: int, kern_w: bool, kern_a: bool, int8_score: bool):
+                   bs: int, kern_w: bool, kern_a: bool, int8_score: bool,
+                   shard=None, mean=None):
     """calibration_step2 of a linear layer (reference linear.py:536-555).
     x: (S, T, ic); raw_out / raw_grad: (S, T, oc) or None.  ``kern_w`` /
-    ``kern_a``: the weight / input side scores through a kernel."""
+    ``kern_a``: the weight / input side scores through a kernel.
+    ``shard``: x holds this rank's samples; ``mean``: the pearson chunk
+    mean (``_chunk_mean``)."""
     x = x.float()
     if raw_out is None:
         raw_out = torch.matmul(x, w.t())
@@ -218,12 +294,13 @@ def _linear_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
             .expand(n_V, 1, n_H, 1).contiguous()
         xg = fq.grouped_act_view(x, n_a)
         v = xg if postgelu else torch.abs(xg)
-        a_int0 = fq.exact_div(torch.amax(v), a_qmax - 0.5).reshape(1, 1) \
-            .expand(n_a, 1).contiguous()
+        a_int0 = fq.exact_div(_max(shard, torch.amax(v)), a_qmax - 0.5) \
+            .reshape(1, 1).expand(n_a, 1).contiguous()
     else:
         w_int0 = fq.blocked_weight_interval_init(w, n_V, n_H, w_qmax)
         a_int0 = fq.grouped_act_interval_init(x, n_a, a_qmax,
-                                              signed=not postgelu)
+                                              signed=not postgelu,
+                                              reduce=_max_fn(shard))
 
     grid = fq.candidate_grid(policy.eq_alpha, policy.eq_beta, policy.eq_n,
                              device=dev)
@@ -262,7 +339,7 @@ def _linear_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
             x_sim = _quant_act_linear(x2, a_int, a_neg, policy).contiguous()
             sims = K.linear_w_hessian_sims(x_sim, w, cands, rawb, grad_f,
                                            w_qmax)
-        return fq.exact_div(sims, float(T * crb_r))
+        return fq.exact_div(_sum(shard, sims), float(T * crb_r))
 
     def score_w(w_int, a_int, h):
         """Summed similarities (eq_n, n_V) of the candidates for weight
@@ -285,7 +362,7 @@ def _linear_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
                 outc = out.reshape(bs, T, P, n_V, crb_r)
                 rawc = r_s.reshape(bs, T, 1, n_V, crb_r)
                 if metric == "pearson":
-                    sim = _pearson_w(rawc, outc)
+                    sim = _pearson_w(rawc, outc, mean)
                 else:
                     gc = (g_s.reshape(bs, T, 1, n_V, crb_r)
                           if metric == "hessian" else None)
@@ -293,7 +370,7 @@ def _linear_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
                         rawc, outc, metric, gc, -1), dim=1)
                 acc = acc + torch.sum(sim, dim=0)
             out_sims.append(acc)
-        return torch.cat(out_sims)[:eq_n]
+        return _sum(shard, torch.cat(out_sims)[:eq_n])
 
     def score_a_kernel(w_int):
         """B2 (int8 scoring, n_H == 1) or B4a: (eq_n,) sims."""
@@ -312,7 +389,7 @@ def _linear_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
             sims = K.linear_a_hessian_sims(x2, w_sim, cands, rawb, grad_f,
                                            a_qmax, postgelu=postgelu,
                                            a_neg=a_neg_f)
-        return fq.exact_div(sims, float(T * oc))
+        return fq.exact_div(_sum(shard, sims), float(T * oc))
 
     def score_a(w_int, a_int, a):
         """Summed similarities (eq_n,) of the candidates for input group a
@@ -343,29 +420,54 @@ def _linear_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
                     out = out + b
                 raw = r_s[:, :, None]
                 if metric == "pearson":
-                    sim = _pearson_a(raw, out)
+                    sim = _pearson_a(raw, out, mean)
                 else:
                     gc = g_s[:, :, None] if metric == "hessian" else None
                     sim = torch.mean(_feature_similarity(raw, out, metric,
                                                          gc, -1), dim=1)
                 acc = acc + torch.sum(sim, dim=0)
             out_sims.append(acc)
-        return torch.cat(out_sims)[:eq_n]
+        return _sum(shard, torch.cat(out_sims)[:eq_n])
 
     w_int, a_int = w_int0, a_int0
     for _ in range(policy.search_round):
         for h in range(n_H):
             sims = score_w(w_int, a_int, h)                    # eq_n, n_V
-            best = torch.argmax(sims, dim=0)                   # n_V
+            best = _argmax(sims, dim=0)                   # n_V
             chosen = torch.gather(w_cands[:, :, 0, :, 0], 0,
                                   best[None, :, None].expand(1, n_V, n_H))[0]
             mask_h = torch.arange(n_H, device=dev).reshape(1, 1, n_H, 1) == h
             w_int = torch.where(mask_h, chosen[:, None, :, None], w_int)
         for a in range(n_a):
-            chosen = a_cands[torch.argmax(score_a(w_int, a_int, a))]
+            chosen = a_cands[_argmax(score_a(w_int, a_int, a))]
             mask_a = torch.arange(n_a, device=dev).reshape(n_a, 1) == a
             a_int = torch.where(mask_a, chosen, a_int)
     return w_int, a_int
+
+
+def _pearson_chunks(eq_n: int, S: int, width: int, budget: int,
+                    calib_bs: Optional[int], shard):
+    """(P, local batch chunk, chunk mean) of the pearson linear.  The
+    reference's pearson means are chunk-local (linear.py:426-453, chunks
+    of calib_batch_size): the chunk is pinned to ``calib_bs`` when it
+    divides the calib size, to reproduce them.  Over a mesh the chunk is
+    the single device's, in global sample order: whole micro-batches
+    (every rank holds a block of each; the means are summed over the
+    ranks) or a part of one rank's block (the means stay local)."""
+    S_all = S * (1 if shard is None else shard.size)
+    pin = calib_bs if calib_bs and S_all % calib_bs == 0 else None
+    P, c = plan_chunks(eq_n, S_all, width, budget, batch_chunk=pin)
+    if shard is None:
+        return P, c, _chunk_mean(None)
+    if c % shard.micro == 0:
+        bs = c // shard.size
+        return plan_chunks(eq_n, S, width, budget, batch_chunk=bs)[0], bs, \
+            _chunk_mean(shard)
+    if (shard.micro // shard.size) % c == 0:
+        return P, c, _chunk_mean(None)
+    raise ValueError(f"a pearson chunk of {c} samples straddles the data "
+                     f"shards (micro-batches of {shard.micro} over "
+                     f"data={shard.size})")
 
 
 def search_linear(w, b, cap, policy: OpPolicy, budget: int = DEFAULT_BUDGET,
@@ -395,13 +497,15 @@ def search_linear(w, b, cap, policy: OpPolicy, budget: int = DEFAULT_BUDGET,
     # per candidate the plain branches hold the output and, on the input
     # side, the quantized input: plan on the larger
     width = T * max(oc, ic)
-    # the reference's pearson means are chunk-local (linear.py:426-453,
-    # chunks of calib_batch_size): pin the batch chunk to reproduce them
-    pin = (calib_bs if policy.metric == "pearson" and calib_bs
-           and S % calib_bs == 0 else None)
-    P, bs = plan_chunks(policy.eq_n, S, width, budget, batch_chunk=pin)
+    shard = cap.shard
+    mean = _chunk_mean(None)
+    if policy.metric == "pearson":
+        P, bs, mean = _pearson_chunks(policy.eq_n, S, width, budget,
+                                      calib_bs, shard)
+    else:
+        P, bs = plan_chunks(policy.eq_n, S, width, budget)
     w_int, a_int = _linear_search(w, b, x, raw_out, grad, policy, P, bs,
-                                  kern_w, kern_a, int8_score)
+                                  kern_w, kern_a, int8_score, shard, mean)
     postgelu = policy.quantizer == "postgelu_linear"
     a_qmax = fq.qmax_for_bit(policy.a_bit)
     return LinearQP(
@@ -444,9 +548,10 @@ def _head_sims(out, raw, g_s, metric: str):
     return torch.sum(torch.mean(sim, dim=3), dim=1)
 
 
-def _split_sims(splits, Ab, Bb, rb, gb, A_qmax: int, metric: str):
+def _split_sims(splits, Ab, Bb, rb, gb, A_qmax: int, metric: str,
+                shard=None):
     """Summed similarities of the SoS split grid, B raw
-    (matmul.py:600-631)."""
+    (matmul.py:600-631), over every rank's samples."""
     sims = []
     for sp in splits:
         acc = torch.zeros((), device=sp.device)
@@ -456,11 +561,11 @@ def _split_sims(splits, Ab, Bb, rb, gb, A_qmax: int, metric: str):
                                       g_s, -1)
             acc = acc + torch.sum(torch.mean(sim, dim=(1, 2)))
         sims.append(acc)
-    return torch.stack(sims)
+    return _sum(shard, torch.stack(sims))
 
 
 def _matmul_search(A, B, raw_out, raw_grad, policy: OpPolicy, P: int,
-                   bs: int, kernels: bool):
+                   bs: int, kernels: bool, shard=None):
     """calibration_step2 of an A@B op with head-wise groups and
     n_V = n_H = 1 (reference matmul.py:565-576) under int8 scoring: B3 /
     B3f, or the int8 XLA branch's levels with one rescale (exact scoring
@@ -481,10 +586,12 @@ def _matmul_search(A, B, raw_out, raw_grad, policy: OpPolicy, P: int,
 
     def init_interval(x, qmax):
         if policy.init_layerwise:
-            return fq.exact_div(torch.amax(torch.abs(x)), qmax - 0.5) \
+            return fq.exact_div(_max(shard, torch.amax(torch.abs(x))),
+                                qmax - 0.5) \
                 .reshape(1, 1, 1, 1, 1, 1, 1).expand(1, G, 1, 1, 1, 1, 1) \
                 .contiguous()
-        return fq.matmul_operand_interval_init(x, G, 1, 1, qmax)
+        return fq.matmul_operand_interval_init(x, G, 1, 1, qmax,
+                                               reduce=_max_fn(shard))
 
     B_int0 = init_interval(B, B_qmax)
     if sos:
@@ -514,7 +621,7 @@ def _matmul_search(A, B, raw_out, raw_grad, policy: OpPolicy, P: int,
             sims = K.matmul_hessian_sims(
                 A_raw, B_raw, grad_raw, A_cands.reshape(eq_n, G).contiguous(),
                 B_int.reshape(G), "a", A_qmax, B_qmax)
-            return fq.exact_div(sims, float(R * Co))
+            return fq.exact_div(_sum(shard, sims), float(R * Co))
         # the fixed side as levels; ONE rescale after the exact dot
         # (search.py:649-677)
         B_fix = [_levels(b_s, B_int.reshape(1, G, 1, 1), B_qmax)
@@ -532,7 +639,7 @@ def _matmul_search(A, B, raw_out, raw_grad, policy: OpPolicy, P: int,
                 acc = acc + _head_sims(out, _raw_out(a_s, b_raw, r_s), g_s,
                                        policy.metric)
             out_sims.append(acc)
-        return torch.cat(out_sims)[:eq_n]
+        return _sum(shard, torch.cat(out_sims)[:eq_n])
 
     def score_B(a_state, B_int):
         """(eq_n, G) summed sims of the B-interval candidates
@@ -551,7 +658,7 @@ def _matmul_search(A, B, raw_out, raw_grad, policy: OpPolicy, P: int,
                     A_raw, B_raw, grad_raw,
                     B_cands.reshape(eq_n, G).contiguous(),
                     a_state.reshape(G), "b", B_qmax, A_qmax)
-            return fq.exact_div(sims, float(R * Co))
+            return fq.exact_div(_sum(shard, sims), float(R * Co))
         if sos:                              # two level sets (:717-751)
             A_fix = [_sos_levels(a_s, a_state, A_qmax)[:2] for a_s in Ab]
             s_hi = fq.exact_div(torch.ones((), device=dev), A_qmax - 1)
@@ -577,13 +684,13 @@ def _matmul_search(A, B, raw_out, raw_grad, policy: OpPolicy, P: int,
                 acc = acc + _head_sims(out, _raw_out(a_raw, b_s, r_s), g_s,
                                        policy.metric)
             out_sims.append(acc)
-        return torch.cat(out_sims)[:eq_n]
+        return _sum(shard, torch.cat(out_sims)[:eq_n])
 
     a_state, B_int = a_state0, B_int0
     for _ in range(policy.search_round):
         if sos:
-            a_state = splits[torch.argmax(_split_sims(
-                splits, Ab, Bb, rb, gb, A_qmax, policy.metric))]
+            a_state = splits[_argmax(_split_sims(
+                splits, Ab, Bb, rb, gb, A_qmax, policy.metric, shard))]
         else:
             a_state = _argmax_take(A_cands.reshape(eq_n, G), score_A(B_int)) \
                 .reshape(1, G, 1, 1, 1, 1, 1)
@@ -594,7 +701,8 @@ def _matmul_search(A, B, raw_out, raw_grad, policy: OpPolicy, P: int,
 
 
 def _matmul_blocked_search(A, B, raw_out, raw_grad, policy: OpPolicy,
-                           P: int, bs: int, n_G_A: int, n_G_B: int):
+                           P: int, bs: int, n_G_A: int, n_G_B: int,
+                           shard=None):
     """General blocked-operand matmul search (JAX
     ``_matmul_blocked_search_jit``; reference PTQSLQuantMatMul
     matmul.py:109-138, search matmul.py:177-241 in its batching form
@@ -618,10 +726,12 @@ def _matmul_blocked_search(A, B, raw_out, raw_grad, policy: OpPolicy,
 
     def init_interval(x, qmax, nG, nV, nH):
         if policy.init_layerwise:
-            return fq.exact_div(torch.amax(torch.abs(x)), qmax - 0.5) \
+            return fq.exact_div(_max(shard, torch.amax(torch.abs(x))),
+                                qmax - 0.5) \
                 .reshape(1, 1, 1, 1, 1, 1, 1) \
                 .expand(1, nG, 1, nV, 1, nH, 1).contiguous()
-        return fq.matmul_operand_interval_init(x, nG, nV, nH, qmax)
+        return fq.matmul_operand_interval_init(x, nG, nV, nH, qmax,
+                                               reduce=_max_fn(shard))
 
     B_int0 = init_interval(B, B_qmax, n_G_B, nVB, nHB)
     a_state0 = (torch.tensor(0.01, dtype=torch.float32, device=dev) if sos
@@ -697,8 +807,8 @@ def _matmul_blocked_search(A, B, raw_out, raw_grad, policy: OpPolicy,
                     acc = acc + _head_sims(out, _raw_out(a_s, b_s, r_s), g_s,
                                            policy.metric)
                 out_sims.append(acc)
-            sims = group_reduce(torch.cat(out_sims)[:eq_n], nG)
-            best = torch.argmax(sims, dim=0)                   # (nG,)
+            sims = group_reduce(_sum(shard, torch.cat(out_sims)[:eq_n]), nG)
+            best = _argmax(sims, dim=0)                   # (nG,)
             chosen = torch.gather(
                 cands.reshape(eq_n, nG, nV, nH), 0,
                 best[None, :, None, None].expand(1, nG, nV, nH))[0]
@@ -709,8 +819,8 @@ def _matmul_blocked_search(A, B, raw_out, raw_grad, policy: OpPolicy,
     a_state, B_int = a_state0, B_int0
     for _ in range(policy.search_round):
         if sos:
-            a_state = splits[torch.argmax(_split_sims(
-                splits, Ab, Bb, rb, gb, A_qmax, policy.metric))]
+            a_state = splits[_argmax(_split_sims(
+                splits, Ab, Bb, rb, gb, A_qmax, policy.metric, shard))]
         else:
             a_state = search_blocks(True, a_state, B_int)
         B_int = search_blocks(False, a_state, B_int)
@@ -742,12 +852,13 @@ def search_matmul(cap, policy: OpPolicy, budget: int = DEFAULT_BUDGET,
         n_G_A = policy.n_G_A if policy.n_G_A > 1 else G
         n_G_B = policy.n_G_B if policy.n_G_B > 1 else G
         a_state, B_int = _matmul_blocked_search(A, B, cap.out, grad, policy,
-                                                P, bs, n_G_A, n_G_B)
+                                                P, bs, n_G_A, n_G_B,
+                                                cap.shard)
     else:
         kernels = _scorer(dev, use_kernels, policy.metric == "hessian",
                           "matmul")
         a_state, B_int = _matmul_search(A, B, cap.out, grad, policy, P, bs,
-                                        kernels)
+                                        kernels, cap.shard)
     A_qmax = fq.qmax_for_bit(policy.a_bit)
     if policy.quantizer == "sos_matmul":
         return MatMulQP(A_interval=fq.exact_div(a_state, A_qmax - 1),
@@ -773,7 +884,7 @@ def _conv_inputs(w, b, x, raw_out, raw_grad):
 
 
 def _conv_input_sims(w_sim, b, xb, rb, gb, a_cands, P: int, a_qmax: int,
-                     reduce):
+                     reduce, shard=None):
     """Summed similarities (eq_n,) of the layerwise input-interval
     candidates of the patch-embed conv under its fake-quant weight
     ``w_sim`` (oc, icp) (conv.py:222-243, :429-441); ``reduce(out, raw,
@@ -790,11 +901,11 @@ def _conv_input_sims(w_sim, b, xb, rb, gb, a_cands, P: int, a_qmax: int,
                 out = out + b
             acc = acc + torch.sum(reduce(out, r_s, g_s), dim=0)
         out_sims.append(acc)
-    return torch.cat(out_sims)[:a_cands.shape[0]]
+    return _sum(shard, torch.cat(out_sims)[:a_cands.shape[0]])
 
 
 def _conv_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
-                 bs: int, channelwise: bool):
+                 bs: int, channelwise: bool, shard=None):
     """calibration_step2 of the patch-embed conv (reference
     ChannelwiseBatchingQuantConv2d, conv.py:591-603, and
     BatchingEasyQuantConv2d, conv.py:429-441).  x: (S, N, icp) patchified
@@ -817,7 +928,8 @@ def _conv_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
                                              keepdim=True), w_qmax - 0.5)
     else:
         w_int0 = fq.minmax_interval(w, w_qmax).reshape(1, 1)
-    a_int0 = fq.exact_div(torch.amax(torch.abs(x)), a_qmax - 0.5)
+    a_int0 = fq.exact_div(_max(shard, torch.amax(torch.abs(x))),
+                          a_qmax - 0.5)
 
     grid = fq.candidate_grid(policy.eq_alpha, policy.eq_beta, policy.eq_n,
                              device=dev)
@@ -861,7 +973,7 @@ def _conv_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
                     out = out + b
                 acc = acc + torch.sum(reduce(out, r_s, g_s, True), dim=0)
             out_sims.append(acc)
-        return torch.cat(out_sims)[:eq_n]
+        return _sum(shard, torch.cat(out_sims)[:eq_n])
 
     w_int, a_int = w_int0, a_int0
     for _ in range(policy.search_round):
@@ -869,16 +981,16 @@ def _conv_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
         if channelwise:
             w_int = _argmax_take(w_cands[:, :, 0], sims)[:, None]
         else:
-            w_int = w_cands[torch.argmax(sims)]
+            w_int = w_cands[_argmax(sims)]
         if quant_act:
-            a_int = a_cands[torch.argmax(_conv_input_sims(
+            a_int = a_cands[_argmax(_conv_input_sims(
                 fq.fake_quant(w, w_int, w_qmax), b, xb, rb, gb, a_cands, P,
-                a_qmax, lambda o, r, g: reduce(o, r, g, False)))]
+                a_qmax, lambda o, r, g: reduce(o, r, g, False), shard))]
     return w_int, a_int
 
 
 def _conv_ptqsl_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
-                       bs: int):
+                       bs: int, shard=None):
     """Sub-layerwise n_V x n_H conv weight grid (JAX
     ``_conv_ptqsl_search_jit``; reference PTQSLQuantConv2d,
     conv.py:126-277): per (v, h) the candidates are spliced into the
@@ -901,7 +1013,8 @@ def _conv_ptqsl_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
             .expand(n_V, 1, n_H, 1).contiguous()
     else:
         w_int0 = fq.blocked_weight_interval_init(w, n_V, n_H, w_qmax)
-    a_int0 = fq.exact_div(torch.amax(torch.abs(x)), a_qmax - 0.5)
+    a_int0 = fq.exact_div(_max(shard, torch.amax(torch.abs(x))),
+                          a_qmax - 0.5)
 
     grid = fq.candidate_grid(policy.eq_alpha, policy.eq_beta, policy.eq_n,
                              device=dev)
@@ -939,18 +1052,18 @@ def _conv_ptqsl_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
                     out = out + b
                 acc = acc + torch.sum(chan_sims(out, r_s, g_s), dim=0)
             out_sims.append(acc)
-        return torch.cat(out_sims)[:eq_n]
+        return _sum(shard, torch.cat(out_sims)[:eq_n])
 
     w_int, a_int = w_int0, a_int0
     for _ in range(policy.search_round):
         for idx in range(n_V * n_H):
             m = mask_vh(*divmod(idx, n_H))
-            best = torch.argmax(score_w(w_int, a_int, m))
+            best = _argmax(score_w(w_int, a_int, m))
             w_int = torch.where(m, w_cands[best], w_int)
         if quant_act:
-            a_int = a_cands[torch.argmax(_conv_input_sims(
+            a_int = a_cands[_argmax(_conv_input_sims(
                 fq.fake_quant_weight_blocked(w, w_int, w_qmax), b, xb, rb,
-                gb, a_cands, P, a_qmax, chan_sims))]
+                gb, a_cands, P, a_qmax, chan_sims, shard))]
     return w_int, a_int
 
 
@@ -968,7 +1081,8 @@ def chunked_quantile(x: np.ndarray, q: float) -> float:
 def quantile_conv(w, cap, policy: OpPolicy) -> ConvQP:
     """Quantile-based conv scale init, no search (reference
     QuantileQuantConv2d, conv.py:91-124).  The quantiles are host numpy,
-    as in the JAX package."""
+    as in the JAX package; over a mesh they take every rank's samples, in
+    their global order (the >= 2^24-element chunks depend on it)."""
     dev = cap.inputs["x"].device
     w_qmax = fq.qmax_for_bit(policy.w_bit)
     a_qmax = fq.qmax_for_bit(policy.a_bit)
@@ -983,8 +1097,10 @@ def quantile_conv(w, cap, policy: OpPolicy) -> ConvQP:
                      / (w_qmax - 0.5))
     a_int = None
     if policy.a_bit < 32:
-        a_int = interval(chunked_quantile(host(cap.inputs["x"]),
-                                          policy.a_quantile)
+        x = cap.inputs["x"]
+        if cap.shard is not None:
+            x = cap.shard.gather(x)
+        a_int = interval(chunked_quantile(host(x), policy.a_quantile)
                          / (a_qmax - 0.5))
     return ConvQP(w_interval=w_int, a_interval=a_int,
                   w_bit=policy.w_bit, a_bit=policy.a_bit)
@@ -1006,14 +1122,14 @@ def search_conv(w, b, cap, policy: OpPolicy,
     a_qp = policy.a_bit < 32
     if policy.quantizer == "conv_ptqsl":
         w_int, a_int = _conv_ptqsl_search(wm, b, x, cap.out, grad, policy,
-                                          P, bs)
+                                          P, bs, cap.shard)
         return ConvQP(w_interval=w_int, a_interval=a_int if a_qp else None,
                       w_bit=policy.w_bit, a_bit=policy.a_bit, blocked=True)
     if policy.quantizer not in ("conv_channelwise", "conv_layerwise"):
         raise NotImplementedError(f"unknown conv quantizer {policy.quantizer}")
     channelwise = policy.quantizer == "conv_channelwise"
     w_int, a_int = _conv_search(wm, b, x, cap.out, grad, policy, P, bs,
-                                channelwise)
+                                channelwise, cap.shard)
     w_int = w_int.reshape(oc, 1, 1, 1) if channelwise else w_int.reshape(())
     return ConvQP(w_interval=w_int, a_interval=a_int if a_qp else None,
                   w_bit=policy.w_bit, a_bit=policy.a_bit)

@@ -17,6 +17,13 @@ is threaded through every quantizable op call-site:
                                     fused serving kernels (ops/int8_serve.py,
                                     still exact); ``packed`` holds int8
                                     weights from ops/pack.pack_weights.
+  * ``mesh`` with a "model" axis -> tensor parallelism: the params and
+                                    the qstate are this rank's shards
+                                    (parallel/mesh.shard_params,
+                                    shard_qstate), attention runs on the
+                                    local heads, and a row-parallel linear
+                                    (proj, fc2) sums its partial products
+                                    over "model" before its bias.
 
 Ops are keyed by their timm module path (``blocks.0.attn.qkv`` ...).
 """
@@ -32,6 +39,10 @@ from ..ops import int8_serve as serve
 from ..quant.qparams import apply_linear, apply_matmul
 
 INT8_MODES = (False, True, "fused")
+FUSED_TP_MISSING = (
+    "int8='fused' under tensor parallelism needs B6 as a row-parallel "
+    "linear whose int32 partial products are summed over 'model' before "
+    "its epilogue (ROADMAP A18)")
 
 
 def cast_params(tree, dtype):
@@ -52,7 +63,7 @@ class QuantCtx:
     def __init__(self, qstate: Optional[Dict[str, Any]] = None,
                  eps: Optional[Dict[str, torch.Tensor]] = None,
                  capture: bool = False, int8=False,
-                 packed: Optional[Dict[str, Any]] = None):
+                 packed: Optional[Dict[str, Any]] = None, mesh=None):
         if int8 not in INT8_MODES:
             raise NotImplementedError(
                 f"int8={int8!r}: the port runs int8 in {INT8_MODES} "
@@ -64,6 +75,23 @@ class QuantCtx:
         self.fused = int8 == "fused"
         self.packed = packed or {}
         self.taps: Dict[str, Dict[str, torch.Tensor]] = {}
+        self.tp, self._reduce = 1, None
+        if mesh is not None:
+            # imported here: the parallel package imports the models
+            from ..parallel import mesh as pm
+            self.tp = pm.axis_size(mesh, "model")
+            if self.fused and self.tp > 1:
+                raise NotImplementedError(FUSED_TP_MISSING)
+            self._tp_role = pm.tp_role
+            self._reduce = lambda t: pm.psum(t, mesh, "model")
+
+    def local_heads(self, heads: int) -> int:
+        """The heads of this rank's shard (all of them without tensor
+        parallelism)."""
+        if heads % self.tp:
+            raise ValueError(f"{heads} heads do not divide over "
+                             f"model={self.tp}")
+        return heads // self.tp
 
     def _serving(self) -> bool:
         """The fused hooks apply: fused mode, no taps and no probes."""
@@ -80,7 +108,15 @@ class QuantCtx:
     def linear(self, name, x, w, b):
         """Quantizable linear; the tap records its input and output."""
         qp = self.qstate.get(name)
-        if qp is not None and self.int8:
+        if self.tp > 1 and self._tp_role(name) == "row":
+            if qp is not None and self.int8:
+                out = i8.linear_int8(x, w, None, qp, reduce=self._reduce)
+            else:
+                out = self._reduce(apply_linear(x, w, None, qp))
+            if b is not None:
+                out = out + (b.float() if self.int8 and qp is not None
+                             else b)
+        elif qp is not None and self.int8:
             pk = self.packed.get(name) or {}
             out = serve.fused_linear(x, w, b, qp, pk) if self.fused else None
             if out is None:

@@ -177,12 +177,13 @@ def init_params(cfg: SwinConfig, generator: np.random.Generator,
 # ---------------------------------------------------------------------------
 
 def _window_attention(ctx: QuantCtx, prefix: str, x, attn_p, heads: int,
-                      bias, mask):
-    """Window attention over (B·nW, N, C) windows; bias (heads, N, N),
-    mask (nW, N, N) tensor or None.  In fused serving the attention runs
-    in B9 on the float qkv (``ctx.window_attention_qkv``)."""
-    B_, N, C = x.shape
-    hd = C // heads
+                      hd: int, bias, mask):
+    """Window attention of ``heads`` heads of width ``hd`` (this rank's
+    under tensor parallelism) over (B·nW, N, C) windows; bias (heads, N,
+    N), mask (nW, N, N) tensor or None.  In fused serving the attention
+    runs in B9 on the float qkv (``ctx.window_attention_qkv``)."""
+    B_, N, _ = x.shape
+    C = heads * hd
     qkv = ctx.linear(f"{prefix}.qkv", x, attn_p["qkv"]["weight"],
                      attn_p["qkv"]["bias"])
     nW = mask.shape[0] if mask is not None else 1
@@ -209,17 +210,19 @@ def forward(params: Dict[str, Any], x, cfg: SwinConfig,
             qstate: Optional[Dict[str, Any]] = None,
             eps: Optional[Dict[str, torch.Tensor]] = None,
             capture: bool = False, int8=False, compute_dtype=None,
-            packed: Optional[Dict[str, Any]] = None):
+            packed: Optional[Dict[str, Any]] = None, mesh=None):
     """Swin forward.  x: (B, 3, H, W) float32.  Returns logits, or
     (logits, taps) when ``capture``.  ``int8``, ``compute_dtype`` and
-    ``packed`` as in the ViT forward.  ``int8="fused"`` tries each block's
-    fused path (``ctx.swin_block``: B10, B9, B11, B6) first, then the
-    per-op one (B6 linears, B9 on the float qkv), then the generic ops."""
+    ``packed`` as in the ViT forward, and ``mesh`` too (the rel-pos bias
+    table is then this rank's heads' columns).  ``int8="fused"`` tries
+    each block's fused path (``ctx.swin_block``: B10, B9, B11, B6) first,
+    then the per-op one (B6 linears, B9 on the float qkv), then the
+    generic ops."""
     if compute_dtype is not None:
         params = cast_params(params, compute_dtype)
         x = x.to(compute_dtype)
     ctx = QuantCtx(qstate=qstate, eps=eps, capture=capture, int8=int8,
-                   packed=packed)
+                   packed=packed, mesh=mesh)
     B = x.shape[0]
     pe = params["patch_embed"]
     x, _ = ctx.conv2d_patch("patch_embed.proj", x, pe["proj"]["weight"],
@@ -229,7 +232,8 @@ def forward(params: Dict[str, Any], x, cfg: SwinConfig,
     for i, layer in enumerate(params["layers"]):
         res = cfg.layer_resolution(i)
         d = cfg.layer_dim(i)
-        heads = cfg.num_heads[i]
+        hd = d // cfg.num_heads[i]
+        heads = ctx.local_heads(cfg.num_heads[i])
         for j, blk in enumerate(layer["blocks"]):
             ws, shift = cfg.block_geometry(i, j)
             p = f"layers.{i}.blocks.{j}"
@@ -253,7 +257,7 @@ def forward(params: Dict[str, Any], x, cfg: SwinConfig,
             if shift > 0:
                 y = torch.roll(y, (-shift, -shift), dims=(1, 2))
             yw = _window_attention(ctx, f"{p}.attn", window_partition(y, ws),
-                                   blk["attn"], heads, bias, mask)
+                                   blk["attn"], heads, hd, bias, mask)
             y = window_reverse(yw, ws, res, res)
             if shift > 0:
                 y = torch.roll(y, (shift, shift), dims=(1, 2))

@@ -94,19 +94,21 @@ def forward(params: Dict[str, Any], x, cfg: ViTConfig,
             qstate: Optional[Dict[str, Any]] = None,
             eps: Optional[Dict[str, torch.Tensor]] = None,
             capture: bool = False, int8=False, compute_dtype=None,
-            packed: Optional[Dict[str, Any]] = None):
+            packed: Optional[Dict[str, Any]] = None, mesh=None):
     """ViT forward.  x: (B, 3, H, W) float32.  Returns logits, or
     (logits, taps) when ``capture``.  ``int8``: False (fake-quant), True
     (exact int8 products) or "fused" (the fused serving kernels);
     ``compute_dtype`` casts every param and the input (the serving mode;
-    ``packed`` weights stay as packed from the fp32 params)."""
+    ``packed`` weights stay as packed from the fp32 params).  ``mesh``
+    with a "model" axis runs tensor-parallel on this rank's shards of the
+    params and the qstate (see ``QuantCtx``)."""
     if compute_dtype is not None:
         params = cast_params(params, compute_dtype)
         x = x.to(compute_dtype)
     ctx = QuantCtx(qstate=qstate, eps=eps, capture=capture, int8=int8,
-                   packed=packed)
+                   packed=packed, mesh=mesh)
     B = x.shape[0]
-    d, H = cfg.embed_dim, cfg.num_heads
+    d, H = cfg.embed_dim, ctx.local_heads(cfg.num_heads)
     scale = cfg.head_dim ** -0.5
 
     pe = params["patch_embed"]["proj"]
@@ -138,7 +140,7 @@ def forward(params: Dict[str, Any], x, cfg: ViTConfig,
                 * scale
             attn = softmax_f32(attn, dim=-1)
             y = ctx.matmul(f"{p}.attn.matmul2", attn, v)
-            y = y.transpose(1, 2).reshape(B, N, d)
+            y = y.transpose(1, 2).reshape(B, N, H * cfg.head_dim)
         y = ctx.linear(f"{p}.attn.proj", y, blk["attn"]["proj"]["weight"],
                        blk["attn"]["proj"]["bias"])
         x = x + y

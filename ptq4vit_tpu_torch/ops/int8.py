@@ -24,9 +24,12 @@ from ..quant.qparams import ConvQP, LinearQP, MatMulQP
 from .pack import conv_w_scale, linear_w_levels, linear_w_scale
 
 
-def int_dot(x_lv, w_lv) -> torch.Tensor:
-    """(..., k) @ (k, o) of integer levels -> (..., o) float32, exact."""
-    return torch.matmul(x_lv.double(), w_lv.double()).float()
+def int_dot(x_lv, w_lv, reduce=None) -> torch.Tensor:
+    """(..., k) @ (k, o) of integer levels -> (..., o) float32, exact.
+    ``reduce`` (a row-parallel linear's sum over the model axis) takes the
+    exact float64 partial dot before its single rounding to float32."""
+    acc = torch.matmul(x_lv.double(), w_lv.double())
+    return (acc if reduce is None else reduce(acc)).float()
 
 
 def levels(x, d, lo: int, hi: int):
@@ -34,10 +37,13 @@ def levels(x, d, lo: int, hi: int):
     return torch.clamp(torch.round(fq.exact_div(x, d)), lo, hi)
 
 
-def linear_int8(x, w, b, qp: LinearQP, w_intT=None, w_scale=None):
+def linear_int8(x, w, b, qp: LinearQP, w_intT=None, w_scale=None,
+                reduce=None):
     """int8 execution of a calibrated linear (n_H == 1, n_a == 1).
     ``w_intT`` / ``w_scale`` (ops/pack.pack_weights) skip the weight
-    requantization."""
+    requantization.  ``reduce`` sums a row-parallel shard's partial
+    products over the model axis: the exact integer dots before their
+    rounding, so the result is bitwise the whole linear's."""
     if qp.w_interval.shape[2] != 1 or qp.a_interval.shape[0] != 1:
         raise NotImplementedError("int8 path needs n_H == 1 and n_a == 1")
     oc = w.shape[0]
@@ -49,14 +55,17 @@ def linear_int8(x, w, b, qp: LinearQP, w_intT=None, w_scale=None):
     if qp.a_bit >= 32:
         # activation unquantized: fp32 x @ dequantized int weight
         y = torch.matmul(x, w_intT.float() * w_scale[None, :])
+        if reduce is not None:
+            y = reduce(y)
         return y + b.float() if b is not None else y
     a = qp.a_interval[0, 0].float()
     if qp.postgelu:
         an = qp.a_neg_interval.float()
-        acc = (int_dot(levels(x, a, 0, qp.a_qmax - 1), w_intT) * a
-               + int_dot(levels(x, an, -qp.a_qmax, 0), w_intT) * an)
+        acc = (int_dot(levels(x, a, 0, qp.a_qmax - 1), w_intT, reduce) * a
+               + int_dot(levels(x, an, -qp.a_qmax, 0), w_intT, reduce) * an)
     else:
-        acc = int_dot(levels(x, a, -qp.a_qmax, qp.a_qmax - 1), w_intT) * a
+        acc = int_dot(levels(x, a, -qp.a_qmax, qp.a_qmax - 1), w_intT,
+                      reduce) * a
     y = acc * w_scale
     return y + b.float() if b is not None else y
 

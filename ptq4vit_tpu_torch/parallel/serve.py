@@ -1,4 +1,4 @@
-"""Batched int8 serving on one device.
+"""Batched int8 serving on one device or data-parallel over a mesh.
 
 The counterpart of ``ptq4vit_tpu/parallel/serve.py`` ``ServingEngine``:
 packed int8 weights and the fused kernels (``int8="fused"``: B6 and B7 on
@@ -6,8 +6,10 @@ every ViT block; B10, B9, B11 and B6 on every Swin block).  Model-agnostic:
 the net's own forward picks its fused blocks.  In bf16 the residual
 stream, biases and LayerNorm weights are bf16; the kernels accumulate
 exactly in int32, rescale in fp32, and B9 adds the rel-pos bias and the
-shifted mask in fp32.  The data-parallel mesh (ROADMAP A12) and the
-relaxed bf16 epilogues are not ported and raise.
+shifted mask in fp32.  Over a mesh (``parallel/mesh.make_mesh``) every
+rank holds the whole params and packed weights, runs the fused forward on
+its block of the batch and gathers the logits over "data", as JAX's
+``shard_map`` does.  The relaxed bf16 epilogues are not ported and raise.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from ..models.registry import resolve_device
 from ..ops.pack import pack_weights
 from ..quant.fakequant import exact_div
 from ..utils.convert import params_from_numpy, qstate_to
+from .mesh import all_gather, axis_size, check_mesh, shard_batch
 
 
 class ServingEngine:
@@ -27,6 +30,8 @@ class ServingEngine:
 
     net:      models.registry.Net
     qstate:   calibrated quantization state
+    mesh:     optional ("data", "model") DeviceMesh (``make_mesh``): the
+              batch splits over "data" and the logits are gathered back
     compute_dtype: dtype of the float segments (bfloat16 by default)
     raw_uint8: take (B, 3, H, W) uint8 images and normalize them on the
               device with ``net.data_config`` (4x fewer bytes to the card)
@@ -37,9 +42,7 @@ class ServingEngine:
     def __init__(self, net, qstate: Dict[str, Any], mesh=None,
                  compute_dtype=torch.bfloat16, relaxed: bool = False,
                  raw_uint8: bool = False, device=None):
-        if mesh is not None:
-            raise NotImplementedError("a device mesh needs multi-GPU "
-                                      "serving (ROADMAP A12)")
+        self.mesh = check_mesh(mesh)
         if relaxed:
             raise NotImplementedError("the relaxed bf16 epilogues are not "
                                       "ported")
@@ -58,13 +61,23 @@ class ServingEngine:
 
     def __call__(self, x) -> torch.Tensor:
         """x: (B, 3, H, W) float (or uint8 with ``raw_uint8``), numpy or a
-        tensor -> (B, num_classes) logits in ``compute_dtype``."""
-        x = torch.as_tensor(x).to(self.device)
+        tensor -> (B, num_classes) logits in ``compute_dtype``.  With a
+        mesh, B must divide by the data axis (pad upstream)."""
+        x = torch.as_tensor(x)
+        if self.mesh is not None:
+            if x.shape[0] % axis_size(self.mesh, "data"):
+                raise ValueError(
+                    f"a batch of {x.shape[0]} does not divide over data="
+                    f"{axis_size(self.mesh, 'data')}; pad it upstream")
+            x = shard_batch(x, self.mesh)
+        x = x.to(self.device)
         if self._norm is not None:
             mean, std = self._norm
             x = exact_div(exact_div(x.float(), 255.0) - mean, std)
         with torch.no_grad():
-            return self.net.forward(self._params, x, self.net.cfg,
-                                    qstate=self._qstate, int8="fused",
-                                    packed=self._packed,
-                                    compute_dtype=self.compute_dtype)
+            out = self.net.forward(self._params, x, self.net.cfg,
+                                   qstate=self._qstate, int8="fused",
+                                   packed=self._packed,
+                                   compute_dtype=self.compute_dtype)
+        return out if self.mesh is None else \
+            all_gather(out, self.mesh, "data")

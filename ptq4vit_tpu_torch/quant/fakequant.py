@@ -107,14 +107,17 @@ def fake_quant_act_grouped(x, interval, qmax: int):
     return (int_quant(xg, interval, qmax) * interval).reshape(x.shape)
 
 
-def grouped_act_interval_init(x, n_a: int, qmax: int, signed: bool = True):
+def grouped_act_interval_init(x, n_a: int, qmax: int, signed: bool = True,
+                              reduce=None):
     """Per-group amax init over every axis but the group axis, shape
     (n_a, 1).  ``signed=False`` is the post-GELU positive init (amax
-    WITHOUT abs, reference linear.py:597)."""
+    WITHOUT abs, reference linear.py:597).  ``reduce`` (a max over the
+    ranks holding the other samples) takes the amax before the division."""
     xg = grouped_act_view(x, n_a)
     v = torch.abs(xg) if signed else xg
     dims = tuple(range(xg.ndim - 2)) + (xg.ndim - 1,)
-    return exact_div(torch.amax(v, dim=dims), qmax - 0.5)[:, None]
+    m = torch.amax(v, dim=dims)
+    return exact_div(m if reduce is None else reduce(m), qmax - 0.5)[:, None]
 
 
 # ---------------------------------------------------------------------------
@@ -189,9 +192,11 @@ def fake_quant_matmul_operand(x, interval, qmax: int):
     return xq[:, :G, :R, :C]
 
 
-def matmul_operand_interval_init(x, n_G: int, n_V: int, n_H: int, qmax: int):
+def matmul_operand_interval_init(x, n_G: int, n_V: int, n_H: int, qmax: int,
+                                 reduce=None):
     """Blockwise absmax/(qmax-0.5) init, shape (1, n_G, 1, n_V, 1, n_H, 1)
-    (reference matmul.py:254)."""
+    (reference matmul.py:254); ``reduce`` as in
+    ``grouped_act_interval_init``."""
     xb = _blocked_operand(x, n_G, n_V, n_H)
-    return exact_div(torch.amax(torch.abs(xb), dim=(0, 2, 4, 6),
-                                keepdim=True), qmax - 0.5)
+    m = torch.amax(torch.abs(xb), dim=(0, 2, 4, 6), keepdim=True)
+    return exact_div(m if reduce is None else reduce(m), qmax - 0.5)

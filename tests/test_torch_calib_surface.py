@@ -306,8 +306,10 @@ def test_profile_dir_writes_a_trace(tiny, tmp_path):
 
 
 def test_mesh_raises_naming_a12(tiny):
+    """Since A12 the calibrator takes a ("data", "model") DeviceMesh
+    (tests/test_torch_parallel_calib.py); anything else is refused."""
     _, pnet, x = tiny
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         P.HessianQuantCalibrator(pnet, pptq4vit(), x, mesh=object())
 
 

@@ -110,7 +110,9 @@ def test_serving_engine_on_tiny_swin_matches_jax(dtype):
 
 def test_serving_engine_options_not_ported(wide):
     _, pnet, _, pq, _ = wide
-    with pytest.raises(NotImplementedError, match="A12"):
+    # a mesh is a ("data", "model") DeviceMesh since A12
+    # (tests/test_torch_parallel_swin.py serves over one)
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ServingEngine(pnet, pq, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="relaxed"):
         ServingEngine(pnet, pq, relaxed=True, device="cpu")
@@ -131,8 +133,12 @@ def test_evaluator_without_a_mesh_matches_jax(wide, capsys):
     assert capsys.readouterr().out.count("\n") == 2
     assert pmesh.Evaluator(pnet, pq, int8=True).evaluate(
         loader, max_iteration=1) == 1.0
-    with pytest.raises(NotImplementedError, match="A12"):
+    # a mesh is a ("data", "model") DeviceMesh since A12
+    # (tests/test_torch_parallel.py evaluates over one)
+    with pytest.raises(TypeError, match="DeviceMesh"):
         pmesh.Evaluator(pnet, pq, mesh=object())
+    with pytest.raises(ValueError, match="needs a mesh"):
+        pmesh.Evaluator(pnet, pq, tensor_parallel=True)
 
 
 def test_integer_export_bytes_equal_jax():
