@@ -37,7 +37,11 @@ Phases (any failure raises, so the exit code is non-zero):
      -> int8 on stage 1's shifted block (64 masks) and stage 4's one
      window, float -> float (SoS and per-head) on stage 1, with 32 images
      (B11 bitwise, B9 and B10 under the same rules), beside torch._int_mm
-     (both layouts) and SDPA with the same additive mask; each attention
+     (both layouts) and SDPA with the same additive mask; B6's partial
+     mode (a row-parallel shard's int32 sums) at the proj and twin fc2
+     shapes, bitwise, and q8_epilogue on those sums with a bias and a bf16
+     residual (bitwise its plain version and B6's whole-linear output,
+     bound by its bytes); each attention
      case's [kernel] line also gives its CUDA-core floor (a model, not a
      measurement: the softmax's instructions a logit at the card's issue
      rate, ``cuda_core_floor``; it stays out of the JSON kernels line);
@@ -124,12 +128,16 @@ Phases (any failure raises, so the exit code is non-zero):
      phase 7's first request of both nets (B6 / B7, B6 / B9-B11, exact
      counts a rank), the gathered logits within rtol 1e-5, atol 1e-5
      max|logit| of phase 7's (elements that differ counted);
-     Evaluator(tensor_parallel=True) over model=2 on ViT-B/384, 8 images,
-     fake-quant by cosine >= 0.99 and int8=True bitwise; then a one-rank
-     NCCL world: ServingEngine(mesh=) bitwise phase 7's and
-     Evaluator(mesh=)'s count the single device's; [mesh] lines give the
-     backend, ranks -> devices and seconds;
-  12. print the kernels' JSON line (all twelve kernels), the card line,
+     Evaluator(tensor_parallel=True) over model=2 on 8 images: ViT-B/384
+     fake-quant by cosine >= 0.99, int8=True and int8="fused" bitwise,
+     Swin-B/384 int8="fused" bitwise; fused, each rank launches the single
+     device's B6 / B7 (B6 / B9 / B10 / B11) counts -- proj, fc2 and B11 in
+     their partial mode -- plus one q8_epilogue a row-parallel linear
+     (ViT-B/384 24, Swin-B/384 48); then a one-rank NCCL world:
+     ServingEngine(mesh=) bitwise phase 7's and Evaluator(mesh=)'s count
+     the single device's; [mesh] lines give the backend, ranks -> devices
+     and seconds;
+  12. print the kernels' JSON line (all thirteen kernels), the card line,
      then the result line.
 Each path is driven with the launch counts set to 0 just before it and
 read just after.
@@ -187,6 +195,10 @@ KERNELS = {
                                    "ptq4vit_tpu/ops/int8_serve.py:638"),
     "q8_win_qkv": (SERVE_SOURCE, "ptq4vit_tpu/ops/int8_serve.py:917"),
     "q8_win_proj": (SERVE_SOURCE, "ptq4vit_tpu/ops/int8_serve.py:974"),
+    # B6's epilogue split off for a row-parallel linear under tensor
+    # parallelism (JAX: the same Pallas kernel, GSPMD's all-reduce before
+    # its epilogue)
+    "q8_epilogue": (SERVE_SOURCE, "ptq4vit_tpu/ops/int8_serve.py:205"),
 }
 SEARCH = tuple(k for k, (src, _) in KERNELS.items() if src == SEARCH_SOURCE)
 # the kernels each path must launch (None: at least once) and must not
@@ -782,7 +794,19 @@ B6_CASES = (
     ("qkv fp32 engine: LN, quantize -> int8 per column", _M, _D, 3 * _D,
      "f", True, False, "vec", torch.float32),
     ("fc2 per op: post-GELU twin quantize -> float", _M, _HID, _D, "f_twin",
-     False, False, "float", torch.float32))
+     False, False, "float", torch.float32),
+    # a row-parallel shard's int32 partial sums (tensor parallelism), at
+    # the single device's shapes
+    ("proj partial: int8 in -> int32 sums", _M, _D, _D, "q8", False, False,
+     "acc", torch.bfloat16),
+    ("fc2 partial: twin int8 in -> int32 pos, neg sums", _M, _HID, _D,
+     "q8twin", False, False, "acc", torch.bfloat16))
+# q8_epilogue's cases: the summed planes of the proj and fc2 partial cases
+# above, + bias + the bf16 residual (B6_CASES labels)
+EPILOGUE_CASES = (("proj: one plane + residual",
+                   "proj partial: int8 in -> int32 sums"),
+                  ("fc2: twin planes + residual",
+                   "fc2 partial: twin int8 in -> int32 pos, neg sums"))
 # B10 / B11's Swin-B/384 stages: (stage, resolution, channels)
 WINDOW_STAGES = ((1, 96, 128), (3, 24, 512))
 
@@ -806,7 +830,8 @@ def q8_inputs(rng, M, K, N, mode, ln, gelu, out, dtype, q=128):
     twin = mode in ("f_twin", "q8twin")
     kw = dict(a_qmax=q, postgelu=twin, epilogue="gelu" if gelu else None,
               in_q=mode if mode in ("q8", "q8twin") else None,
-              out_q={"vec": "vec", "twin": "twin"}.get(out), out_qmax=q,
+              out_q={"vec": "vec", "twin": "twin", "acc": "acc"}.get(out),
+              out_qmax=q,
               float_dtype=dtype if mode in ("q8", "q8twin") else None)
     if ln:
         kw["ln"] = (t(1 + 0.1 * rng.standard_normal(K)),
@@ -820,7 +845,8 @@ def q8_inputs(rng, M, K, N, mode, ln, gelu, out, dtype, q=128):
                            torch.tensor(0.16997124254703522 / q, device=dev))
     args = (x, t(rng.integers(-q, q, (K, N)), torch.int8),
             t((rng.random(N) + 0.5) / (a * q * q * np.sqrt(K) / 3)),
-            t(rng.standard_normal(N) * 0.1), torch.tensor(a, device=dev),
+            None if out == "acc" else t(rng.standard_normal(N) * 0.1),
+            torch.tensor(a, device=dev),
             torch.tensor(0.16997124254703522 / q, device=dev) if twin
             else None)
     return args, kw
@@ -896,10 +922,12 @@ def serve_kernel_phase(sv, dev):
     only: neither computes the quantized function, and the port never
     calls them."""
     rng = np.random.default_rng(5)
-    cases = []
+    cases, partial = [], {}
     for label, m, K, Nn, mode, ln, gelu, out, dt in B6_CASES:
         args, kw = q8_inputs(rng, m, K, Nn, mode, ln, gelu, out, dt)
         kw["w_kmaj"] = kmajor_levels(args[1].t())    # as pack_weights keeps it
+        if out == "acc":
+            partial[label] = (args, kw)
         twin = mode in ("f_twin", "q8twin")
         # the int8 levels _int_mm would multiply: (M, K) x (K, N)
         lv = args[0] if args[0].dtype == torch.int8 else torch.clamp(
@@ -912,7 +940,42 @@ def serve_kernel_phase(sv, dev):
             lambda args=args, kw=kw: sv.q8_linear_ref(*args, **kw),
             call_bytes(args, kw), ops, int_mm_calls(lv, args[1]), None,
             None))
-    return measure_serving(cases + vit_attention_cases(sv, dev, rng))
+    return measure_serving(cases + epilogue_cases(sv, rng, partial)
+                           + vit_attention_cases(sv, dev, rng))
+
+
+def epilogue_cases(sv, rng, partial):
+    """q8_epilogue on the int32 sums of B6's partial cases (``partial``:
+    {label: (args, kwargs)}) with a bias and a bf16 residual: first the
+    split (partial sums, then q8_epilogue) held bitwise to B6 computing
+    the same linear whole, then the cases for measure_serving (the kernel
+    against its plain version; bound by its bytes)."""
+    cases = []
+    for label, key in EPILOGUE_CASES:
+        args, kw = partial[key]
+        N = args[1].shape[1]
+        acc = sv.q8_linear(*args, **kw)
+        b = torch.from_numpy(rng.standard_normal(N) * 0.1).float().cuda()
+        res = torch.from_numpy(rng.standard_normal(acc.shape[1:])).cuda() \
+            .to(torch.bfloat16)
+        whole = sv.q8_linear(args[0], args[1], args[2], b, *args[4:],
+                             **dict(kw, out_q=None, residual=res))
+        ep = (acc, args[2], b, args[4], args[5])
+        got = sv.q8_epilogue(*ep, residual=res)
+        torch.cuda.synchronize()
+        if not torch.equal(got, whole):
+            raise AssertionError(f"q8_epilogue {label}: not bitwise B6's "
+                                 "whole-linear output")
+        log(f"[kernel] q8_epilogue {label}: the partial sums through "
+            "q8_epilogue are bitwise B6's whole-linear output")
+        cases.append((
+            "q8_epilogue", label,
+            lambda ep=ep, res=res: sv.q8_epilogue(*ep, residual=res),
+            lambda ep=ep, res=res: sv.q8_epilogue_ref(
+                *ep, residual=res, out_dtype=res.dtype),
+            nbytes(ep, res), {}, {}, None, None))
+        del whole, got
+    return cases
 
 
 # CUDA-core instructions a logit of the quantized softmax needs, whatever
@@ -1052,9 +1115,9 @@ def measure_serving(cases):
             + f", kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by})"
             + (f", CUDA-core floor {floor:.4f} ms" if floor is not None
-               else "") + f", {share_text(peak)}, "
-            + ", ".join(f"{k} {v:.3f}" for k, v in lib.items())
-            + " (context only)")
+               else "") + (f", {share_text(peak)}" if peak else "")
+            + (", " + ", ".join(f"{k} {v:.3f}" for k, v in lib.items())
+               + " (context only)" if lib else ""))
         st = stats.setdefault(kname, {"max_abs_err": 0.0, "cases": []})
         st["max_abs_err"] = max(st["max_abs_err"], err
                                 if got.dtype != torch.int8 else 0.0)
@@ -1961,6 +2024,18 @@ def drivers_phase(sk, sv, root):
 MESH_WORLD = 2
 MESH_TIMEOUT_S = 300          # a collective waiting longer fails the rank
 MESH_TP_IMAGES = 8            # the tensor-parallel evaluation's images
+# the tensor-parallel evaluations (Evaluator(tensor_parallel=True) over
+# model=2) by net: mode -> its int8 argument
+TP_MODES = {
+    "vit_base_patch16_384": {"fake-quant": False, "int8": True,
+                             "fused": "fused"},
+    "swin_base_patch4_window12_384": {"fused": "fused"},
+}
+# fused, every rank adds one q8_epilogue for each row-parallel linear (proj
+# and fc2 of every block: ViT-B/384 12 blocks, Swin-B/384 24) to the
+# single device's launches, its proj / fc2 / B11 launches in partial mode
+TP_EPILOGUES = {"vit_base_patch16_384": 24,
+                "swin_base_patch4_window12_384": 48}
 SLOT_RTOL = 1e-5              # qstate slots: JAX's mesh tolerance
 TIE_RTOL = 1e-5               # a flipped pick's two sims within this
 # micro-batches of 4 images a rank: each rank's capture runs the single
@@ -2020,8 +2095,9 @@ def mesh_rank(rank, job_path, out_dir):
     calibration of ViT-B/384 and Swin-B/384 and of the exact-scoring
     depth-2 ViT (and of ViT-B/384 at USER_MICRO_BATCH), data-parallel
     serving of both nets on phase 7's first request, and tensor-parallel
-    evaluation of ViT-B/384; the results, the
-    argmax traces and each path's launches go to rank{r}.pt."""
+    evaluation (TP_MODES: ViT-B/384 fake-quant, int8=True and fused,
+    Swin-B/384 fused); the results, the argmax traces and each path's
+    launches go to rank{r}.pt."""
     from ptq4vit_tpu_torch import ServingEngine, quantize
     from ptq4vit_tpu_torch.calib import search as S
     from ptq4vit_tpu_torch.configs import ptq4vit
@@ -2077,20 +2153,20 @@ def mesh_rank(rank, job_path, out_dir):
             "seconds": time.time() - t0, "launches": _counts(sk, sv),
             "logits": logits.cpu()}
         del engine
-    name = "vit_base_patch16_384"
     tp = make_mesh(MESH_WORLD, model_parallel=MESH_WORLD)
-    x = first_request(nets[name].cfg.img_size)[:MESH_TP_IMAGES]
-    for mode in ("fake-quant", "int8"):
-        ev = Evaluator(nets[name], qstate_to(job["qstates"][name], dev),
-                       mesh=tp, tensor_parallel=True, int8=mode == "int8")
-        _reset(sk, sv)
-        t0 = time.time()
-        logits = ev.logits(x)
-        torch.cuda.synchronize()
-        out["paths"][f"mesh {name} tensor-parallel {mode}"] = {
-            "seconds": time.time() - t0, "launches": _counts(sk, sv),
-            "logits": logits.cpu()}
-        del ev
+    for name, modes in TP_MODES.items():
+        x = first_request(nets[name].cfg.img_size)[:MESH_TP_IMAGES]
+        for mode, int8 in modes.items():
+            ev = Evaluator(nets[name], qstate_to(job["qstates"][name], dev),
+                           mesh=tp, tensor_parallel=True, int8=int8)
+            _reset(sk, sv)
+            t0 = time.time()
+            logits = ev.logits(x)
+            torch.cuda.synchronize()
+            out["paths"][f"mesh {name} tensor-parallel {mode}"] = {
+                "seconds": time.time() - t0, "launches": _counts(sk, sv),
+                "logits": logits.cpu()}
+            del ev
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
@@ -2238,17 +2314,30 @@ def mesh_phase(sk, sv, qstates, traces, launches, served):
             SHARD_PATH, sk, net, calib, config=ptq4vit(),
             batch_size=USER_MICRO_BATCH // MESH_WORLD)
     q_shard, trace_shard = qstate_to(q_shard, "cpu"), host_trace(trace_shard)
-    x_tp = first_request(net.cfg.img_size)[:MESH_TP_IMAGES]
-    ref_tp = {}
-    for mode in ("fake-quant", "int8"):
-        ref_tp[mode] = Evaluator(net, qstate_to(qstates[name], "cuda"),
-                                 int8=mode == "int8").logits(x_tp).cpu()
-    labels = ref_tp["fake-quant"].argmax(-1).numpy()
-    labels[::2] = (labels[::2] + 1) % net.cfg.num_classes
-    n_correct_ref = int((ref_tp["fake-quant"].argmax(-1).numpy()
-                         == labels).sum())
+    classes = net.cfg.num_classes
     del net
-    torch.cuda.empty_cache()
+    # the single device's tensor-parallel references (and, fused, its
+    # launches, which each rank's add q8_epilogue to)
+    ref_tp, ref_tp_launches = {}, {}
+    for tname, modes in TP_MODES.items():
+        tnet = get_net(tname, seed=0)
+        x_tp = first_request(tnet.cfg.img_size)[:MESH_TP_IMAGES]
+        for mode, int8 in modes.items():
+            ev = Evaluator(tnet, qstate_to(qstates[tname], "cuda"),
+                           int8=int8)
+            _reset(sk, sv)
+            ref_tp[tname, mode] = ev.logits(x_tp).cpu()
+            torch.cuda.synchronize()
+            ref_tp_launches[tname, mode] = by_path[
+                f"{tname} single device {mode}, {MESH_TP_IMAGES} images"] = \
+                _counts(sk, sv)
+            del ev
+        del tnet
+        torch.cuda.empty_cache()
+    labels = ref_tp[name, "fake-quant"].argmax(-1).numpy()
+    labels[::2] = (labels[::2] + 1) % classes
+    n_correct_ref = int((ref_tp[name, "fake-quant"].argmax(-1).numpy()
+                         == labels).sum())
 
     devices = launch.default_devices(MESH_WORLD)
     backend = launch.choose_backend(devices)
@@ -2332,28 +2421,39 @@ def mesh_phase(sk, sv, qstates, traces, launches, served):
                                    atol=1e-5 * float(refl.abs().max()))
         summary[key] = {"elements_differing": diff}
 
-    # tensor-parallel evaluation against the single device's
-    for mode in ("fake-quant", "int8"):
-        key = f"mesh vit_base_patch16_384 tensor-parallel {mode}"
+    # tensor-parallel evaluation against the single device's: both int8
+    # modes bitwise, fused with the single device's launches plus one
+    # q8_epilogue a row-parallel linear on every rank
+    for (tname, mode), ref in ref_tp.items():
+        key = f"mesh {tname} tensor-parallel {mode}"
         got = ranks[0]["paths"][key]["logits"]
         for r, res in enumerate(ranks):
             if not torch.equal(res["paths"][key]["logits"], got):
                 raise AssertionError(f"{key}: ranks differ")
-        ref = ref_tp[mode]
+            if mode == "fused":
+                expect = dict(ref_tp_launches[tname, mode])
+                expect["q8_epilogue"] = TP_EPILOGUES[tname]
+                check_exact_launches(f"rank {r} {key}",
+                                     res["paths"][key]["launches"], expect)
         diff = int((got != ref).sum())
         cos = float(torch.nn.functional.cosine_similarity(
             got, ref, dim=-1).min())
         same_pred = int((got.argmax(-1) == ref.argmax(-1)).sum())
+        launched = {k: v for k, v in ranks[0]["paths"][key][
+            "launches"].items() if v}
         log(f"[mesh] {key[5:]}: {MESH_TP_IMAGES} images, model axis "
             f"{MESH_WORLD}: {diff} of {got.numel()} logits differ from the "
             f"single device's, min cosine {cos:.6f}, argmax equal on "
-            f"{same_pred} of {MESH_TP_IMAGES}")
-        if mode == "int8" and diff:
-            raise AssertionError("tensor-parallel int8=True logits are not "
+            f"{same_pred} of {MESH_TP_IMAGES}; "
+            f"{ranks[0]['paths'][key]['seconds']:.2f} s on rank 0, "
+            f"launches a rank {launched}")
+        if mode != "fake-quant" and diff:
+            raise AssertionError(f"tensor-parallel {mode} logits are not "
                                  "the single device's bitwise")
         if cos < 0.99:
             raise AssertionError(f"{key}: cosine {cos:.4f} < 0.99")
-        summary[key] = {"elements_differing": diff, "min_cosine": cos}
+        summary[key] = {"elements_differing": diff, "min_cosine": cos,
+                        "launches_a_rank": launched}
 
     # the one-rank NCCL world
     ref = served["vit_base_patch16_384"]

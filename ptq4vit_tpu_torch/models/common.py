@@ -23,7 +23,13 @@ is threaded through every quantizable op call-site:
                                     shard_qstate), attention runs on the
                                     local heads, and a row-parallel linear
                                     (proj, fc2) sums its partial products
-                                    over "model" before its bias.
+                                    over "model" before its bias: the
+                                    exact integer dots (int8=True), or
+                                    the fused kernels' int32 sums before
+                                    their epilogue (int8="fused",
+                                    ops/int8_serve.row_parallel), so
+                                    either int8 mode gives the single
+                                    device's logits bitwise.
 
 Ops are keyed by their timm module path (``blocks.0.attn.qkv`` ...).
 """
@@ -39,10 +45,6 @@ from ..ops import int8_serve as serve
 from ..quant.qparams import apply_linear, apply_matmul
 
 INT8_MODES = (False, True, "fused")
-FUSED_TP_MISSING = (
-    "int8='fused' under tensor parallelism needs B6 as a row-parallel "
-    "linear whose int32 partial products are summed over 'model' before "
-    "its epilogue (ROADMAP A18)")
 
 
 def cast_params(tree, dtype):
@@ -80,8 +82,6 @@ class QuantCtx:
             # imported here: the parallel package imports the models
             from ..parallel import mesh as pm
             self.tp = pm.axis_size(mesh, "model")
-            if self.fused and self.tp > 1:
-                raise NotImplementedError(FUSED_TP_MISSING)
             self._tp_role = pm.tp_role
             self._reduce = lambda t: pm.psum(t, mesh, "model")
 
@@ -92,6 +92,11 @@ class QuantCtx:
             raise ValueError(f"{heads} heads do not divide over "
                              f"model={self.tp}")
         return heads // self.tp
+
+    def _row_reduce(self):
+        """The row-parallel linears' sum over "model" under tensor
+        parallelism, else None."""
+        return self._reduce if self.tp > 1 else None
 
     def _serving(self) -> bool:
         """The fused hooks apply: fused mode, no taps and no probes."""
@@ -109,13 +114,20 @@ class QuantCtx:
         """Quantizable linear; the tap records its input and output."""
         qp = self.qstate.get(name)
         if self.tp > 1 and self._tp_role(name) == "row":
-            if qp is not None and self.int8:
-                out = i8.linear_int8(x, w, None, qp, reduce=self._reduce)
-            else:
-                out = self._reduce(apply_linear(x, w, None, qp))
-            if b is not None:
-                out = out + (b.float() if self.int8 and qp is not None
-                             else b)
+            out = None
+            if qp is not None and self.fused:
+                out = serve.fused_linear(x, w, b, qp,
+                                         self.packed.get(name) or {},
+                                         reduce=self._reduce)
+            if out is None:
+                if qp is not None and self.int8:
+                    out = i8.linear_int8(x, w, None, qp,
+                                         reduce=self._reduce)
+                else:
+                    out = self._reduce(apply_linear(x, w, None, qp))
+                if b is not None:
+                    out = out + (b.float() if self.int8 and qp is not None
+                                 else b)
         elif qp is not None and self.int8:
             pk = self.packed.get(name) or {}
             out = serve.fused_linear(x, w, b, qp, pk) if self.fused else None
@@ -160,7 +172,8 @@ class QuantCtx:
         if not self._serving():
             return None
         qps, pks = self._block_ops(prefix)
-        return serve.fused_vit_block(x, blk, qps, pks, heads, scale, ln_eps)
+        return serve.fused_vit_block(x, blk, qps, pks, heads, scale, ln_eps,
+                                     self._row_reduce())
 
     def attention_qkv(self, name1, name2, qkv, heads, scale):
         """Fused int8 attention (B7) on the (B, N, 3d) qkv output; returns
@@ -182,7 +195,7 @@ class QuantCtx:
             return None
         qps, pks = self._block_ops(prefix)
         return serve.fused_swin_block(x, blk, qps, pks, heads, ws, shift, res,
-                                      bias, mask, ln_eps)
+                                      bias, mask, ln_eps, self._row_reduce())
 
     def window_attention_qkv(self, name1, name2, qkv, heads, nW, prescale,
                              bias, mask):

@@ -17,6 +17,12 @@ The counterpart of ``ptq4vit_tpu/ops/int8_serve.py``:
   q8_win_proj          <- _q8_win_proj (B11, body _win_proj_kernel): B6
                           with its output and residual rows in the image
                           layout
+  q8_epilogue          <- B6's epilogue (the same Pallas kernel), split
+                          off for a row-parallel linear under tensor
+                          parallelism: q8_linear / q8_win_proj store their
+                          int32 partial sums (``out_q="acc"``), the caller
+                          sums them over "model", q8_epilogue rescales
+                          (``row_parallel``)
   fused_linear, fused_vit_block, fused_swin_block and the scope helpers
                        <- their namesakes
 
@@ -26,7 +32,8 @@ PyTorch versions beside them (the ``*_ref`` functions), which follow the
 same formulas with the int8 dot as an exact float64 matmul of the levels.
 Each kernel wrapper counts its launches in ``<function>.launches``.
 B6, B10 and B11 are one tensor-core kernel (``q8_tc_kernel``), after a
-pre-pass that quantizes a float input once a row (``q8_levels_kernel``);
+pre-pass that quantizes a float input once a row (``q8_levels_kernel``),
+and ``q8_epilogue_kernel`` does its epilogue on summed partial sums;
 ``q8_plan`` sizes it on the host, and it reads the weight levels K-major
 (``w_kmaj``, ops/pack.kmajor_levels).  B7, B8 and B9 are one kernel
 (``attention_kernel``) with q·kᵀ and p·v on the int8 tensor cores;
@@ -54,8 +61,9 @@ from .search_kernels import (NUM_SMS, SM_SMEM, SMEM_LIMIT, _check, _launch,
                              _num_sms, _ptr, _stream)
 
 _IN_MODES = {"f": 0, "f_twin": 1, "q8": 2, "q8twin": 3}
-_OUT_Q = {None: 0, "vec": 1, "twin": 2}
-_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_OUT_Q = {None: 0, "vec": 1, "twin": 2, "acc": 3}
+_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+          torch.int32: 3}
 SQRT_HALF = 0.7071067811865476          # 2 ** -0.5, rounded to float32
 
 
@@ -87,13 +95,12 @@ def erf_as(z):
     return s * (1.0 - poly * torch.exp(-za * za))
 
 
-def q8_linear_ref(x, w_intT, w_scale, b, a_interval, a_neg_interval, *,
-                  a_qmax: int, postgelu: bool, epilogue: str = None,
-                  ln=None, in_q: str = None, out_q: str = None,
-                  out_scale=None, out_qmax: int = 128, float_dtype=None,
-                  residual=None, w_kmaj=None):
-    """Plain version of B6; arguments and result as ``q8_linear``
-    (``w_kmaj``, the kernel's copy of the levels, is not read)."""
+def _q8_acc_ref(x, w_intT, a_interval, a_neg_interval, *, a_qmax: int,
+                postgelu: bool, ln=None, in_q: str = None):
+    """B6's input levels (LayerNorm and quantization of a float input, or
+    the int8 / twin-packed levels as given) and their exact integer dots
+    with w_intT (K, N): (P, ..., N) int32 planes, P = 2 for a twin input
+    (the positive and the negative levels' products), else 1."""
     dev = x.device
     K, N = w_intT.shape
     lead = x.shape[:-1]
@@ -109,34 +116,78 @@ def q8_linear_ref(x, w_intT, w_scale, b, a_interval, a_neg_interval, *,
                   * ln[0].float()[None, :] + ln[1].float()[None, :])
         if mode == "f_twin":
             an = _f32(a_neg_interval, dev).reshape(())
-            pos = levels(xf, a, 0, a_qmax - 1)
-            neg = levels(xf, an, -a_qmax, 0)
+            lv = (levels(xf, a, 0, a_qmax - 1), levels(xf, an, -a_qmax, 0))
         else:
-            pos, neg = levels(xf, a, -a_qmax, a_qmax - 1), None
+            lv = (levels(xf, a, -a_qmax, a_qmax - 1),)
     elif mode == "q8":
-        pos, neg = x2, None
+        lv = (x2,)
     else:
-        pos, neg = torch.clamp(x2, min=0), torch.clamp(x2, max=0)
-    acc = int_dot(pos, w_intT) * a
-    if neg is not None:
-        an = _f32(a_neg_interval, dev).reshape(())
-        acc = acc + int_dot(neg, w_intT) * an
-    out = acc * w_scale.float()[None, :]
+        lv = (torch.clamp(x2, min=0), torch.clamp(x2, max=0))
+    # float64 products of levels are exact integers, far below 2 ** 31
+    return torch.stack([torch.matmul(v.double(), w_intT.double())
+                        .to(torch.int32) for v in lv]) \
+        .reshape((len(lv),) + lead + (N,))
+
+
+def q8_epilogue_ref(acc, w_scale, b, a_interval, a_neg_interval, *,
+                    epilogue: str = None, residual=None, out_q: str = None,
+                    out_scale=None, out_qmax: int = 128,
+                    out_dtype=torch.float32, window=None):
+    """B6's epilogue on its int32 planes acc (P, ..., N) (``_q8_acc_ref``,
+    or a row-parallel linear's partial planes summed over the model
+    axis): each plane rounded once to float32, acc*a (+ acc_neg*a_neg),
+    *w_scale + b, [GELU], [+ residual], then ``out_dtype`` or int8
+    requantized (``out_q`` as in ``q8_linear``).  ``window`` = (ws, res):
+    acc's rows are in the window layout (B·nW, ws², N) and the result and
+    ``residual`` in the (B, res, res, N) image layout (B11's)."""
+    dev = acc.device
+    N = acc.shape[-1]
+    lead = acc.shape[1:-1]
+    planes = acc.reshape(acc.shape[0], -1, N)
+    out = planes[0].float() * _f32(a_interval, dev).reshape(())
+    if acc.shape[0] == 2:
+        out = out + planes[1].float() * _f32(a_neg_interval,
+                                             dev).reshape(())
+    out = out * w_scale.float()[None, :]
     out = out + (b.float()[None, :] if b is not None else 0.0)
     if epilogue == "gelu":
         out = 0.5 * out * (1.0 + erf_as(out * SQRT_HALF))
+    if window is not None:
+        from ..models.swin import window_reverse
+        ws, res = window
+        out = window_reverse(out.reshape(lead + (N,)), ws, res, res)
+        return (out + residual.float()).to(residual.dtype)
     if residual is not None:
         out = out + residual.reshape(-1, N).float()
     if out_q == "vec":
         out = levels(out, out_scale.float()[None, :], -out_qmax,
-                  out_qmax - 1).to(torch.int8)
+                     out_qmax - 1).to(torch.int8)
     elif out_q == "twin":
         p = levels(out, _f32(out_scale[0], dev), 0, out_qmax - 1)
         n = levels(out, _f32(out_scale[1], dev), -out_qmax, 0)
         out = (p + n).to(torch.int8)
     else:
-        out = out.to(_float_dtype(x, float_dtype))
+        out = out.to(out_dtype)
     return out.reshape(lead + (N,))
+
+
+def q8_linear_ref(x, w_intT, w_scale, b, a_interval, a_neg_interval, *,
+                  a_qmax: int, postgelu: bool, epilogue: str = None,
+                  ln=None, in_q: str = None, out_q: str = None,
+                  out_scale=None, out_qmax: int = 128, float_dtype=None,
+                  residual=None, w_kmaj=None):
+    """Plain version of B6; arguments and result as ``q8_linear``
+    (``w_kmaj``, the kernel's copy of the levels, is not read): the exact
+    integer dots (``_q8_acc_ref``), returned as they are with
+    ``out_q="acc"``, else through the epilogue (``q8_epilogue_ref``)."""
+    acc = _q8_acc_ref(x, w_intT, a_interval, a_neg_interval, a_qmax=a_qmax,
+                      postgelu=postgelu, ln=ln, in_q=in_q)
+    if out_q == "acc":
+        return acc
+    return q8_epilogue_ref(acc, w_scale, b, a_interval, a_neg_interval,
+                           epilogue=epilogue, residual=residual, out_q=out_q,
+                           out_scale=out_scale, out_qmax=out_qmax,
+                           out_dtype=_float_dtype(x, float_dtype))
 
 
 def _scalars(dev, a, a_neg=None, o_pos=1.0, o_neg=1.0):
@@ -226,15 +277,18 @@ def q8_win_qkv_ref(x4, w_intT, w_scale, b, a_interval, ln, ws: int,
 
 
 def q8_win_proj_ref(y_q, w_intT, w_scale, b, a_interval, ws: int, res: int,
-                    residual4, *, a_qmax: int, w_kmaj=None):
+                    residual4, *, a_qmax: int, w_kmaj=None,
+                    out_q: str = None):
     """Plain version of B11: B6's int8-input product in fp32, reversed to
-    the image layout, plus the residual, cast to its dtype."""
-    from ..models.swin import window_reverse
-    y = q8_linear_ref(y_q, w_intT, w_scale, b, a_interval, None,
-                      a_qmax=a_qmax, postgelu=False, in_q="q8",
-                      float_dtype=torch.float32)
-    return (window_reverse(y, ws, res, res) + residual4.float()) \
-        .to(residual4.dtype)
+    the image layout, plus the residual, cast to its dtype; with
+    ``out_q="acc"`` the (1, B·nW, ws², C) int32 sums in the window layout
+    (``residual4`` unused)."""
+    acc = _q8_acc_ref(y_q, w_intT, a_interval, None, a_qmax=a_qmax,
+                      postgelu=False, in_q="q8")
+    if out_q == "acc":
+        return acc
+    return q8_epilogue_ref(acc, w_scale, b, a_interval, None,
+                           residual=residual4, window=(ws, res))
 
 
 # ---------------------------------------------------------------------------
@@ -362,10 +416,16 @@ def q8_linear(x, w_intT, w_scale, b, a_interval, a_neg_interval, *,
     in_q:     None | "q8" | "q8twin" (x holds levels; twin packed pos + neg)
     epilogue: None | "gelu" (the A&S erf polynomial)
     out_q:    None | "vec" (per-column ``out_scale`` (N,)) | "twin"
-              (``out_scale`` = (pos, neg) intervals): int8 output
+              (``out_scale`` = (pos, neg) intervals): int8 output |
+              "acc": the int32 sums alone, no epilogue (a row-parallel
+              linear's partial products; ``q8_epilogue`` after their sum)
     residual: optional (..., N) float stream added in the epilogue
-    Returns (..., N): int8 when ``out_q``, else ``float_dtype`` (default:
-    x's dtype)."""
+    Returns (..., N): int8 when ``out_q`` is "vec" or "twin", else
+    ``float_dtype`` (default: x's dtype); with "acc", (P, ..., N) int32,
+    P = 2 for a twin input (pos, neg), else 1."""
+    if out_q == "acc" and (epilogue or residual is not None):
+        raise ValueError("out_q='acc' stores the int32 sums: no epilogue "
+                         "or residual")
     if not x.is_cuda:
         return q8_linear_ref(x, w_intT, w_scale, b, a_interval,
                              a_neg_interval, a_qmax=a_qmax,
@@ -407,7 +467,9 @@ def q8_linear(x, w_intT, w_scale, b, a_interval, a_neg_interval, *,
         o_pos, o_neg = out_scale
     scal = _scalars(dev, a_interval, a_neg_interval, o_pos, o_neg)
     fdt = _float_dtype(x, float_dtype)
-    out_dtype = torch.int8 if out_q else fdt
+    planes = 2 if mode in TWIN_MODES else 1
+    out_dtype = (torch.int32 if out_q == "acc" else torch.int8 if out_q
+                 else fdt)
     if out_dtype not in _KINDS:
         raise TypeError(f"unsupported output dtype {out_dtype}")
     res = None
@@ -416,7 +478,8 @@ def q8_linear(x, w_intT, w_scale, b, a_interval, a_neg_interval, *,
             raise ValueError("a residual needs a float output")
         res = residual.reshape(M, N).contiguous()
         _check(res, "residual", fdt, (M, N), dev)
-    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    shape = (planes, M, N) if out_q == "acc" else (M, N)
+    out = torch.empty(shape, dtype=out_dtype, device=dev)
     if M:
         plan = q8_plan(M, N, mode, q8_res_tile(res, N), _num_sms(dev))
         _launch(lib.ptq_q8_linear, _ptr(x2), _KINDS[x2.dtype], _ptr(wk),
@@ -428,7 +491,7 @@ def q8_linear(x, w_intT, w_scale, b, a_interval, a_neg_interval, *,
                 a_qmax, out_qmax, plan.stages, int(plan.res_tile),
                 plan.blocks, _stream())
     q8_linear.launches += 1
-    return out.reshape(lead + (N,))
+    return out.reshape(shape[:-2] + lead + (N,))
 
 
 # ---------------------------------------------------------------------------
@@ -706,23 +769,31 @@ def q8_win_qkv(x4, w_intT, w_scale, b, a_interval, ln, ws: int, col_scales,
 
 
 def q8_win_proj(y_q, w_intT, w_scale, b, a_interval, ws: int, res: int,
-                residual4, *, a_qmax: int, w_kmaj=None):
+                residual4, *, a_qmax: int, w_kmaj=None, out_q: str = None):
     """B11: the Swin proj linear over the window-layout int8 context
     y_q (B·(res/ws)², ws², C) at ``a_interval``, written to the (B, res,
     res, C) image layout with ``residual4`` (that layout, float32 or
     bfloat16; a shifted block's rolled stream) added in the epilogue.
     ``w_kmaj`` as in ``q8_linear``.  Returns (B, res, res, C) in the
-    residual's dtype."""
+    residual's dtype.  ``out_q="acc"``: the (1, B·(res/ws)², ws², C)
+    int32 sums in the window layout (a row-parallel shard's partial
+    products), no epilogue; ``residual4`` is then None, and
+    ``q8_epilogue(..., window=(ws, res))`` applies the row map, the bias
+    and the residual after their sum over the model axis."""
     B_, N, C = y_q.shape
-    B = residual4.shape[0]
     Co = w_intT.shape[1]
+    acc = out_q == "acc"
+    if out_q not in (None, "acc") or acc != (residual4 is None):
+        raise ValueError("q8_win_proj: a residual exactly without "
+                         "out_q='acc'")
+    B = B_ // max(res // ws, 1) ** 2 if acc else residual4.shape[0]
     if N != ws * ws or B_ != B * (res // ws) ** 2 or res % ws:
         raise ValueError(f"y_q {tuple(y_q.shape)} is not the window layout "
                          f"of {B} images of {res} x {res} in windows of "
                          f"{ws}")
     if not y_q.is_cuda:
         return q8_win_proj_ref(y_q, w_intT, w_scale, b, a_interval, ws, res,
-                               residual4, a_qmax=a_qmax)
+                               residual4, a_qmax=a_qmax, out_q=out_q)
     from .build import load
     lib = load("serve_kernels")
     dev = y_q.device
@@ -734,26 +805,96 @@ def q8_win_proj(y_q, w_intT, w_scale, b, a_interval, ws: int, res: int,
     bias = b.float().contiguous() if b is not None else None
     if bias is not None:
         _check(bias, "b", torch.float32, (Co,), dev)
-    if residual4.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError("residual4: expected float32 or bfloat16, got "
-                        f"{residual4.dtype}")
-    _check(residual4, "residual4", residual4.dtype, (B, res, res, Co), dev)
+    if acc:
+        out = torch.empty((1, B_, N, Co), dtype=torch.int32, device=dev)
+    else:
+        if residual4.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError("residual4: expected float32 or bfloat16, got "
+                            f"{residual4.dtype}")
+        _check(residual4, "residual4", residual4.dtype, (B, res, res, Co),
+               dev)
+        out = torch.empty_like(residual4)
     scal = _scalars(dev, a_interval)
-    out = torch.empty_like(residual4)
     if B_ * N:
-        plan = q8_plan(B_ * N, Co, "q8", q8_res_tile(residual4, Co),
-                       _num_sms(dev))
+        res_tile = q8_res_tile(residual4, Co)
+        plan = q8_plan(B_ * N, Co, "q8", res_tile, _num_sms(dev))
         _launch(lib.ptq_q8_win_proj, _ptr(y_q), _ptr(wk), wk.shape[1],
                 _ptr(wsc), _ptr(bias), _ptr(residual4), _ptr(out),
                 _KINDS[out.dtype], _ptr(scal), _ptr(_levels(y_q, C, "q8")),
-                B_ * N, C, Co, a_qmax, ws, res, plan.stages,
+                B_ * N, C, Co, a_qmax, ws, res, _OUT_Q[out_q], plan.stages,
                 int(plan.res_tile), plan.blocks, _stream())
     q8_win_proj.launches += 1
     return out
 
 
+EP_BLOCKS_PER_SM = 8          # q8_epilogue_kernel: 256-thread blocks an SM
+
+
+def q8_epilogue(acc, w_scale, b, a_interval, a_neg_interval=None, *,
+                residual=None, out_dtype=None, window=None):
+    """B6's (and B11's) epilogue split off, for a row-parallel linear under
+    tensor parallelism: the summed int32 planes acc (P, ..., N) of
+    ``q8_linear(..., out_q="acc")`` (P = 2: a twin input's pos and neg)
+    or ``q8_win_proj(..., out_q="acc")``, rounded to float32, acc*a (+
+    acc_neg*a_neg), *w_scale + b, + ``residual``, stored as
+    ``out_dtype`` (default: the residual's dtype, else float32) -- the
+    single device's kernel's outputs bitwise, the bias and the residual
+    added once.  ``window`` = (ws, res): acc is in the window layout and
+    the result and ``residual`` in the (B, res, res, N) image layout
+    (B11's row map).  Returns (..., N), or (B, res, res, N) with
+    ``window``."""
+    P, N = acc.shape[0], acc.shape[-1]
+    lead = acc.shape[1:-1]
+    M = acc[0].numel() // N if N else 0
+    if out_dtype is None:
+        out_dtype = residual.dtype if residual is not None \
+            else torch.float32
+    if P not in (1, 2) or (P == 2) != (a_neg_interval is not None):
+        raise ValueError(f"{P} planes: 1, or 2 with a_neg_interval")
+    if window is not None:
+        ws, res = window
+        if residual is None or len(lead) != 2 or lead[1] != ws * ws or \
+                res % ws or lead[0] % ((res // ws) ** 2):
+            raise ValueError(f"acc {tuple(acc.shape)} is not the window "
+                             f"layout of {res} x {res} in windows of {ws} "
+                             "with an image-layout residual")
+    if not acc.is_cuda:
+        return q8_epilogue_ref(acc, w_scale, b, a_interval, a_neg_interval,
+                               residual=residual, out_dtype=out_dtype,
+                               window=window)
+    from .build import load
+    lib = load("serve_kernels")
+    dev = acc.device
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"unsupported output dtype {out_dtype}")
+    acc = acc.contiguous()
+    _check(acc, "acc", torch.int32, (P,) + tuple(lead) + (N,), dev)
+    wsc = w_scale.float().contiguous()
+    _check(wsc, "w_scale", torch.float32, (N,), dev)
+    bias = b.float().contiguous() if b is not None else None
+    if bias is not None:
+        _check(bias, "b", torch.float32, (N,), dev)
+    if window is None:
+        oshape = tuple(lead) + (N,)
+    else:
+        oshape = (lead[0] // (res // ws) ** 2, res, res, N)
+    if residual is not None:
+        residual = residual.contiguous()
+        _check(residual, "residual", out_dtype, oshape, dev)
+    scal = _scalars(dev, a_interval, a_neg_interval)
+    out = torch.empty(oshape, dtype=out_dtype, device=dev)
+    if M:
+        win, img = window if window is not None else (0, 0)
+        _launch(lib.ptq_q8_epilogue, _ptr(acc), P, _ptr(wsc), _ptr(bias),
+                _ptr(residual), _ptr(out), _KINDS[out_dtype], _ptr(scal), M,
+                N, win, img, min(M, EP_BLOCKS_PER_SM * _num_sms(dev)),
+                _stream())
+    q8_epilogue.launches += 1
+    return out
+
+
 KERNELS = (q8_linear, fused_attention_qkv, fused_attention,
-           fused_window_attention_qkv, q8_win_qkv, q8_win_proj)
+           fused_window_attention_qkv, q8_win_qkv, q8_win_proj, q8_epilogue)
 
 
 def reset_launch_counts() -> None:
@@ -842,12 +983,37 @@ def packed_or_compute(w, qp, pk) -> Q8Weights:
     return Q8Weights(w_intT, w_scale, pk.get("w_kmaj"))
 
 
-def fused_linear(x, w, b, qp, pk, epilogue: str = None):
+def row_parallel(x, pw: Q8Weights, b, qp, reduce, *, in_q: str = None,
+                 residual=None, out_dtype=None, window=None):
+    """A row-parallel linear's shard under tensor parallelism: this rank's
+    int32 partial sums (B6, or B11 with ``window`` = (ws, res): x is then
+    its window-layout context), their sum over the model axis
+    (``reduce``, exact in int32), then the epilogue (``q8_epilogue``),
+    which adds the bias and the residual once -- the single device's
+    outputs bitwise."""
+    a, an = qp.a_interval[0, 0], qp.a_neg_interval
+    twin = in_q == "q8twin" or (in_q is None and qp.postgelu)
+    if window is None:
+        acc = q8_linear(x, pw.w_intT, pw.w_scale, None, a, an,
+                        a_qmax=qp.a_qmax, postgelu=qp.postgelu, in_q=in_q,
+                        out_q="acc", w_kmaj=pw.w_kmaj)
+    else:
+        acc = q8_win_proj(x, pw.w_intT, pw.w_scale, None, a, *window, None,
+                          a_qmax=qp.a_qmax, w_kmaj=pw.w_kmaj, out_q="acc")
+    return q8_epilogue(reduce(acc), pw.w_scale, b, a, an if twin else None,
+                       residual=residual, out_dtype=out_dtype,
+                       window=window)
+
+
+def fused_linear(x, w, b, qp, pk, epilogue: str = None, reduce=None):
     """A LinearQP through B6 when in scope; None sends the caller to the
-    exact int8 path."""
+    exact int8 path.  ``reduce``: a row-parallel shard (``row_parallel``),
+    with no epilogue of its own."""
     if not linear_scope(qp):
         return None
     pw = packed_or_compute(w, qp, pk)
+    if reduce is not None:
+        return row_parallel(x, pw, b, qp, reduce, out_dtype=x.dtype)
     return q8_linear(x, pw.w_intT, pw.w_scale, b, qp.a_interval[0, 0],
                      qp.a_neg_interval, a_qmax=qp.a_qmax,
                      postgelu=qp.postgelu, epilogue=epilogue,
@@ -892,6 +1058,13 @@ def _block_weights(blk, qs, pks):
                              (mlp["fc2"], qs[5], "fc2"))]
 
 
+def _head_dim(w_qkv: Q8Weights, heads: int) -> int:
+    """The head dim, from the qkv weight's q, k and v columns of ``heads``
+    heads (under tensor parallelism the local heads' columns, while the
+    residual stream stays whole)."""
+    return w_qkv.w_intT.shape[1] // (3 * heads)
+
+
 def _col_scales(a1, qp1, qp2, heads: int, hd: int):
     """The qkv requantization scales: a1, b1 and b2 per head, each
     repeated hd times."""
@@ -900,9 +1073,9 @@ def _col_scales(a1, qp1, qp2, heads: int, hd: int):
         head_scalar(qp2.B_interval, heads))])
 
 
-def _fused_mlp(x, blk, qp_fc1, qp_fc2, w_fc1, w_fc2, ln_eps):
+def _fused_mlp(x, blk, qp_fc1, qp_fc2, w_fc1, w_fc2, ln_eps, reduce=None):
     """LN2 -> fc1 / GELU -> twin-packed int8 -> fc2 + residual, two B6
-    launches."""
+    launches (``reduce``: fc2 row-parallel, ``row_parallel``)."""
     mlp = blk["mlp"]
     z_q = q8_linear(x, w_fc1.w_intT, w_fc1.w_scale, mlp["fc1"]["bias"],
                     qp_fc1.a_interval[0, 0], None, a_qmax=qp_fc1.a_qmax,
@@ -913,13 +1086,17 @@ def _fused_mlp(x, blk, qp_fc1, qp_fc2, w_fc1, w_fc2, ln_eps):
                     out_scale=(qp_fc2.a_interval[0, 0],
                                qp_fc2.a_neg_interval),
                     out_qmax=qp_fc2.a_qmax, w_kmaj=w_fc1.w_kmaj)
+    if reduce is not None:
+        return row_parallel(z_q, w_fc2, mlp["fc2"]["bias"], qp_fc2, reduce,
+                            in_q="q8twin", residual=x)
     return q8_linear(z_q, w_fc2.w_intT, w_fc2.w_scale, mlp["fc2"]["bias"],
                      qp_fc2.a_interval[0, 0], qp_fc2.a_neg_interval,
                      a_qmax=qp_fc2.a_qmax, postgelu=True, in_q="q8twin",
                      float_dtype=x.dtype, residual=x, w_kmaj=w_fc2.w_kmaj)
 
 
-def fused_vit_block(x, blk, qps, pks, heads: int, scale, ln_eps):
+def fused_vit_block(x, blk, qps, pks, heads: int, scale, ln_eps,
+                    reduce=None):
     """One pre-norm ViT block (LN -> qkv -> attention -> proj -> residual
     -> LN -> fc1 / GELU -> fc2 -> residual) in five launches: LN1 / LN2 in
     the qkv / fc1 prologues; qkv emitted int8 at the attention's a1 / b1 /
@@ -928,14 +1105,17 @@ def fused_vit_block(x, blk, qps, pks, heads: int, scale, ln_eps):
     epilogues.
 
     x: (B, N, d); blk: the block's params; qps / pks: {op suffix: QP /
-    packed entry}.  Returns the new residual stream, or None when a piece
-    is out of scope (the caller runs the generic per-op path)."""
+    packed entry}.  ``reduce`` (tensor parallelism: blk, qps and pks are
+    this rank's shards, ``heads`` its heads): proj and fc2 are
+    row-parallel, their int32 partial sums reduced before the epilogue
+    (``row_parallel``).  Returns the new residual stream, or None when a
+    piece is out of scope (the caller runs the generic per-op path)."""
     qs = _block_scope(qps, heads)
     if qs is None:
         return None
     qp_qkv, qp1, qp2, qp_proj, qp_fc1, qp_fc2 = qs
-    hd = x.shape[-1] // heads
     w_qkv, w_proj, w_fc1, w_fc2 = _block_weights(blk, qs, pks)
+    hd = _head_dim(w_qkv, heads)
     attn = blk["attn"]
     qkv_q = q8_linear(x, w_qkv.w_intT, w_qkv.w_scale, attn["qkv"]["bias"],
                       qp_qkv.a_interval[0, 0], None, a_qmax=qp_qkv.a_qmax,
@@ -950,15 +1130,19 @@ def fused_vit_block(x, blk, qps, pks, heads: int, scale, ln_eps):
     y_q = fused_attention_qkv(qkv_q, heads, qp1, qp2, scale, in_q8=True,
                               out_scale=qp_proj.a_interval[0, 0],
                               out_qmax=qp_proj.a_qmax)
-    x = q8_linear(y_q, w_proj.w_intT, w_proj.w_scale, attn["proj"]["bias"],
-                  qp_proj.a_interval[0, 0], None, a_qmax=qp_proj.a_qmax,
-                  postgelu=False, in_q="q8", float_dtype=x.dtype, residual=x,
-                  w_kmaj=w_proj.w_kmaj)
-    return _fused_mlp(x, blk, qp_fc1, qp_fc2, w_fc1, w_fc2, ln_eps)
+    if reduce is not None:
+        x = row_parallel(y_q, w_proj, attn["proj"]["bias"], qp_proj, reduce,
+                         in_q="q8", residual=x)
+    else:
+        x = q8_linear(y_q, w_proj.w_intT, w_proj.w_scale,
+                      attn["proj"]["bias"], qp_proj.a_interval[0, 0], None,
+                      a_qmax=qp_proj.a_qmax, postgelu=False, in_q="q8",
+                      float_dtype=x.dtype, residual=x, w_kmaj=w_proj.w_kmaj)
+    return _fused_mlp(x, blk, qp_fc1, qp_fc2, w_fc1, w_fc2, ln_eps, reduce)
 
 
 def fused_swin_block(x, blk, qps, pks, heads: int, ws: int, shift: int,
-                     res: int, bias, mask, ln_eps):
+                     res: int, bias, mask, ln_eps, reduce=None):
     """One Swin block with int8 handoffs, the window analogue of
     :func:`fused_vit_block`, in five launches and two rolls:
 
@@ -977,6 +1161,9 @@ def fused_swin_block(x, blk, qps, pks, heads: int, ws: int, shift: int,
       * LN2 -> fc1 / GELU -> twin-packed int8 -> fc2 + residual (B6).
 
     x: (B, res·res, C); bias: (H, N, N); mask: (nW, N, N) or None.
+    ``reduce``: tensor parallelism, as in :func:`fused_vit_block` (B11's
+    partial sums reduced in the window layout, then the row map, bias and
+    rolled residual in ``q8_epilogue``).
     Returns the new residual stream, or None when a piece is out of scope.
 
     JAX's other branch (int8_serve.py:1115, partition / generic linears /
@@ -989,10 +1176,10 @@ def fused_swin_block(x, blk, qps, pks, heads: int, ws: int, shift: int,
         return None
     qp_qkv, qp1, qp2, qp_proj, qp_fc1, qp_fc2 = qs
     B, T, C = x.shape
-    hd = C // heads
+    w_qkv, w_proj, w_fc1, w_fc2 = _block_weights(blk, qs, pks)
+    hd = _head_dim(w_qkv, heads)
     s = hd ** -0.5
     a1 = window_attn_scope(qp1, qp2, heads, s)[0][0]      # a1 / s
-    w_qkv, w_proj, w_fc1, w_fc2 = _block_weights(blk, qs, pks)
     attn = blk["attn"]
     x4 = x.reshape(B, res, res, C)
     if shift:
@@ -1007,10 +1194,14 @@ def fused_swin_block(x, blk, qps, pks, heads: int, ws: int, shift: int,
         qkv_q, heads, 1 if mask is None else mask.shape[0], qp1, qp2, s,
         bias, mask, in_q8=True, out_scale=qp_proj.a_interval[0, 0],
         out_qmax=qp_proj.a_qmax)
-    y4 = q8_win_proj(y_q, w_proj.w_intT, w_proj.w_scale,
-                     attn["proj"]["bias"], qp_proj.a_interval[0, 0], ws, res,
-                     x4, a_qmax=qp_proj.a_qmax, w_kmaj=w_proj.w_kmaj)
+    if reduce is not None:
+        y4 = row_parallel(y_q, w_proj, attn["proj"]["bias"], qp_proj, reduce,
+                          in_q="q8", residual=x4, window=(ws, res))
+    else:
+        y4 = q8_win_proj(y_q, w_proj.w_intT, w_proj.w_scale,
+                         attn["proj"]["bias"], qp_proj.a_interval[0, 0], ws,
+                         res, x4, a_qmax=qp_proj.a_qmax, w_kmaj=w_proj.w_kmaj)
     if shift:
         y4 = torch.roll(y4, (shift, shift), dims=(1, 2))
     return _fused_mlp(y4.reshape(B, T, C), blk, qp_fc1, qp_fc2, w_fc1, w_fc2,
-                      ln_eps)
+                      ln_eps, reduce)

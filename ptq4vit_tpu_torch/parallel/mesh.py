@@ -28,7 +28,6 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-from ..models.common import FUSED_TP_MISSING
 from ..quant.fakequant import exact_div
 from ..quant.qparams import LinearQP, MatMulQP
 from ..utils.convert import params_from_numpy, qstate_to
@@ -317,8 +316,11 @@ class Evaluator:
     ``mesh`` (``make_mesh``): the batch is padded to a multiple of the data
     axis with label -1 (never a prediction), each rank counts its rows and
     the counts are summed over "data".  ``tensor_parallel=True`` shards
-    the weights over "model" (``shard_params``) for the raw, fake-quant
-    and ``int8=True`` forwards."""
+    the weights over "model" (``shard_params``) for every forward: raw,
+    fake-quant, ``int8=True`` and ``int8="fused"`` (whose row-parallel
+    proj and fc2 sum their kernels' int32 partial products over "model"
+    before the epilogue, so both int8 modes give the single device's
+    logits bitwise)."""
 
     def __init__(self, net, qstate: Optional[Dict[str, Any]] = None,
                  mesh=None, tensor_parallel: bool = False, int8=False,
@@ -326,8 +328,6 @@ class Evaluator:
         self.mesh = check_mesh(mesh)
         if tensor_parallel and mesh is None:
             raise ValueError("tensor_parallel=True needs a mesh")
-        if tensor_parallel and int8 == "fused":
-            raise NotImplementedError(FUSED_TP_MISSING)
         self.net = net
         self.int8 = int8
         self.device = torch.device(device) if device is not None else \

@@ -783,7 +783,8 @@ def test_fused_attention_matches_plain_version_on_the_card(H, N, hd):
     assert sv.launch_counts() == {"q8_linear": 0, "fused_attention_qkv": 24,
                                   "fused_attention": 4,
                                   "fused_window_attention_qkv": 0,
-                                  "q8_win_qkv": 0, "q8_win_proj": 0}
+                                  "q8_win_qkv": 0, "q8_win_proj": 0,
+                                  "q8_epilogue": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -1216,6 +1217,71 @@ def test_q8_refuses_what_it_cannot_run_on_the_card():
     assert call(40, lv.data_ptr()) == 9003     # 40 ring slots do not fit
     assert call(2, None) != 0                  # float input, no scratch
     assert call(2, lv.data_ptr()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_q8_partial_sums_and_epilogue_on_the_card(dtype):
+    """A row-parallel linear's split on the card: B6's partial mode
+    (out_q="acc") in each input mode stores the int32 planes (pos and neg
+    for a twin input) of the plain version exactly (M = 77, N = 150: a
+    ragged row tile and a second column tile); q8_epilogue on them is
+    bitwise q8_linear's float output, with and without the residual and
+    with the LayerNorm prologue (the same kernel's levels on both sides);
+    on B11's partial sums with the row map, bitwise q8_win_proj's output,
+    at C = 72 and at C = 128, where a bf16 residual goes through the
+    kernel's shared-memory tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from ptq4vit_tpu_torch.ops import int8_serve as sv
+    rng = np.random.default_rng(50)
+    dev = "cuda"
+    sv.reset_launch_counts()
+    n = 0
+    for mode in ("f", "f_twin", "q8", "q8twin"):
+        for ln in ((False, True) if mode in ("f", "f_twin") else (False,)):
+            for out in ("float", "residual"):
+                args, kw = q8_case(rng, mode, ln, False, out, 77, 200, 150,
+                                   Q, dtype)
+                res = kw.pop("residual", None)
+                acc = sv.q8_linear(*args, **dict(kw, out_q="acc"))
+                torch.cuda.synchronize()
+                assert acc.dtype == torch.int32
+                assert acc.shape == (2 if kw["postgelu"] else 1, 77, 150)
+                if not ln:        # the LayerNorm sums in another order
+                    assert torch.equal(acc, sv.q8_linear_ref(
+                        *args, **dict(kw, out_q="acc")))
+                whole = sv.q8_linear(*args, **kw, residual=res)
+                got = sv.q8_epilogue(acc, args[2], args[3], args[4],
+                                     args[5], residual=res,
+                                     out_dtype=whole.dtype)
+                torch.cuda.synchronize()
+                assert torch.equal(got, whole), (mode, ln, out)
+                n += 1
+    B, img, ws = 3, 24, 12
+    for C in (72, 128):
+        y_q = T(rng.integers(-Q, Q, (B * (img // ws) ** 2, ws * ws, C)),
+                torch.int8).to(dev)
+        w = T(rng.integers(-Q, Q, (C, C)), torch.int8).to(dev)
+        wsc = T((rng.random(C) + 0.5) / (0.03 * Q * Q * np.sqrt(C) / 3)) \
+            .to(dev)
+        b = T(rng.standard_normal(C) * 0.1).to(dev)
+        a = torch.tensor(0.03, device=dev)
+        r4 = T(rng.standard_normal((B, img, img, C)), dtype).to(dev)
+        acc = sv.q8_win_proj(y_q, w, wsc, None, a, ws, img, None, a_qmax=Q,
+                             out_q="acc")
+        ref = sv.q8_win_proj_ref(y_q, w, wsc, None, a, ws, img, None,
+                                 a_qmax=Q, out_q="acc")
+        whole = sv.q8_win_proj(y_q, w, wsc, b, a, ws, img, r4, a_qmax=Q)
+        got = sv.q8_epilogue(acc, wsc, b, a, residual=r4,
+                             window=(ws, img))
+        torch.cuda.synchronize()
+        assert torch.equal(acc, ref)
+        assert got.dtype == dtype and torch.equal(got, whole), C
+    counts = sv.launch_counts()
+    assert counts["q8_linear"] == 2 * n and counts["q8_win_proj"] == 4
+    assert counts["q8_epilogue"] == n + 2
 
 
 def attention_shapes(name):

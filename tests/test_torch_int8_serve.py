@@ -9,7 +9,13 @@ Tolerance: float outputs rtol 1e-5, atol 1e-5 of max |ref| (JAX's own
 fused-vs-XLA tolerance, tests/test_int8_serve.py:40); int8 outputs within
 one level, in at most 1% of the elements (the LayerNorm statistics and the
 GELU's exp are computed by another library and may round a level the
-other way at a boundary)."""
+other way at a boundary).
+
+Also B6's split for a row-parallel linear under tensor parallelism: the
+int32 partial sums of two shards of K (``out_q="acc"``, plain version
+``_q8_acc_ref``) summed and put through the epilogue (``q8_epilogue``,
+plain version ``q8_epilogue_ref``) equal the whole linear bitwise, B11's
+row map included."""
 import itertools
 
 import jax.numpy as jnp
@@ -19,7 +25,10 @@ import torch
 
 from ptq4vit_tpu.ops.int8_serve import q8_linear as jq8
 from ptq4vit_tpu.quant.fakequant import GELU_NEG_CLIP
-from ptq4vit_tpu_torch.ops.int8_serve import q8_linear, q8_linear_ref
+from ptq4vit_tpu_torch.ops.int8_serve import (_q8_acc_ref, q8_epilogue,
+                                              q8_epilogue_ref, q8_linear,
+                                              q8_linear_ref, q8_win_proj,
+                                              q8_win_proj_ref)
 
 M, K, N = 37, 128, 96
 
@@ -124,3 +133,61 @@ def test_q8_linear_ref_bf16_input_and_residual():
     r = np.asarray(ref.astype(jnp.float32))
     np.testing.assert_allclose(got.float().numpy(), r, rtol=1e-2,
                                atol=1e-2 * np.abs(r).max())
+
+
+@pytest.mark.parametrize("residual", [False, True],
+                         ids=["no_residual", "residual"])
+@pytest.mark.parametrize("mode", ["f", "f_twin", "q8", "q8twin"])
+def test_k_shards_summed_before_the_epilogue_give_the_whole_linear(
+        mode, residual):
+    """Two shards of K (a row-parallel linear over model=2): each shard's
+    int32 planes (pos and neg for a twin input), summed, then the epilogue
+    with the bias and the residual added once, equal ``q8_linear_ref`` of
+    the whole K bitwise."""
+    x, a, w, ws, b, _, res, _ = inputs(mode, False, 128, seed=11)
+    twin, q8 = mode in ("f_twin", "q8twin"), mode in ("q8", "q8twin")
+    a_neg = tensor(np.float32(GELU_NEG_CLIP / 128)) if twin else None
+    kw = dict(a_qmax=128, postgelu=twin, in_q=mode if q8 else None)
+    xt, wt, at = tensor(x), tensor(w), tensor(a)
+    parts = [q8_linear(xt[:, s], wt[s], tensor(ws), None, at, a_neg,
+                       out_q="acc", **kw)
+             for s in (slice(0, K // 2), slice(K // 2, K))]
+    assert parts[0].dtype == torch.int32
+    assert parts[0].shape == (2 if twin else 1, M, N)
+    acc = parts[0] + parts[1]
+    assert torch.equal(acc, _q8_acc_ref(xt, wt, at, a_neg, **kw))
+    r = tensor(res) if residual else None
+    want = q8_linear_ref(xt, wt, tensor(ws), tensor(b), at, a_neg,
+                         residual=r,
+                         float_dtype=torch.float32 if q8 else None, **kw)
+    got = q8_epilogue(acc, tensor(ws), tensor(b), at, a_neg, residual=r)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, want)
+    assert torch.equal(q8_epilogue_ref(acc, tensor(ws), tensor(b), at, a_neg,
+                                       residual=r), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_k_shards_summed_before_the_epilogue_give_b11(dtype):
+    """B11's split: each shard's int32 sums in the window layout, summed,
+    then the epilogue with the row map to the image layout and the
+    residual, equal ``q8_win_proj_ref`` bitwise."""
+    rng = np.random.default_rng(12)
+    B, res, ws, C = 2, 8, 4, 32
+    y_q = tensor(rng.integers(-128, 128, (B * (res // ws) ** 2, ws * ws, C))
+                 .astype(np.int8))
+    w = tensor(rng.integers(-128, 128, (C, C)).astype(np.int8))
+    wsc = tensor(((rng.random(C) + 0.5) / 2000).astype(np.float32))
+    b = tensor((rng.standard_normal(C) * 0.1).astype(np.float32))
+    r4 = torch.from_numpy(rng.standard_normal((B, res, res, C))
+                          .astype(np.float32)).to(dtype)
+    a = torch.tensor(0.03)
+    parts = [q8_win_proj(y_q[..., s].contiguous(), w[s], wsc, None, a, ws,
+                         res, None, a_qmax=128, out_q="acc")
+             for s in (slice(0, C // 2), slice(C // 2, C))]
+    assert parts[0].shape == (1,) + tuple(y_q.shape)
+    got = q8_epilogue(parts[0] + parts[1], wsc, b, a, residual=r4,
+                      window=(ws, res))
+    want = q8_win_proj_ref(y_q, w, wsc, b, a, ws, res, r4, a_qmax=128)
+    assert got.dtype == dtype and torch.equal(got, want)

@@ -1,12 +1,15 @@
 """The port's device mesh on gloo ranks of the CPU
 (ptq4vit_tpu_torch/parallel): ranks and their backend, ``shard_params``,
 data-parallel evaluation over 2 and 4 ranks and tensor-parallel evaluation
-over a (2, 2) mesh in raw FP32, fake-quant and ``int8=True``, and the scope
-errors.  Each result is held against the port on one device and against
-the JAX package's ``make_mesh`` in this process (tests/test_parallel.py's
-cases); the ranks run tests/torch_mesh_workers.py, one spawn a fixture."""
+over a (2, 2) mesh in raw FP32, fake-quant, ``int8=True`` and
+``int8="fused"`` (the whole-block paths of ViT and Swin, and the per-op
+path, W8A8 and W6A6), and the scope errors.  Each result is held against
+the port on one device and against the JAX package's ``make_mesh`` in this
+process (tests/test_parallel.py's cases); the ranks run
+tests/torch_mesh_workers.py, one spawn a fixture."""
 import time
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,15 +19,21 @@ from ptq4vit_tpu.calib.calibrator import HessianQuantCalibrator
 from ptq4vit_tpu.configs import ptq4vit as jptq4vit
 from ptq4vit_tpu.parallel import Evaluator as JEvaluator
 from ptq4vit_tpu.parallel import make_mesh as jmake_mesh
+from ptq4vit_tpu.parallel.mesh import shard_batch as jshard_batch
+from ptq4vit_tpu.parallel.mesh import shard_params as jshard_params
 from ptq4vit_tpu_torch.parallel import Evaluator, launch
 from ptq4vit_tpu_torch.utils.convert import qstate_from_numpy
 from tests import torch_mesh_workers as W
-from tests.torch_port_helpers import (TINY, TINY_SWIN, assert_logits_close,
-                                      images, jax_net, jax_swin_net,
-                                      minmax_qstate, port_net, shrink)
+from tests.torch_port_helpers import (TINY, TINY_SWIN, WIDE,
+                                      assert_logits_close, images, jax_net,
+                                      jax_swin_net, minmax_qstate, port_net,
+                                      shrink)
 
 # tests/test_capture.py's tiny ViT with 4 heads (3 do not split over 2)
 TINY4 = dict(TINY, num_heads=4)
+# tests/test_int8_serve.py:133's ViT in the JAX fused block's scope
+# (embed 128, 2 heads of 64: one a rank over model=2)
+WIDE2 = dict(WIDE, depth=2)
 
 
 def labels(n, seed):
@@ -70,23 +79,54 @@ def dp4(nets, tmp_path_factory):
                      eval_tasks(W.net_spec(nets[0])))
 
 
+INT8 = {"raw": False, "fake": False, "int8": True, "fused": "fused"}
+# the tiny Swin's qstates: min-max (its blocks fused whole), min-max with
+# a plain fc2 (``no_postgelu``: the per-op fused path)
+SWIN_QSTATES = {"raw": None, "int8": {}, "fused": {},
+                "fused_per_op": {"postgelu": False}}
+
+
 @pytest.fixture(scope="module")
-def tp(nets, tmp_path_factory):
+def fused_nets():
+    """{case: (JAX net, qstate, images)} of the fused block paths under
+    tensor parallelism: the tiny Swin and WIDE2 PTQ4ViT-calibrated (W8A8),
+    and WIDE2 at W6A6 (min-max)."""
+    cases = {}
+    for key, make, shape in (("swin_ptq4vit", jax_swin_net, TINY_SWIN),
+                             ("wide_ptq4vit", jax_net, WIDE2)):
+        jnet = make(shape)
+        q = HessianQuantCalibrator(jnet, shrink(jptq4vit()), images(8, 32),
+                                   batch_size=4) \
+            .batching_quant_calib(verbose=False)
+        cases[key] = (jnet, q, images(4, 32, seed=14))
+    jnet = jax_net(WIDE2)
+    x = images(4, 32, seed=15)
+    cases["wide_w6a6"] = (jnet, minmax_qstate(jnet, x, bits=6), x)
+    return cases
+
+
+@pytest.fixture(scope="module")
+def tp(nets, fused_nets, tmp_path_factory):
     jnet3, jnet4, jq4 = nets
     spec, q = W.net_spec(jnet4), W.qstate_to_np(qstate_from_numpy(jq4))
     x, y = images(8, 32, seed=9), labels(8, 11)
     tasks = {mode: dict(task="eval", net=spec, x=x, y=y, tp=True,
                         qstate=None if mode == "raw" else q,
-                        int8=mode == "int8")
-             for mode in ("raw", "fake", "int8")}
-    swin = W.net_spec(jax_swin_net(TINY_SWIN))
+                        int8=INT8[mode])
+             for mode in INT8}
+    jswin = jax_swin_net(TINY_SWIN)
+    swin = W.net_spec(jswin)
     xs = images(4, 32, seed=12)
-    for mode in ("raw", "int8"):
+    for mode, kw in SWIN_QSTATES.items():
         tasks[f"swin_{mode}"] = dict(
             task="eval", net=swin, x=xs, y=labels(4, 13), tp=True,
-            int8=mode == "int8", qstate=None if mode == "raw" else
-            W.qstate_to_np(qstate_from_numpy(minmax_qstate(
-                jax_swin_net(TINY_SWIN), xs))))
+            int8=INT8[mode.split("_")[0]], qstate=None if kw is None else
+            W.qstate_to_np(qstate_from_numpy(minmax_qstate(jswin, xs,
+                                                           **kw))))
+    for key, (jnet, jq, xf) in fused_nets.items():
+        tasks[key] = dict(task="eval", net=W.net_spec(jnet), x=xf,
+                          y=labels(len(xf), 16), tp=True, int8="fused",
+                          qstate=W.qstate_to_np(qstate_from_numpy(jq)))
     tasks["shard"] = dict(task="shard_params", net=spec)
     tasks["errors"] = dict(task="errors", net=W.net_spec(jnet3),
                            qstate=W.qstate_to_np(qstate_from_numpy(jq4)),
@@ -204,16 +244,18 @@ def test_mesh_quantized_eval(nets, dp2):
         assert r["quant"]["n_correct"] == want
 
 
-@pytest.mark.parametrize("mode", ["raw", "fake", "int8"])
+@pytest.mark.parametrize("mode", list(INT8))
 def test_tp_eval_matches_single_device(nets, tp, mode):
     """Tensor parallelism over a (2, 2) mesh (tests/test_parallel.py
     test_tp_eval_matches_single_device): the counts equal the port's and
     JAX's, on one device and on JAX's make_mesh(4, 2); the row-parallel
-    int8 dots are reduced exactly, so int8=True logits are bitwise."""
+    int8 dots (int8=True) and the fused kernels' int32 sums (int8="fused",
+    before their epilogue) are reduced exactly, so both int8 modes' logits
+    are bitwise the single device's."""
     _, jnet4, jq4 = nets
     results, x, y = tp
     qstate = None if mode == "raw" else jq4
-    int8 = mode == "int8"
+    int8 = INT8[mode]
     single = Evaluator(port_net(jnet4), None if qstate is None
                        else qstate_from_numpy(qstate), int8=int8,
                        device="cpu")
@@ -227,35 +269,102 @@ def test_tp_eval_matches_single_device(nets, tp, mode):
         assert r[mode]["n_correct"] == want
     ref = single.logits(x).numpy()
     got = results[0][mode]["logits"]
-    if mode == "int8":
+    if int8:
         np.testing.assert_array_equal(got, ref)
     elif mode == "raw":
         np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
     else:
         assert_logits_close(got, ref)
     same_on_every_rank(results, mode, "logits")
+    if mode == "fused":      # TINY4's blocks fused whole on every rank
+        for r in results:
+            assert r[mode]["hits"]["fused_vit_block"] == TINY4["depth"]
 
 
-@pytest.mark.parametrize("mode", ["raw", "int8"])
+@pytest.mark.parametrize("mode", list(SWIN_QSTATES))
 def test_tp_swin_eval_matches_single_device(tp, mode):
     """The tiny Swin (heads 2 and 4) over model=2: each rank's heads, with
-    its columns of the rel-pos bias table; raw logits to rounding,
-    int8=True bitwise."""
+    its columns of the rel-pos bias table; raw logits to rounding, both
+    int8 modes bitwise.  Fused: every block through the whole-block path
+    (B11 and fc2 row-parallel) with the min-max qstate, and through the
+    per-op path (B6 row-parallel proj and fc2) with its plain fc2."""
     results = tp[0]
     jnet = jax_swin_net(TINY_SWIN)
     xs = images(4, 32, seed=12)
-    q = None if mode == "raw" else qstate_from_numpy(minmax_qstate(jnet, xs))
-    single = Evaluator(port_net(jnet), q, int8=mode == "int8", device="cpu")
+    kw = SWIN_QSTATES[mode]
+    q = None if kw is None else qstate_from_numpy(minmax_qstate(jnet, xs,
+                                                               **kw))
+    int8 = INT8[mode.split("_")[0]]
+    single = Evaluator(port_net(jnet), q, int8=int8, device="cpu")
     ref = single.logits(xs).numpy()
-    got = results[0][f"swin_{mode}"]["logits"]
-    if mode == "int8":
+    key = f"swin_{mode}"
+    got = results[0][key]["logits"]
+    if int8:
         np.testing.assert_array_equal(got, ref)
     else:
         np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
-    same_on_every_rank(results, f"swin_{mode}", "logits")
+    same_on_every_rank(results, key, "logits")
+    blocks = sum(TINY_SWIN["depths"])
     for r in results:
-        assert r[f"swin_{mode}"]["n_correct"] == single.n_correct(
-            xs, labels(4, 13))
+        assert r[key]["n_correct"] == single.n_correct(xs, labels(4, 13))
+        if int8 == "fused":
+            per_op = mode == "fused_per_op"
+            assert r[key]["hits"] == {"fused_vit_block": 0,
+                                      "fused_swin_block":
+                                          0 if per_op else blocks,
+                                      "row_parallel": 2 * blocks}
+
+
+def jax_fused_on_mesh(jnet, jq, x):
+    """JAX's fused int8 logits with the params on shard_params(...) of
+    make_mesh(4, model_parallel=2) and the batch over "data" (GSPMD
+    partitions the forward)."""
+    mesh = jmake_mesh(4, model_parallel=2)
+    # the qstate an argument, as JEvaluator passes it: a closed-over one
+    # is a constant XLA may fold (a division by an interval then becomes a
+    # product with its reciprocal, and levels flip)
+    fwd = jax.jit(lambda p, q, xb: jnet.forward(p, xb, jnet.cfg, qstate=q,
+                                                int8="fused"))
+    return np.asarray(fwd(jshard_params(jnet.params, mesh), jq,
+                          jshard_batch(jnp.asarray(x), mesh)))
+
+
+@pytest.mark.parametrize("case", ["swin_ptq4vit", "wide_ptq4vit",
+                                  "wide_w6a6"])
+def test_tp_fused_blocks_match_single_device_and_jax(fused_nets, tp, case):
+    """int8="fused" over model=2 on the whole-block paths: the tiny Swin
+    and WIDE2 (one head of 64 a rank) calibrated by PTQ4ViT at W8A8, and
+    WIDE2 at W6A6 (qmax 32 on the same int8 operands).  Every rank fuses
+    every block and runs its proj and fc2 row-parallel; the logits are the
+    port's single device's bitwise and hold to JAX's fused logits on its
+    tensor-parallel mesh with ``assert_logits_close`` (WIDE2's are equal)
+    -- except the calibrated tiny Swin's.  Its heads of 6 are outside
+    JAX's TPU tiling, so JAX's fused forward is its exact int8 one, and
+    the two packages' exact int8 forwards part there on one device as
+    well: a level flipped by a float op's rounding compounds through the
+    calibrated quantizers (8.0e-3 of max |logit| on these images, the
+    port's fused and exact forwards equal), so it holds to 1e-2 of max
+    |logit| with the argmax equal."""
+    jnet, jq, x = fused_nets[case]
+    results = tp[0]
+    single = Evaluator(port_net(jnet), qstate_from_numpy(jq), int8="fused",
+                       device="cpu")
+    ref = single.logits(x).numpy()
+    same_on_every_rank(results, case, "logits")
+    np.testing.assert_array_equal(results[0][case]["logits"], ref)
+    swin = case.startswith("swin")
+    blocks = sum(jnet.cfg.depths) if swin else jnet.cfg.depth
+    for r in results:
+        assert r[case]["hits"] == {
+            "fused_vit_block": 0 if swin else blocks,
+            "fused_swin_block": blocks if swin else 0,
+            "row_parallel": 2 * blocks}
+    jref = jax_fused_on_mesh(jnet, jq, x)
+    if swin:
+        assert (ref.argmax(-1) == jref.argmax(-1)).all()
+        assert np.abs(ref - jref).max() <= 1e-2 * np.abs(jref).max()
+    else:
+        assert_logits_close(ref, jref)
 
 
 def test_shard_params_concatenate_to_the_full_weights(nets, tp):
@@ -288,13 +397,12 @@ def test_shard_params_concatenate_to_the_full_weights(nets, tp):
 
 @pytest.mark.parametrize("case,kind,match", [
     ("tp_heads", "ValueError", "head count"),
-    ("tp_fused", "NotImplementedError", "row-parallel"),
     ("serve_batch", "ValueError", "pad it upstream"),
     ("capture", "ValueError", "not shardable"),
 ])
 def test_scope_errors(tp, case, kind, match):
-    """3 heads over model=2, fused int8 under tensor parallelism, a
-    request of 3 over data=2 and 3 calibration images over data=2."""
+    """3 heads over model=2, a request of 3 over data=2 and 3 calibration
+    images over data=2."""
     for r in tp[0]:
         got = r["errors"][case]
         assert got is not None and got[0] == kind and match in got[1], got

@@ -109,13 +109,36 @@ def task_capture(mesh, t):
     return out
 
 
+SPIED = ("fused_vit_block", "fused_swin_block", "row_parallel")
+
+
 def task_eval(mesh, t):
+    """The counts and logits; under ``int8="fused"`` also how many whole
+    blocks took the fused path and how many row-parallel linears ran
+    (spies on ops.int8_serve, the counts of one ``logits`` call)."""
+    from ptq4vit_tpu_torch.ops import int8_serve
     net = build_net(t["net"])
     ev = Evaluator(net, qstate=qstate_from_np(t.get("qstate")), mesh=mesh,
                    tensor_parallel=t.get("tp", False),
                    int8=t.get("int8", False), device="cpu")
-    out = {"n_correct": ev.n_correct(t["x"], t["y"]),
-           "logits": ev.logits(t["x"]).numpy()}
+    out = {"n_correct": ev.n_correct(t["x"], t["y"])}
+    hits = dict.fromkeys(SPIED, 0)
+    origs = {k: getattr(int8_serve, k) for k in SPIED}
+
+    def spy(key):
+        def run(*a, **kw):
+            res = origs[key](*a, **kw)
+            hits[key] += res is not None
+            return res
+        return run
+    for k in SPIED:
+        setattr(int8_serve, k, spy(k))
+    try:
+        out["logits"] = ev.logits(t["x"]).numpy()
+    finally:
+        for k, fn in origs.items():
+            setattr(int8_serve, k, fn)
+    out["hits"] = hits
     if "loader" in t:
         out["accuracy"] = ev.evaluate(t["loader"])
     return out
@@ -173,9 +196,6 @@ def task_errors(mesh, t):
             out[key] = (type(e).__name__, str(e))
 
     catch("tp_heads", lambda: Evaluator(net, mesh=mesh, tensor_parallel=True,
-                                        device="cpu"))
-    catch("tp_fused", lambda: Evaluator(net, q, mesh=mesh,
-                                        tensor_parallel=True, int8="fused",
                                         device="cpu"))
     catch("serve_batch", lambda: ServingEngine(net, q, mesh=mesh,
                                                device="cpu")(x[:3]))
