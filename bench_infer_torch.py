@@ -14,9 +14,9 @@ Modes (bench_infer.py:54-77): ``fp32`` and ``bf16`` (the raw net),
 ``fake_quant``, ``int8`` (exact int8 ops) and ``int8_bf16``,
 ``int8_packed_bf16`` (the same from packed weights) and
 ``int8_fused_bf16`` (the fused kernels, as ``ServingEngine`` runs them),
-and ``int8_fused_vs_bf16``.  ``int8_fused_relaxed_bf16`` is left out:
-the relaxed epilogues are not ported (not parity-exact, and measured
-slower on the TPU).
+``int8_fused_relaxed_bf16`` (the same with the kernels' relaxed bf16
+epilogues, ``ServingEngine(relaxed=True)``: not bitwise the exact path,
+levels within a step) and ``int8_fused_vs_bf16``.
 
 The qstate is ``synthetic_qstate`` (weight statistics, placeholder
 activation intervals) and the weights are random from a seeded generator:
@@ -40,7 +40,7 @@ import time
 from bench_torch import card_line
 
 MODES = ("fp32", "bf16", "fake_quant", "int8", "int8_bf16",
-         "int8_packed_bf16", "int8_fused_bf16")
+         "int8_packed_bf16", "int8_fused_bf16", "int8_fused_relaxed_bf16")
 
 
 def forwards(net, qstate, packed):
@@ -58,6 +58,9 @@ def forwards(net, qstate, packed):
             x, qstate=qstate, int8=True, packed=packed, compute_dtype=bf16),
         "int8_fused_bf16": lambda x: net.apply(
             x, qstate=qstate, int8="fused", packed=packed,
+            compute_dtype=bf16),
+        "int8_fused_relaxed_bf16": lambda x: net.apply(
+            x, qstate=qstate, int8="fused_relaxed", packed=packed,
             compute_dtype=bf16),
     }
 

@@ -41,7 +41,16 @@ Phases (any failure raises, so the exit code is non-zero):
      mode (a row-parallel shard's int32 sums) at the proj and twin fc2
      shapes, bitwise, and q8_epilogue on those sums with a bias and a bf16
      residual (bitwise its plain version and B6's whole-linear output,
-     bound by its bytes); each attention
+     bound by its bytes); the relaxed variants (int8="fused_relaxed") on
+     the exact cases' inputs, each against its relaxed plain version with
+     the exact kernel timed beside it and the exact case's bound: B6 qkv
+     (bf16 requant per column), fc1 (tanh-GELU in bf16, twin pack) and a
+     per-op fc1 (GELU, float out), and B10 at stage 1, bitwise their
+     relaxed plain versions with the LayerNorm in the kernel's order
+     (with PyTorch's, an input that quantizes a level the other way moves
+     a relaxed level by up to four: its bf16 chain has coarse steps); B7
+     int8 -> int8 SoS and per head, B8 float SoS and B9 int8 -> int8 on
+     stage 1's shifted block under the attention rules above; each attention
      case's [kernel] line also gives its CUDA-core floor (a model, not a
      measurement: the softmax's instructions a logit at the card's issue
      rate, ``cuda_core_floor``; it stays out of the JSON kernels line);
@@ -64,12 +73,19 @@ Phases (any failure raises, so the exit code is non-zero):
      logits; cosine >= 0.99 between the engine's logits and the fused
      fp32 forward's, between the fused fp32 and exact int8=True forwards
      and between int8=True and the fake-quant forward; img/s of the engine
-     and of those three forwards; one request's device time by kernel
-     under torch.profiler, with the device's busy time, the span of its
-     kernels and the wall time;
+     and of those three forwards; then the relaxed engine
+     (ServingEngine(relaxed=True)) on the same requests: each kernel
+     launched exactly as RELAXED_LAUNCHES says (ViT-B/384 a request: B6
+     25 exact and 24 relaxed, B7 12 relaxed; Swin-B/384: B6 28 and 24,
+     B9 / B10 24 relaxed, B11 24), its img/s (then the exact engine's
+     again: exact, relaxed, exact), and its logits against the exact
+     engine's: the max and mean shift as a share of max |logit|, top-1
+     agreement and the least cosine (>= 0.99); one request's
+     device time by kernel under torch.profiler, with the device's busy
+     time, the span of its kernels and the wall time;
      after ViT's, B8's path: each block's attention on its captured (B, H,
-     N, hd) q, k, v through fused_attention (12 launches), by cosine to
-     the exact int8 attention;
+     N, hd) q, k, v through fused_attention (12 launches), then through
+     its relaxed variant (12), each by cosine to the exact int8 attention;
      then the per-op window path: Swin-B/384 at full width, depths (2, 2,
      2, 2), PTQ4ViT W8A8 with no_postgelu calibrated on 8 images (B1, B2,
      B3f), whose fused forward (8 images) launches B6 36 and B9 8 times on
@@ -137,8 +153,8 @@ Phases (any failure raises, so the exit code is non-zero):
      ServingEngine(mesh=) bitwise phase 7's and Evaluator(mesh=)'s count
      the single device's; [mesh] lines give the backend, ranks -> devices
      and seconds;
-  12. print the kernels' JSON line (all thirteen kernels), the card line,
-     then the result line.
+  12. print the kernels' JSON line (the thirteen kernels and the five
+     relaxed variants), the card line, then the result line.
 Each path is driven with the launch counts set to 0 just before it and
 read just after.
 """
@@ -199,6 +215,18 @@ KERNELS = {
     # parallelism (JAX: the same Pallas kernel, GSPMD's all-reduce before
     # its epilogue)
     "q8_epilogue": (SERVE_SOURCE, "ptq4vit_tpu/ops/int8_serve.py:205"),
+    # the relaxed variants (int8="fused_relaxed"): the same Pallas kernels
+    # with relaxed=True, each replacing the body's bf16 branch
+    "q8_linear_relaxed": (SERVE_SOURCE,
+                          "ptq4vit_tpu/ops/int8_serve.py:141"),
+    "fused_attention_qkv_relaxed": (SERVE_SOURCE,
+                                    "ptq4vit_tpu/ops/int8_serve.py:343"),
+    "fused_attention_relaxed": (SERVE_SOURCE,
+                                "ptq4vit_tpu/ops/int8_serve.py:343"),
+    "fused_window_attention_qkv_relaxed": (
+        SERVE_SOURCE, "ptq4vit_tpu/ops/int8_serve.py:343"),
+    "q8_win_qkv_relaxed": (SERVE_SOURCE,
+                           "ptq4vit_tpu/ops/int8_serve.py:891"),
 }
 SEARCH = tuple(k for k, (src, _) in KERNELS.items() if src == SEARCH_SOURCE)
 # the kernels each path must launch (None: at least once) and must not
@@ -284,6 +312,18 @@ SERVE_LAUNCHES = {
     "vit_base_patch16_384": {"q8_linear": 49, "fused_attention_qkv": 12},
     "swin_base_patch4_window12_384": {
         "q8_linear": 52, "fused_window_attention_qkv": 24, "q8_win_qkv": 24,
+        "q8_win_proj": 24},
+}
+# the same in the relaxed mode (ServingEngine(relaxed=True)): qkv (B10),
+# fc1 and the attention run the relaxed variants; proj, fc2, B11, the
+# reductions and the head (float outputs without GELU, the same function)
+# the exact kernels -- B6 49 and 52 a request in all, as exact
+RELAXED_LAUNCHES = {
+    "vit_base_patch16_384": {"q8_linear": 25, "q8_linear_relaxed": 24,
+                             "fused_attention_qkv_relaxed": 12},
+    "swin_base_patch4_window12_384": {
+        "q8_linear": 28, "q8_linear_relaxed": 24,
+        "fused_window_attention_qkv_relaxed": 24, "q8_win_qkv_relaxed": 24,
         "q8_win_proj": 24},
 }
 # published H100 SXM peaks at 700 W (NVIDIA's data sheet, dense)
@@ -807,6 +847,12 @@ EPILOGUE_CASES = (("proj: one plane + residual",
                    "proj partial: int8 in -> int32 sums"),
                   ("fc2: twin planes + residual",
                    "fc2 partial: twin int8 in -> int32 pos, neg sums"))
+# the relaxed variant's B6 cases: a B6_CASES label (its inputs, with
+# relaxed=True) or a case of its own, with the exact kernel timed beside
+RELAXED_B6 = (("qkv: LN, quantize -> int8 per column", None),
+              ("fc1: LN, quantize -> GELU -> twin int8", None),
+              ("fc1 per op: quantize -> GELU -> float",
+               (_M, _D, _HID, "f", False, True, "float", torch.bfloat16)))
 # B10 / B11's Swin-B/384 stages: (stage, resolution, channels)
 WINDOW_STAGES = ((1, 96, 128), (3, 24, 512))
 
@@ -880,21 +926,23 @@ def attn_level_step(ph, sos, qmax=128):
     return qmax * ph[3] * (1.0 / (qmax - 1) if sos else ph[2])
 
 
-def compare_outputs(name, got, ref, atol=0.0, rtol=0.0, step=None):
-    """int8 outputs: at most one level off in at most LEVEL_SHARE of the
-    elements.  Float outputs: |got - ref| <= atol + rtol |ref| (0: bitwise)
-    everywhere; with ``step`` (broadcast to the output: what one attention
-    probability level moves an element by), at most FLIP_SHARE of the
-    elements may be off by up to ``step`` more, where a probability
-    rounded to the neighbouring level.  Returns (max abs error, share of
-    the elements off by a level or beyond the tolerance)."""
+def compare_outputs(name, got, ref, atol=0.0, rtol=0.0, step=None,
+                    level_share=LEVEL_SHARE):
+    """int8 outputs: at most one level off in at most ``level_share`` of
+    the elements (0: bitwise).  Float outputs: |got - ref| <= atol + rtol
+    |ref| (0: bitwise) everywhere; with ``step`` (broadcast to the output:
+    what one attention probability level moves an element by), at most
+    FLIP_SHARE of the elements may be off by up to ``step`` more, where a
+    probability rounded to the neighbouring level.  Returns (max abs
+    error, share of the elements off by a level or beyond the
+    tolerance)."""
     if got.dtype != ref.dtype or got.shape != ref.shape:
         raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} vs "
                              f"{ref.dtype} {tuple(ref.shape)}")
     if got.dtype == torch.int8:
         d = (got.int() - ref.int()).abs()
         share = float((d > 0).double().mean())
-        if int(d.max()) > 1 or share > LEVEL_SHARE:
+        if int(d.max()) > 1 or share > level_share:
             raise AssertionError(f"{name}: levels off by up to {int(d.max())}"
                                  f" in {share:.3%} of the outputs")
         return float(d.max()), share
@@ -922,10 +970,11 @@ def serve_kernel_phase(sv, dev):
     only: neither computes the quantized function, and the port never
     calls them."""
     rng = np.random.default_rng(5)
-    cases, partial = [], {}
+    cases, partial, inputs = [], {}, {}
     for label, m, K, Nn, mode, ln, gelu, out, dt in B6_CASES:
         args, kw = q8_inputs(rng, m, K, Nn, mode, ln, gelu, out, dt)
         kw["w_kmaj"] = kmajor_levels(args[1].t())    # as pack_weights keeps it
+        inputs[label] = (args, kw)
         if out == "acc":
             partial[label] = (args, kw)
         twin = mode in ("f_twin", "q8twin")
@@ -941,7 +990,47 @@ def serve_kernel_phase(sv, dev):
             call_bytes(args, kw), ops, int_mm_calls(lv, args[1]), None,
             None))
     return measure_serving(cases + epilogue_cases(sv, rng, partial)
+                           + relaxed_linear_cases(sv, rng, inputs)
                            + vit_attention_cases(sv, dev, rng))
+
+
+# the relaxed variants held bitwise to their plain versions, the LayerNorm
+# computed in the kernel's order (sv.layer_norm_kernel_order)
+BITWISE_RELAXED = ("q8_linear_relaxed", "q8_win_qkv_relaxed")
+
+
+def relaxed_plain(sv, args, kw):
+    """The relaxed plain version of a B6 call, its LayerNorm (if any) in
+    the kernel's order."""
+    x, kw = args[0], dict(kw, relaxed=True)
+    if kw.get("ln"):
+        x = sv.layer_norm_kernel_order(x, *kw["ln"])
+        kw.update(ln=None, float_dtype=kw["float_dtype"] or args[0].dtype)
+    return sv.q8_linear_ref(x, *args[1:], **kw)
+
+
+def relaxed_linear_cases(sv, rng, inputs):
+    """B6's relaxed variant (RELAXED_B6) as measure_serving takes them:
+    the kernel with relaxed=True against the relaxed plain version
+    (``relaxed_plain``), the exact kernel on the same inputs timed beside
+    it; the bound is the exact case's (the same work)."""
+    cases = []
+    for label, spec in RELAXED_B6:
+        if spec is None:
+            args, kw = inputs[label]
+            m, K = args[0].shape
+            Nn = args[1].shape[1]
+        else:
+            m, K, Nn = spec[:3]
+            args, kw = q8_inputs(rng, *spec)
+            kw["w_kmaj"] = kmajor_levels(args[1].t())
+        cases.append((
+            "q8_linear_relaxed", f"{label} (relaxed)",
+            lambda args=args, kw=kw: sv.q8_linear(*args, relaxed=True, **kw),
+            lambda args=args, kw=kw: relaxed_plain(sv, args, kw),
+            call_bytes(args, kw), {"int8": 2 * m * K * Nn}, {}, None, None,
+            lambda args=args, kw=kw: sv.q8_linear(*args, **kw)))
+    return cases
 
 
 def epilogue_cases(sv, rng, partial):
@@ -1000,14 +1089,16 @@ def cuda_core_floor(logits, sos, window=False):
 
 
 def attention_plain(sv, kname, args, kw):
-    """The plain version of a B7 / B8 call."""
+    """The plain version of a B7 / B8 call (``relaxed`` in kw: the relaxed
+    variant's)."""
+    relaxed = kw.get("relaxed", False)
     if kname == "fused_attention":
         q_, k_, v_, p1, p2, sc = args
         ph, sos = sv.attn_scope(p1, p2, q_.shape[1])
         return sv.fused_attention_ref(
             q_, k_, v_, ph, p2.split if sos else None, sc, None, sos=sos,
             in_q8=False, qmaxes=sv.attn_qmaxes(p1, p2, 128),
-            out_dtype=q_.dtype)
+            out_dtype=q_.dtype, relaxed=relaxed)
     x, heads, p1, p2, sc = args
     Bx, Nx, d3 = x.shape
     ph, sos = sv.attn_scope(p1, p2, heads)
@@ -1017,7 +1108,8 @@ def attention_plain(sv, kname, args, kw):
         c[0], c[1], c[2], ph, p2.split if sos else None, sc,
         kw.get("out_scale"), sos=sos, in_q8=kw.get("in_q8", False),
         qmaxes=sv.attn_qmaxes(p1, p2, 128),
-        out_dtype=x.dtype if x.is_floating_point() else torch.float32)
+        out_dtype=x.dtype if x.is_floating_point() else torch.float32,
+        relaxed=relaxed)
     return out.transpose(1, 2).reshape(Bx, Nx, d3 // 3)
 
 
@@ -1065,30 +1157,44 @@ def vit_attention_cases(sv, dev, rng):
             calls.append(("fused_attention", "(B, H, N, hd) float, SoS",
                           (q4, k4, v4, qp1, qp2, hd ** -0.5), {},
                           step.reshape(1, H, 1, 1)))
+        # the relaxed variants: B7 int8 -> int8 (SoS, per head), B8 (SoS)
+        calls += [(k + "_relaxed", f"{label} (relaxed)", args,
+                   dict(kw, relaxed=True), st)
+                  for k, label, args, kw, st in calls
+                  if k == "fused_attention" or kw.get("in_q8")]
         for kname, label, args, kw, st in calls:
+            base = kname.replace("_relaxed", "")
+            relaxed = kname != base
             cases.append((
                 kname, label,
-                lambda kname=kname, args=args, kw=kw: getattr(sv, kname)(
+                lambda base=base, args=args, kw=kw: getattr(sv, base)(
                     *args, **kw),
-                lambda kname=kname, args=args, kw=kw: attention_plain(
-                    sv, kname, args, kw),
-                call_bytes(args, kw), ops, sdpa, st, floor))
+                lambda base=base, args=args, kw=kw: attention_plain(
+                    sv, base, args, kw),
+                call_bytes(args, kw), ops, {} if relaxed else sdpa, st,
+                floor,
+                (lambda base=base, args=args, kw=kw: getattr(sv, base)(
+                    *args, **dict(kw, relaxed=False))) if relaxed else None))
     return cases
 
 
 def measure_serving(cases):
     """Each serving kernel case (kernel, label, call, plain call, bytes of
     the inputs, operations, context calls by key, step, CUDA-core floor
-    ms or None) against its plain version (``compare_outputs``; attention
-    float outputs under the FLIP_SHARE rule, other float outputs bitwise),
-    then timed beside the plain version, the bound, the attentions'
-    CUDA-core floor (``cuda_core_floor``) and the context calls
-    (torch._int_mm on both weight layouts for the linears, SDPA for the
-    attentions).  Returns the stats by kernel; a kernel's first case is
-    its headline."""
+    ms or None[, the exact kernel's call: a relaxed variant's case])
+    against its plain version (``compare_outputs``; attention float
+    outputs under the FLIP_SHARE rule, other float outputs bitwise, the
+    relaxed B6 / B10's int8 outputs too: BITWISE_RELAXED), then timed
+    beside the
+    plain version, the exact kernel (``exact_ms``), the bound, the
+    attentions' CUDA-core floor (``cuda_core_floor``) and the context
+    calls (torch._int_mm on both weight layouts for the linears, SDPA for
+    the attentions).  Returns the stats by kernel; a kernel's first case
+    is its headline."""
     stats = {}
-    for kname, label, fn, plain, in_bytes, ops, lib_fn, step, floor \
-            in cases:
+    for kname, label, fn, plain, in_bytes, ops, lib_fn, step, floor, \
+            *exact in cases:
+        exact = exact[0] if exact else None
         got = fn()
         ref = plain()
         torch.cuda.synchronize()
@@ -1096,11 +1202,16 @@ def measure_serving(cases):
         # attention sums its softmax in another order
         tol = (2e-5 * float(ref.float().abs().max()), ATTN_RTOL) \
             if attention else (0.0, 0.0)
-        err, share = compare_outputs(f"{kname} {label}", got, ref, *tol,
-                                     step=step)
+        # a relaxed B6 / B10 against the plain version with the kernel's
+        # LayerNorm order: bitwise
+        err, share = compare_outputs(
+            f"{kname} {label}", got, ref, *tol, step=step,
+            level_share=0.0 if kname in BITWISE_RELAXED else LEVEL_SHARE)
         ms = time_ms(fn, 5)
         plain_ms = time_ms(plain, 1, 0)
         lib = {k: time_ms(f, 5) for k, f in lib_fn.items()}
+        if exact is not None:
+            lib["exact_ms"] = time_ms(exact, 5)
         bound_ms, bound_by = bound(ops, in_bytes + nbytes(got))
         peak = peak_share(ops, ms)
         entry = {"case": label, "ms": ms, "plain_ms": plain_ms,
@@ -1117,7 +1228,10 @@ def measure_serving(cases):
             + (f", CUDA-core floor {floor:.4f} ms" if floor is not None
                else "") + (f", {share_text(peak)}" if peak else "")
             + (", " + ", ".join(f"{k} {v:.3f}" for k, v in lib.items())
-               + " (context only)" if lib else ""))
+               + (" (the exact kernel, then context only)"
+                  if exact is not None and len(lib) > 1 else
+                  " (the exact kernel)" if exact is not None
+                  else " (context only)") if lib else ""))
         st = stats.setdefault(kname, {"max_abs_err": 0.0, "cases": []})
         st["max_abs_err"] = max(st["max_abs_err"], err
                                 if got.dtype != torch.int8 else 0.0)
@@ -1225,21 +1339,45 @@ def window_attention_cases(sv, dev, rng):
                         kw.get("out_scale"))
             ref_kw = dict(sos=sos, in_q8=mode.startswith("int8"),
                           qmaxes=(q,) * 5, out_dtype=torch.float32)
+            ops = {"int8": 2 * B_ * H * N * N * hd * (3 if sos else 2),
+                   # the bias and mask adds, max, subtract, exp, sum, divide
+                   "fp32": 7 * B_ * H * N * N}
+            floor = cuda_core_floor(B_ * H * N * N, sos, window=True)
             cases.append((
                 "fused_window_attention_qkv", label,
                 lambda args=args, kw=kw: sv.fused_window_attention_qkv(
                     *args, **kw),
                 lambda a=ref_args, kw=ref_kw: sv.fused_window_attention_ref(
-                    *a, **kw), nbytes(args),
-                {"int8": 2 * B_ * H * N * N * hd * (3 if sos else 2),
-                 # the bias and mask adds, max, subtract, exp, sum, divide
-                 "fp32": 7 * B_ * H * N * N},
+                    *a, **kw), nbytes(args), ops,
                 {"sdpa_ms": lambda qkv4=(q4, k4, v4), m=sdpa_mask: torch.nn
                  .functional.scaled_dot_product_attention(
-                     *qkv4, attn_mask=m)}, step,
-                cuda_core_floor(B_ * H * N * N, sos, window=True)))
+                     *qkv4, attn_mask=m)}, step, floor))
+            if stage == 1 and mode == "int8 SoS":
+                # the relaxed variant on the same inputs
+                cases.append((
+                    "fused_window_attention_qkv_relaxed", f"{label} (relaxed)",
+                    lambda args=args, kw=kw: sv.fused_window_attention_qkv(
+                        *args, relaxed=True, **kw),
+                    lambda a=ref_args, kw=ref_kw:
+                    sv.fused_window_attention_ref(*a, relaxed=True, **kw),
+                    nbytes(args), ops, {}, step, floor,
+                    lambda args=args, kw=kw: sv.fused_window_attention_qkv(
+                        *args, **kw)))
 
     return cases
+
+
+def win_qkv_relaxed_plain(sv, args, kw):
+    """B10's relaxed plain version on its window-partitioned rows, the
+    LayerNorm in the kernel's order."""
+    from ptq4vit_tpu_torch.models.swin import window_partition
+    x4, w, wsc, b, a, ln, ws, osc = args
+    xw = window_partition(x4, ws)
+    out = sv.q8_linear_ref(
+        sv.layer_norm_kernel_order(xw.reshape(-1, x4.shape[-1]), *ln), w,
+        wsc, b, a, None, a_qmax=kw["a_qmax"], postgelu=False, out_q="vec",
+        out_scale=osc, out_qmax=kw["out_qmax"], relaxed=True)
+    return out.reshape(xw.shape[:-1] + (w.shape[1],))
 
 
 def window_kernel_phase(sv, dev):
@@ -1273,6 +1411,17 @@ def window_kernel_phase(sv, dev):
                           *args, **kw), nbytes(args),
                       {"int8": 2 * M * C * 3 * C}, int_mm_calls(lv, w),
                       None, None))
+        if stage == 1:
+            # the relaxed variant on the same inputs
+            cases.append((
+                "q8_win_qkv_relaxed", f"stage {stage}: LN, quantize -> int8 "
+                "per column (relaxed)",
+                lambda args=args, kw=kw: sv.q8_win_qkv(*args, relaxed=True,
+                                                       **kw),
+                lambda args=args, kw=kw: win_qkv_relaxed_plain(sv, args, kw),
+                nbytes(args),
+                {"int8": 2 * M * C * 3 * C}, {}, None, None,
+                lambda args=args, kw=kw: sv.q8_win_qkv(*args, **kw)))
         args = proj_args
         y_q, wp = args[0], args[1]
         kw = dict(a_qmax=q, w_kmaj=kmajor_levels(wp.t()))
@@ -1362,6 +1511,14 @@ def serving_phase(sk, sv, name, qcpu):
     n_img = SERVE_BATCH * SERVE_REQUESTS
     x0 = torch.from_numpy(reqs[0]).cuda()
     ips = {"fused bf16 engine": n_img / wall}
+    relaxed = relaxed_serving(sk, sv, name, net, qstate, reqs, outs)
+    ips["relaxed bf16 engine"] = relaxed["img_per_s"]
+    # the exact engine again, so the two alternate (exact, relaxed, exact)
+    t0 = time.time()
+    for x in reqs:
+        engine(x)
+    torch.cuda.synchronize()
+    ips["fused bf16 engine, again"] = n_img / (time.time() - t0)
     logits = {}
     with torch.no_grad():
         for name, fwd in (
@@ -1388,6 +1545,7 @@ def serving_phase(sk, sv, name, qcpu):
     summary = {"path": path, "requests": SERVE_REQUESTS,
                "batch": SERVE_BATCH, "wall_s": wall, "pack_s": pack_s,
                "img_per_s": ips, "min_cosine": cos, "launches": launches,
+               "relaxed": relaxed,
                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     log(f"[serve] {path}: {SERVE_REQUESTS} requests x {SERVE_BATCH} images "
         f"in {wall:.3f} s, pack_weights {pack_s:.3f} s, launches {launches}")
@@ -1412,20 +1570,74 @@ def serving_phase(sk, sv, name, qcpu):
     return launches, summary, (net, qstate, x0, first)
 
 
+RELAXED_COSINE = 0.99   # the relaxed engine's logits to the exact one's
+
+
+def relaxed_serving(sk, sv, name, net, qstate, reqs, exact):
+    """The relaxed engine (ServingEngine(relaxed=True), bf16) on the same
+    requests as the exact engine, whose logits are ``exact``: the launch
+    counts set to 0 just before its requests and read just after, each
+    kernel launched exactly as RELAXED_LAUNCHES says; finite logits; its
+    img/s; the logits against the exact engine's: the max shift as a
+    share of max |logit|, top-1 agreement, and the least cosine (at least
+    RELAXED_COSINE).  Returns the summary, its path and launches
+    included."""
+    from ptq4vit_tpu_torch import ServingEngine
+    path = f"{name} serving, relaxed"
+    engine = ServingEngine(net, qstate, relaxed=True)
+    engine(reqs[0])                                     # warm-up
+    torch.cuda.synchronize()
+    sk.reset_launch_counts()
+    sv.reset_launch_counts()
+    t0 = time.time()
+    outs = [engine(x) for x in reqs]
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {**sk.launch_counts(), **sv.launch_counts()}
+    check_exact_launches(path, launches, {
+        k: SERVE_REQUESTS * n for k, n in RELAXED_LAUNCHES[name].items()})
+    r = torch.cat([o.float() for o in outs])
+    e = torch.cat([o.float() for o in exact])
+    if r.shape != e.shape or not torch.isfinite(r).all():
+        raise AssertionError(f"{path}: logits not finite {tuple(e.shape)}")
+    out = {"path": path, "launches": launches, "wall_s": wall,
+           "img_per_s": r.shape[0] / wall,
+           "max_shift": float((r - e).abs().max() / e.abs().max()),
+           "mean_shift": float((r - e).abs().mean() / e.abs().max()),
+           "top1_agree": float((r.argmax(-1) == e.argmax(-1)).double()
+                               .mean()),
+           "min_cosine": float(torch.nn.functional.cosine_similarity(
+               r, e, dim=-1).min())}
+    log(f"[serve] {path}: {SERVE_REQUESTS} requests x {SERVE_BATCH} images "
+        f"in {wall:.3f} s ({out['img_per_s']:.1f} img/s), launches "
+        f"{launches}; against the exact engine: max shift "
+        f"{out['max_shift']:.4f} of max |logit|, mean {out['mean_shift']:.5f}"
+        f", top-1 agreement {out['top1_agree']:.4f}, min cosine "
+        f"{out['min_cosine']:.6f}")
+    if out["min_cosine"] < RELAXED_COSINE:
+        raise AssertionError(f"{path}: cosine {out['min_cosine']:.4f} to "
+                             f"the exact engine < {RELAXED_COSINE}")
+    del engine, outs
+    return out
+
+
 def layout_path(sk, sv, net, qstate, x):
     """B8's path: every block's attention of the calibrated ViT-B/384 on
     its (B, H, N, hd) q, k, v (from a capture of 4 images) through
-    ``fused_attention``, with the launch counts set to 0 just before and
-    read just after; each context held by cosine to the exact int8 path
-    (matmul_int8 -> softmax -> matmul_int8)."""
+    ``fused_attention``, then through its relaxed variant
+    (``relaxed=True``), each with the launch counts set to 0 just before
+    and read just after; each context held by cosine to the exact int8
+    path (matmul_int8 -> softmax -> matmul_int8).  Returns {path:
+    launches} and the summaries."""
     from ptq4vit_tpu_torch.models.common import softmax_f32
     from ptq4vit_tpu_torch.ops.int8 import matmul_int8
-    path = "vit_base_patch16_384 attention, (B, H, N, hd) layout"
+    base = "vit_base_patch16_384 attention, (B, H, N, hd) layout"
     scale = net.cfg.head_dim ** -0.5
+    depth = net.cfg.depth
     with torch.no_grad():
         _, taps = net.apply(x, capture=True)
     qkv = []
-    for i in range(net.cfg.depth):
+    for i in range(depth):
         m1 = taps[f"blocks.{i}.attn.matmul1"]
         m2 = taps[f"blocks.{i}.attn.matmul2"]
         qkv.append((m1["a"].contiguous(),
@@ -1433,34 +1645,37 @@ def layout_path(sk, sv, net, qstate, x):
                     m2["b"].contiguous(), qstate[f"blocks.{i}.attn.matmul1"],
                     qstate[f"blocks.{i}.attn.matmul2"]))
     del taps
-    torch.cuda.synchronize()
-    sk.reset_launch_counts()
-    sv.reset_launch_counts()
-    t0 = time.time()
-    outs = [sv.fused_attention(q, k, v, qp1, qp2, scale)
-            for q, k, v, qp1, qp2 in qkv]
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = {**sk.launch_counts(), **sv.launch_counts()}
-    depth = net.cfg.depth
-    for k_, v_ in launches.items():
-        if v_ != (depth if k_ == "fused_attention" else 0):
-            raise AssertionError(f"{k_} was launched {v_} times by the "
-                                 f"{path} path")
-    cos = 1.0
     with torch.no_grad():
-        for (q, k, v, qp1, qp2), o in zip(qkv, outs):
-            p = softmax_f32(matmul_int8(q, k.transpose(-2, -1), qp1) * scale)
-            ref = matmul_int8(p, v, qp2)
-            cos = min(cos, float(torch.nn.functional.cosine_similarity(
-                o.reshape(-1).double(), ref.reshape(-1).double(), dim=0)))
-    log(f"[serve] {path}: {depth} blocks x {len(x)} images in {wall:.4f} s, "
-        f"min cosine to the exact int8 attention {cos:.6f}, launches "
-        f"{launches}")
-    if cos < 0.99:
-        raise AssertionError(f"{path}: cosine {cos:.4f} < 0.99")
-    return launches, {"path": path, "images": len(x), "wall_s": wall,
-                      "min_cosine": cos, "launches": launches}
+        refs = [matmul_int8(softmax_f32(matmul_int8(
+            q, k.transpose(-2, -1), qp1) * scale), v, qp2)
+            for q, k, v, qp1, qp2 in qkv]
+    by_path, summaries = {}, []
+    for relaxed in (False, True):
+        path = base + (", relaxed" if relaxed else "")
+        kernel = "fused_attention_relaxed" if relaxed else "fused_attention"
+        torch.cuda.synchronize()
+        sk.reset_launch_counts()
+        sv.reset_launch_counts()
+        t0 = time.time()
+        outs = [sv.fused_attention(q, k, v, qp1, qp2, scale,
+                                   relaxed=relaxed)
+                for q, k, v, qp1, qp2 in qkv]
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {**sk.launch_counts(), **sv.launch_counts()}
+        check_exact_launches(path, launches, {kernel: depth})
+        cos = min(float(torch.nn.functional.cosine_similarity(
+            o.reshape(-1).double(), r.reshape(-1).double(), dim=0))
+            for o, r in zip(outs, refs))
+        log(f"[serve] {path}: {depth} blocks x {len(x)} images in "
+            f"{wall:.4f} s, min cosine to the exact int8 attention "
+            f"{cos:.6f}, launches {launches}")
+        if cos < 0.99:
+            raise AssertionError(f"{path}: cosine {cos:.4f} < 0.99")
+        by_path[path] = launches
+        summaries.append({"path": path, "images": len(x), "wall_s": wall,
+                          "min_cosine": cos, "launches": launches})
+    return by_path, summaries
 
 
 def window_per_op_path(sk, sv):
@@ -1912,9 +2127,12 @@ def drivers_phase(sk, sv, root):
     by_path[INFER_PATH] = launches
     if rc != 0:
         raise AssertionError(f"{INFER_PATH}: {row.get('error')}")
+    # the fused and the relaxed modes, a warm-up and INFER_ITERS calls each
+    per_call = dict(RELAXED_LAUNCHES["vit_base_patch16_384"])
+    for k, n in SERVE_LAUNCHES["vit_base_patch16_384"].items():
+        per_call[k] = per_call.get(k, 0) + n
     check_exact_launches(INFER_PATH, launches, {
-        k: n * (INFER_ITERS + 1)
-        for k, n in SERVE_LAUNCHES["vit_base_patch16_384"].items()})
+        k: n * (INFER_ITERS + 1) for k, n in per_call.items()})
     summary[INFER_PATH] = {m: row[m] for m in bench_infer_torch.MODES}
     log(f"[bench_infer] img/s at 32 images: " + ", ".join(
         f"{m} {row[m]:.1f}" for m in bench_infer_torch.MODES))
@@ -2571,11 +2789,12 @@ def main() -> int:
         launches, summary, (net, qstate, x0, served[name]) = serving_phase(
             sk, sv, name, qstates[name])
         by_path[summary["path"]] = launches
+        by_path[summary["relaxed"]["path"]] = summary["relaxed"]["launches"]
         summaries.append(summary)
         if name == "vit_base_patch16_384":
             launches, summary = layout_path(sk, sv, net, qstate, x0[:4])
-            by_path[summary["path"]] = launches
-            summaries.append(summary)
+            by_path.update(launches)
+            summaries += summary
         del net, qstate, x0
         torch.cuda.empty_cache()
     launches, summary = window_per_op_path(sk, sv)

@@ -15,8 +15,13 @@ is threaded through every quantizable op call-site:
   * ``int8=True``                -> quantized ops as exact int8 products
                                     (ops/int8.py); ``int8="fused"`` adds the
                                     fused serving kernels (ops/int8_serve.py,
-                                    still exact); ``packed`` holds int8
-                                    weights from ops/pack.pack_weights.
+                                    still exact); ``int8="fused_relaxed"``
+                                    runs their epilogues in bf16 (JAX's
+                                    opt-in serving mode: tanh-GELU, the
+                                    softmax and the requantizations,
+                                    levels within a step of the exact
+                                    ones); ``packed`` holds int8 weights
+                                    from ops/pack.pack_weights.
   * ``mesh`` with a "model" axis -> tensor parallelism: the params and
                                     the qstate are this rank's shards
                                     (parallel/mesh.shard_params,
@@ -44,7 +49,7 @@ from ..ops import int8 as i8
 from ..ops import int8_serve as serve
 from ..quant.qparams import apply_linear, apply_matmul
 
-INT8_MODES = (False, True, "fused")
+INT8_MODES = (False, True, "fused", "fused_relaxed")
 
 
 def cast_params(tree, dtype):
@@ -68,13 +73,13 @@ class QuantCtx:
                  packed: Optional[Dict[str, Any]] = None, mesh=None):
         if int8 not in INT8_MODES:
             raise NotImplementedError(
-                f"int8={int8!r}: the port runs int8 in {INT8_MODES} "
-                "(the relaxed bf16 epilogues are not ported)")
+                f"int8={int8!r}: the port runs int8 in {INT8_MODES}")
         self.qstate = qstate or {}
         self.eps = eps
         self.capture = capture
         self.int8 = int8
-        self.fused = int8 == "fused"
+        self.fused = int8 in ("fused", "fused_relaxed")
+        self.relaxed = int8 == "fused_relaxed"
         self.packed = packed or {}
         self.taps: Dict[str, Dict[str, torch.Tensor]] = {}
         self.tp, self._reduce = 1, None
@@ -130,7 +135,8 @@ class QuantCtx:
                                  else b)
         elif qp is not None and self.int8:
             pk = self.packed.get(name) or {}
-            out = serve.fused_linear(x, w, b, qp, pk) if self.fused else None
+            out = serve.fused_linear(x, w, b, qp, pk, relaxed=self.relaxed) \
+                if self.fused else None
             if out is None:
                 out = i8.linear_int8(x, w, b, qp, w_intT=pk.get("w_intT"),
                                      w_scale=pk.get("w_scale"))
@@ -154,7 +160,7 @@ class QuantCtx:
         qp = self.qstate.get(name)
         if self._serving() and qp is not None:
             out = serve.fused_linear(x, w, b, qp, self.packed.get(name) or {},
-                                     epilogue="gelu")
+                                     epilogue="gelu", relaxed=self.relaxed)
             if out is not None:
                 return out.to(x.dtype)
         return gelu(self.linear(name, x, w, b))
@@ -173,7 +179,7 @@ class QuantCtx:
             return None
         qps, pks = self._block_ops(prefix)
         return serve.fused_vit_block(x, blk, qps, pks, heads, scale, ln_eps,
-                                     self._row_reduce())
+                                     self._row_reduce(), self.relaxed)
 
     def attention_qkv(self, name1, name2, qkv, heads, scale):
         """Fused int8 attention (B7) on the (B, N, 3d) qkv output; returns
@@ -184,7 +190,8 @@ class QuantCtx:
         qp1, qp2 = self.qstate.get(name1), self.qstate.get(name2)
         if qp1 is None or qp2 is None:
             return None
-        return serve.fused_attention_qkv(qkv, heads, qp1, qp2, scale)
+        return serve.fused_attention_qkv(qkv, heads, qp1, qp2, scale,
+                                         relaxed=self.relaxed)
 
     def swin_block(self, prefix, x, blk, heads, ws, shift, res, bias, mask,
                    ln_eps):
@@ -195,7 +202,8 @@ class QuantCtx:
             return None
         qps, pks = self._block_ops(prefix)
         return serve.fused_swin_block(x, blk, qps, pks, heads, ws, shift, res,
-                                      bias, mask, ln_eps, self._row_reduce())
+                                      bias, mask, ln_eps, self._row_reduce(),
+                                      self.relaxed)
 
     def window_attention_qkv(self, name1, name2, qkv, heads, nW, prescale,
                              bias, mask):
@@ -209,7 +217,8 @@ class QuantCtx:
         if qp1 is None or qp2 is None:
             return None
         return serve.fused_window_attention_qkv(qkv, heads, nW, qp1, qp2,
-                                                prescale, bias, mask)
+                                                prescale, bias, mask,
+                                                relaxed=self.relaxed)
 
     def conv2d_patch(self, name, x, w, b, patch: int):
         """Non-overlapping patch-embedding conv (stride == kernel) as

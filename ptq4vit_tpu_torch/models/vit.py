@@ -97,7 +97,8 @@ def forward(params: Dict[str, Any], x, cfg: ViTConfig,
             packed: Optional[Dict[str, Any]] = None, mesh=None):
     """ViT forward.  x: (B, 3, H, W) float32.  Returns logits, or
     (logits, taps) when ``capture``.  ``int8``: False (fake-quant), True
-    (exact int8 products) or "fused" (the fused serving kernels);
+    (exact int8 products), "fused" (the fused serving kernels) or
+    "fused_relaxed" (their bf16 epilogues);
     ``compute_dtype`` casts every param and the input (the serving mode;
     ``packed`` weights stay as packed from the fp32 params).  ``mesh``
     with a "model" axis runs tensor-parallel on this rank's shards of the

@@ -57,12 +57,12 @@ _SERVE = {
     "ptq_attn_plan": [_I, _I, _P],
     "ptq_q8_smem_bytes": [_I] * 3,
     "ptq_q8_linear": [_P, _I, _P, _I] + [_P] * 7 + [_I, _P, _F, _P]
-                     + [_I] * 12 + [_P],
+                     + [_I] * 13 + [_P],
     "ptq_fused_attention": [_P, _P, _P, _I, _L, _L, _L, _P, _I, _L, _L, _L,
-                            _P, _P, _F] + [_I] * 10 + [_P],
+                            _P, _P, _F] + [_I] * 11 + [_P],
     "ptq_window_attention": [_P, _P, _P, _I, _L, _L, _L, _P, _I, _L, _L, _L,
-                             _P, _P, _F, _P, _I] + [_I] * 10 + [_P],
-    "ptq_q8_win_qkv": [_P, _I, _P, _I] + [_P] * 7 + [_F, _P] + [_I] * 9
+                             _P, _P, _F, _P, _I] + [_I] * 11 + [_P],
+    "ptq_q8_win_qkv": [_P, _I, _P, _I] + [_P] * 7 + [_F, _P] + [_I] * 10
                       + [_P],
     "ptq_q8_win_proj": [_P, _P, _I] + [_P] * 4 + [_I, _P, _P] + [_I] * 10
                        + [_P],

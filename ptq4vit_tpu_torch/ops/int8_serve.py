@@ -30,7 +30,8 @@ For CUDA tensors the wrappers launch the hand-written kernels of
 ``csrc/serve_kernels.cu`` (or raise); for CPU tensors they run the plain
 PyTorch versions beside them (the ``*_ref`` functions), which follow the
 same formulas with the int8 dot as an exact float64 matmul of the levels.
-Each kernel wrapper counts its launches in ``<function>.launches``.
+Each kernel wrapper counts its launches in ``<function>.launches``, and
+those of its relaxed variant (below) in ``<function>.relaxed_launches``.
 B6, B10 and B11 are one tensor-core kernel (``q8_tc_kernel``), after a
 pre-pass that quantizes a float input once a row (``q8_levels_kernel``),
 and ``q8_epilogue_kernel`` does its epilogue on summed partial sums;
@@ -44,8 +45,17 @@ bits <= 8; matmul QPs with per-head scales and no operand block grids; the
 block paths need fc2 post-GELU and one qmax for the packed q / k / v
 columns.  The JAX rules that are only TPU tiling (K % 128, 128-lane head
 groups, VMEM budgets, the attention row tile) are dropped: the port's
-kernels take any K, head count and head dim.  ``relaxed`` (bf16
-epilogues) is not ported.
+kernels take any K, head count and head dim.
+
+``relaxed`` (``int8="fused_relaxed"``, ``ServingEngine(relaxed=True)``):
+JAX's opt-in bf16 epilogues of B6 (tanh-GELU, the per-column requant and
+the twin pack), B7 / B8 / B9 (the softmax as ``exp`` of bf16 logits times
+a bf16 reciprocal of the fp32 sum, the SoS / per-head levels, the output
+requant) and B10 (the requant): every value JAX's source casts to bf16 is
+rounded to bf16 here, one operation at a time, and each division becomes
+a product with a bf16 reciprocal.  Not bitwise the exact path (a level
+may move one step); a linear with a float output and no GELU is the same
+function in both modes and runs the exact kernel.
 """
 from __future__ import annotations
 
@@ -65,6 +75,8 @@ _OUT_Q = {None: 0, "vec": 1, "twin": 2, "acc": 3}
 _KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
           torch.int32: 3}
 SQRT_HALF = 0.7071067811865476          # 2 ** -0.5, rounded to float32
+# the relaxed tanh-GELU's bf16 constants (JAX int8_serve.py:144-145)
+GELU_K, GELU_C = 0.7978845608028654, 0.044715
 
 
 def _f32(v, device) -> torch.Tensor:
@@ -84,6 +96,43 @@ def _const(v: float, device: torch.device) -> torch.Tensor:
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
 
+def bf(x):
+    """x rounded to bfloat16 (to nearest, ties to even) and held as
+    float32: a value the relaxed epilogues cast to bf16.  A product of two
+    such values is exact in float32, so ``bf(a * b)`` is their bf16
+    product; a sum is rounded twice (float32, then bf16), as JAX computes
+    bf16 arithmetic and as the kernels do."""
+    if not torch.is_tensor(x):
+        x = torch.tensor(x, dtype=torch.float32)
+    return x.float().to(torch.bfloat16).float()
+
+
+def rcp_bf(v):
+    """bf16(1 / v): a relaxed epilogue's reciprocal of a float32 scale
+    (the division in float32, then rounded)."""
+    v = v.float() if torch.is_tensor(v) else torch.tensor(
+        v, dtype=torch.float32)
+    return bf(fq.exact_div(torch.ones_like(v), v))
+
+
+def relaxed_levels(h, r, lo: int, hi: int):
+    """clip(round(bf16(h * r)), lo, hi) of a bf16 value h and a bf16
+    reciprocal r: the relaxed requantization (JAX ``_rnd32``: the bf16
+    product rounded in float32)."""
+    return torch.clamp(torch.round(bf(h * r)), lo, hi)
+
+
+def gelu_relaxed(v):
+    """The relaxed epilogue's tanh-GELU of float32 v in bf16 (JAX
+    int8_serve.py:141-146): 0.5 h (1 + tanh(k (h + c h h h))), h = bf16(v),
+    every operation rounded to bf16 in JAX's order; float32 out."""
+    h = bf(v)
+    c, k = bf(GELU_C), bf(GELU_K)
+    inner = bf(bf(bf(c * h) * h) * h)
+    t = bf(torch.tanh(bf(k * bf(h + inner))))
+    return bf(bf(0.5 * h) * bf(1.0 + t))
+
+
 def erf_as(z):
     """float32 erf by Abramowitz & Stegun 7.1.26 (|eps| <= 1.5e-7), the
     polynomial the JAX fused path computes (int8_serve.py:56)."""
@@ -93,6 +142,38 @@ def erf_as(z):
     poly = t * (0.254829592 + t * (-0.284496736 + t * (
         1.421413741 + t * (-1.453152027 + t * 1.061405429))))
     return s * (1.0 - poly * torch.exp(-za * za))
+
+
+def layer_norm_kernel_order(x, w, b, eps):
+    """LayerNorm of the rows of x (M, K) in the order B6's level pre-pass
+    (csrc ``q8_levels_kernel``) computes it: 32 lanes each sum every 32nd
+    element in turn, then a butterfly of the lanes' sums; the mean, then
+    the mean of squared deviations; every step one fp32 rounding, the
+    reciprocal square root correctly rounded (``__frsqrt_rn``).  Fed to
+    the plain version without its own LayerNorm (``ln=None``), it makes
+    the kernel's outputs comparable bitwise; the plain version's own
+    LayerNorm sums in PyTorch's order, so an input may quantize a level
+    the other way there."""
+    x = x.float()
+    M, K = x.shape
+    kp = -(-K // 32) * 32
+    lanes = torch.arange(32, device=x.device)
+
+    def lane_mean(v):
+        v = torch.nn.functional.pad(v, (0, kp - K)).reshape(M, kp // 32, 32)
+        s = torch.zeros((M, 32), device=x.device)
+        for j in range(kp // 32):
+            s = s + v[:, j]
+        for off in (16, 8, 4, 2, 1):
+            s = s + s[:, lanes ^ off]
+        # a tensor divisor: PyTorch divides by a Python number through its
+        # reciprocal, which is not the kernel's IEEE division
+        return s[:, :1] / torch.full_like(s[:, :1], K)
+    mu = lane_mean(x)
+    d = x - mu
+    var = lane_mean(d * d)
+    rs = (1.0 / torch.sqrt((var + eps).double())).float()
+    return (x - mu) * rs * w.float()[None] + b.float()[None]
 
 
 def _q8_acc_ref(x, w_intT, a_interval, a_neg_interval, *, a_qmax: int,
@@ -132,14 +213,18 @@ def _q8_acc_ref(x, w_intT, a_interval, a_neg_interval, *, a_qmax: int,
 def q8_epilogue_ref(acc, w_scale, b, a_interval, a_neg_interval, *,
                     epilogue: str = None, residual=None, out_q: str = None,
                     out_scale=None, out_qmax: int = 128,
-                    out_dtype=torch.float32, window=None):
+                    out_dtype=torch.float32, window=None,
+                    relaxed: bool = False):
     """B6's epilogue on its int32 planes acc (P, ..., N) (``_q8_acc_ref``,
     or a row-parallel linear's partial planes summed over the model
     axis): each plane rounded once to float32, acc*a (+ acc_neg*a_neg),
     *w_scale + b, [GELU], [+ residual], then ``out_dtype`` or int8
     requantized (``out_q`` as in ``q8_linear``).  ``window`` = (ws, res):
     acc's rows are in the window layout (B·nW, ws², N) and the result and
-    ``residual`` in the (B, res, res, N) image layout (B11's)."""
+    ``residual`` in the (B, res, res, N) image layout (B11's).
+    ``relaxed``: the GELU (``gelu_relaxed``) and the requantization
+    (``relaxed_levels`` of the bf16 output at bf16 reciprocals of the
+    scales) in bf16, as JAX's relaxed epilogue."""
     dev = acc.device
     N = acc.shape[-1]
     lead = acc.shape[1:-1]
@@ -151,7 +236,8 @@ def q8_epilogue_ref(acc, w_scale, b, a_interval, a_neg_interval, *,
     out = out * w_scale.float()[None, :]
     out = out + (b.float()[None, :] if b is not None else 0.0)
     if epilogue == "gelu":
-        out = 0.5 * out * (1.0 + erf_as(out * SQRT_HALF))
+        out = gelu_relaxed(out) if relaxed else \
+            0.5 * out * (1.0 + erf_as(out * SQRT_HALF))
     if window is not None:
         from ..models.swin import window_reverse
         ws, res = window
@@ -159,9 +245,18 @@ def q8_epilogue_ref(acc, w_scale, b, a_interval, a_neg_interval, *,
         return (out + residual.float()).to(residual.dtype)
     if residual is not None:
         out = out + residual.reshape(-1, N).float()
-    if out_q == "vec":
+    if out_q == "vec" and relaxed:
+        out = relaxed_levels(bf(out), rcp_bf(out_scale)[None, :], -out_qmax,
+                             out_qmax - 1).to(torch.int8)
+    elif out_q == "vec":
         out = levels(out, out_scale.float()[None, :], -out_qmax,
                      out_qmax - 1).to(torch.int8)
+    elif out_q == "twin" and relaxed:
+        h = bf(out)
+        p = relaxed_levels(h, rcp_bf(_f32(out_scale[0], dev)), 0,
+                           out_qmax - 1)
+        n = relaxed_levels(h, rcp_bf(_f32(out_scale[1], dev)), -out_qmax, 0)
+        out = (p + n).to(torch.int8)
     elif out_q == "twin":
         p = levels(out, _f32(out_scale[0], dev), 0, out_qmax - 1)
         n = levels(out, _f32(out_scale[1], dev), -out_qmax, 0)
@@ -175,7 +270,7 @@ def q8_linear_ref(x, w_intT, w_scale, b, a_interval, a_neg_interval, *,
                   a_qmax: int, postgelu: bool, epilogue: str = None,
                   ln=None, in_q: str = None, out_q: str = None,
                   out_scale=None, out_qmax: int = 128, float_dtype=None,
-                  residual=None, w_kmaj=None):
+                  residual=None, w_kmaj=None, relaxed: bool = False):
     """Plain version of B6; arguments and result as ``q8_linear``
     (``w_kmaj``, the kernel's copy of the levels, is not read): the exact
     integer dots (``_q8_acc_ref``), returned as they are with
@@ -187,7 +282,8 @@ def q8_linear_ref(x, w_intT, w_scale, b, a_interval, a_neg_interval, *,
     return q8_epilogue_ref(acc, w_scale, b, a_interval, a_neg_interval,
                            epilogue=epilogue, residual=residual, out_q=out_q,
                            out_scale=out_scale, out_qmax=out_qmax,
-                           out_dtype=_float_dtype(x, float_dtype))
+                           out_dtype=_float_dtype(x, float_dtype),
+                           relaxed=relaxed)
 
 
 def _scalars(dev, a, a_neg=None, o_pos=1.0, o_neg=1.0):
@@ -204,14 +300,19 @@ def _float_dtype(x, float_dtype):
 
 
 def fused_attention_ref(q, k, v, ph, split, scale, a_out, *, sos: bool,
-                        in_q8: bool, qmaxes, out_dtype, extra=None):
+                        in_q8: bool, qmaxes, out_dtype, extra=None,
+                        relaxed: bool = False):
     """Plain version of the B7 / B8 / B9 kernel body on (B, H, N, hd)
     views.
 
     ph (4, H): the a1, b1, a2, b2 head scales; qmaxes (A1, B1, A2, B2, O);
     a_out: the requantization scale (int8 out) or None (float out);
     extra: (nW, H, N, N) fp32 added to the logits of image b's window
-    b % nW before the softmax (B9), or None."""
+    b % nW before the softmax (B9), or None.  ``relaxed``: JAX's bf16
+    chain after the logits (``_attn_math`` :343-390): e = bf16(exp(bf16(l
+    - max))), p = bf16(e · bf16(1 / sum e)), the levels as bf16 products
+    with bf16 reciprocals (``relaxed_levels``), the requantized output
+    likewise; the sum, the pv rescale and 1 / a_int stay float32."""
     dev = q.device
     A1, B1, A2, B2, O = qmaxes
     H = q.shape[1]
@@ -226,20 +327,37 @@ def fused_attention_ref(q, k, v, ph, split, scale, a_out, *, sos: bool,
     if extra is not None:
         logits = (logits.reshape((-1,) + tuple(extra.shape)) + extra) \
             .reshape(logits.shape)
-    p = torch.exp(logits - torch.amax(logits, dim=-1, keepdim=True))
-    p = p / torch.sum(p, dim=-1, keepdim=True)
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    if relaxed:
+        p = bf(torch.exp(bf(logits - m)))
+        p = bf(p * rcp_bf(torch.sum(p, dim=-1, keepdim=True)))
+    else:
+        p = torch.exp(logits - m)
+        p = p / torch.sum(p, dim=-1, keepdim=True)
     if sos:
         sp = _f32(split, dev)
         a_int = fq.exact_div(sp, A2 - 1)
-        hi = torch.clamp(torch.round(
-            torch.minimum(torch.maximum(p, sp), torch.ones_like(sp))
-            * (A2 - 1)), 0, A2 - 1)
-        lo = levels(torch.minimum(torch.maximum(p, torch.zeros_like(sp)), sp),
-                 a_int, 0, A2 - 1)
+        if relaxed:
+            spb = bf(sp)
+            hi = relaxed_levels(torch.clamp(p, spb, torch.ones_like(spb)),
+                                bf(A2 - 1), 0, A2 - 1)
+            lo = relaxed_levels(torch.clamp(p, torch.zeros_like(spb), spb),
+                                rcp_bf(a_int), 0, A2 - 1)
+        else:
+            hi = torch.clamp(torch.round(
+                torch.minimum(torch.maximum(p, sp), torch.ones_like(sp))
+                * (A2 - 1)), 0, A2 - 1)
+            lo = levels(torch.minimum(torch.maximum(p, torch.zeros_like(sp)),
+                                      sp), a_int, 0, A2 - 1)
         acc = fq.exact_div(int_dot(hi, vi), A2 - 1) + int_dot(lo, vi) * a_int
     else:
-        acc = int_dot(levels(p, a2, -A2, A2 - 1), vi) * a2
+        lv = (relaxed_levels(p, rcp_bf(a2), -A2, A2 - 1) if relaxed
+              else levels(p, a2, -A2, A2 - 1))
+        acc = int_dot(lv, vi) * a2
     out = acc * b2
+    if a_out is not None and relaxed:
+        return relaxed_levels(bf(out), rcp_bf(_f32(a_out, dev)), -O,
+                              O - 1).to(torch.int8)
     if a_out is not None:
         return levels(out, _f32(a_out, dev), -O, O - 1).to(torch.int8)
     return out.to(out_dtype)
@@ -247,7 +365,8 @@ def fused_attention_ref(q, k, v, ph, split, scale, a_out, *, sos: bool,
 
 def fused_window_attention_ref(qkv, heads: int, nW: int, ph, split,
                                prescale, bias, mask, a_out, *, sos: bool,
-                               in_q8: bool, qmaxes, out_dtype):
+                               in_q8: bool, qmaxes, out_dtype,
+                               relaxed: bool = False):
     """Plain version of B9 on the (B·nW, N, 3C) qkv: ph[0] holds a1/s and
     ``prescale`` is s; the logits get bias (H, N, N) + mask (nW, N, N), in
     that order (JAX's ``extra``, int8_serve.py:625).  Returns (B·nW, N,
@@ -260,20 +379,21 @@ def fused_window_attention_ref(qkv, heads: int, nW: int, ph, split,
     t = qkv.reshape(B_, N, 3, heads, C // heads).permute(2, 0, 3, 1, 4)
     out = fused_attention_ref(t[0], t[1], t[2], ph, split, prescale, a_out,
                               sos=sos, in_q8=in_q8, qmaxes=qmaxes,
-                              out_dtype=out_dtype, extra=extra)
+                              out_dtype=out_dtype, extra=extra,
+                              relaxed=relaxed)
     return out.transpose(1, 2).reshape(B_, N, C)
 
 
 def q8_win_qkv_ref(x4, w_intT, w_scale, b, a_interval, ln, ws: int,
                    col_scales, *, a_qmax: int, out_qmax: int = 128,
-                   w_kmaj=None):
+                   w_kmaj=None, relaxed: bool = False):
     """Plain version of B10: B6's LN / quantize / int8 dot / per-column
-    requant on ``window_partition(x4, ws)``."""
+    requant (``relaxed``: in bf16) on ``window_partition(x4, ws)``."""
     from ..models.swin import window_partition
     return q8_linear_ref(window_partition(x4, ws), w_intT, w_scale, b,
                          a_interval, None, a_qmax=a_qmax, postgelu=False,
                          ln=ln, out_q="vec", out_scale=col_scales,
-                         out_qmax=out_qmax)
+                         out_qmax=out_qmax, relaxed=relaxed)
 
 
 def q8_win_proj_ref(y_q, w_intT, w_scale, b, a_interval, ws: int, res: int,
@@ -402,7 +522,7 @@ def q8_linear(x, w_intT, w_scale, b, a_interval, a_neg_interval, *,
               a_qmax: int, postgelu: bool, epilogue: str = None,
               ln=None, in_q: str = None, out_q: str = None,
               out_scale=None, out_qmax: int = 128, float_dtype=None,
-              residual=None, w_kmaj=None):
+              residual=None, w_kmaj=None, relaxed: bool = False):
     """B6: fused quantize -> int8 matmul -> rescale linear.
 
     x:        (..., K) float32 / bfloat16, or int8 when ``in_q`` is set
@@ -420,6 +540,12 @@ def q8_linear(x, w_intT, w_scale, b, a_interval, a_neg_interval, *,
               "acc": the int32 sums alone, no epilogue (a row-parallel
               linear's partial products; ``q8_epilogue`` after their sum)
     residual: optional (..., N) float stream added in the epilogue
+    relaxed:  the bf16 epilogue (tanh-GELU, requantization at bf16
+              reciprocals; ``q8_epilogue_ref``), by the kernel's relaxed
+              variant where it changes the function (GELU, "vec" or
+              "twin"); any other output is the exact kernel's.  The card
+              has no relaxed variant after a post-GELU twin input (no
+              serving path runs one) and refuses such a call
     Returns (..., N): int8 when ``out_q`` is "vec" or "twin", else
     ``float_dtype`` (default: x's dtype); with "acc", (P, ..., N) int32,
     P = 2 for a twin input (pos, neg), else 1."""
@@ -432,7 +558,7 @@ def q8_linear(x, w_intT, w_scale, b, a_interval, a_neg_interval, *,
                              postgelu=postgelu, epilogue=epilogue, ln=ln,
                              in_q=in_q, out_q=out_q, out_scale=out_scale,
                              out_qmax=out_qmax, float_dtype=float_dtype,
-                             residual=residual)
+                             residual=residual, relaxed=relaxed)
     from .build import load
     lib = load("serve_kernels")
     dev = x.device
@@ -480,6 +606,10 @@ def q8_linear(x, w_intT, w_scale, b, a_interval, a_neg_interval, *,
         _check(res, "residual", fdt, (M, N), dev)
     shape = (planes, M, N) if out_q == "acc" else (M, N)
     out = torch.empty(shape, dtype=out_dtype, device=dev)
+    rel = relaxed_variant(relaxed, epilogue, out_q)
+    if rel and mode in TWIN_MODES:
+        raise ValueError("the relaxed epilogue after a post-GELU twin input "
+                         "is not built: no serving path runs it")
     if M:
         plan = q8_plan(M, N, mode, q8_res_tile(res, N), _num_sms(dev))
         _launch(lib.ptq_q8_linear, _ptr(x2), _KINDS[x2.dtype], _ptr(wk),
@@ -488,10 +618,27 @@ def q8_linear(x, w_intT, w_scale, b, a_interval, a_neg_interval, *,
                 _ptr(scal), float(ln[2]) if ln else 0.0,
                 _ptr(_levels(x2, K, mode)), M, K, N, _IN_MODES[mode],
                 int(bool(ln)), int(epilogue == "gelu"), _OUT_Q[out_q],
-                a_qmax, out_qmax, plan.stages, int(plan.res_tile),
+                a_qmax, out_qmax, int(rel), plan.stages, int(plan.res_tile),
                 plan.blocks, _stream())
-    q8_linear.launches += 1
+    _count(q8_linear, rel)
     return out.reshape(shape[:-2] + lead + (N,))
+
+
+def relaxed_variant(relaxed: bool, epilogue: str = None,
+                    out_q: str = None) -> bool:
+    """Whether a B6 / B10 call in the relaxed mode runs the kernel's
+    relaxed variant: only where the relaxed epilogue is another function
+    (a GELU, a requantized output); a float output without GELU, and the
+    int32 sums, are the same in both modes and run the exact kernel."""
+    return bool(relaxed) and (epilogue == "gelu" or out_q in ("vec", "twin"))
+
+
+def _count(fn, relaxed: bool) -> None:
+    """One launch of ``fn``'s kernel, or of its relaxed variant."""
+    if relaxed:
+        fn.relaxed_launches += 1
+    else:
+        fn.launches += 1
 
 
 # ---------------------------------------------------------------------------
@@ -559,11 +706,12 @@ def attn_plan(N: int, hd: int) -> AttnPlan:
 
 
 def _attn_launch(q, k, v, strides, out, ostrides, ph, split, scale, a_out,
-                 B, H, N, hd, sos, qmaxes, in_dtype, window=None):
+                 B, H, N, hd, sos, qmaxes, in_dtype, window=None,
+                 relaxed=False):
     """Launch the B7 / B8 kernel, or B9's with ``window`` = (bias (H, N,
-    N), mask (nW, N, N) or None, nW); q, k, v are element addresses.  The
-    library plans the call as ``attn_plan`` does; a shape it refuses
-    raises here first."""
+    N), mask (nW, N, N) or None, nW); q, k, v are element addresses;
+    ``relaxed``: its relaxed variant.  The library plans the call as
+    ``attn_plan`` does; a shape it refuses raises here first."""
     from .build import load
     attn_plan(N, hd)
     lib = load("serve_kernels")
@@ -576,7 +724,7 @@ def _attn_launch(q, k, v, strides, out, ostrides, ph, split, scale, a_out,
                         .reshape(())])
     head = (q, k, v, _KINDS[in_dtype], *strides, _ptr(out),
             _KINDS[out.dtype], *ostrides, _ptr(ph), _ptr(misc), float(scale))
-    tail = (B, H, N, hd, int(sos), *qmaxes, _stream())
+    tail = (B, H, N, hd, int(sos), *qmaxes, int(bool(relaxed)), _stream())
     if window is None:
         _launch(lib.ptq_fused_attention, *head, *tail)
         return
@@ -595,15 +743,17 @@ def _attn_launch(q, k, v, strides, out, ostrides, ph, split, scale, a_out,
 
 def fused_attention_qkv(qkv, heads: int, qp1, qp2, scale, *,
                         in_q8: bool = False, out_scale=None,
-                        out_qmax: int = 128):
+                        out_qmax: int = 128, relaxed: bool = False):
     """B7: fused int8 attention softmax(q·kᵀ·scale)·v read straight from
     the packed (B, N, 3d) qkv-linear output, written as (B, N, d).
 
     in_q8: qkv holds int8 levels at the a1 / b1 / b2 head scales (the qkv
     linear's ``out_q="vec"`` epilogue).  out_scale: the context is
-    requantized at this scalar and returned int8.  Returns (B, N, d) in
-    qkv's dtype (float32 for int8 in and float out, int8 with
-    ``out_scale``), or None when the QPs are out of scope."""
+    requantized at this scalar and returned int8.  relaxed: the bf16
+    softmax and levels (``fused_attention_ref``), by the kernel's relaxed
+    variant.  Returns (B, N, d) in qkv's dtype (float32 for int8 in and
+    float out, int8 with ``out_scale``), or None when the QPs are out of
+    scope."""
     B, N, d3 = qkv.shape
     if d3 % (3 * heads):
         raise ValueError(f"qkv width {d3} is not 3 x {heads} heads")
@@ -620,7 +770,8 @@ def fused_attention_qkv(qkv, heads: int, qp1, qp2, scale, *,
         t = qkv.reshape(B, N, 3, heads, hd).permute(2, 0, 3, 1, 4)
         out = fused_attention_ref(t[0], t[1], t[2], ph, split, scale,
                                   out_scale, sos=sos, in_q8=in_q8,
-                                  qmaxes=qmaxes, out_dtype=fdt)
+                                  qmaxes=qmaxes, out_dtype=fdt,
+                                  relaxed=relaxed)
         return out.transpose(1, 2).reshape(B, N, d)
     if (qkv.dtype == torch.int8) != bool(in_q8):
         raise TypeError("qkv must be int8 exactly when in_q8")
@@ -634,15 +785,16 @@ def fused_attention_qkv(qkv, heads: int, qp1, qp2, scale, *,
     es = qkv.element_size()
     _attn_launch(base, base + d * es, base + 2 * d * es,
                  (N * d3, hd, d3), out, (N * d, hd, d), ph, split, scale,
-                 out_scale, B, heads, N, hd, sos, qmaxes, qkv.dtype)
-    fused_attention_qkv.launches += 1
+                 out_scale, B, heads, N, hd, sos, qmaxes, qkv.dtype,
+                 relaxed=relaxed)
+    _count(fused_attention_qkv, relaxed)
     return out
 
 
-def fused_attention(q, k, v, qp1, qp2, scale):
+def fused_attention(q, k, v, qp1, qp2, scale, relaxed: bool = False):
     """B8: the B7 kernel entered with the strides of the (B, H, N, hd)
-    layout; float in, float out.  Returns (B, H, N, hd) in q's dtype, or
-    None when the QPs are out of scope."""
+    layout; float in, float out (``relaxed`` as in B7).  Returns (B, H, N,
+    hd) in q's dtype, or None when the QPs are out of scope."""
     B, H, N, hd = q.shape
     scoped = attn_scope(qp1, qp2, H)
     if scoped is None:
@@ -653,7 +805,7 @@ def fused_attention(q, k, v, qp1, qp2, scale):
     if not q.is_cuda:
         return fused_attention_ref(q, k, v, ph, split, scale, None, sos=sos,
                                    in_q8=False, qmaxes=qmaxes,
-                                   out_dtype=q.dtype)
+                                   out_dtype=q.dtype, relaxed=relaxed)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q: expected float32 or bfloat16, got {q.dtype}")
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
@@ -661,14 +813,16 @@ def fused_attention(q, k, v, qp1, qp2, scale):
     out = torch.empty_like(q)
     st = (H * N * hd, N * hd, hd)
     _attn_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), st, out, st, ph,
-                 split, scale, None, B, H, N, hd, sos, qmaxes, q.dtype)
-    fused_attention.launches += 1
+                 split, scale, None, B, H, N, hd, sos, qmaxes, q.dtype,
+                 relaxed=relaxed)
+    _count(fused_attention, relaxed)
     return out
 
 
 def fused_window_attention_qkv(qkv, heads: int, nW: int, qp1, qp2,
                                prescale, bias, mask, *, in_q8: bool = False,
-                               out_scale=None, out_qmax: int = 128):
+                               out_scale=None, out_qmax: int = 128,
+                               relaxed: bool = False):
     """B9: fused Swin window attention softmax(q·s·kᵀ + bias [+ mask])·v
     from the packed (B·nW, N, 3C) qkv-linear output, windows images-major,
     written as (B·nW, N, C).
@@ -680,9 +834,9 @@ def fused_window_attention_qkv(qkv, heads: int, nW: int, qp1, qp2,
     shifted-window mask or None (both used in fp32).  in_q8: qkv holds
     int8 levels at the (a1/s, b1, b2) head scales (B10's output);
     out_scale: the context is requantized at this scalar and returned
-    int8.  Returns (B·nW, N, C) in qkv's dtype (float32 for int8 in and
-    float out, int8 with ``out_scale``), or None when the QPs are out of
-    scope."""
+    int8.  relaxed: as in B7.  Returns (B·nW, N, C) in qkv's dtype
+    (float32 for int8 in and float out, int8 with ``out_scale``), or None
+    when the QPs are out of scope."""
     B_, N, c3 = qkv.shape
     if c3 % (3 * heads) or B_ % nW:
         raise ValueError(f"qkv {tuple(qkv.shape)}: not 3 x {heads} heads "
@@ -699,7 +853,8 @@ def fused_window_attention_qkv(qkv, heads: int, nW: int, qp1, qp2,
     if not qkv.is_cuda:
         return fused_window_attention_ref(
             qkv, heads, nW, ph, split, prescale, bias, mask, out_scale,
-            sos=sos, in_q8=in_q8, qmaxes=qmaxes, out_dtype=fdt)
+            sos=sos, in_q8=in_q8, qmaxes=qmaxes, out_dtype=fdt,
+            relaxed=relaxed)
     if (qkv.dtype == torch.int8) != bool(in_q8):
         raise TypeError("qkv must be int8 exactly when in_q8")
     if qkv.dtype not in _KINDS:
@@ -712,20 +867,22 @@ def fused_window_attention_qkv(qkv, heads: int, nW: int, qp1, qp2,
     _attn_launch(base, base + C * es, base + 2 * C * es, (N * c3, hd, c3),
                  out, (N * C, hd, C), ph, split, prescale, out_scale, B_,
                  heads, N, hd, sos, qmaxes, qkv.dtype,
-                 window=(bias, mask, nW))
-    fused_window_attention_qkv.launches += 1
+                 window=(bias, mask, nW), relaxed=relaxed)
+    _count(fused_window_attention_qkv, relaxed)
     return out
 
 
 def q8_win_qkv(x4, w_intT, w_scale, b, a_interval, ln, ws: int, col_scales,
-               *, a_qmax: int, out_qmax: int = 128, w_kmaj=None):
+               *, a_qmax: int, out_qmax: int = 128, w_kmaj=None,
+               relaxed: bool = False):
     """B10: the Swin qkv linear over the unshifted window grid of the
     (B, res, res, C) image layout (a shifted block passes its rolled
     stream): LayerNorm ``ln`` = (weight, bias, eps), quantize at
     ``a_interval``, int8 dot with w_intT (C, 3C), rescale, and requantize
     per column at ``col_scales`` (3C,) (the attention's a1/s, b1, b2, each
     repeated hd times).  Windows are read in place, in window_partition's
-    order.  ``w_kmaj`` as in ``q8_linear``.  Returns (B·(res/ws)², ws²,
+    order.  ``w_kmaj`` as in ``q8_linear``; ``relaxed``: the requant in
+    bf16, by the kernel's relaxed variant.  Returns (B·(res/ws)², ws²,
     3C) int8."""
     B, res, res2, C = x4.shape
     if res != res2 or res % ws:
@@ -733,7 +890,8 @@ def q8_win_qkv(x4, w_intT, w_scale, b, a_interval, ln, ws: int, col_scales,
                          f"windows of {ws}")
     if not x4.is_cuda:
         return q8_win_qkv_ref(x4, w_intT, w_scale, b, a_interval, ln, ws,
-                              col_scales, a_qmax=a_qmax, out_qmax=out_qmax)
+                              col_scales, a_qmax=a_qmax, out_qmax=out_qmax,
+                              relaxed=relaxed)
     from .build import load
     lib = load("serve_kernels")
     dev = x4.device
@@ -763,8 +921,8 @@ def q8_win_qkv(x4, w_intT, w_scale, b, a_interval, ln, ws: int, col_scales,
                 wk.shape[1], _ptr(wsc), _ptr(bias), _ptr(lnw), _ptr(lnb),
                 _ptr(osc), _ptr(out), _ptr(scal), float(ln[2]),
                 _ptr(_levels(x4, C, "f")), M, C, N3, a_qmax, out_qmax, ws,
-                res, plan.stages, plan.blocks, _stream())
-    q8_win_qkv.launches += 1
+                res, int(bool(relaxed)), plan.stages, plan.blocks, _stream())
+    _count(q8_win_qkv, relaxed)
     return out
 
 
@@ -895,15 +1053,23 @@ def q8_epilogue(acc, w_scale, b, a_interval, a_neg_interval=None, *,
 
 KERNELS = (q8_linear, fused_attention_qkv, fused_attention,
            fused_window_attention_qkv, q8_win_qkv, q8_win_proj, q8_epilogue)
+# the wrappers whose kernel has a relaxed variant (counted apart, as
+# "<name>_relaxed")
+RELAXED = (q8_linear, fused_attention_qkv, fused_attention,
+           fused_window_attention_qkv, q8_win_qkv)
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    for fn in RELAXED:
+        fn.relaxed_launches = 0
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in KERNELS}
+    return {**{fn.__name__: fn.launches for fn in KERNELS},
+            **{f"{fn.__name__}_relaxed": fn.relaxed_launches
+               for fn in RELAXED}}
 
 
 reset_launch_counts()
@@ -1005,10 +1171,11 @@ def row_parallel(x, pw: Q8Weights, b, qp, reduce, *, in_q: str = None,
                        window=window)
 
 
-def fused_linear(x, w, b, qp, pk, epilogue: str = None, reduce=None):
+def fused_linear(x, w, b, qp, pk, epilogue: str = None, reduce=None,
+                 relaxed: bool = False):
     """A LinearQP through B6 when in scope; None sends the caller to the
     exact int8 path.  ``reduce``: a row-parallel shard (``row_parallel``),
-    with no epilogue of its own."""
+    with no epilogue of its own (the same in the relaxed mode)."""
     if not linear_scope(qp):
         return None
     pw = packed_or_compute(w, qp, pk)
@@ -1017,7 +1184,7 @@ def fused_linear(x, w, b, qp, pk, epilogue: str = None, reduce=None):
     return q8_linear(x, pw.w_intT, pw.w_scale, b, qp.a_interval[0, 0],
                      qp.a_neg_interval, a_qmax=qp.a_qmax,
                      postgelu=qp.postgelu, epilogue=epilogue,
-                     w_kmaj=pw.w_kmaj)
+                     w_kmaj=pw.w_kmaj, relaxed=relaxed)
 
 
 # ---------------------------------------------------------------------------
@@ -1073,9 +1240,11 @@ def _col_scales(a1, qp1, qp2, heads: int, hd: int):
         head_scalar(qp2.B_interval, heads))])
 
 
-def _fused_mlp(x, blk, qp_fc1, qp_fc2, w_fc1, w_fc2, ln_eps, reduce=None):
+def _fused_mlp(x, blk, qp_fc1, qp_fc2, w_fc1, w_fc2, ln_eps, reduce=None,
+               relaxed=False):
     """LN2 -> fc1 / GELU -> twin-packed int8 -> fc2 + residual, two B6
-    launches (``reduce``: fc2 row-parallel, ``row_parallel``)."""
+    launches (``reduce``: fc2 row-parallel, ``row_parallel``; ``relaxed``:
+    fc1's bf16 epilogue, fc2's float output is the same)."""
     mlp = blk["mlp"]
     z_q = q8_linear(x, w_fc1.w_intT, w_fc1.w_scale, mlp["fc1"]["bias"],
                     qp_fc1.a_interval[0, 0], None, a_qmax=qp_fc1.a_qmax,
@@ -1085,7 +1254,8 @@ def _fused_mlp(x, blk, qp_fc1, qp_fc2, w_fc1, w_fc2, ln_eps, reduce=None):
                     epilogue="gelu", out_q="twin",
                     out_scale=(qp_fc2.a_interval[0, 0],
                                qp_fc2.a_neg_interval),
-                    out_qmax=qp_fc2.a_qmax, w_kmaj=w_fc1.w_kmaj)
+                    out_qmax=qp_fc2.a_qmax, w_kmaj=w_fc1.w_kmaj,
+                    relaxed=relaxed)
     if reduce is not None:
         return row_parallel(z_q, w_fc2, mlp["fc2"]["bias"], qp_fc2, reduce,
                             in_q="q8twin", residual=x)
@@ -1096,7 +1266,7 @@ def _fused_mlp(x, blk, qp_fc1, qp_fc2, w_fc1, w_fc2, ln_eps, reduce=None):
 
 
 def fused_vit_block(x, blk, qps, pks, heads: int, scale, ln_eps,
-                    reduce=None):
+                    reduce=None, relaxed: bool = False):
     """One pre-norm ViT block (LN -> qkv -> attention -> proj -> residual
     -> LN -> fc1 / GELU -> fc2 -> residual) in five launches: LN1 / LN2 in
     the qkv / fc1 prologues; qkv emitted int8 at the attention's a1 / b1 /
@@ -1108,8 +1278,10 @@ def fused_vit_block(x, blk, qps, pks, heads: int, scale, ln_eps,
     packed entry}.  ``reduce`` (tensor parallelism: blk, qps and pks are
     this rank's shards, ``heads`` its heads): proj and fc2 are
     row-parallel, their int32 partial sums reduced before the epilogue
-    (``row_parallel``).  Returns the new residual stream, or None when a
-    piece is out of scope (the caller runs the generic per-op path)."""
+    (``row_parallel``).  ``relaxed``: qkv's requant, the attention and
+    fc1's GELU and twin pack in bf16 (proj and fc2 are the same).  Returns
+    the new residual stream, or None when a piece is out of scope (the
+    caller runs the generic per-op path)."""
     qs = _block_scope(qps, heads)
     if qs is None:
         return None
@@ -1126,10 +1298,11 @@ def fused_vit_block(x, blk, qps, pks, heads: int, scale, ln_eps,
                       out_scale=_col_scales(head_scalar(qp1.A_interval,
                                                         heads),
                                             qp1, qp2, heads, hd),
-                      out_qmax=qp1.A_qmax, w_kmaj=w_qkv.w_kmaj)
+                      out_qmax=qp1.A_qmax, w_kmaj=w_qkv.w_kmaj,
+                      relaxed=relaxed)
     y_q = fused_attention_qkv(qkv_q, heads, qp1, qp2, scale, in_q8=True,
                               out_scale=qp_proj.a_interval[0, 0],
-                              out_qmax=qp_proj.a_qmax)
+                              out_qmax=qp_proj.a_qmax, relaxed=relaxed)
     if reduce is not None:
         x = row_parallel(y_q, w_proj, attn["proj"]["bias"], qp_proj, reduce,
                          in_q="q8", residual=x)
@@ -1138,11 +1311,13 @@ def fused_vit_block(x, blk, qps, pks, heads: int, scale, ln_eps,
                       attn["proj"]["bias"], qp_proj.a_interval[0, 0], None,
                       a_qmax=qp_proj.a_qmax, postgelu=False, in_q="q8",
                       float_dtype=x.dtype, residual=x, w_kmaj=w_proj.w_kmaj)
-    return _fused_mlp(x, blk, qp_fc1, qp_fc2, w_fc1, w_fc2, ln_eps, reduce)
+    return _fused_mlp(x, blk, qp_fc1, qp_fc2, w_fc1, w_fc2, ln_eps, reduce,
+                      relaxed)
 
 
 def fused_swin_block(x, blk, qps, pks, heads: int, ws: int, shift: int,
-                     res: int, bias, mask, ln_eps, reduce=None):
+                     res: int, bias, mask, ln_eps, reduce=None,
+                     relaxed: bool = False):
     """One Swin block with int8 handoffs, the window analogue of
     :func:`fused_vit_block`, in five launches and two rolls:
 
@@ -1163,7 +1338,8 @@ def fused_swin_block(x, blk, qps, pks, heads: int, ws: int, shift: int,
     x: (B, res·res, C); bias: (H, N, N); mask: (nW, N, N) or None.
     ``reduce``: tensor parallelism, as in :func:`fused_vit_block` (B11's
     partial sums reduced in the window layout, then the row map, bias and
-    rolled residual in ``q8_epilogue``).
+    rolled residual in ``q8_epilogue``).  ``relaxed``: B10's requant, B9
+    and fc1's epilogue in bf16 (B11 and fc2 are the same).
     Returns the new residual stream, or None when a piece is out of scope.
 
     JAX's other branch (int8_serve.py:1115, partition / generic linears /
@@ -1189,11 +1365,11 @@ def fused_swin_block(x, blk, qps, pks, heads: int, ws: int, shift: int,
                        (blk["norm1"]["weight"], blk["norm1"]["bias"], ln_eps),
                        ws, _col_scales(a1, qp1, qp2, heads, hd),
                        a_qmax=qp_qkv.a_qmax, out_qmax=qp1.A_qmax,
-                       w_kmaj=w_qkv.w_kmaj)
+                       w_kmaj=w_qkv.w_kmaj, relaxed=relaxed)
     y_q = fused_window_attention_qkv(
         qkv_q, heads, 1 if mask is None else mask.shape[0], qp1, qp2, s,
         bias, mask, in_q8=True, out_scale=qp_proj.a_interval[0, 0],
-        out_qmax=qp_proj.a_qmax)
+        out_qmax=qp_proj.a_qmax, relaxed=relaxed)
     if reduce is not None:
         y4 = row_parallel(y_q, w_proj, attn["proj"]["bias"], qp_proj, reduce,
                           in_q="q8", residual=x4, window=(ws, res))
@@ -1204,4 +1380,4 @@ def fused_swin_block(x, blk, qps, pks, heads: int, ws: int, shift: int,
     if shift:
         y4 = torch.roll(y4, (shift, shift), dims=(1, 2))
     return _fused_mlp(y4.reshape(B, T, C), blk, qp_fc1, qp_fc2, w_fc1, w_fc2,
-                      ln_eps, reduce)
+                      ln_eps, reduce, relaxed)

@@ -12,6 +12,12 @@ card of its own, "gloo" when the ranks run on the CPU or share a card
 printed, and never switched after a failure.  A rank's exception ends the
 whole launch with that error, and a collective that waits longer than
 ``timeout`` fails, so no rank hangs.
+
+The ranks run on the card unless the caller asks for the CPU, as every
+entry point of the port does (``models/registry.resolve_device``): without
+a card, ``default_devices``, ``spawn``, ``run_from_env`` and
+``rank_device`` raise, unless given ``devices=["cpu"] * world``,
+``device="cpu"``, or (a rank started outside them) ``bind_device("cpu")``.
 """
 from __future__ import annotations
 
@@ -29,25 +35,40 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 from torch.multiprocessing.spawn import ProcessException
 
+from ..models.registry import resolve_device
+
 DEFAULT_TIMEOUT = datetime.timedelta(seconds=600)
 
 _DEVICE: Optional[torch.device] = None      # this rank's device
 
 
+def bind_device(device) -> torch.device:
+    """Make ``device`` this rank's device (``spawn`` and ``run_from_env``
+    do it for the ranks they start; a rank started otherwise calls it
+    itself, ``"cpu"`` to run on the CPU); the card is made current."""
+    global _DEVICE
+    _DEVICE = resolve_device(device)
+    if _DEVICE.type == "cuda":
+        torch.cuda.set_device(_DEVICE)
+    return _DEVICE
+
+
 def rank_device() -> torch.device:
-    """The device this rank was started on (the card when it was started
-    outside ``spawn`` / ``run_from_env`` and there is one)."""
+    """The device this rank was bound to (``bind_device``); for a rank
+    that was not, the card, and without one an error."""
     if _DEVICE is not None:
         return _DEVICE
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    return resolve_device(None)
 
 
-def default_devices(world: int):
+def default_devices(world: int, device=None):
     """One card a rank while there are enough, the ranks sharing them
-    round-robin otherwise; the CPU without a card."""
-    n = torch.cuda.device_count()
-    if n == 0:
+    round-robin otherwise; ``device="cpu"``: every rank on the CPU.
+    Without a card and without ``device="cpu"`` it raises."""
+    if device is not None and torch.device(device).type == "cpu":
         return ["cpu"] * world
+    resolve_device(device)
+    n = torch.cuda.device_count()
     return [f"cuda:{r % n}" for r in range(world)]
 
 
@@ -72,11 +93,8 @@ def _run_rank(rank: int, fn: Callable, world: int, device, backend: str,
     """Initialize the rank's process group, run ``fn(rank, *args)``, end
     the group.  ``err_file`` gets the time and traceback of an exception
     before the group ends (the peers' collectives fail after it)."""
-    global _DEVICE
-    _DEVICE = torch.device(device)
-    if _DEVICE.type == "cuda":
-        torch.cuda.set_device(_DEVICE)
-    kw = {"device_id": _DEVICE} if backend == "nccl" else {}
+    dev = bind_device(device)
+    kw = {"device_id": dev} if backend == "nccl" else {}
     dist.init_process_group(backend, init_method=init_method,
                             world_size=world, rank=rank, timeout=timeout,
                             **kw)
@@ -103,7 +121,8 @@ def spawn(fn: Callable, world: int, *, devices: Optional[Sequence] = None,
           ) -> None:
     """Run ``fn(rank, *args)`` on ``world`` ranks, each in a process of its
     own (start method ``spawn``), rank r on ``devices[r]`` (default:
-    ``default_devices``), and wait for all of them.  ``init_method``
+    ``default_devices``, the cards; ``["cpu"] * world`` runs them on the
+    CPU), and wait for all of them.  ``init_method``
     defaults to a rendezvous file in a fresh temporary directory.  A rank
     that raises makes this raise the first failing rank's error (the other
     ranks are terminated)."""
@@ -141,16 +160,16 @@ def spawn(fn: Callable, world: int, *, devices: Optional[Sequence] = None,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def run_from_env(fn: Callable, *args,
+def run_from_env(fn: Callable, *args, device=None,
                  timeout: datetime.timedelta = DEFAULT_TIMEOUT) -> None:
     """One rank started by ``torchrun`` (``env://``): the host's local
-    ranks take their devices as ``default_devices`` deals them, the
-    backend is ``choose_backend``'s for that map; then ``fn(rank, *args)``,
-    then the process group's end."""
+    ranks take their devices as ``default_devices`` deals them (the cards;
+    ``device="cpu"``: the CPU), the backend is ``choose_backend``'s for
+    that map; then ``fn(rank, *args)``, then the process group's end."""
     rank = int(os.environ["RANK"])
     world = int(os.environ["WORLD_SIZE"])
     devices = default_devices(int(os.environ.get("LOCAL_WORLD_SIZE",
-                                                 world)))
+                                                 world)), device)
     backend = choose_backend(devices)
     if rank == 0:
         print(f"{describe(backend, devices)} (torchrun: this host's "

@@ -310,8 +310,8 @@ def shard_qstate(qstate: Optional[Dict[str, Any]], mesh, op_shapes,
 
 class Evaluator:
     """(Optionally quantized) classification accuracy: raw FP32 forward
-    without a qstate, fake-quant with one, int8 with ``int8=True`` or
-    ``"fused"``.  ``data_config`` normalizes uint8 images on the device.
+    without a qstate, fake-quant with one, int8 with ``int8=True``,
+    ``"fused"`` or ``"fused_relaxed"``.  ``data_config`` normalizes uint8 images on the device.
 
     ``mesh`` (``make_mesh``): the batch is padded to a multiple of the data
     axis with label -1 (never a prediction), each rank counts its rows and
@@ -320,7 +320,8 @@ class Evaluator:
     fake-quant, ``int8=True`` and ``int8="fused"`` (whose row-parallel
     proj and fc2 sum their kernels' int32 partial products over "model"
     before the epilogue, so both int8 modes give the single device's
-    logits bitwise)."""
+    logits bitwise; ``"fused_relaxed"`` likewise: its row-parallel linears
+    are float outputs without GELU, the same in both modes)."""
 
     def __init__(self, net, qstate: Optional[Dict[str, Any]] = None,
                  mesh=None, tensor_parallel: bool = False, int8=False,

@@ -6,10 +6,12 @@ every ViT block; B10, B9, B11 and B6 on every Swin block).  Model-agnostic:
 the net's own forward picks its fused blocks.  In bf16 the residual
 stream, biases and LayerNorm weights are bf16; the kernels accumulate
 exactly in int32, rescale in fp32, and B9 adds the rel-pos bias and the
-shifted mask in fp32.  Over a mesh (``parallel/mesh.make_mesh``) every
-rank holds the whole params and packed weights, runs the fused forward on
-its block of the batch and gathers the logits over "data", as JAX's
-``shard_map`` does.  The relaxed bf16 epilogues are not ported and raise.
+shifted mask in fp32.  ``relaxed=True`` serves in ``int8="fused_relaxed"``
+(JAX's opt-in mode: the kernels' epilogues in bf16, levels within a step
+of the exact ones).  Over a mesh (``parallel/mesh.make_mesh``) every rank
+holds the whole params and packed weights, runs the fused forward on its
+block of the batch and gathers the logits over "data", as JAX's
+``shard_map`` does.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ class ServingEngine:
     mesh:     optional ("data", "model") DeviceMesh (``make_mesh``): the
               batch splits over "data" and the logits are gathered back
     compute_dtype: dtype of the float segments (bfloat16 by default)
+    relaxed:  the relaxed bf16 epilogues (``int8="fused_relaxed"``)
     raw_uint8: take (B, 3, H, W) uint8 images and normalize them on the
               device with ``net.data_config`` (4x fewer bytes to the card)
     device:   the card by default; ``device="cpu"`` runs the kernels'
@@ -43,9 +46,7 @@ class ServingEngine:
                  compute_dtype=torch.bfloat16, relaxed: bool = False,
                  raw_uint8: bool = False, device=None):
         self.mesh = check_mesh(mesh)
-        if relaxed:
-            raise NotImplementedError("the relaxed bf16 epilogues are not "
-                                      "ported")
+        self.mode = "fused_relaxed" if relaxed else "fused"
         self.net = net
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
@@ -76,7 +77,7 @@ class ServingEngine:
             x = exact_div(exact_div(x.float(), 255.0) - mean, std)
         with torch.no_grad():
             out = self.net.forward(self._params, x, self.net.cfg,
-                                   qstate=self._qstate, int8="fused",
+                                   qstate=self._qstate, int8=self.mode,
                                    packed=self._packed,
                                    compute_dtype=self.compute_dtype)
         return out if self.mesh is None else \

@@ -175,9 +175,9 @@ def test_bench_infer_torch_modes_and_finite_logits(tiny_zoo, bits, capsys):
                                   BENCH_BITS=str(bits)))
     assert rc == 0 and lines(capsys.readouterr().out) == [row]
     jax_keys = bench_infer_py_keys()
-    assert "int8_fused_relaxed_bf16" in jax_keys
-    assert set(row) == (jax_keys - {"int8_fused_relaxed_bf16"}) | {
-        "metric", "unit", "card", "device"}
+    assert "int8_fused_relaxed_bf16" in jax_keys and \
+        "int8_fused_relaxed_bf16" in row
+    assert set(row) == jax_keys | {"metric", "unit", "card", "device"}
     assert set(logits) == set(bi.MODES)
     for mode, lg in logits.items():
         assert lg.shape == (4, 1000) and torch.isfinite(lg.float()).all(), \

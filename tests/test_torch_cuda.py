@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from ptq4vit_tpu_torch.ops import search_kernels as sk
+from ptq4vit_tpu_torch.ops.int8_serve import layer_norm_kernel_order
 from ptq4vit_tpu_torch.quant.fakequant import GELU_NEG_CLIP
 
 Q = 128
@@ -780,11 +781,9 @@ def test_fused_attention_matches_plain_version_on_the_card(H, N, hd):
                                      hd ** -0.5, None, sos=sos, in_q8=False,
                                      qmaxes=(128,) * 5, out_dtype=q.dtype)
         assert_float_close(got, ref, 1e-5, step.reshape(1, H, 1, 1))
-    assert sv.launch_counts() == {"q8_linear": 0, "fused_attention_qkv": 24,
-                                  "fused_attention": 4,
-                                  "fused_window_attention_qkv": 0,
-                                  "q8_win_qkv": 0, "q8_win_proj": 0,
-                                  "q8_epilogue": 0}
+    counts = sv.launch_counts()
+    assert counts == {**{k: 0 for k in counts}, "fused_attention_qkv": 24,
+                      "fused_attention": 4}
 
 
 # ---------------------------------------------------------------------------
@@ -1064,35 +1063,6 @@ Q8_SMOKE_MODES = [("qkv", "f", True, False, "vec"),
                   ("per-op fc2", "f_twin", False, False, "float")]
 
 
-def layer_norm_kernel_order(x, w, b, eps):
-    """LayerNorm of the rows of x (M, K) in the kernel's order: 32 lanes
-    each sum every 32nd element in turn, then a butterfly of the lanes'
-    sums; the mean, then the mean of squared deviations; every step one
-    fp32 rounding, the reciprocal square root correctly rounded (the
-    kernel's __frsqrt_rn).  Fed to the plain version without its own
-    LayerNorm, it makes the kernel's outputs comparable bitwise."""
-    x = x.float()
-    M, K = x.shape
-    kp = -(-K // 32) * 32
-    lanes = torch.arange(32, device=x.device)
-
-    def lane_mean(v):
-        v = torch.nn.functional.pad(v, (0, kp - K)).reshape(M, kp // 32, 32)
-        s = torch.zeros((M, 32), device=x.device)
-        for j in range(kp // 32):
-            s = s + v[:, j]
-        for off in (16, 8, 4, 2, 1):
-            s = s + s[:, lanes ^ off]
-        # a tensor divisor: PyTorch divides by a Python number through its
-        # reciprocal, which is not the kernel's IEEE division
-        return s[:, :1] / torch.full_like(s[:, :1], K)
-    mu = lane_mean(x)
-    d = x - mu
-    var = lane_mean(d * d)
-    rs = (1.0 / torch.sqrt((var + eps).double())).float()
-    return (x - mu) * rs * w.float()[None] + b.float()[None]
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
@@ -1188,9 +1158,10 @@ def test_q8_row_maps_match_plain_version_on_the_card(res, ws, C):
 
 @pytest.mark.cuda
 def test_q8_refuses_what_it_cannot_run_on_the_card():
-    """A K-major weight of the wrong shape, a plan beyond shared memory
-    and a float input without the level scratch are refused; nothing
-    falls back to the plain version on the card."""
+    """A K-major weight of the wrong shape, a plan beyond shared memory,
+    a float input without the level scratch and the relaxed epilogue after
+    a post-GELU twin input (not built) are refused; nothing falls back to
+    the plain version on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     from ptq4vit_tpu_torch.ops import int8_serve as sv
@@ -1209,14 +1180,18 @@ def test_q8_refuses_what_it_cannot_run_on_the_card():
     scal = torch.ones(4, device="cuda")
     ws = torch.ones(24, device="cuda")
 
-    def call(stages, levels):
+    def call(stages, levels, in_mode=0, gelu=0, relaxed=0):
         return lib.ptq_q8_linear(
             args[0].data_ptr(), 0, wk.data_ptr(), 48, ws.data_ptr(), None,
             None, None, None, None, out.data_ptr(), 0, scal.data_ptr(), 0.0,
-            levels, 70, 40, 24, 0, 0, 0, 0, Q, Q, stages, 0, 1, None)
+            levels, 70, 40, 24, in_mode, 0, gelu, 0, Q, Q, relaxed, stages,
+            0, 1, None)
     assert call(40, lv.data_ptr()) == 9003     # 40 ring slots do not fit
     assert call(2, None) != 0                  # float input, no scratch
     assert call(2, lv.data_ptr()) == 0
+    assert call(2, lv.data_ptr(), 1, 1, 1) != 0   # relaxed after a twin
+    assert call(2, lv.data_ptr(), 1, 1, 0) == 0
+    assert call(2, lv.data_ptr(), 0, 1, 1) == 0
 
 
 @pytest.mark.cuda
@@ -1523,3 +1498,211 @@ def test_partial_resume_equals_uninterrupted_on_the_card(tmp_path):
                 assert torch.equal(getattr(resumed[n], f), v), (n, f)
     loaded = load_qstate(d)
     assert loaded["head"].w_interval.is_cuda
+
+
+# ---------------------------------------------------------------------------
+# the relaxed (bf16 epilogue) variants of B6 / B10 and B7 / B8 / B9 against
+# their relaxed plain versions
+# ---------------------------------------------------------------------------
+
+RELAXED_Q8 = [("f", True, True, "twin"), ("f", True, False, "vec"),
+              ("f", False, True, "float"), ("q8", False, True, "vec"),
+              ("f", False, False, "residual"), ("q8twin", False, False,
+                                                "residual")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_relaxed_q8_linear_matches_plain_version_on_the_card(dtype):
+    """B6's relaxed variant (tanh-GELU, per-column requant and twin pack in
+    bf16) at M = 77, K = 200, N = 150 and qmax 128 / 32: bitwise
+    q8_linear_ref(relaxed=True), the LayerNorm computed in the kernel's
+    order (layer_norm_kernel_order); a float output without GELU runs the
+    exact kernel (the same function) and is bitwise the exact output;
+    after a post-GELU twin input the relaxed variant is not built and a
+    call that needs it is refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from ptq4vit_tpu_torch.ops import int8_serve as sv
+    rng = np.random.default_rng(47)
+    sv.reset_launch_counts()
+    n = exact = 0
+    for qmax in (128, 32):
+        for mode, ln, gelu, out in RELAXED_Q8:
+            args, kw = q8_case(rng, mode, ln, gelu, out, 77, 200, 150, qmax,
+                               dtype)
+            got = sv.q8_linear(*args, relaxed=True, **kw)
+            x = args[0]
+            if ln:
+                x = layer_norm_kernel_order(x, *kw["ln"])
+            ref = sv.q8_linear_ref(x, *args[1:], relaxed=True, **dict(
+                kw, ln=None, float_dtype=kw["float_dtype"] or dtype))
+            torch.cuda.synchronize()
+            assert got.dtype == ref.dtype and torch.equal(got, ref), \
+                (mode, ln, gelu, out, qmax)
+            if sv.relaxed_variant(True, kw["epilogue"], kw["out_q"]):
+                n += 1
+            else:
+                assert torch.equal(got, sv.q8_linear(*args, **kw))
+                exact += 2
+    counts = sv.launch_counts()
+    assert counts["q8_linear_relaxed"] == n and counts["q8_linear"] == exact
+    args, kw = q8_case(rng, "q8twin", False, False, "twin", 77, 200, 150,
+                       Q, dtype)
+    with pytest.raises(ValueError, match="twin input"):
+        sv.q8_linear(*args, relaxed=True, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,N,hd", [(2, 37, 64), (3, 130, 24),
+                                    (12, 577, 64)])
+def test_relaxed_attention_matches_plain_version_on_the_card(H, N, hd):
+    """B7's relaxed variant (float or int8 in, float or int8 out) and B8's,
+    SoS (split 2^-4 and 0.5) and per head, against the relaxed plain
+    version under B7's rules (the softmax sum reduced in another order may
+    move bf16(1 / sum), and with it a level)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from ptq4vit_tpu_torch.ops import int8_serve as sv
+    from ptq4vit_tpu_torch.quant.qparams import MatMulQP
+    rng = np.random.default_rng(48)
+    dev = "cuda"
+    B = 3
+    d = H * hd
+    qkv = T(rng.standard_normal((B, N, 3 * d))).to(dev)
+    t = qkv.reshape(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+    shape = (1, H, 1, 1, 1, 1, 1)
+
+    def hmax(v):
+        return (v.abs().amax((0, 2, 3)) / 127.5).reshape(shape)
+    qp1 = MatMulQP(A_interval=hmax(t[0]), B_interval=hmax(t[1]))
+    sv.reset_launch_counts()
+    n = 0
+    for sos, sp in ((True, 2.0 ** -4), (True, 0.5), (False, 2.0 ** -4)):
+        split = torch.tensor(sp, device=dev)
+        qp2 = MatMulQP(A_interval=(split / 127 if sos else
+                                   torch.full(shape, 1 / 127.5, device=dev)),
+                       B_interval=hmax(t[2]), split=split if sos else None)
+        ph, _ = sv.attn_scope(qp1, qp2, H)
+        step = attn_level_step(ph, sos)
+        cols = torch.cat([ph[i].repeat_interleave(hd) for i in (0, 1, 3)])
+        lv = torch.clamp(torch.round(qkv / cols), -128, 127).to(torch.int8)
+        a_out = torch.tensor(0.02, device=dev)
+        for x, in_q8, out_scale in ((qkv, False, None), (lv, True, a_out),
+                                    (qkv.bfloat16(), False, None)):
+            got = sv.fused_attention_qkv(x, H, qp1, qp2, hd ** -0.5,
+                                         in_q8=in_q8, out_scale=out_scale,
+                                         relaxed=True)
+            c = x.reshape(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+            ref = sv.fused_attention_ref(
+                c[0], c[1], c[2], ph, split if sos else None, hd ** -0.5,
+                out_scale, sos=sos, in_q8=in_q8, qmaxes=(128,) * 5,
+                out_dtype=got.dtype if got.is_floating_point() else None,
+                relaxed=True).transpose(1, 2).reshape(B, N, d)
+            torch.cuda.synchronize()
+            assert got.dtype == ref.dtype
+            if got.dtype == torch.int8:
+                assert_levels_close(got, ref)
+            else:
+                assert_float_close(got, ref, 1e-5 if got.dtype ==
+                                   torch.float32 else 2.0 ** -8,
+                                   step.repeat_interleave(hd))
+            n += 1
+        q, k, v = (c.contiguous() for c in t)
+        got = sv.fused_attention(q, k, v, qp1, qp2, hd ** -0.5, relaxed=True)
+        ref = sv.fused_attention_ref(q, k, v, ph, split if sos else None,
+                                     hd ** -0.5, None, sos=sos, in_q8=False,
+                                     qmaxes=(128,) * 5, out_dtype=q.dtype,
+                                     relaxed=True)
+        assert_float_close(got, ref, 1e-5, step.reshape(1, H, 1, 1))
+    counts = sv.launch_counts()
+    assert counts == {**{k: 0 for k in counts},
+                      "fused_attention_qkv_relaxed": n,
+                      "fused_attention_relaxed": 3}
+
+
+@pytest.mark.cuda
+def test_relaxed_window_kernels_match_plain_versions_on_the_card():
+    """B9's relaxed variant on Swin's shifted 12 x 12 windows (the logits
+    parked) and on 14 x 14 windows (recomputed), against its relaxed plain
+    version under B7's rules, and B10's on a grid of 2 x 2 windows of 7
+    with K = 72, bitwise its relaxed plain version with the LayerNorm in
+    the kernel's order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from ptq4vit_tpu_torch.models.swin import (shifted_window_mask,
+                                               window_partition)
+    from ptq4vit_tpu_torch.ops import int8_serve as sv
+    from ptq4vit_tpu_torch.quant.qparams import MatMulQP
+    rng = np.random.default_rng(49)
+    dev = "cuda"
+    sv.reset_launch_counts()
+    H, hd, images = 3, 32, 3
+    for nW, ws, shifted in ((4, 12, True), (2, 14, False)):
+        N, C, B_ = ws * ws, H * hd, images * nW
+        s = hd ** -0.5
+        qkv = T(rng.standard_normal((B_, N, 3 * C))).to(dev)
+        bias = T(rng.standard_normal((H, N, N)) * 0.5).to(dev)
+        mask = (T(shifted_window_mask(2 * ws, ws, ws // 2)).to(dev)
+                if shifted else
+                T(np.where(rng.random((nW, N, N)) > 0.7, -100.0, 0.0))
+                .to(dev))
+        t = qkv.reshape(B_, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+        shape = (1, H, 1, 1, 1, 1, 1)
+
+        def hmax(v):
+            return (v.abs().amax((0, 2, 3)) / 127.5).reshape(shape)
+        qp1 = MatMulQP(A_interval=hmax(t[0] * s), B_interval=hmax(t[1]))
+        for sos in (True, False):
+            split = torch.tensor(2.0 ** -4, device=dev)
+            qp2 = MatMulQP(A_interval=(split / 127 if sos else torch.full(
+                shape, 1 / 127.5, device=dev)), B_interval=hmax(t[2]),
+                split=split if sos else None)
+            ph, _ = sv.window_attn_scope(qp1, qp2, H, s)
+            cols = torch.cat([ph[i].repeat_interleave(hd)
+                              for i in (0, 1, 3)])
+            lv = torch.clamp(torch.round(qkv / cols), -128, 127) \
+                .to(torch.int8)
+            for x, in_q8, out_scale in (
+                    (lv, True, torch.tensor(0.02, device=dev)),
+                    (qkv, False, None)):
+                got = sv.fused_window_attention_qkv(
+                    x, H, nW, qp1, qp2, s, bias, mask, in_q8=in_q8,
+                    out_scale=out_scale, relaxed=True)
+                ref = sv.fused_window_attention_ref(
+                    x, H, nW, ph, split if sos else None, s, bias, mask,
+                    out_scale, sos=sos, in_q8=in_q8, qmaxes=(128,) * 5,
+                    out_dtype=got.dtype if got.is_floating_point() else None,
+                    relaxed=True)
+                torch.cuda.synchronize()
+                if got.dtype == torch.int8:
+                    assert_levels_close(got, ref)
+                else:
+                    assert_float_close(got, ref, 1e-5, attn_level_step(
+                        ph, sos).repeat_interleave(hd))
+    B, img, win, C = 2, 14, 7, 72
+    x4 = T(rng.standard_normal((B, img, img, C)) * 2 + 0.3).to(dev)
+    w = T(rng.integers(-Q, Q, (C, 3 * C)), torch.int8).to(dev)
+    a = torch.tensor(3.0 / (Q - 0.5), device=dev)
+    wsc = T((rng.random(3 * C) + 0.5) / (float(a) * Q * Q * np.sqrt(C) / 3)
+            ).to(dev)
+    b = T(rng.standard_normal(3 * C) * 0.1).to(dev)
+    ln = (T(1 + 0.1 * rng.standard_normal(C)).to(dev),
+          T(0.1 * rng.standard_normal(C)).to(dev), 1e-5)
+    osc = T((rng.random(3 * C) + 1.5) / (Q - 0.5)).to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x4.to(dtype)
+        got = sv.q8_win_qkv(xd, w, wsc, b, a, ln, win, osc, a_qmax=Q,
+                            relaxed=True)
+        xw = window_partition(xd, win)
+        ref = sv.q8_linear_ref(
+            layer_norm_kernel_order(xw.reshape(-1, C), *ln), w, wsc, b, a,
+            None, a_qmax=Q, postgelu=False, out_q="vec", out_scale=osc,
+            relaxed=True).reshape(xw.shape[:-1] + (3 * C,))
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), dtype
+    counts = sv.launch_counts()
+    assert counts == {**{k: 0 for k in counts},
+                      "fused_window_attention_qkv_relaxed": 8,
+                      "q8_win_qkv_relaxed": 2}

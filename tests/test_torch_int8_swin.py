@@ -41,8 +41,16 @@ def test_int8_forward_of_tiny_swin_matches_jax(monkeypatch):
     assert (fused.argmax(-1).numpy() == ref.argmax(-1)).all()
     np.testing.assert_allclose(fused.numpy(), ref, rtol=1e-3,
                                atol=2e-3 * np.abs(ref).max())
-    with pytest.raises(NotImplementedError, match="relaxed"):
-        pnet.apply(xt, qstate=pq, int8="fused_relaxed")
+    # the relaxed mode runs the same fused blocks with bf16 epilogues:
+    # engaged (not the exact fused logits), within JAX's own relaxed bound
+    # of them (tests/test_int8_serve.py:341), the same argmax
+    blocks.clear()
+    relaxed = pnet.apply(xt, qstate=pq, int8="fused_relaxed", packed=packed)
+    assert len(blocks) == sum(TINY_SWIN["depths"])
+    assert not torch.equal(relaxed, fused)
+    assert float((relaxed - fused).abs().max()) < \
+        0.10 * float(fused.abs().max())
+    assert torch.equal(relaxed.argmax(-1), fused.argmax(-1))
     # capture and probes keep the generic path in fused mode, as in JAX
     _, taps = pnet.apply(xt, qstate=pq, int8="fused", capture=True)
     assert "layers.0.blocks.0.attn.matmul2" in taps

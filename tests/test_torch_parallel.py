@@ -86,6 +86,10 @@ SWIN_QSTATES = {"raw": None, "int8": {}, "fused": {},
                 "fused_per_op": {"postgelu": False}}
 
 
+# the fused cases also run in the relaxed mode over model=2
+RELAXED_CASES = ("swin_ptq4vit", "wide_ptq4vit")
+
+
 @pytest.fixture(scope="module")
 def fused_nets():
     """{case: (JAX net, qstate, images)} of the fused block paths under
@@ -127,6 +131,8 @@ def tp(nets, fused_nets, tmp_path_factory):
         tasks[key] = dict(task="eval", net=W.net_spec(jnet), x=xf,
                           y=labels(len(xf), 16), tp=True, int8="fused",
                           qstate=W.qstate_to_np(qstate_from_numpy(jq)))
+        if key in RELAXED_CASES:
+            tasks[f"{key}_relaxed"] = dict(tasks[key], int8="fused_relaxed")
     tasks["shard"] = dict(task="shard_params", net=spec)
     tasks["errors"] = dict(task="errors", net=W.net_spec(jnet3),
                            qstate=W.qstate_to_np(qstate_from_numpy(jq4)),
@@ -145,7 +151,15 @@ def test_backend_follows_the_device_map(monkeypatch):
     assert launch.choose_backend(["cuda:0", "cuda:1"]) == "nccl"
     assert launch.choose_backend(["cuda:0", "cuda:0"]) == "gloo"
     assert launch.choose_backend(["cuda:0", "cpu"]) == "gloo"
-    assert launch.default_devices(3) == ["cpu"] * 3     # no card here
+    # no card here: the CPU only when asked for, else an error
+    assert launch.default_devices(3, "cpu") == ["cpu"] * 3
+    for call in (lambda: launch.default_devices(3),
+                 lambda: launch.default_devices(3, "cuda"),
+                 launch.rank_device,
+                 lambda: launch.spawn(W.fail_on_rank1, 2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     assert launch.default_devices(3) == ["cuda:0", "cuda:1", "cuda:0"]
     monkeypatch.undo()
@@ -176,7 +190,10 @@ def test_run_from_env_under_a_torchrun_environment(monkeypatch, capsys):
         seen.append((rank, dist.get_world_size(), dist.get_backend(),
                      launch.rank_device(), float(t)))
 
-    launch.run_from_env(fn, 2.5)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch.run_from_env(fn, 2.5)          # the card, and there is none
+    assert seen == [] and not dist.is_initialized()
+    launch.run_from_env(fn, 2.5, device="cpu")
     assert seen == [(0, 1, "gloo", torch.device("cpu"), 2.5)]
     assert not dist.is_initialized()
     assert "backend gloo, ranks -> devices 0: cpu" in capsys.readouterr().out
@@ -365,6 +382,32 @@ def test_tp_fused_blocks_match_single_device_and_jax(fused_nets, tp, case):
         assert np.abs(ref - jref).max() <= 1e-2 * np.abs(jref).max()
     else:
         assert_logits_close(ref, jref)
+
+
+@pytest.mark.parametrize("case", RELAXED_CASES)
+def test_tp_fused_relaxed_matches_single_device(fused_nets, tp, case):
+    """int8="fused_relaxed" over model=2 runs wherever "fused" runs: every
+    rank fuses every block with the relaxed kernels' plain versions on its
+    column-parallel qkv / attention / fc1 (their local heads and columns),
+    while proj, fc2 and B11 (float outputs without GELU, the same in both
+    modes) stay row-parallel; the logits are the single device's relaxed
+    ones bitwise, and not its exact ones."""
+    jnet, jq, x = fused_nets[case]
+    key = f"{case}_relaxed"
+    results = tp[0]
+    single = Evaluator(port_net(jnet), qstate_from_numpy(jq),
+                       int8="fused_relaxed", device="cpu")
+    ref = single.logits(x).numpy()
+    same_on_every_rank(results, key, "logits")
+    np.testing.assert_array_equal(results[0][key]["logits"], ref)
+    assert not np.array_equal(ref, results[0][case]["logits"])
+    swin = case.startswith("swin")
+    blocks = sum(jnet.cfg.depths) if swin else jnet.cfg.depth
+    for r in results:
+        assert r[key]["hits"] == r[case]["hits"] == {
+            "fused_vit_block": 0 if swin else blocks,
+            "fused_swin_block": blocks if swin else 0,
+            "row_parallel": 2 * blocks}
 
 
 def test_shard_params_concatenate_to_the_full_weights(nets, tp):

@@ -19,6 +19,7 @@ from ptq4vit_tpu.parallel import mesh as jmesh
 from ptq4vit_tpu.parallel.serve import ServingEngine as JServingEngine
 from ptq4vit_tpu.utils import integer as jint
 from ptq4vit_tpu_torch import ServingEngine
+from ptq4vit_tpu_torch.ops.pack import pack_weights
 from ptq4vit_tpu_torch.parallel import mesh as pmesh
 from ptq4vit_tpu_torch.utils import integer as pint
 from ptq4vit_tpu_torch.utils.convert import qstate_from_numpy
@@ -109,13 +110,18 @@ def test_serving_engine_on_tiny_swin_matches_jax(dtype):
 
 
 def test_serving_engine_options_not_ported(wide):
-    _, pnet, _, pq, _ = wide
+    _, pnet, _, pq, x = wide
     # a mesh is a ("data", "model") DeviceMesh since A12
     # (tests/test_torch_parallel_swin.py serves over one)
     with pytest.raises(TypeError, match="DeviceMesh"):
         ServingEngine(pnet, pq, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="relaxed"):
-        ServingEngine(pnet, pq, relaxed=True, device="cpu")
+    # the relaxed mode serves (tests/test_torch_relaxed.py holds it to
+    # JAX): the fused forward in int8="fused_relaxed", bf16 logits
+    got = ServingEngine(pnet, pq, relaxed=True, device="cpu")(x)
+    want = pnet.apply(torch.from_numpy(x), qstate=pq, int8="fused_relaxed",
+                      packed=pack_weights(pnet.params, pq),
+                      compute_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
 
 
 def test_evaluator_without_a_mesh_matches_jax(wide, capsys):
