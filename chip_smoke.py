@@ -50,7 +50,13 @@ Phases (any failure raises, so the exit code is non-zero):
      (with PyTorch's, an input that quantizes a level the other way moves
      a relaxed level by up to four: its bf16 chain has coarse steps); B7
      int8 -> int8 SoS and per head, B8 float SoS and B9 int8 -> int8 on
-     stage 1's shifted block under the attention rules above; each attention
+     stage 1's shifted block under the attention rules above; then the
+     adversarial relaxed cases (``adversarial_cases``, their reach logged
+     by ``adversarial_coverage``: e in the bf16 subnormals and 0, p
+     exactly at bf16(split), level products on bf16 ties and on rint's
+     half-way points, odd keys and columns, a half-empty pair of rows),
+     every output bitwise its relaxed plain version -- their softmax sums
+     are exact in any order; each attention
      case's [kernel] line also gives its CUDA-core floor (a model, not a
      measurement: the softmax's instructions a logit at the card's issue
      rate, ``cuda_core_floor``; it stays out of the JSON kernels line);
@@ -857,10 +863,10 @@ RELAXED_B6 = (("qkv: LN, quantize -> int8 per column", None),
 WINDOW_STAGES = ((1, 96, 128), (3, 24, 512))
 
 
-def q8_inputs(rng, M, K, N, mode, ln, gelu, out, dtype, q=128):
+def q8_inputs(rng, M, K, N, mode, ln, gelu, out, dtype, q=128,
+              dev="cuda"):
     """(args, kwargs) of q8_linear at one of the block's modes, with
     scales that keep the output about unit size."""
-    dev = "cuda"
 
     def t(a, dt=torch.float32):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
@@ -969,6 +975,14 @@ def serve_kernel_phase(sv, dev):
     scaled_dot_product_attention (B7, B8) on the same shapes, for context
     only: neither computes the quantized function, and the port never
     calls them."""
+    log("[kernel] adversarial relaxed inputs reach: "
+        + json.dumps(adversarial_coverage(dev)))
+    return measure_serving(serve_kernel_cases(sv, dev)
+                           + adversarial_cases(sv, dev))
+
+
+def serve_kernel_cases(sv, dev):
+    """serve_kernel_phase's cases, as measure_serving takes them."""
     rng = np.random.default_rng(5)
     cases, partial, inputs = [], {}, {}
     for label, m, K, Nn, mode, ln, gelu, out, dt in B6_CASES:
@@ -989,9 +1003,9 @@ def serve_kernel_phase(sv, dev):
             lambda args=args, kw=kw: sv.q8_linear_ref(*args, **kw),
             call_bytes(args, kw), ops, int_mm_calls(lv, args[1]), None,
             None))
-    return measure_serving(cases + epilogue_cases(sv, rng, partial)
-                           + relaxed_linear_cases(sv, rng, inputs)
-                           + vit_attention_cases(sv, dev, rng))
+    return (cases + epilogue_cases(sv, rng, partial)
+            + relaxed_linear_cases(sv, rng, inputs)
+            + vit_attention_cases(sv, dev, rng))
 
 
 # the relaxed variants held bitwise to their plain versions, the LayerNorm
@@ -1181,10 +1195,12 @@ def vit_attention_cases(sv, dev, rng):
 def measure_serving(cases):
     """Each serving kernel case (kernel, label, call, plain call, bytes of
     the inputs, operations, context calls by key, step, CUDA-core floor
-    ms or None[, the exact kernel's call: a relaxed variant's case])
-    against its plain version (``compare_outputs``; attention float
-    outputs under the FLIP_SHARE rule, other float outputs bitwise, the
-    relaxed B6 / B10's int8 outputs too: BITWISE_RELAXED), then timed
+    ms or None[, the exact kernel's call: a relaxed variant's case[,
+    bitwise: an adversarial case]]) against its plain version
+    (``compare_outputs``; attention float outputs under the FLIP_SHARE
+    rule, other float outputs bitwise, the relaxed B6 / B10's int8
+    outputs too: BITWISE_RELAXED, and every output of a bitwise case),
+    then timed
     beside the
     plain version, the exact kernel (``exact_ms``), the bound, the
     attentions' CUDA-core floor (``cuda_core_floor``) and the context
@@ -1193,20 +1209,22 @@ def measure_serving(cases):
     is its headline."""
     stats = {}
     for kname, label, fn, plain, in_bytes, ops, lib_fn, step, floor, \
-            *exact in cases:
-        exact = exact[0] if exact else None
+            *rest in cases:
+        exact = rest[0] if rest else None
+        bitwise = kname in BITWISE_RELAXED or (len(rest) > 1 and rest[1])
         got = fn()
         ref = plain()
         torch.cuda.synchronize()
         attention = "attention" in kname
-        # attention sums its softmax in another order
+        # attention sums its softmax in another order (but where a case's
+        # sums are exact in any order: the adversarial cases)
         tol = (2e-5 * float(ref.float().abs().max()), ATTN_RTOL) \
-            if attention else (0.0, 0.0)
+            if attention and not bitwise else (0.0, 0.0)
         # a relaxed B6 / B10 against the plain version with the kernel's
         # LayerNorm order: bitwise
         err, share = compare_outputs(
             f"{kname} {label}", got, ref, *tol, step=step,
-            level_share=0.0 if kname in BITWISE_RELAXED else LEVEL_SHARE)
+            level_share=0.0 if bitwise else LEVEL_SHARE)
         ms = time_ms(fn, 5)
         plain_ms = time_ms(plain, 1, 0)
         lib = {k: time_ms(f, 5) for k, f in lib_fn.items()}
@@ -1367,6 +1385,207 @@ def window_attention_cases(sv, dev, rng):
     return cases
 
 
+# ---------------------------------------------------------------------------
+# adversarial relaxed cases: inputs built to reach the edges of the relaxed
+# bf16 chain, each case held bitwise to its relaxed plain version
+# ---------------------------------------------------------------------------
+
+ADV_SPLIT_FLOOR = 2.0 ** -7    # the split is a p value at least this large
+
+
+def adversarial_attention_inputs(dev, N=145, hd=64, seed=11, window=False):
+    """(qkv int8 levels (B, N, 3 H hd), qp1, qp2 for SoS, qp2 per head,
+    a_out, scale) of a relaxed B7 / B9 call whose logits fall in three
+    classes a row: near the row max (d = l - max in [-4.2, 0], so e >=
+    2^-6), far (d in [-97.4, -83.6]: e from 2^-120 down through the bf16
+    subnormals, below 2^-126, to 0) and gone (d < -300: e = 0).  q's
+    levels are (127, r, 0, ...) with r in [-3, 3], k's (127 - D, c, 0,
+    ...) with D 0, 64-68 or 255 and c in [-64, 64], at a logit scale
+    (a1 b1) s of about 0.0108.  So every fp32 sum of a row's e is exact in
+    any order -- the near e are multiples of 2^-13 summing below 2^8, the
+    far ones sum below half an ulp of them -- and the kernel, which sums
+    in another order than the plain version, must agree with it bitwise.
+    N odd: the last pair of keys is half empty.  The SoS split is a p
+    value of the inputs (p exactly at bf16(split)); the per-head scale
+    a2 = 1/96 and a_out = 1/96 make the level products p * 96 (10
+    significant bits) round on bf16 ties and land on rint's half-way
+    points.  ``window``: for B9, whose q scale is a1 / s (qp1's
+    A_interval holds a1 s, so the logit scale is the same)."""
+    from ptq4vit_tpu_torch.ops import int8_serve as sv
+    from ptq4vit_tpu_torch.quant.qparams import MatMulQP
+    rng = np.random.default_rng(seed)
+    B, H = 8, 4
+    d = H * hd
+    q = np.zeros((B, N, H, hd), np.int64)
+    k = np.zeros((B, N, H, hd), np.int64)
+    q[..., 0] = 127
+    q[..., 1] = rng.integers(-3, 4, (B, N, H))
+    cls = rng.choice(3, size=(B, N, H), p=[0.35, 0.45, 0.2])
+    cls[:, 0] = 0                       # a near key in every row
+    k[..., 0] = 127 - np.where(cls == 0, 0, np.where(
+        cls == 1, rng.integers(64, 69, (B, N, H)), 255))
+    k[..., 1] = rng.integers(-64, 65, (B, N, H))
+    v = rng.integers(-128, 128, (B, N, H, hd))
+    qkv = torch.from_numpy(np.stack([q, k, v], 2).reshape(B, N, 3 * d)
+                           .astype(np.int8)).to(dev)
+    shape = (1, H, 1, 1, 1, 1, 1)
+
+    def full(x):
+        return torch.full(shape, x, device=dev)
+    scale = 0.125
+    qp1 = MatMulQP(A_interval=full(0.25 * scale if window else 0.25),
+                   B_interval=full(0.3456))
+    a_out = torch.tensor(1.0 / 96, device=dev)
+    per_head = MatMulQP(A_interval=full(1.0 / 96), B_interval=full(0.01))
+    # p of the plain version's chain, for the split
+    t = qkv.reshape(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+    ph, _ = (sv.window_attn_scope(qp1, per_head, H, scale) if window
+             else sv.attn_scope(qp1, per_head, H))
+    e = adversarial_e(t[0], t[1], ph, scale)
+    p = sv.bf(e * sv.rcp_bf(e.sum(-1, keepdim=True)))
+    cand = p[p >= ADV_SPLIT_FLOOR]
+    split = cand.sort().values[cand.numel() // 2].reshape(())
+    sos = MatMulQP(A_interval=split / 127, B_interval=full(0.01),
+                   split=split)
+    return qkv, qp1, sos, per_head, a_out, scale
+
+
+def adversarial_e(q, k, ph, scale, extra=None):
+    """e = bf16(exp(bf16(l - max))) of the relaxed plain version's chain
+    (sv.fused_attention_ref) on (B, H, N, hd) int8 q, k levels."""
+    from ptq4vit_tpu_torch.ops import int8_serve as sv
+    from ptq4vit_tpu_torch.ops.int8 import int_dot
+    H = q.shape[1]
+    a1, b1 = (ph[i].float().reshape(1, H, 1, 1) for i in range(2))
+    logits = int_dot(q, k.transpose(-2, -1)) * (
+        a1 * b1 * torch.tensor(scale, dtype=torch.float32, device=q.device))
+    if extra is not None:
+        logits = logits + extra
+    m = torch.amax(logits, -1, keepdim=True)
+    return sv.bf(torch.exp(sv.bf(logits - m)))
+
+
+def bf16_ties(x):
+    """How many float32 values of x lie half-way between two bf16 values
+    (the low 16 bits exactly 0x8000)."""
+    return int(((x.float().contiguous().view(torch.int32) & 0xFFFF)
+                == 0x8000).sum())
+
+
+def adversarial_coverage(dev):
+    """What the adversarial attention inputs reach in the relaxed plain
+    version's chain: e in the bf16 subnormals, e = 0, p exactly at
+    bf16(split), bf16 ties in the level products (SoS lower levels, per
+    head) and rint's half-way points (per head).  Every count must be
+    positive for the inputs to test these edges."""
+    from ptq4vit_tpu_torch.ops import int8_serve as sv
+    qkv, qp1, sos, per_head, a_out, scale = adversarial_attention_inputs(dev)
+    B, N, d3 = qkv.shape
+    H = qp1.A_interval.shape[1]
+    t = qkv.reshape(B, N, 3, H, d3 // 3 // H).permute(2, 0, 3, 1, 4)
+    ph, _ = sv.attn_scope(qp1, sos, H)
+    e = adversarial_e(t[0], t[1], ph, scale)
+    p = sv.bf(e * sv.rcp_bf(e.sum(-1, keepdim=True)))
+    spb = sv.bf(sos.split)
+    a_int = sv.fq.exact_div(sos.split, torch.tensor(127.0, device=dev))
+    lo = torch.clamp(p, torch.zeros_like(spb), spb) * sv.rcp_bf(a_int)
+    head = p * sv.rcp_bf(per_head.A_interval.reshape(-1)[0])
+    return {"e_subnormal": int(((e > 0) & (e < 2.0 ** -126)).sum()),
+            "e_zero": int((e == 0).sum()),
+            "p_at_split": int((p == spb).sum()),
+            "lower_level_ties": bf16_ties(lo),
+            "per_head_ties": bf16_ties(head),
+            "per_head_rint_halves": int((sv.bf(head) % 1 == 0.5).sum())}
+
+
+def adversarial_linear_inputs(dev, gelu, out, ln):
+    """(args, kw) of a relaxed B6 call at ragged shapes -- M = 65 (the
+    last row tile one row: the kernel's last pair of rows half empty), N
+    = 151 (odd columns) -- whose first 8 weight columns are 0, so those
+    outputs are their bias exactly: values that round on a bf16 tie (1 +
+    2^-8, -(3 + 2^-6)), tiny ones whose tanh-GELU chain runs through bf16
+    and fp32 subnormals (1e-13, -3e-14, 2^-130) and 0; every other column
+    requantizes at 1/96 (a reciprocal of 96: products on bf16 ties)."""
+    M, K, N = 65, 200, 151
+    args, kw = q8_inputs(np.random.default_rng(12), M, K, N, "f", ln, gelu,
+                         out, torch.bfloat16, dev=dev)
+    args = list(args)
+    w, b = args[1].clone(), args[3].clone()
+    w[:, :8] = 0
+    b[:8] = torch.tensor([1 + 2.0 ** -8, -(3 + 2.0 ** -6), 1e-13, -3e-14,
+                          2.0 ** -130, 0.0, 2.0 ** -126, -0.5 - 2.0 ** -9],
+                         device=dev)
+    args[1], args[3] = w, b
+    if out == "vec":
+        kw["out_scale"] = torch.full((N,), 1.0 / 96, device=dev)
+    return tuple(args), kw
+
+
+def adversarial_cases(sv, dev):
+    """The adversarial relaxed cases as measure_serving takes them, each
+    bitwise against its relaxed plain version and timed beside its exact
+    kernel: B7 int8 in, SoS int8 and float out, per-head int8 out; B9 on
+    one window of 11 x 11 (N = 121, odd: the parked path); B6 with
+    LayerNorm -> int8 per column, GELU -> twin, GELU -> float."""
+    qkv, qp1, sos, per_head, a_out, scale = adversarial_attention_inputs(dev)
+    B, N, d3 = qkv.shape
+    H = qp1.A_interval.shape[1]
+    hd = d3 // 3 // H
+    cases = []
+
+    def attn(label, qp2, out_scale):
+        kw = dict(in_q8=True, out_scale=out_scale)
+        args = (qkv, H, qp1, qp2, scale)
+        sos_ = qp2.split is not None
+        ops = {"int8": 2 * B * H * N * N * hd * (3 if sos_ else 2),
+               "fp32": 5 * B * H * N * N}
+        return ("fused_attention_qkv_relaxed", f"adversarial: {label}",
+                lambda: sv.fused_attention_qkv(*args, relaxed=True, **kw),
+                lambda: attention_plain(sv, "fused_attention_qkv", args,
+                                        dict(kw, relaxed=True)),
+                call_bytes(args, kw), ops, {}, None, None,
+                lambda: sv.fused_attention_qkv(*args, **kw), True)
+    cases.append(attn("N = 145, SoS, int8 out", sos, a_out))
+    cases.append(attn("N = 145, SoS, float out", sos, None))
+    cases.append(attn("N = 145, per head, int8 out", per_head, a_out))
+    # B9: one 11 x 11 window an image (nW = 1), zero bias, no mask
+    wq = adversarial_attention_inputs(dev, N=121, hd=32, seed=13,
+                                      window=True)
+    wqkv, wqp1, wsos = wq[0], wq[1], wq[2]
+    s = wq[5]
+    Hw = wqp1.A_interval.shape[1]
+    bias = torch.zeros((Hw, 121, 121), device=dev)
+    wargs = (wqkv, Hw, 1, wqp1, wsos, s, bias, None)
+    wkw = dict(in_q8=True, out_scale=a_out)
+    ph, _ = sv.window_attn_scope(wqp1, wsos, Hw, s)
+    cases.append((
+        "fused_window_attention_qkv_relaxed",
+        "adversarial: one 11 x 11 window (N = 121, parked), SoS, int8 out",
+        lambda: sv.fused_window_attention_qkv(*wargs, relaxed=True, **wkw),
+        lambda: sv.fused_window_attention_ref(
+            wqkv, Hw, 1, ph, wsos.split, s, bias, None, a_out, sos=True,
+            in_q8=True, qmaxes=(128,) * 5, out_dtype=torch.float32,
+            relaxed=True),
+        nbytes(wargs), {"int8": 2 * wqkv.shape[0] * Hw * 121 * 121 * 32 * 3},
+        {}, None, None,
+        lambda: sv.fused_window_attention_qkv(*wargs, **wkw), True))
+    for gelu, out, ln in ((False, "vec", True), (True, "twin", True),
+                          (True, "float", False)):
+        args, kw = adversarial_linear_inputs(dev, gelu, out, ln)
+        M, K = args[0].shape
+        Nn = args[1].shape[1]
+        cases.append((
+            "q8_linear_relaxed",
+            f"adversarial: M = {M}, N = {Nn}, "
+            + ("LN, " if ln else "") + ("GELU -> " if gelu else "-> ")
+            + out, lambda args=args, kw=kw: sv.q8_linear(
+                *args, relaxed=True, **kw),
+            lambda args=args, kw=kw: relaxed_plain(sv, args, kw),
+            call_bytes(args, kw), {"int8": 2 * M * K * Nn}, {}, None, None,
+            lambda args=args, kw=kw: sv.q8_linear(*args, **kw), True))
+    return cases
+
+
 def win_qkv_relaxed_plain(sv, args, kw):
     """B10's relaxed plain version on its window-partitioned rows, the
     LayerNorm in the kernel's order."""
@@ -1390,6 +1609,11 @@ def window_kernel_phase(sv, dev):
     3 (res 24, C 512); B9 int8 -> int8 on stage 1's shifted block (64
     masks) and stage 4's one unshifted window (32 heads), and float ->
     float (SoS and per-head) on stage 1's shifted block."""
+    return measure_serving(window_kernel_cases(sv, dev))
+
+
+def window_kernel_cases(sv, dev):
+    """window_kernel_phase's cases, as measure_serving takes them."""
     rng = np.random.default_rng(6)
     B, q = SERVE_BATCH, 128
 
@@ -1433,7 +1657,7 @@ def window_kernel_phase(sv, dev):
                       nbytes(args), {"int8": 2 * M * C * C},
                       int_mm_calls(y_q.reshape(M, C), wp), None, None))
 
-    return measure_serving(cases + window_attention_cases(sv, dev, rng))
+    return cases + window_attention_cases(sv, dev, rng)
 
 
 def profile_call(fn):

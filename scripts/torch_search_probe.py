@@ -36,12 +36,14 @@ is imported; each command prints JSON lines.
            builds -- B3 / B3f ``mm_tc_kernel<W, SOS, FAST, KL>``, B4
            ``fp32_scored_kernel<KIND>`` (0 B4w, 1 B4a, 2 B4a post-GELU),
            B6 / B10 / B11 ``q8_tc_kernel<TWIN>``, B7 / B8 / B9
-           ``attention_kernel<WINDOW, HDP, SOS, PARK>``, ... --, with the
-           count of IGMMA (int8 wgmma), IMMA (int8 mma.sync) and IDP.4A
-           (dp4a) instructions in each
-           kernel's SASS (cuobjdump) and of its WARPGROUP.DEPBAR waits,
-           one JSON line a kernel, and every ptxas warning (C7510-C7520:
-           serialized wgmma).
+           ``attention_kernel<WINDOW=, HDP=, SOS=, PARK=, RELAXED=>``, ...
+           --, with the count in each kernel's SASS (cuobjdump) of IGMMA
+           (int8 wgmma), IMMA (int8 mma.sync), IDP.4A (dp4a), its
+           WARPGROUP.DEPBAR waits, the conversions (F2F, F2FP, F2I, I2F,
+           I2FP, FRND), MUFU and the packed half-precision HMUL2, HADD2,
+           HMNMX2 and HFMA2 (bf16 FMAs apart: HFMA2.BF16_V2) (SASS_OPS),
+           one JSON line a kernel, and every
+           ptxas warning (C7510-C7520: serialized wgmma).
   qstates  PTQ4ViT W8A8 calibration of ViT-B/384 and Swin-B/384 on 8
            images (chip_smoke.py's seeds); pickles each qstate and every
            scorer call's sims, by op, in call order.  With --exact:
@@ -246,6 +248,81 @@ def b4(root, images_list=(4, 32)):
             torch.cuda.empty_cache()
 
 
+# SASS opcodes counted in each kernel (cuobjdump -sass), by key: the
+# tensor-core products (IGMMA: int8 wgmma, IMMA: int8 mma.sync, IDP.4A:
+# dp4a), the wgmma waits, the conversions (F2F, F2FP: fp32 -> bf16 packs,
+# F2I, I2F, I2FP, FRND: rintf), MUFU (expf, tanhf, reciprocals) and the
+# packed half-precision ops (HMUL2, HADD2, HMNMX2, HFMA2; HFMA2.MMA is
+# also ptxas's way to move a constant, so a bf16 FMA -- a product and a
+# sum fused -- counts apart as HFMA2.BF16_V2)
+SASS_OPS = {"igmma": "IGMMA", "imma": "IMMA", "idp4a": "IDP.4A",
+            "wg_depbar": "WARPGROUP.DEPBAR", "f2f": "F2F", "f2fp": "F2FP",
+            "f2i": "F2I", "i2f": "I2F", "i2fp": "I2FP", "frnd": "FRND",
+            "mufu": "MUFU", "hmul2": "HMUL2", "hadd2": "HADD2",
+            "hmnmx2": "HMNMX2", "hfma2": "HFMA2",
+            "hfma2_bf16": "HFMA2.BF16_V2"}
+# template parameter names of the kernels whose instances the probe names
+TEMPLATE_PARAMS = {
+    "attention_kernel": ("WINDOW", "HDP", "SOS", "PARK", "RELAXED"),
+    "q8_tc_kernel": ("TWIN", "OUTQ", "GELU", "RELAXED"),
+    "q8_levels_kernel": ("KIND",), "q8_epilogue_kernel": ("NA",),
+    "linear_tc_kernel": ("KIND",)}
+
+
+def sass_counts(sass):
+    """{mangled kernel name: {key: count}} of the SASS_OPS in cuobjdump
+    -sass text: an instruction counts under the key whose opcode is its
+    own (``F2FP.BF16.F32.PACK_AB`` is F2FP, not F2F; ``IDP.4A.S8.S8``
+    is IDP.4A), a predicate (``@P0``, ``@!UP1``) ahead of it skipped."""
+    by_op = {op: k for k, op in SASS_OPS.items()}
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = dict.fromkeys(SASS_OPS, 0)
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                     r"([A-Z][A-Z0-9_]*)((?:\.[A-Z0-9_]+)*)", line)
+        if name is None or m is None:
+            continue
+        op, mods = m.group(1), m.group(2).split(".")
+        key = by_op.get(op + "." + mods[1] if len(mods) > 1 else op,
+                        by_op.get(op))
+        if key is not None:
+            counts[name][key] += 1
+    return counts
+
+
+def kernel_name(mangled):
+    """A readable name of a mangled kernel: ``fp32_scored_kernel<1>``,
+    ``mm_tc_kernel<64, 1, 0, 2>``, and for the kernels in TEMPLATE_PARAMS
+    each parameter by name (``attention_kernel<WINDOW=0, HDP=64, SOS=1,
+    PARK=0, RELAXED=1>``); else the name its length prefix gives with the
+    parameters' values, or the mangled name."""
+    k = re.search(r"fp32_scored_kernelILi(\d)E", mangled)
+    if k:
+        return f"fp32_scored_kernel<{k.group(1)}>"
+    mm = re.search(r"mm_tc_kernelILi(\d+)ELb(\d)ELb(\d)ELi(\d)E", mangled)
+    if mm:
+        return "mm_tc_kernel<" + ", ".join(mm.groups()) + ">"
+    other = None
+    for c in re.finditer(r"\d+(?=[a-z])", mangled):
+        for i in range(len(c.group(0))):             # the length's digits
+            end = c.end() + int(c.group(0)[i:])
+            if mangled[c.end():end].endswith("_kernel"):
+                tail = re.match(r"I\w*?EE", mangled[end:])
+                other = (mangled[c.end():end], re.findall(
+                    r"L[bi](\d+)E", tail.group(0) if tail else ""))
+    if other is None:
+        return mangled
+    fn, vals = other
+    names = TEMPLATE_PARAMS.get(fn)
+    if names is not None and len(names) == len(vals):
+        vals = [f"{n}={v}" for n, v in zip(names, vals)]
+    return f"{fn}<{', '.join(vals)}>"
+
+
 def ptxas(root, library="search_kernels"):
     import os
     import subprocess
@@ -269,19 +346,7 @@ def ptxas(root, library="search_kernels"):
                               check=True).stdout
     finally:
         os.remove(cubin)
-    # SASS by mangled kernel name
-    counts, name = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            name = m.group(1)
-            counts[name] = {"igmma": 0, "imma": 0, "idp4a": 0,
-                            "wg_depbar": 0}
-        elif name is not None:
-            counts[name]["igmma"] += "IGMMA" in line
-            counts[name]["imma"] += "IMMA" in line
-            counts[name]["idp4a"] += "IDP.4A" in line
-            counts[name]["wg_depbar"] += "WARPGROUP.DEPBAR" in line
+    counts = sass_counts(sass)
     kernel = None
     for line in out.splitlines():
         if "arning" in line or "(C75" in line:   # C751x / C752x: serialized
@@ -290,21 +355,7 @@ def ptxas(root, library="search_kernels"):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             mangled = m.group(1)
-            k = re.search(r"fp32_scored_kernelILi(\d)E", mangled)
-            mm = re.search(r"mm_tc_kernelILi(\d+)ELb(\d)ELb(\d)ELi(\d)E",
-                           mangled)
-            other = None       # a name its mangled length prefix gives
-            for c in re.finditer(r"\d+(?=[a-z])", mangled):
-                for i in range(len(c.group(0))):     # the length's digits
-                    end = c.end() + int(c.group(0)[i:])
-                    if mangled[c.end():end].endswith("_kernel"):
-                        tail = re.match(r"I\w*?EE", mangled[end:])
-                        other = (mangled[c.end():end], ", ".join(re.findall(
-                            r"L[bi](\d+)E", tail.group(0) if tail else "")))
-            kernel = (f"fp32_scored_kernel<{k.group(1)}>" if k else
-                      "mm_tc_kernel<" + ", ".join(mm.groups()) + ">"
-                      if mm else f"{other[0]}<{other[1]}>"
-                      if other else mangled)
+            kernel = kernel_name(mangled)
             spills = None
             continue
         if kernel is None:
@@ -324,10 +375,8 @@ def ptxas(root, library="search_kernels"):
                   flush=True)
             kernel = None
     print(json.dumps({"library": library, "kernels": len(counts),
-                      "igmma": sum(c["igmma"] for c in counts.values()),
-                      "imma": sum(c["imma"] for c in counts.values()),
-                      "idp4a": sum(c["idp4a"] for c in counts.values())}),
-          flush=True)
+                      **{k: sum(c[k] for c in counts.values())
+                         for k in SASS_OPS}}), flush=True)
 
 
 def qstates(root, path, exact=False):

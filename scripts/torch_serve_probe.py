@@ -6,6 +6,7 @@ same seeded inputs.
     python scripts/torch_serve_probe.py prepare OUT_DIR
     python scripts/torch_serve_probe.py run ROOT OUT_DIR TAG [--keep]
     python scripts/torch_serve_probe.py compare OUT_DIR TAG [TAG ...]
+    python scripts/torch_serve_probe.py relaxed ROOT
 
 ROOT is the checkout whose ``ptq4vit_tpu_torch`` is imported; the inputs,
 the cases and the timing come from this tree's ``chip_smoke.py``.  Each
@@ -23,7 +24,10 @@ command prints JSON lines.
            (B6_CASES), B10 / B11 at its Swin-B/384 stages (WINDOW_STAGES),
            and its attention cases (vit_attention_cases: B7 int8 and
            float, SoS and per-head, B8; window_attention_cases: B9 at
-           stages 1 and 4), 32 images, inputs from fixed seeds: each
+           stages 1 and 4), 32 images, the relaxed variants of these
+           cases (RELAXED_B6, B10 at stage 1, B7 / B8 / B9) and the
+           adversarial relaxed cases (adversarial_cases) where ROOT's
+           wrappers take ``relaxed``, inputs from fixed seeds: each
            kernel's ms (CUDA events over at least 100 ms of launches) and
            the SHA-1 of its output's bytes; then the bf16 ServingEngine on
            ViT-B/384 and Swin-B/384 (weights seed 0, the prepared
@@ -35,6 +39,11 @@ command prints JSON lines.
   compare  per case: each run's ms, the mean of each ROOT's runs and
            their ratio; whether every run's output hashes agree; for two
            kept runs of different ROOTs, the count of elements that differ.
+  relaxed  chip_smoke.py phase 3's relaxed cases alone (B6 / B10 relaxed,
+           B7 / B8 / B9 relaxed, the adversarial relaxed cases): each
+           against its relaxed plain version and timed beside its exact
+           kernel on the same inputs in this process, with ROOT's
+           package; one JSON line.
 """
 from __future__ import annotations
 
@@ -106,13 +115,28 @@ def _kernel_cases(torch, sv, cs):
     K-major weight where ROOT takes it."""
     takes = {fn: "w_kmaj" in inspect.signature(getattr(sv, fn)).parameters
              for fn in ("q8_linear", "q8_win_qkv", "q8_win_proj")}
+    has_relaxed = "relaxed" in inspect.signature(sv.q8_linear).parameters
     rng = np.random.default_rng(5)
+    inputs = {}
     for label, m, K, N, mode, ln, gelu, out, dt in cs.B6_CASES:
         args, kw = cs.q8_inputs(rng, m, K, N, mode, ln, gelu, out, dt)
         if takes["q8_linear"]:
             kw["w_kmaj"] = _kmajor(torch, args[1])
+        inputs[label] = (args, kw)
         yield ("q8_linear", label,
                lambda args=args, kw=kw: sv.q8_linear(*args, **kw))
+    # B6's relaxed variant (chip_smoke.py RELAXED_B6): a B6 case's inputs
+    # or a case of its own
+    for label, spec in cs.RELAXED_B6 if has_relaxed else ():
+        if spec is None:
+            args, kw = inputs[label]
+        else:
+            args, kw = cs.q8_inputs(rng, *spec)
+            if takes["q8_linear"]:
+                kw["w_kmaj"] = _kmajor(torch, args[1])
+        yield ("q8_linear_relaxed", f"{label} (relaxed)",
+               lambda args=args, kw=kw: sv.q8_linear(*args, relaxed=True,
+                                                     **kw))
     rng = np.random.default_rng(6)
     for stage, res, C in cs.WINDOW_STAGES:
         qkv, proj = cs.window_linear_inputs(rng, res, C)
@@ -124,14 +148,42 @@ def _kernel_cases(torch, sv, cs):
             kp["w_kmaj"] = _kmajor(torch, proj[1])
         yield ("q8_win_qkv", f"stage {stage}",
                lambda a=qkv, kw=kq: sv.q8_win_qkv(*a, **kw))
+        if has_relaxed and stage == 1:
+            yield ("q8_win_qkv_relaxed", f"stage {stage} (relaxed)",
+                   lambda a=qkv, kw=kq: sv.q8_win_qkv(*a, relaxed=True,
+                                                      **kw))
         yield ("q8_win_proj", f"stage {stage}",
                lambda a=proj, kw=kp: sv.q8_win_proj(*a, **kw))
     # B7 / B8 at ViT-B/384 and B9 at Swin-B/384's stages 1 and 4, 32
-    # images: chip_smoke.py's attention cases
+    # images: chip_smoke.py's attention cases, their relaxed variants
+    # among them; then its adversarial relaxed cases
     rng = np.random.default_rng(7)
     for build_cases in (cs.vit_attention_cases, cs.window_attention_cases):
         for case in build_cases(sv, "cuda", rng):
             yield case[0], case[1], case[2]
+    for case in cs.adversarial_cases(sv, "cuda") if has_relaxed else ():
+        yield case[0], case[1], case[2]
+
+
+def relaxed(root):
+    """chip_smoke.py phase 3's relaxed cases alone, with ROOT's package:
+    each relaxed kernel against its relaxed plain version and timed beside
+    its exact kernel on the same inputs (chip_smoke.measure_serving), then
+    one JSON line of the stats by kernel."""
+    sys.path.insert(0, root)
+    import torch
+    from ptq4vit_tpu_torch.ops import build
+    from ptq4vit_tpu_torch.ops import int8_serve as sv
+    cs = _smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.load("serve_kernels")
+    cases = [c for c in cs.serve_kernel_cases(sv, "cuda")
+             + cs.window_kernel_cases(sv, "cuda")
+             + cs.adversarial_cases(sv, "cuda")
+             if c[0].endswith("_relaxed")]
+    stats = cs.measure_serving(cases)
+    print(json.dumps({"root": root, "card": cs.card_line(),
+                      "relaxed": stats}), flush=True)
 
 
 def run(root, out_dir, tag, keep):
@@ -267,6 +319,8 @@ def main(argv):
     if cmd == "ab":
         ab(args[0], args[1] if len(args) > 1 else
            os.path.join(HERE, "_scratch", "serve_probe"))
+    elif cmd == "relaxed":
+        relaxed(args[0])
     elif cmd == "prepare":
         prepare(args[0])
     elif cmd == "run":

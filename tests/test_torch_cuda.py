@@ -1706,3 +1706,43 @@ def test_relaxed_window_kernels_match_plain_versions_on_the_card():
     assert counts == {**{k: 0 for k in counts},
                       "fused_window_attention_qkv_relaxed": 8,
                       "q8_win_qkv_relaxed": 2}
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (its adversarial relaxed cases)."""
+    import importlib.util
+    import os
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_cases", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+def test_relaxed_adversarial_cases_are_bitwise_on_the_card():
+    """chip_smoke.py's adversarial relaxed cases: B7 (SoS int8 and float
+    out, per head) and B9 (one 11 x 11 window, parked) on logits whose e
+    reach the bf16 subnormals and 0, with p exactly at bf16(split), level
+    products on bf16 ties and on rint's half-way points, N odd (a
+    half-empty pair of keys); B6 at M = 65 (a half-empty pair of rows),
+    N = 151, with outputs that are their bias (bf16 ties, subnormal
+    tanh-GELU chains).  Every output bitwise its relaxed plain version:
+    the softmax sums of these inputs are exact in any order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from ptq4vit_tpu_torch.ops import int8_serve as sv
+    cs = _chip_smoke()
+    assert min(cs.adversarial_coverage("cuda").values()) > 0
+    sv.reset_launch_counts()
+    cases = cs.adversarial_cases(sv, "cuda")
+    for kname, label, fn, plain, *_ in cases:
+        got, ref = fn(), plain()
+        torch.cuda.synchronize()
+        assert got.dtype == ref.dtype and torch.equal(got, ref), label
+    counts = sv.launch_counts()
+    assert counts == {**{k: 0 for k in counts},
+                      "fused_attention_qkv_relaxed": 3,
+                      "fused_window_attention_qkv_relaxed": 1,
+                      "q8_linear_relaxed": 3}

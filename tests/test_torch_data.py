@@ -3,10 +3,15 @@ test writes (2 classes, JPEGs of two shapes): ``EvalTransform``, the
 loaders, ``calib_batch(seed=3)``, ``raw_uint8`` and ``DebugLoaderGenerator``
 give bitwise equal arrays (both are numpy + PIL); the native data plane
 matches JAX's native path bitwise (skipped where g++ or libjpeg is
-missing, as tests/test_native.py is); ``synthetic_images`` gives JAX's
+missing, as tests/test_native.py is; the JAX library's availability is
+steadied against a build another process runs at the same time:
+``jax_native_available``); ``synthetic_images`` gives JAX's
 bytes and ``synthetic_qstate`` JAX's fields; ``Tracer`` spans nest."""
 import io
 import json
+import os
+import subprocess
+import sys
 import time
 
 import numpy as np
@@ -23,11 +28,12 @@ from ptq4vit_tpu_torch.configs import ptq4vit as pptq4vit
 from ptq4vit_tpu_torch.utils import datasets as P
 from ptq4vit_tpu_torch.utils import synthetic as psyn
 from ptq4vit_tpu_torch.utils.tracing import Tracer, device_trace
-from tests.torch_port_helpers import (SWIN3, TINY, jax_net, jax_swin_net,
-                                      np_fields, port_net)
+from tests.torch_port_helpers import (SWIN3, TINY, jax_native_available,
+                                      jax_net, jax_swin_net, np_fields,
+                                      port_net)
 
 needs_native = pytest.mark.skipif(
-    not (jnative.available() and pnative.available()),
+    not (jax_native_available() and pnative.available()),
     reason="g++/libjpeg unavailable")
 
 
@@ -96,6 +102,7 @@ def test_loaders_match_jax(imagenet_dir):
 def test_vit_calib_batch_matches_jax(imagenet_dir, nets):
     """The model's transform (native where it is available, in both) and
     the seed-3 subset of the train split."""
+    jax_native_available()      # before JAX's transform asks the loader
     jnet, pnet = nets
     gp = P.ViTImageNetLoaderGenerator(imagenet_dir, "imagenet", 4, 4, 2,
                                       kwargs={"model": pnet})
@@ -184,6 +191,56 @@ def test_native_library_lands_in_the_build_dir():
     path = pnative.library_path()
     assert path.startswith(pnative.BUILD_DIR)
     assert path.endswith(".so")
+
+
+_RACE = r"""
+import json, os, sys, time
+root, out, i = sys.argv[1], sys.argv[2], sys.argv[3]
+sys.path.insert(0, root)
+from ptq4vit_tpu import native as jn
+from ptq4vit_tpu_torch import native as pn
+from tests.torch_port_helpers import jax_native_available
+jn._SO = os.path.join(out, "jax", "libptq4vitpp.so")
+pn.BUILD_DIR = os.path.join(out, "port")
+open(os.path.join(out, "ready" + i), "w").close()
+while not os.path.exists(os.path.join(out, "go")):
+    time.sleep(0.005)
+first = jn.available()
+print(json.dumps([first, jax_native_available(), pn.available()]))
+"""
+
+
+def test_jax_native_steadied_under_concurrent_builds(tmp_path):
+    """Six processes ask at once, against empty build directories (the JAX
+    library's path and the port's build dir moved under tmp_path): each
+    process's first JAX call may lose to another's g++, and every one of
+    them reports the library available through jax_native_available."""
+    if not pnative.available():
+        pytest.skip("g++/libjpeg unavailable")
+    (tmp_path / "jax").mkdir()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    n = 6
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _RACE, root, str(tmp_path), str(i)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(n)]
+    try:
+        t0 = time.monotonic()
+        while not all((tmp_path / f"ready{i}").exists() for i in range(n)):
+            assert all(p.poll() is None for p in procs), \
+                [p.communicate()[1][-2000:] for p in procs if p.poll()]
+            assert time.monotonic() - t0 < 240
+            time.sleep(0.02)
+        (tmp_path / "go").touch()
+        outs = [p.communicate(timeout=240) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert all(p.returncode == 0 for p in procs), [e[-2000:] for _, e in outs]
+    res = [json.loads(o.strip().splitlines()[-1]) for o, _ in outs]
+    assert all(steady and port for _, steady, port in res), res
+    assert (tmp_path / "jax" / "libptq4vitpp.so").exists()
 
 
 def test_synthetic_images_are_jax_s():

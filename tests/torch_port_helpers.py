@@ -10,6 +10,7 @@ reference's calibrated intervals.
 """
 import dataclasses
 import os
+import time
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +29,48 @@ from ptq4vit_tpu_torch.models import swin as pswin
 from ptq4vit_tpu_torch.models import vit as pvit
 from ptq4vit_tpu_torch.utils.convert import params_from_numpy
 from tests import test_reference_goldens as G
+
+def jax_native_available(timeout=120.0, settle=0.5):
+    """``ptq4vit_tpu.native.available()``, steadied against a concurrent
+    build.
+
+    The JAX loader has g++ write straight into its library's path
+    (ptq4vit_tpu/native/__init__.py ``_build``), loads whatever file it
+    finds there and caches a failure (``_tried``): a process whose first
+    call meets another process's half-written library reports False for
+    good.  Where the port's own library loads -- so g++ and libjpeg are
+    there; the port builds into a temporary file and renames it -- this
+    waits for the JAX library to settle (present, no older than its
+    source, size and mtime unchanged for ``settle`` seconds), clears the
+    cached failure under the loader's lock and loads once more.  A settled
+    library that still fails to load is broken: False.  Past ``timeout``
+    one last load, which builds a missing library itself."""
+    from ptq4vit_tpu import native as jn
+    from ptq4vit_tpu_torch import native as pn
+
+    def retry():
+        with jn._lock:
+            jn._tried = False
+        return jn.available()
+
+    if jn.available():
+        return True
+    if not pn.available():
+        return False
+    deadline, last = time.monotonic() + timeout, None
+    while time.monotonic() < deadline:
+        try:
+            st = os.stat(jn._SO)
+            sig = (st.st_size, st.st_mtime_ns) \
+                if st.st_mtime >= os.path.getmtime(jn._SRC) else None
+        except OSError:
+            sig = None
+        if sig is not None and sig == last:
+            return retry()
+        last = sig
+        time.sleep(settle)
+    return retry()
+
 
 # One intra-op thread per process: the suite runs in several pytest-xdist
 # workers at once, and PyTorch's OpenMP threads (one per core in every
