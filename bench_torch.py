@@ -40,9 +40,12 @@ stdout contract (every line is JSON; consumers take the LAST one):
      "card" (nvidia-smi's name and power limit), "device" and
      "vs_baseline" (the reference README's own minutes, taken on the
      reference's GPU, over this run's).
-Per-repeat rows go to stderr.  A run that fails anywhere, one repeat
-included, ends in a final row with "value": null and "error", and exits
-non-zero.
+Per-repeat rows go to stderr, each with its minutes, "peak_gib", capture
+and search seconds, "num_groups" (capture passes), "chunked_ops" (ops
+whose search kernels the calibrator ran in candidate chunks) and
+"chunked_calls" (kernel calls so cut).  A run that fails anywhere, one
+repeat included, ends in a final row with "value": null and "error", and
+exits non-zero.
 """
 import dataclasses
 import json
@@ -149,14 +152,17 @@ def make_config(k: Knobs):
 
 def one_run(k: Knobs, net, calib, device):
     """One timed calibration: (minutes, report, qstate on the host,
-    peak GiB or None)."""
+    peak GiB or None, {the ops whose search kernels ran in candidate
+    chunks, the kernel calls cut into chunks})."""
     import torch
     from ptq4vit_tpu_torch.calib.calibrator import HessianQuantCalibrator
+    from ptq4vit_tpu_torch.ops import search_kernels
     from ptq4vit_tpu_torch.utils.convert import qstate_to
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
+    chunked = search_kernels.chunked_calls()
     t0 = time.time()
     calibrator = HessianQuantCalibrator(
         net, make_config(k), calib, sequential=k.sequential, batch_size=4,
@@ -170,7 +176,9 @@ def one_run(k: Knobs, net, calib, device):
                            f"{len(net.op_inventory)}")
     peak = torch.cuda.max_memory_allocated(device) / 2 ** 30 if cuda \
         else None
-    return minutes, calibrator.report, qstate, peak
+    return minutes, calibrator.report, qstate, peak, {
+        "chunked_ops": len(calibrator.scratch_bounds),
+        "chunked_calls": search_kernels.chunked_calls() - chunked}
 
 
 def run(env=None, out=None, err=None):
@@ -233,20 +241,21 @@ def run(env=None, out=None, err=None):
             emit(err, {"metric": metric, "interim": True, "run": i + 1,
                        "error": f"{type(e).__name__}: {e}"[:2000]})
             return failed(f"run {i + 1}: {type(e).__name__}: {e}")
-        minutes, report, _, peak = runs[-1]
+        minutes, report, _, peak, chunks = runs[-1]
         emit(err, {"metric": metric, "interim": True, "run": i + 1,
                    "value": minutes, "unit": "min", "peak_gib": peak,
                    "capture_s": report.capture_seconds,
-                   "search_s": sum(report.search_seconds.values())})
+                   "search_s": sum(report.search_seconds.values()),
+                   "num_groups": report.num_groups, **chunks})
     best = min(range(len(runs)), key=lambda i: runs[i][0])
-    minutes, r, qstate, _ = runs[best]
+    minutes, r, qstate = runs[best][:3]
     warm = sorted(m for m, *_ in runs[1:]) or [runs[0][0]]
     median = warm[len(warm) // 2] if len(warm) % 2 else (
         warm[len(warm) // 2 - 1] + warm[len(warm) // 2]) / 2
     capture_s = r.capture_seconds
     search_s = sum(r.search_seconds.values())
     phases = capture_s + search_s + r.target_seconds + r.sync_seconds
-    peaks = [p for *_, p in runs if p is not None]
+    peaks = [run[3] for run in runs if run[3] is not None]
     row = {
         "metric": metric,
         "value": minutes,

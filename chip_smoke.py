@@ -60,6 +60,18 @@ Phases (any failure raises, so the exit code is non-zero):
      case's [kernel] line also gives its CUDA-core floor (a model, not a
      measurement: the softmax's instructions a logit at the card's issue
      rate, ``cuda_core_floor``; it stays out of the JSON kernels line);
+     each search wrapper's first case again under a scratch bound
+     (``scratch_bound``) that cuts its 100 candidates into chunks of
+     CHUNK = 37 (3 launches): every sim bitwise the whole call's, both
+     timed, the plans of the whole call and of the chunks logged
+     (``chunk_cases``); then the large models' shapes
+     (``large_kernel_phase``), each under its family's rules: B1 twin and
+     B2 post-GELU at ViT-L/384's fc2 (K 4096) and Swin-L/384's stage-4 fc2
+     (K 6144), B3 a at ViT-L's 16 heads, B3f b_sos at Swin-L's stage 1 (6
+     heads) and b at stage 4 (48 heads), B4w / B4a at Swin-B/384's stage-1
+     window rows (4 images); B6 at ViT-L's fc1 / fc2 and Swin-L's stage-1
+     fc1 and stage-4 fc2, B7 int8 SoS at 16 heads, B10 / B11 and B9 int8
+     SoS at Swin-L's stages 1 and 4 (32 images); each call's plan logged;
   4. the ViT path: quantize("vit_base_patch16_384", 8 images, PTQ4ViT W8A8)
      with random weights from a seeded generator; B1, B2 and B3 must be
      launched and every interval finite and positive; serve 4 images with
@@ -159,7 +171,17 @@ Phases (any failure raises, so the exit code is non-zero):
      ServingEngine(mesh=) bitwise phase 7's and Evaluator(mesh=)'s count
      the single device's; [mesh] lines give the backend, ranks -> devices
      and seconds;
-  12. print the kernels' JSON line (the thirteen kernels and the five
+  12. the large models (large_model_phase): ViT-L/384 and Swin-L/384 at
+     full width and depth through quantize (PTQ4ViT W8A8, 8 images,
+     micro-batch 4), B1 / B2 / B3 (Swin: B3f) launched exactly as their
+     inventories need (ViT-L 291 / 291 / 216: 97 linears and 24 + 24
+     matmuls over 3 rounds; Swin-L 300 / 300 / 216), served as phase 4
+     serves, then ServingEngine on 2 requests of 32 images (ViT-L B6 97
+     and B7 24 a request; Swin-L as Swin-B) and the relaxed engine on the
+     first (ViT-L B6 49 exact and 48 relaxed, B7 24 relaxed), under phase
+     7's cosine gates; then Swin-B/384 under exact scoring (B4w / B4a 300
+     each, B1-B3f never) and the flip count against phase 5's qstate;
+  13. print the kernels' JSON line (the thirteen kernels and the five
      relaxed variants), the card line, then the result line.
 Each path is driven with the launch counts set to 0 just before it and
 read just after.
@@ -332,6 +354,39 @@ RELAXED_LAUNCHES = {
         "fused_window_attention_qkv_relaxed": 24, "q8_win_qkv_relaxed": 24,
         "q8_win_proj": 24},
 }
+# the large models (phase 12): ViT-L/384 runs B6 for qkv, proj, fc1 and
+# fc2 of 24 blocks and the head (97), B7 in each block; Swin-L/384 has
+# Swin-B/384's 24 blocks, 3 reductions and head.  Relaxed: qkv and fc1
+# (ViT-L: 48 a request) and the attention run the relaxed variants
+LARGE = ("vit_large_patch16_384", "swin_large_patch4_window12_384")
+LARGE_REQUESTS, LARGE_RELAXED_REQUESTS = 2, 1
+SERVE_LAUNCHES_LARGE = {
+    "vit_large_patch16_384": {"q8_linear": 97, "fused_attention_qkv": 24},
+    "swin_large_patch4_window12_384":
+        SERVE_LAUNCHES["swin_base_patch4_window12_384"]}
+RELAXED_LAUNCHES_LARGE = {
+    "vit_large_patch16_384": {"q8_linear": 49, "q8_linear_relaxed": 48,
+                              "fused_attention_qkv_relaxed": 24},
+    "swin_large_patch4_window12_384":
+        RELAXED_LAUNCHES["swin_base_patch4_window12_384"]}
+# each large model's attention scorer: B3 at ViT's shapes, B3f at Swin's
+LARGE_MATMUL = {"vit_large_patch16_384": "matmul_hessian_sims_b3",
+                "swin_large_patch4_window12_384": "matmul_hessian_sims_b3f"}
+# Swin-B/384 under exact scoring (phase 12): 100 linears x 3 rounds each
+SWIN_EXACT_PATH = "swin_base_patch4_window12_384 exact"
+PATHS.update({
+    "vit_large_patch16_384": (
+        {"linear_w_hessian_sims_i8": None, "linear_a_hessian_sims_i8": None,
+         "matmul_hessian_sims_b3": None}, ()),
+    "swin_large_patch4_window12_384": (
+        {"linear_w_hessian_sims_i8": None, "linear_a_hessian_sims_i8": None,
+         "matmul_hessian_sims_b3f": None}, ()),
+    SWIN_EXACT_PATH: (
+        {"linear_w_hessian_sims": 300, "linear_a_hessian_sims": 300}, INT8),
+})
+# candidates a chunk in the chunked-versus-whole cases (phase 3): odd, so
+# that B3's candidate pairs change places from one chunk to the next
+CHUNK = 37
 # published H100 SXM peaks at 700 W (NVIDIA's data sheet, dense)
 PEAK_OPS = {"int8": 1979e12, "fp32": 67e12}
 PEAK_BYTES = 3.35e12
@@ -557,7 +612,18 @@ def kernel_phase(sk, dev):
         case("matmul_hessian_sims_b3", f"{label} 32 images", args,
              "matmul_hessian_sims_ref")
 
+    stats = measure_search(cases)
+    chunk_cases(sk, cases, stats, dev)
+    return stats
+
+
+def measure_search(cases):
+    """Each search kernel case (kernel, label, args, call, plain call,
+    torch.mm x P or None) against its plain version (``check_sims``),
+    timed beside it, with its bound and share of the peak; returns the
+    stats by kernel, a kernel's first case its headline."""
     stats = {}
+    P = 100
     for kname, label, args, fn, ref_fn, products in cases:
         got = fn()
         ref = ref_fn()
@@ -986,26 +1052,33 @@ def serve_kernel_cases(sv, dev):
     rng = np.random.default_rng(5)
     cases, partial, inputs = [], {}, {}
     for label, m, K, Nn, mode, ln, gelu, out, dt in B6_CASES:
-        args, kw = q8_inputs(rng, m, K, Nn, mode, ln, gelu, out, dt)
-        kw["w_kmaj"] = kmajor_levels(args[1].t())    # as pack_weights keeps it
+        case, args, kw = b6_case(sv, rng, label, m, K, Nn, mode, ln, gelu,
+                                 out, dt)
         inputs[label] = (args, kw)
         if out == "acc":
             partial[label] = (args, kw)
-        twin = mode in ("f_twin", "q8twin")
-        # the int8 levels _int_mm would multiply: (M, K) x (K, N)
-        lv = args[0] if args[0].dtype == torch.int8 else torch.clamp(
-            torch.round(args[0].float() / args[4]), -128, 127) \
-            .to(torch.int8)
-        ops = {"int8": 2 * m * K * Nn * (2 if twin else 1)}
-        cases.append((
-            "q8_linear", label,
-            lambda args=args, kw=kw: sv.q8_linear(*args, **kw),
-            lambda args=args, kw=kw: sv.q8_linear_ref(*args, **kw),
-            call_bytes(args, kw), ops, int_mm_calls(lv, args[1]), None,
-            None))
+        cases.append(case)
     return (cases + epilogue_cases(sv, rng, partial)
             + relaxed_linear_cases(sv, rng, inputs)
             + vit_attention_cases(sv, dev, rng))
+
+
+def b6_case(sv, rng, label, m, K, Nn, mode, ln, gelu, out, dt):
+    """(B6's case as measure_serving takes it, its args, its kwargs) at
+    one of the block's modes (``q8_inputs``), the weight K-major as
+    pack_weights keeps it, beside torch._int_mm on the same levels."""
+    args, kw = q8_inputs(rng, m, K, Nn, mode, ln, gelu, out, dt)
+    kw["w_kmaj"] = kmajor_levels(args[1].t())
+    twin = mode in ("f_twin", "q8twin")
+    # the int8 levels _int_mm would multiply: (M, K) x (K, N)
+    lv = args[0] if args[0].dtype == torch.int8 else torch.clamp(
+        torch.round(args[0].float() / args[4]), -128, 127).to(torch.int8)
+    ops = {"int8": 2 * m * K * Nn * (2 if twin else 1)}
+    return ("q8_linear", label,
+            lambda: sv.q8_linear(*args, **kw),
+            lambda: sv.q8_linear_ref(*args, **kw),
+            call_bytes(args, kw), ops, int_mm_calls(lv, args[1]), None,
+            None), args, kw
 
 
 # the relaxed variants held bitwise to their plain versions, the LayerNorm
@@ -1127,13 +1200,15 @@ def attention_plain(sv, kname, args, kw):
     return out.transpose(1, 2).reshape(Bx, Nx, d3 // 3)
 
 
-def vit_attention_cases(sv, dev, rng):
+def vit_attention_cases(sv, dev, rng, H=12, tag="", full=True):
     """B7 (int8 -> int8 and float -> float, SoS and per-head) and B8
-    (float, SoS) at ViT-B/384 shapes with SERVE_BATCH images, as
-    measure_serving takes them, with SDPA on the same q, k, v as
-    context."""
+    (float, SoS) at ViT-B/384 shapes (``H`` heads of 64: ViT-L/384's 16
+    with ``tag`` before the labels; ``full`` False: the int8 -> int8 SoS
+    case alone) with SERVE_BATCH images, as measure_serving takes them,
+    with SDPA on the same q, k, v as context."""
     from ptq4vit_tpu_torch.quant.qparams import MatMulQP
-    B, N, d, H, hd = SERVE_BATCH, 577, 768, 12, 64
+    B, N, hd = SERVE_BATCH, 577, 64
+    d = H * hd
     qkv = torch.from_numpy(rng.standard_normal((B, N, 3 * d))
                            .astype(np.float32)).to(dev)
     t = qkv.reshape(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
@@ -1146,7 +1221,7 @@ def vit_attention_cases(sv, dev, rng):
     a_out = torch.tensor(0.02, device=dev)
     q4, k4, v4 = (c.contiguous() for c in t)
     cases = []
-    for sos in (True, False):
+    for sos in (True, False) if full else (True,):
         qp2 = MatMulQP(A_interval=(split / 127 if sos else
                                    torch.full(shape, 1 / 127.5, device=dev)),
                        B_interval=hmax(t[2]), split=split if sos else None)
@@ -1157,17 +1232,17 @@ def vit_attention_cases(sv, dev, rng):
                # max, subtract, exp, sum, divide per logit
                "fp32": 5 * B * H * N * N}
         floor = cuda_core_floor(B * H * N * N, sos)
-        tag = "SoS" if sos else "per-head"
+        mode = "SoS" if sos else "per-head"
         sdpa = {"sdpa_ms": lambda: torch.nn.functional
                 .scaled_dot_product_attention(q4, k4, v4)}
         step = attn_level_step(ph, sos)
-        calls = [("fused_attention_qkv", f"int8 in -> int8 out, {tag}",
+        calls = [("fused_attention_qkv", f"{tag}int8 in -> int8 out, {mode}",
                   (lv, H, qp1, qp2, hd ** -0.5),
                   dict(in_q8=True, out_scale=a_out), None),
-                 ("fused_attention_qkv", f"float in -> float out, {tag}",
+                 ("fused_attention_qkv", f"float in -> float out, {mode}",
                   (qkv, H, qp1, qp2, hd ** -0.5), {},
-                  step.repeat_interleave(hd))]
-        if sos:
+                  step.repeat_interleave(hd))][:2 if full else 1]
+        if sos and full:
             calls.append(("fused_attention", "(B, H, N, hd) float, SoS",
                           (q4, k4, v4, qp1, qp2, hd ** -0.5), {},
                           step.reshape(1, H, 1, 1)))
@@ -1175,7 +1250,7 @@ def vit_attention_cases(sv, dev, rng):
         calls += [(k + "_relaxed", f"{label} (relaxed)", args,
                    dict(kw, relaxed=True), st)
                   for k, label, args, kw, st in calls
-                  if k == "fused_attention" or kw.get("in_q8")]
+                  if full and (k == "fused_attention" or kw.get("in_q8"))]
         for kname, label, args, kw, st in calls:
             base = kname.replace("_relaxed", "")
             relaxed = kname != base
@@ -1292,13 +1367,21 @@ def window_linear_inputs(rng, res, C, B=SERVE_BATCH, ws=12, q=128):
     return qkv, proj
 
 
-def window_attention_cases(sv, dev, rng):
+# B9's Swin-B/384 cases: (stage, resolution, heads, shift, modes)
+WINDOW_ATTN_STAGES = ((1, 96, 4, 6, ("int8 SoS", "float SoS",
+                                     "float per-head")),
+                      (4, 12, 32, 0, ("int8 SoS",)))
+
+
+def window_attention_cases(sv, dev, rng, stages=WINDOW_ATTN_STAGES, tag="",
+                           relaxed=True):
     """B9 int8 -> int8 on Swin-B/384 stage 1's shifted block (64 masks) and
     stage 4's one unshifted window (32 heads), and float -> float (SoS and
-    per-head) on stage 1's shifted block, with SERVE_BATCH images (window
-    12: N = 144 tokens, head dim 32), as measure_serving takes them, with
-    SDPA on the float q, k, v and the same additive bias and mask as
-    context."""
+    per-head) on stage 1's shifted block (or the ``stages`` given, with
+    ``tag`` before the labels), with SERVE_BATCH images (window 12: N =
+    144 tokens, head dim 32), as measure_serving takes them, with SDPA on
+    the float q, k, v and the same additive bias and mask as context; with
+    ``relaxed``, the relaxed variant on stage 1's int8 SoS inputs."""
     from ptq4vit_tpu_torch.models.swin import shifted_window_mask
     from ptq4vit_tpu_torch.quant.qparams import MatMulQP
     B, ws, hd, q = SERVE_BATCH, 12, 32, 128
@@ -1312,9 +1395,7 @@ def window_attention_cases(sv, dev, rng):
             .to(torch.int8)
 
     cases = []
-    for stage, res, H, shift, modes in (
-            (1, 96, 4, ws // 2, ("int8 SoS", "float SoS", "float per-head")),
-            (4, 12, 32, 0, ("int8 SoS",))):
+    for stage, res, H, shift, modes in stages:
         C = H * hd
         nW = (res // ws) ** 2
         B_ = B * nW
@@ -1351,7 +1432,7 @@ def window_attention_cases(sv, dev, rng):
                 x, kw, label = qkv, {}, f"{mode}, float -> float"
                 step = attn_level_step(ph, sos).repeat_interleave(hd)
             where = "shifted, 64 masks" if shift else "one window"
-            label = f"stage {stage}, {where}: {label}"
+            label = f"{tag}stage {stage}, {where}: {label}"
             args = (x, H, nW, qp1, qp2, s, bias, mask)
             ref_args = (x, H, nW, ph, split if sos else None, s, bias, mask,
                         kw.get("out_scale"))
@@ -1370,7 +1451,7 @@ def window_attention_cases(sv, dev, rng):
                 {"sdpa_ms": lambda qkv4=(q4, k4, v4), m=sdpa_mask: torch.nn
                  .functional.scaled_dot_product_attention(
                      *qkv4, attn_mask=m)}, step, floor))
-            if stage == 1 and mode == "int8 SoS":
+            if relaxed and stage == 1 and mode == "int8 SoS":
                 # the relaxed variant on the same inputs
                 cases.append((
                     "fused_window_attention_qkv_relaxed", f"{label} (relaxed)",
@@ -1612,9 +1693,13 @@ def window_kernel_phase(sv, dev):
     return measure_serving(window_kernel_cases(sv, dev))
 
 
-def window_kernel_cases(sv, dev):
-    """window_kernel_phase's cases, as measure_serving takes them."""
-    rng = np.random.default_rng(6)
+def window_kernel_cases(sv, dev, stages=WINDOW_STAGES,
+                        attn_stages=WINDOW_ATTN_STAGES, tag="", relaxed=True,
+                        seed=6):
+    """window_kernel_phase's cases, as measure_serving takes them (or at
+    the ``stages`` and ``attn_stages`` given, with ``tag`` before the
+    labels and, without ``relaxed``, no relaxed variant)."""
+    rng = np.random.default_rng(seed)
     B, q = SERVE_BATCH, 128
 
     def levels(x, a):
@@ -1622,20 +1707,20 @@ def window_kernel_cases(sv, dev):
             .to(torch.int8)
 
     cases = []        # as measure_serving takes them
-    for stage, res, C in WINDOW_STAGES:
+    for stage, res, C in stages:
         M = B * res * res
         args, proj_args = window_linear_inputs(rng, res, C)
         x4, w, a = args[0], args[1], args[4]
         lv = levels(x4.reshape(M, C), a)
         kw = dict(a_qmax=q, out_qmax=q, w_kmaj=kmajor_levels(w.t()))
-        cases.append(("q8_win_qkv", f"stage {stage}: LN, quantize -> int8 "
-                      "per column", lambda args=args, kw=kw: sv.q8_win_qkv(
-                          *args, **kw),
+        cases.append(("q8_win_qkv", f"{tag}stage {stage}: LN, quantize -> "
+                      "int8 per column",
+                      lambda args=args, kw=kw: sv.q8_win_qkv(*args, **kw),
                       lambda args=args, kw=kw: sv.q8_win_qkv_ref(
                           *args, **kw), nbytes(args),
                       {"int8": 2 * M * C * 3 * C}, int_mm_calls(lv, w),
                       None, None))
-        if stage == 1:
+        if relaxed and stage == 1:
             # the relaxed variant on the same inputs
             cases.append((
                 "q8_win_qkv_relaxed", f"stage {stage}: LN, quantize -> int8 "
@@ -1649,15 +1734,16 @@ def window_kernel_cases(sv, dev):
         args = proj_args
         y_q, wp = args[0], args[1]
         kw = dict(a_qmax=q, w_kmaj=kmajor_levels(wp.t()))
-        cases.append(("q8_win_proj", f"stage {stage}: int8 in -> + residual "
-                      "(image layout)",
+        cases.append(("q8_win_proj", f"{tag}stage {stage}: int8 in -> + "
+                      "residual (image layout)",
                       lambda args=args, kw=kw: sv.q8_win_proj(*args, **kw),
                       lambda args=args, kw=kw: sv.q8_win_proj_ref(*args,
                                                                   **kw),
                       nbytes(args), {"int8": 2 * M * C * C},
                       int_mm_calls(y_q.reshape(M, C), wp), None, None))
 
-    return cases + window_attention_cases(sv, dev, rng)
+    return cases + window_attention_cases(sv, dev, rng, attn_stages, tag,
+                                          relaxed)
 
 
 def profile_call(fn):
@@ -1689,16 +1775,18 @@ def profile_call(fn):
             "by_kernel": [[k, ms, n] for k, (ms, n) in top]}
 
 
-def serving_phase(sk, sv, name, qcpu):
+def serving_phase(sk, sv, name, qcpu, requests=SERVE_REQUESTS,
+                  relaxed_requests=SERVE_REQUESTS):
     """The serving path of ``name``: the calibration phase's seeded net and
     its qstate (no second calibration), pack_weights, then ServingEngine
-    (bf16) on SERVE_REQUESTS requests of SERVE_BATCH images with the
+    (bf16) on ``requests`` requests of SERVE_BATCH images with the
     launch counts set to 0 just before and read just after, each kernel
-    launched exactly as SERVE_LAUNCHES says; then the fused fp32, exact
-    int8 and fake-quant forwards on the first request, held to each other
-    and the engine's logits to the fused fp32 ones by cosine (>= 0.99),
-    and the img/s of each.  Returns (launches, summary, (net, qstate, the
-    first request on the card))."""
+    launched exactly as SERVE_LAUNCHES (SERVE_LAUNCHES_LARGE) says, then
+    the relaxed engine on the first ``relaxed_requests``; then the fused
+    fp32, exact int8 and fake-quant forwards on the first request, held to
+    each other and the engine's logits to the fused fp32 ones by cosine
+    (>= 0.99), and the img/s of each.  Returns (launches, summary, (net,
+    qstate, the first request on the card))."""
     from ptq4vit_tpu_torch import ServingEngine
     from ptq4vit_tpu_torch.models import get_net
     from ptq4vit_tpu_torch.ops.pack import pack_weights
@@ -1709,7 +1797,7 @@ def serving_phase(sk, sv, name, qcpu):
     size, classes = net.cfg.img_size, net.cfg.num_classes
     reqs = [np.random.default_rng(10 + i).standard_normal(
         (SERVE_BATCH, 3, size, size)).astype(np.float32)
-        for i in range(SERVE_REQUESTS)]
+        for i in range(requests)]
     torch.cuda.synchronize()
     t0 = time.time()
     packed = pack_weights(net.params, qstate)
@@ -1726,16 +1814,19 @@ def serving_phase(sk, sv, name, qcpu):
     wall = time.time() - t0
     launches = {**sk.launch_counts(), **sv.launch_counts()}
     check_exact_launches(path, launches, {
-        k: SERVE_REQUESTS * n for k, n in SERVE_LAUNCHES[name].items()})
+        k: requests * n for k, n in
+        {**SERVE_LAUNCHES, **SERVE_LAUNCHES_LARGE}[name].items()})
     for o in outs:
         if o.shape != (SERVE_BATCH, classes) or not torch.isfinite(
                 o.float()).all():
             raise AssertionError("served logits are not finite "
                                  f"({SERVE_BATCH}, {classes})")
-    n_img = SERVE_BATCH * SERVE_REQUESTS
+    n_img = SERVE_BATCH * requests
     x0 = torch.from_numpy(reqs[0]).cuda()
     ips = {"fused bf16 engine": n_img / wall}
-    relaxed = relaxed_serving(sk, sv, name, net, qstate, reqs, outs)
+    relaxed = relaxed_serving(sk, sv, name, net, qstate,
+                              reqs[:relaxed_requests],
+                              outs[:relaxed_requests])
     ips["relaxed bf16 engine"] = relaxed["img_per_s"]
     # the exact engine again, so the two alternate (exact, relaxed, exact)
     t0 = time.time()
@@ -1766,12 +1857,12 @@ def serving_phase(sk, sv, name, qcpu):
         c = torch.nn.functional.cosine_similarity(la.float(), lb.float(),
                                                   dim=-1)
         cos[f"{a} vs {b}"] = float(c.min())
-    summary = {"path": path, "requests": SERVE_REQUESTS,
+    summary = {"path": path, "requests": requests,
                "batch": SERVE_BATCH, "wall_s": wall, "pack_s": pack_s,
                "img_per_s": ips, "min_cosine": cos, "launches": launches,
                "relaxed": relaxed,
                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-    log(f"[serve] {path}: {SERVE_REQUESTS} requests x {SERVE_BATCH} images "
+    log(f"[serve] {path}: {requests} requests x {SERVE_BATCH} images "
         f"in {wall:.3f} s, pack_weights {pack_s:.3f} s, launches {launches}")
     log(f"[serve] img/s at {SERVE_BATCH} images: " + ", ".join(
         f"{k} {v:.1f}" for k, v in ips.items()))
@@ -1819,7 +1910,8 @@ def relaxed_serving(sk, sv, name, net, qstate, reqs, exact):
     wall = time.time() - t0
     launches = {**sk.launch_counts(), **sv.launch_counts()}
     check_exact_launches(path, launches, {
-        k: SERVE_REQUESTS * n for k, n in RELAXED_LAUNCHES[name].items()})
+        k: len(reqs) * n for k, n in
+        {**RELAXED_LAUNCHES, **RELAXED_LAUNCHES_LARGE}[name].items()})
     r = torch.cat([o.float() for o in outs])
     e = torch.cat([o.float() for o in exact])
     if r.shape != e.shape or not torch.isfinite(r).all():
@@ -1832,7 +1924,7 @@ def relaxed_serving(sk, sv, name, net, qstate, reqs, exact):
                                .mean()),
            "min_cosine": float(torch.nn.functional.cosine_similarity(
                r, e, dim=-1).min())}
-    log(f"[serve] {path}: {SERVE_REQUESTS} requests x {SERVE_BATCH} images "
+    log(f"[serve] {path}: {len(reqs)} requests x {SERVE_BATCH} images "
         f"in {wall:.3f} s ({out['img_per_s']:.1f} img/s), launches "
         f"{launches}; against the exact engine: max shift "
         f"{out['max_shift']:.4f} of max |logit|, mean {out['mean_shift']:.5f}"
@@ -2460,6 +2552,278 @@ def drivers_phase(sk, sv, root):
 
 
 # ---------------------------------------------------------------------------
+# the search kernels' candidate chunks (phase 3), the large models' kernel
+# shapes (phase 3) and their paths (phase 12)
+# ---------------------------------------------------------------------------
+
+def call_scratch(sk, kname, args):
+    """The (fixed, per candidate) scratch bytes and the candidates of a
+    search kernel case's call (``ops/search_kernels.py`` ``*_scratch``)."""
+    if kname.startswith("matmul"):
+        A, B, _, cands, _, mode = args[:6]
+        return sk.matmul_scratch(*A.shape, B.shape[-1], mode), cands.shape[0]
+    if kname == "linear_w_hessian_sims_i8":
+        x_lv, x_neg, w, cands = args[0], args[1], args[4], args[5]
+        n_V = cands.shape[1] if cands.ndim == 2 else 1
+        return sk.linear_w_scratch(*x_lv.shape, w.shape[0], n_V,
+                                   x_neg is not None), cands.shape[0]
+    if kname == "linear_a_hessian_sims_i8":
+        return sk.linear_a_scratch(*args[0].shape, args[1].shape[0],
+                                   args[7]), args[3].shape[0]
+    cands = args[2]
+    if kname == "linear_w_hessian_sims":
+        n_V = cands.shape[1] if cands.ndim == 2 else 1
+        return sk.linear_w_f32_scratch(*args[0].shape, args[1].shape[0],
+                                       n_V), cands.shape[0]
+    return sk.linear_a_f32_scratch(*args[0].shape, args[1].shape[0],
+                                   args[6]), cands.shape[0]
+
+
+def call_plans(sk, kname, args, sizes, dev):
+    """The plan of a search kernel case's call for each candidate count in
+    ``sizes`` (the whole call's, a chunk's): B1 / B2 ``linear_plan``, B4w /
+    B4a ``fp32_plan``, B3 / B3f ``matmul_plan``."""
+    if kname.startswith("matmul"):
+        A, B, mode = args[0], args[1], args[5]
+        return [sk.matmul_plan(*A.shape, B.shape[-1], n, mode)
+                for n in sizes]
+    M, K = args[0].shape
+    if kname == "linear_w_hessian_sims_i8":
+        cands = args[5]
+        n_V = cands.shape[1] if cands.ndim == 2 else 1
+        return [sk.linear_plan("w", M, args[4].shape[0], K, n, n_V,
+                               args[1] is not None) for n in sizes]
+    if kname == "linear_a_hessian_sims_i8":
+        return [sk.linear_plan("a", M, args[1].shape[0], K, n)
+                for n in sizes]
+    kind = "w" if kname == "linear_w_hessian_sims" else "a"
+    twin = kind == "a" and args[6]
+    return [sk.fp32_plan(kind, M, args[1].shape[0], K, n, twin,
+                         sk._num_sms(dev)) for n in sizes]
+
+
+def chunk_cases(sk, cases, stats, dev):
+    """Each search wrapper's first case cut by a scratch bound
+    (``scratch_bound``) into chunks of CHUNK candidates against the whole
+    call: every sim bitwise, one launch a chunk, one chunked call; the
+    plans of the whole call and of the chunks, and both calls' times (the
+    chunks repeat the fixed side's level pre-pass once each) go to the
+    kernel's cases."""
+    seen = set()
+    for kname, label, args, fn, _, _ in cases:
+        if kname in seen:
+            continue
+        seen.add(kname)
+        wrapper = getattr(sk, kname)
+        (fixed, per), P = call_scratch(sk, kname, args)
+        bound = fixed + CHUNK * per
+        sizes = sorted({min(CHUNK, P - p0) for p0 in range(0, P, CHUNK)},
+                       reverse=True)
+
+        def chunked(wrapper=wrapper, args=args, bound=bound):
+            return wrapper(*args, scratch_bound=bound)
+        whole = fn()
+        torch.cuda.synchronize()
+        sk.reset_launch_counts()
+        got = chunked()
+        torch.cuda.synchronize()
+        launches, calls = sk.launch_counts()[kname], sk.chunked_calls()
+        if launches != -(-P // CHUNK) or calls != 1:
+            raise AssertionError(f"{kname} {label}: {launches} launches, "
+                                 f"{calls} chunked calls in chunks of "
+                                 f"{CHUNK} of {P}")
+        if not torch.equal(got, whole):
+            raise AssertionError(
+                f"{kname} {label}: chunks of {CHUNK} differ from the whole "
+                f"call in {int((got != whole).sum())} of {whole.numel()} "
+                "sims")
+        whole_ms, chunk_ms = time_ms(fn, 3, 0), time_ms(chunked, 3, 0)
+        plans = call_plans(sk, kname, args, [P] + sizes, dev)
+        entry = {"case": f"{label}, chunks of {CHUNK} (scratch bound "
+                         f"{bound} bytes)", "bitwise": True,
+                 "launches": launches, "ms": chunk_ms, "whole_ms": whole_ms,
+                 "scratch_bytes": [fixed + P * per, bound],
+                 "plans": [dict(p._asdict(), candidates=n)
+                           for n, p in zip([P] + sizes, plans)]}
+        log(f"[chunks] {kname} {label}: {P} candidates in {launches} "
+            f"chunks of at most {CHUNK}, every sim bitwise the whole "
+            f"call's; scratch {fixed + P * per} -> {bound} bytes; "
+            f"{chunk_ms:.3f} ms against {whole_ms:.3f} ms whole; plans "
+            + "; ".join(f"{n}: {p}" for n, p in zip([P] + sizes, plans)))
+        stats[kname]["cases"].append(entry)
+        del whole, got
+    torch.cuda.empty_cache()
+
+
+def large_search_cases(sk, dev):
+    """Search kernel cases at the shapes the large models bring, as
+    measure_search takes them (4 images, P = 100), each call's plan
+    logged: B1 twin and B2 post-GELU at ViT-L/384's fc2 (K 4096) and
+    Swin-L/384's stage-4 fc2 (K 6144, N 1536); B3 mode a at ViT-L/384's
+    16 heads; B3f b_sos at Swin-L/384's stage 1 (6 heads, 64 windows an
+    image) and b at its stage 4 (48 heads, one window); B4w / B4a at
+    Swin-B/384's stage-1 fc1 (9216 window rows an image)."""
+    from ptq4vit_tpu_torch.quant.fakequant import GELU_NEG_CLIP
+    rng = np.random.default_rng(17)
+    S, P, q = 4, 100, 128
+    grid = np.linspace(0.01, 1.2, P + 1)[:P].astype(np.float32)
+    a_neg = np.float32(GELU_NEG_CLIP / q)
+    i8 = torch.int8
+    cases = []
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    def case(kname, label, args, ref_name=None):
+        fn, ref = getattr(sk, kname), getattr(sk, ref_name or kname + "_ref")
+        cases.append((kname, label, args, lambda: fn(*args),
+                      lambda: ref(*args), None))
+        log(f"[plan] {kname} {label}: "
+            f"{call_plans(sk, kname, args, [P], dev)[0]}")
+
+    for label, M, ic, oc, pg in (
+            ("ViT-L/384 fc2 twin", S * 577, 4096, 1024, True),
+            ("Swin-L/384 stage 4 fc2 twin", S * 144, 6144, 1536, True),
+            ("Swin-B/384 stage 1 fc1", S * 9216, 128, 512, False)):
+        x = rng.standard_normal((M, ic)).astype(np.float32)
+        if pg:
+            x = x * 0.5 * (1 + np.tanh(0.7978845608 * (x + 0.044715 * x ** 3)))
+        w = (rng.standard_normal((oc, ic)) * (2 / (ic + oc)) ** 0.5) \
+            .astype(np.float32)
+        raw = (x @ w.T).astype(np.float32)
+        g = (rng.standard_normal((M, oc)) * 1e-4).astype(np.float32)
+        a = np.float32((x.max() if pg else np.abs(x).max()) / (q - 0.5))
+        x_lv = np.clip(np.round(x / a), 0 if pg else -q, q - 1)
+        w_int = np.float32(np.abs(w).max() / (q - 0.5))
+        w_lv = np.clip(np.round(w / w_int), -q, q - 1)
+        cw, ca = t(grid * w_int), t(grid * a)
+        if not pg:          # B4w / B4a at Swin-B/384's window rows
+            case("linear_w_hessian_sims", label,
+                 (t(x_lv * a), t(w), cw, t(raw), t(g), q))
+            case("linear_a_hessian_sims", label,
+                 (t(x), t(w_lv * w_int), ca, t(raw), t(g), q, False, 0.0))
+            continue
+        x_neg = np.clip(np.round(x / a_neg), -q, 0)
+        case("linear_w_hessian_sims_i8", label,
+             (t(x_lv, i8), t(x_neg, i8), float(a), float(a_neg), t(w), cw,
+              t(raw), t(g), q))
+        case("linear_a_hessian_sims_i8", label,
+             (t(x), t(w_lv, i8), t(np.full(oc, w_int, np.float32)), ca,
+              t(raw), t(g), q, True, GELU_NEG_CLIP / q))
+    for label, S_, G, N, hd, mode in (
+            ("ViT-L/384 matmul1 (16 heads)", S, 16, 577, 64, "a"),
+            ("Swin-L/384 stage 1 matmul2 (6 heads, 64 windows)", S * 64, 6,
+             144, 32, "b_sos"),
+            ("Swin-L/384 stage 4 matmul1 (48 heads, one window)", S, 48,
+             144, 32, "b")):
+        for _, args in matmul_cases(rng, grid, S_, G, N, hd, q, t, (mode,)):
+            fold = sk.mm_fold_factor(G, args[0].shape[-1], args[1].shape[-1])
+            case("matmul_hessian_sims_b3f" if fold > 1
+                 else "matmul_hessian_sims_b3", f"{label} {mode}", args,
+                 "matmul_hessian_sims_ref")
+    return cases
+
+
+# B6 at the large models' shapes with SERVE_BATCH images, as B6_CASES
+LARGE_B6_CASES = (
+    ("ViT-L/384 fc1: LN, quantize -> GELU -> twin int8", SERVE_BATCH * 577,
+     1024, 4096, "f", True, True, "twin", torch.bfloat16),
+    ("ViT-L/384 fc2: twin int8 in -> + residual", SERVE_BATCH * 577, 4096,
+     1024, "q8twin", False, False, "residual", torch.bfloat16),
+    ("Swin-L/384 stage 1 fc1: LN, quantize -> GELU -> twin int8",
+     SERVE_BATCH * 9216, 192, 768, "f", True, True, "twin", torch.bfloat16),
+    ("Swin-L/384 stage 4 fc2: twin int8 in -> + residual",
+     SERVE_BATCH * 144, 6144, 1536, "q8twin", False, False, "residual",
+     torch.bfloat16))
+# B10 / B11 and B9 at Swin-L/384's stages 1 and 4
+LARGE_WINDOW_STAGES = ((1, 96, 192), (4, 12, 1536))
+LARGE_WINDOW_ATTN_STAGES = ((1, 96, 6, 6, ("int8 SoS",)),
+                            (4, 12, 48, 0, ("int8 SoS",)))
+
+
+def large_kernel_phase(sk, sv, dev):
+    """Phase 3's cases at the large models' shapes, each kernel against
+    its plain version under the rules of its family: the search kernels
+    (``large_search_cases``), B6 at ViT-L/384's fc1 / fc2 and Swin-L/384's
+    stage-1 fc1 (C 192) and stage-4 fc2 (K 6144) (each call's q8_plan
+    logged), B7 int8 -> int8 SoS at ViT-L/384's 16 heads, B10 / B11 and B9
+    int8 -> int8 SoS at Swin-L/384's stages 1 (6 heads, shifted) and 4
+    (48 heads, one window), all with SERVE_BATCH images.  Returns the
+    stats by kernel."""
+    stats = measure_search(large_search_cases(sk, dev))
+    rng = np.random.default_rng(18)
+    cases = []
+    for c in LARGE_B6_CASES:
+        cases.append(b6_case(sv, rng, *c)[0])
+        log(f"[plan] q8_linear {c[0]}: "
+            f"{sv.q8_plan(c[1], c[3], c[4], c[7] == 'residual')}")
+    cases += vit_attention_cases(sv, dev, rng, H=16,
+                                 tag="ViT-L/384 16 heads: ", full=False)
+    cases += window_kernel_cases(sv, dev, LARGE_WINDOW_STAGES,
+                                 LARGE_WINDOW_ATTN_STAGES, "Swin-L/384 ",
+                                 relaxed=False, seed=19)
+    merge_stats(stats, measure_serving(cases))
+    return stats
+
+
+def merge_stats(stats, more):
+    """Each kernel's cases of ``more`` after those of ``stats`` (whose
+    first case stays the headline), the worst errors of both."""
+    for k, st in more.items():
+        if k not in stats:
+            stats[k] = st
+            continue
+        stats[k]["cases"] += st["cases"]
+        for key in ("max_abs_err", "max_share_off"):
+            if key in st:
+                stats[k][key] = max(stats[k].get(key, 0.0), st[key])
+
+
+def large_model_phase(sk, sv, q_swin_b):
+    """Phase 12: ViT-L/384 and Swin-L/384 at full width and depth through
+    quantize (PTQ4ViT W8A8, random weights from a seeded generator, 8
+    images, micro-batch 4) with B1 / B2 / B3 (Swin: B3f) launched exactly
+    as their op inventories need (``resume_launches``), served as phase 4
+    serves, then serving_phase on each qstate: LARGE_REQUESTS requests of
+    SERVE_BATCH images through the bf16 ServingEngine and
+    LARGE_RELAXED_REQUESTS through the relaxed one, launches exactly as
+    SERVE_LAUNCHES_LARGE / RELAXED_LAUNCHES_LARGE say, the cosine gates of
+    phase 7; then Swin-B/384 under exact scoring (B4w / B4a 300 each, B1 -
+    B3f never) and its flip count against phase 5's int8-scored qstate
+    ``q_swin_b`` (same net, images and probe).  Returns ({path: launches},
+    the summaries)."""
+    from ptq4vit_tpu_torch.configs import ptq4vit
+    t_phase = time.time()
+    by_path, summaries = {}, []
+    for name in LARGE:
+        qcpu, launches, summary = calibrate_and_serve(name, name, sk)
+        inv = inventory(name)
+        check_exact_launches(name, launches, resume_launches(
+            ptq4vit(), inv, {op for op, _ in inv}, LARGE_MATMUL[name]))
+        by_path[name] = launches
+        summaries.append(summary)
+        launches, summary, (net, qstate, x0, _) = serving_phase(
+            sk, sv, name, qcpu, LARGE_REQUESTS, LARGE_RELAXED_REQUESTS)
+        by_path[summary["path"]] = launches
+        by_path[summary["relaxed"]["path"]] = summary["relaxed"]["launches"]
+        summaries.append(summary)
+        del net, qstate, x0
+        torch.cuda.empty_cache()
+    swin_b = "swin_base_patch4_window12_384"
+    q_exact, by_path[SWIN_EXACT_PATH], summary = calibrate_and_serve(
+        SWIN_EXACT_PATH, swin_b, sk, int8_score=False)
+    flips = flip_count(inventory(swin_b), q_swin_b, q_exact)
+    summary["flips"] = {"by_op_type": flips,
+                        "total": [sum(v[0] for v in flips.values()),
+                                  sum(v[1] for v in flips.values())]}
+    summaries.append(summary)
+    log(f"[flips] int8 vs exact scoring, {swin_b}, {NUM_CALIB} images: "
+        + json.dumps(summary["flips"]))
+    log(f"[large] phase 12: {time.time() - t_phase:.1f} s")
+    return by_path, summaries
+
+
+# ---------------------------------------------------------------------------
 # phase 11: the device mesh (parallel/): ranks over torch.distributed
 # ---------------------------------------------------------------------------
 
@@ -2985,8 +3349,11 @@ def main() -> int:
         return 0
 
     stats = kernel_phase(sk, torch.device("cuda"))
-    serve_stats = serve_kernel_phase(sv, torch.device("cuda"))
-    serve_stats.update(window_kernel_phase(sv, torch.device("cuda")))
+    stats.update(serve_kernel_phase(sv, torch.device("cuda")))
+    stats.update(window_kernel_phase(sv, torch.device("cuda")))
+    # the large shapes after each kernel's phase-3 cases: the first stays
+    # its headline
+    merge_stats(stats, large_kernel_phase(sk, sv, torch.device("cuda")))
 
     from ptq4vit_tpu_torch.calib import search as S
     by_path, summaries, qstates, traces, served = {}, [], {}, {}, {}
@@ -3037,12 +3404,15 @@ def main() -> int:
             launches, summary = phase(sk, sv, root)
             by_path.update(launches)
             summaries.append(summary)
+    launches, summary = large_model_phase(
+        sk, sv, qstates["swin_base_patch4_window12_384"])
+    by_path.update(launches)
+    summaries += summary
     launches, summary = mesh_phase(sk, sv, qstates, traces, by_path, served)
     by_path.update(launches)
     summaries.append(summary)
     log("[paths] " + json.dumps({"card": card, "paths": summaries}))
 
-    stats.update(serve_stats)
     entries = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": sum(c.get(k, 0) for c in by_path.values()),
                 "launches_by_path": {n: c.get(k, 0)

@@ -81,15 +81,26 @@ def tap_bytes(net, calib_n: int, need_grad: bool, store_raw_out: bool,
     return sizes
 
 
-def kernel_scratch_bytes(info, calib_n: int, policy) -> int:
+def kernel_scratch_bytes(info, calib_n: int, policy,
+                         bound: Optional[int] = None) -> int:
     """Device bytes that one call of the op's search kernel allocates
     beyond its caches (``ops/search_kernels.py``): the int8 level buffers
     of B1, B2, B4w or B4a for a linear (B2's and B4a's per-candidate input
     levels dominate) with the fp32 operand B4w / B4a take (the fake-quant
     input, the fake-quant weight), B3 / B3f for a matmul (mode "a" only
     without the SoS quantizer) with its per-warp partial sums; 0 for the
-    conv, whose search is plain tensor code."""
+    conv, whose search is plain tensor code.  This whole-call count (the
+    reserve planned since the kernels came, which leaves out B1 / B2 /
+    B4's partial sums and every kernel's sims, tens of MiB at 128 images)
+    decides whether an op keeps its single call.  With a ``bound`` that
+    one call of every candidate exceeds, the bytes of the wrappers'
+    candidate chunks within it, counted as the wrappers count them
+    (``scratch_terms``)."""
     P = policy.eq_n
+    terms = scratch_terms(info, calib_n, policy)
+    if bound is not None and any(f + P * p > bound for f, p, _ in terms):
+        return max(f + K.candidate_chunk(P, (f, p), bound) * p + e
+                   for f, p, e in terms)
     if info["kind"] == "linear":
         ic, oc = info["in_features"], info["out_features"]
         M, kp = info["tokens"] * calib_n, K.k_pad(ic)
@@ -108,6 +119,69 @@ def kernel_scratch_bytes(info, calib_n: int, policy) -> int:
             return mode_b + partial
         return max(P * Z * R * kp + Z * C * kp, mode_b) + partial  # a, b
     return 0
+
+
+def scratch_terms(info, calib_n: int, policy):
+    """[(fixed, per candidate, beside)] bytes of each search kernel the
+    op's search may call: the wrapper's scratch (``ops/search_kernels.py``
+    ``*_scratch``; the post-GELU twin's where the op may have one) and the
+    fp32 operand the search makes for it (B4w's fake-quant input, B4a's
+    fake-quant weight).  None for the conv."""
+    if info["kind"] == "linear":
+        ic, oc = info["in_features"], info["out_features"]
+        M = info["tokens"] * calib_n
+        return [K.linear_w_scratch(M, ic, oc, policy.n_V, True) + (0,),
+                K.linear_a_scratch(M, ic, oc, True) + (0,),
+                K.linear_w_f32_scratch(M, ic, oc, policy.n_V) + (4 * M * ic,),
+                K.linear_a_f32_scratch(M, ic, oc, True) + (4 * oc * ic,)]
+    if info["kind"] == "matmul":
+        dims = (info.get("windows", 1) * calib_n, info["heads"],
+                info["rows"], info["inner"], info["cols"])
+        modes = (("b_sos",) if policy.quantizer == "sos_matmul"
+                 else ("a", "b"))
+        return [K.matmul_scratch(*dims, m) + (0,) for m in modes]
+    return []
+
+
+def plan_scratch(op_shapes, calib_n: int, policies, work, caches,
+                 room: int, fixed: int):
+    """Each op's kernel scratch bound and the bytes a search needs beside
+    a capture group's caches.
+
+    An op searched with one kernel call of every candidate needs its fp32
+    working set ``work[op]``, ``fixed`` bytes (the candidate-chunk search
+    budget and the capture reserve) and ``kernel_scratch_bytes`` beside
+    its own caches ``caches[op]``.  Where that exceeds the ``room`` the
+    calibration may use, the op's kernels run in candidate chunks within
+    a bound: half of what is left beside its working set and caches (the
+    other half stays for the rest of its capture group's caches), less
+    the fp32 operand B4w / B4a take, and at least one candidate's
+    scratch.  Where even that does not fit, it raises a MemoryError naming
+    the op and the bytes, before any capture.  Returns ({op: bound} of the
+    chunked ops, {op: the bytes its search needs beside the caches})."""
+    bounds, needs = {}, {}
+    for name, pol in policies.items():
+        info = op_shapes[name]
+        base = work[name] + fixed
+        scratch = kernel_scratch_bytes(info, calib_n, pol)
+        if base + scratch + caches[name] > room:
+            terms = scratch_terms(info, calib_n, pol)
+            one = max((f + p for f, p, _ in terms), default=0)
+            left = room - base - caches[name]
+            bound = max(one, left // 2 - max((e for *_, e in terms),
+                                             default=0))
+            scratch = kernel_scratch_bytes(info, calib_n, pol, bound)
+            if base + scratch + caches[name] > room:
+                raise MemoryError(
+                    f"{name}: one candidate's kernel scratch "
+                    f"({max((f + p + e for f, p, e in terms), default=0)} "
+                    f"bytes), its caches ({caches[name]} bytes) and its "
+                    f"search working set ({base} bytes) exceed the "
+                    f"{room} bytes of device memory the calibration may "
+                    "use")
+            bounds[name] = bound
+        needs[name] = base + scratch
+    return bounds, needs
 
 
 def resolve_cache_dtype(cache_dtype, device: torch.device):
@@ -206,6 +280,10 @@ class HessianQuantCalibrator:
         if sequential:
             self.wrapped_modules = reference_wrap_order(self.wrapped_modules)
         self.report = CalibReport(model=net.name, config=quant_cfg.name)
+        self.scratch_bounds: Dict[str, int] = {}
+        self.search_needs: Dict[str, int] = {}
+        self._op_cache_bytes: Dict[str, int] = {}
+        self._sharing, self._tight = 1, False
 
     # -- checkpoint / resume (calibrator.py:207-235) ------------------------
     def _ckpt_path(self, name: str) -> Optional[str]:
@@ -261,50 +339,88 @@ class HessianQuantCalibrator:
         os.makedirs(self.checkpoint_dir, exist_ok=True)
         save_op_qp(p, qp, scope=self._ckpt_scope(mtype))
 
-    def _group_budget(self, need_grad: bool, policies, need: int = 0) -> int:
-        """Cache bytes one capture group may hold: an explicit
-        ``cache_budget_bytes``; 48 GiB of host memory for host-held caches;
-        else the free device memory less the largest search working set
-        (its caches in fp32, its kernel's level buffers, the candidate-chunk
-        scratch) and 1 GiB for the capture forward and backward.  When that
-        cannot hold the ``need`` bytes of caches in one group and
-        PyTorch's caching allocator holds blocks with no tensor in them (an
-        earlier calibration in this process leaves them, and the driver
-        counts them as used), they go back to the driver and the free
+    def _plan_search(self, need_grad: bool, policies, need: int = 0) -> int:
+        """On the card, the device bytes the calibration may use (85% of
+        the free memory) and each op's search planned in them
+        (``plan_scratch``): ``self.scratch_bounds`` holds the ops whose
+        kernels run in candidate chunks, ``self.search_needs`` each op's
+        search bytes beside the caches (its caches in fp32, its kernel's
+        level buffers, the candidate-chunk scratch, 1 GiB for the capture
+        forward and backward); an op that cannot fit raises here, before
+        any capture.  When the room less the largest whole search cannot
+        hold the ``need`` bytes of caches in one group and PyTorch's
+        caching allocator holds blocks with no tensor in them (an earlier
+        calibration in this process leaves them, and CUDA counts them as
+        used), they are released (``torch.cuda.empty_cache``) and the free
         memory is read again.  Over a mesh it plans on this rank's samples
         and its share of a card that ranks share, and the ranks take the
-        smallest budget, so they plan the same groups."""
+        smallest room, so they plan the same groups.  Returns the room (0
+        off the card, where nothing is planned)."""
+        self.scratch_bounds, self.search_needs = {}, {}
+        self._op_cache_bytes, self._sharing, self._tight = {}, 1, False
+        if self.device.type != "cuda":
+            return 0
+        n = self._local_samples()
+        work = tap_bytes(self.net, n, need_grad, True, 4)
+        elem = torch.tensor([], dtype=self.cache_dtype).element_size()
+        caches = tap_bytes(self.net, n, need_grad, False, elem)
+        fixed = self.search_budget + (1 << 30)
+        whole = max(work[name] + kernel_scratch_bytes(
+            self.net.op_shapes[name], n, policies[name])
+            for name in policies) + fixed
+
+        if self.mesh is not None:
+            # the ranks on this card (its free memory is theirs together)
+            idx = torch.tensor([torch.cuda.current_device()],
+                               device=self.device)
+            self._sharing = int(
+                (all_gather(idx, self.mesh, "data") == idx).sum())
+
+        def room():
+            free, _ = torch.cuda.mem_get_info(self.device)
+            return int(0.85 * free / self._sharing)
+        out = room()
+        if out - whole < need and torch.cuda.memory_reserved(self.device) > \
+                torch.cuda.memory_allocated(self.device):
+            torch.cuda.empty_cache()
+            out = room()
+        if self.mesh is not None:
+            out = int(pmin(torch.tensor([out], device=self.device),
+                           self.mesh, "data"))
+        self.scratch_bounds, self.search_needs = plan_scratch(
+            self.net.op_shapes, n, policies, work, caches, out, fixed)
+        self._op_cache_bytes = caches
+        # every cache in one capture group and no op chunked: the card has
+        # room, and the allocator's free blocks stay cached throughout
+        self._tight = bool(self.scratch_bounds) or sum(caches.values()) + \
+            max(self.search_needs.values(), default=0) > out
+        return out
+
+    def _group_budget(self, room: int) -> int:
+        """Cache bytes one capture group may hold: an explicit
+        ``cache_budget_bytes``; 48 GiB of host memory for host-held caches;
+        8 GiB off the card; else the ``room`` (``_plan_search``) less the
+        largest search's needs."""
         if self.cache_budget is not None:
             return self.cache_budget
         if not self.device_resident:
             return 48 << 30
         if self.device.type != "cuda":
             return 8 << 30
-        n = self._local_samples()
-        work = tap_bytes(self.net, n, need_grad, True, 4)
-        reserve = max(work[name] + kernel_scratch_bytes(
-            self.net.op_shapes[name], n, policies[name])
-            for name in policies) + self.search_budget + (1 << 30)
+        return max(0, room - max(self.search_needs.values(), default=0))
 
-        sharing = 1
-        if self.mesh is not None:
-            # the ranks on this card (its free memory is theirs together)
-            idx = torch.tensor([torch.cuda.current_device()],
-                               device=self.device)
-            sharing = int((all_gather(idx, self.mesh, "data") == idx).sum())
-
-        def budget():
-            free, _ = torch.cuda.mem_get_info(self.device)
-            return max(1 << 30, int(0.85 * free / sharing) - reserve)
-        out = budget()
-        if out < need and torch.cuda.memory_reserved(self.device) > \
-                torch.cuda.memory_allocated(self.device):
+    def _release_unless_free(self, need: int):
+        """In a tight plan (``_plan_search``: ops chunked, or the caches
+        in more than one capture group), return the caching allocator's
+        free blocks to the driver where the driver's free memory (this
+        rank's share of the card) cannot hold ``need`` bytes.  There, a
+        tensor carved from an earlier search's freed scratch block would
+        pin the whole block, and a later search's scratch would find no
+        room beside it (ROADMAP C10).  Elsewhere the blocks stay cached
+        and the driver is not asked."""
+        if self._tight and need > torch.cuda.mem_get_info(
+                self.device)[0] // self._sharing:
             torch.cuda.empty_cache()
-            out = budget()
-        if self.mesh is not None:
-            out = int(pmin(torch.tensor([out], device=self.device),
-                           self.mesh, "data"))
-        return out
 
     def _local_samples(self) -> int:
         """The calibration samples this rank captures."""
@@ -331,14 +447,16 @@ class HessianQuantCalibrator:
         todo = [(name, mtype) for name, mtype in self.wrapped_modules
                 if name not in qstate]
         if self.sequential:
+            # one op's caches at a time: only the kernel scratch to plan
+            self._plan_search(need_grad, policies)
             self.report.setup_seconds = time.time() - t_setup
             return self._sequential_calib(qstate, todo, policies, need_grad,
                                           verbose)
         elem = torch.tensor([], dtype=self.cache_dtype).element_size()
         sizes = tap_bytes(self.net, self._local_samples(), need_grad, False,
                           elem)
-        budget = self._group_budget(need_grad, policies,
-                                    sum(sizes[name] for name, _ in todo))
+        budget = self._group_budget(self._plan_search(
+            need_grad, policies, sum(sizes[name] for name, _ in todo)))
         groups: List[List[str]] = []
         acc = 0
         for name, _ in todo:
@@ -403,7 +521,14 @@ class HessianQuantCalibrator:
 
     def _capture(self, ops, need_grad: bool, **kw):
         """One capture pass over ``ops``; its seconds and the peak device
-        memory by its end go to the report."""
+        memory by its end go to the report.  Where the driver's free
+        memory cannot hold the group's caches and its largest search, the
+        caching allocator's free blocks are released first
+        (``_release_unless_free``)."""
+        if self._tight:
+            self._release_unless_free(
+                sum(self._op_cache_bytes[op] for op in ops)
+                + max(self.search_needs[op] for op in ops))
         t0 = time.time()
         raw = capture(self.net, self.calib_x, batch_size=self.batch_size,
                       need_grad=need_grad, probe_sigma=self.probe_sigma,
@@ -424,7 +549,10 @@ class HessianQuantCalibrator:
 
     def _search_one(self, name: str, mtype: str, policy, cap, verbose: bool):
         """Search one op (its host-held caches moved to the device first);
-        its seconds go to the report."""
+        its seconds go to the report.  Where the driver's free memory
+        cannot hold the search's planned bytes, the caching allocator's
+        free blocks are released first (``_release_unless_free``)."""
+        self._release_unless_free(self.search_needs.get(name, 0))
         t0 = time.time()
         if not self.device_resident:
             cap = cap_to(cap, self.device)
@@ -438,17 +566,20 @@ class HessianQuantCalibrator:
         return qp
 
     def _search_op(self, name: str, mtype: str, policy, cap):
+        bound = self.scratch_bounds.get(name)
         if "qmatmul" in mtype:
             return S.search_matmul(cap, policy, self.search_budget,
                                    int8_score=self.int8_score,
-                                   use_kernels=self.use_kernels)
+                                   use_kernels=self.use_kernels,
+                                   scratch_bound=bound)
         w, b = params_for_op(self.net.params, name)
         if mtype == "qconv":
             return S.search_conv(w, b, cap, policy, self.search_budget)
         return S.search_linear(w, b, cap, policy, self.search_budget,
                                calib_bs=self.batch_size,
                                int8_score=self.int8_score,
-                               use_kernels=self.use_kernels)
+                               use_kernels=self.use_kernels,
+                               scratch_bound=bound)
 
 
 # the reference's base class name (quant_calib.py:9)

@@ -262,12 +262,13 @@ def _pearson_a(raw, sim, mean):
 
 def _linear_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
                    bs: int, kern_w: bool, kern_a: bool, int8_score: bool,
-                   shard=None, mean=None):
+                   shard=None, mean=None, scratch_bound=None):
     """calibration_step2 of a linear layer (reference linear.py:536-555).
     x: (S, T, ic); raw_out / raw_grad: (S, T, oc) or None.  ``kern_w`` /
     ``kern_a``: the weight / input side scores through a kernel.
     ``shard``: x holds this rank's samples; ``mean``: the pearson chunk
-    mean (``_chunk_mean``)."""
+    mean (``_chunk_mean``); ``scratch_bound``: the kernels' candidate-chunk
+    bound (``ops/search_kernels.py``)."""
     x = x.float()
     if raw_out is None:
         raw_out = torch.matmul(x, w.t())
@@ -334,11 +335,12 @@ def _linear_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
                                    a_qmax - 1).to(torch.int8)
                 x_neg = None
             sims = K.linear_w_hessian_sims_i8(
-                x_lv, x_neg, a_sc, a_neg, w, cands, rawb, grad_f, w_qmax)
+                x_lv, x_neg, a_sc, a_neg, w, cands, rawb, grad_f, w_qmax,
+                scratch_bound=scratch_bound)
         else:
             x_sim = _quant_act_linear(x2, a_int, a_neg, policy).contiguous()
             sims = K.linear_w_hessian_sims(x_sim, w, cands, rawb, grad_f,
-                                           w_qmax)
+                                           w_qmax, scratch_bound=scratch_bound)
         return fq.exact_div(_sum(shard, sims), float(T * crb_r))
 
     def score_w(w_int, a_int, h):
@@ -382,13 +384,14 @@ def _linear_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
                 .reshape(oc).contiguous()
             sims = K.linear_a_hessian_sims_i8(
                 x2, w_lv, w_sc, cands, rawb, grad_f, a_qmax,
-                postgelu=postgelu, a_neg=a_neg_f)
+                postgelu=postgelu, a_neg=a_neg_f, scratch_bound=scratch_bound)
         else:
             w_sim = fq.fake_quant_weight_blocked(w, w_int, w_qmax) \
                 .contiguous()
             sims = K.linear_a_hessian_sims(x2, w_sim, cands, rawb, grad_f,
                                            a_qmax, postgelu=postgelu,
-                                           a_neg=a_neg_f)
+                                           a_neg=a_neg_f,
+                                           scratch_bound=scratch_bound)
         return fq.exact_div(_sum(shard, sims), float(T * oc))
 
     def score_a(w_int, a_int, a):
@@ -473,9 +476,12 @@ def _pearson_chunks(eq_n: int, S: int, width: int, budget: int,
 def search_linear(w, b, cap, policy: OpPolicy, budget: int = DEFAULT_BUDGET,
                   calib_bs: Optional[int] = None,
                   int8_score: Optional[bool] = None,
-                  use_kernels: Optional[bool] = None) -> LinearQP:
+                  use_kernels: Optional[bool] = None,
+                  scratch_bound: Optional[int] = None) -> LinearQP:
     """Calibrate a linear op from its captured data.  ``calib_bs`` pins the
-    batch chunk of the pearson metric (see the module docstring)."""
+    batch chunk of the pearson metric (see the module docstring);
+    ``scratch_bound`` bounds each kernel call's scratch (None: one call of
+    every candidate)."""
     x = cap.inputs["x"]
     dev = x.device
     int8_score, use_kernels = _defaults(dev, int8_score, use_kernels)
@@ -505,7 +511,8 @@ def search_linear(w, b, cap, policy: OpPolicy, budget: int = DEFAULT_BUDGET,
     else:
         P, bs = plan_chunks(policy.eq_n, S, width, budget)
     w_int, a_int = _linear_search(w, b, x, raw_out, grad, policy, P, bs,
-                                  kern_w, kern_a, int8_score, shard, mean)
+                                  kern_w, kern_a, int8_score, shard, mean,
+                                  scratch_bound)
     postgelu = policy.quantizer == "postgelu_linear"
     a_qmax = fq.qmax_for_bit(policy.a_bit)
     return LinearQP(
@@ -565,12 +572,13 @@ def _split_sims(splits, Ab, Bb, rb, gb, A_qmax: int, metric: str,
 
 
 def _matmul_search(A, B, raw_out, raw_grad, policy: OpPolicy, P: int,
-                   bs: int, kernels: bool, shard=None):
+                   bs: int, kernels: bool, shard=None, scratch_bound=None):
     """calibration_step2 of an A@B op with head-wise groups and
     n_V = n_H = 1 (reference matmul.py:565-576) under int8 scoring: B3 /
     B3f, or the int8 XLA branch's levels with one rescale (exact scoring
     runs ``_matmul_blocked_search``).  A: (S,G,R,Ci); B: (S,G,Ci,Co);
-    raw_out / raw_grad: (S,G,R,Co) or None."""
+    raw_out / raw_grad: (S,G,R,Co) or None; ``scratch_bound``: the
+    kernel's candidate-chunk bound."""
     S, G, R, Ci = A.shape
     Co = B.shape[-1]
     dev = A.device
@@ -620,7 +628,8 @@ def _matmul_search(A, B, raw_out, raw_grad, policy: OpPolicy, P: int,
         if kernels:
             sims = K.matmul_hessian_sims(
                 A_raw, B_raw, grad_raw, A_cands.reshape(eq_n, G).contiguous(),
-                B_int.reshape(G), "a", A_qmax, B_qmax)
+                B_int.reshape(G), "a", A_qmax, B_qmax,
+                scratch_bound=scratch_bound)
             return fq.exact_div(_sum(shard, sims), float(R * Co))
         # the fixed side as levels; ONE rescale after the exact dot
         # (search.py:649-677)
@@ -652,12 +661,14 @@ def _matmul_search(A, B, raw_out, raw_grad, policy: OpPolicy, P: int,
                     A_raw, B_raw, grad_raw,
                     B_cands.reshape(eq_n, G).contiguous(),
                     torch.ones(G, device=dev), "b_sos", B_qmax, A_qmax,
-                    sos=(a_state, a_int, s_hi, a_int))
+                    sos=(a_state, a_int, s_hi, a_int),
+                    scratch_bound=scratch_bound)
             else:
                 sims = K.matmul_hessian_sims(
                     A_raw, B_raw, grad_raw,
                     B_cands.reshape(eq_n, G).contiguous(),
-                    a_state.reshape(G), "b", B_qmax, A_qmax)
+                    a_state.reshape(G), "b", B_qmax, A_qmax,
+                    scratch_bound=scratch_bound)
             return fq.exact_div(_sum(shard, sims), float(R * Co))
         if sos:                              # two level sets (:717-751)
             A_fix = [_sos_levels(a_s, a_state, A_qmax)[:2] for a_s in Ab]
@@ -829,9 +840,11 @@ def _matmul_blocked_search(A, B, raw_out, raw_grad, policy: OpPolicy,
 
 def search_matmul(cap, policy: OpPolicy, budget: int = DEFAULT_BUDGET,
                   int8_score: Optional[bool] = None,
-                  use_kernels: Optional[bool] = None) -> MatMulQP:
+                  use_kernels: Optional[bool] = None,
+                  scratch_bound: Optional[int] = None) -> MatMulQP:
     """Calibrate an A@B op (head-wise groups) from its captured data;
-    ``cap.out=None`` recomputes raw_out as A@B."""
+    ``cap.out=None`` recomputes raw_out as A@B; ``scratch_bound`` bounds
+    each kernel call's scratch (None: one call of every candidate)."""
     A, B = cap.inputs["a"], cap.inputs["b"]
     dev = A.device
     int8_score, use_kernels = _defaults(dev, int8_score, use_kernels)
@@ -858,7 +871,7 @@ def search_matmul(cap, policy: OpPolicy, budget: int = DEFAULT_BUDGET,
         kernels = _scorer(dev, use_kernels, policy.metric == "hessian",
                           "matmul")
         a_state, B_int = _matmul_search(A, B, cap.out, grad, policy, P, bs,
-                                        kernels, cap.shard)
+                                        kernels, cap.shard, scratch_bound)
     A_qmax = fq.qmax_for_bit(policy.a_bit)
     if policy.quantizer == "sos_matmul":
         return MatMulQP(A_interval=fq.exact_div(a_state, A_qmax - 1),

@@ -24,6 +24,15 @@ fake-quant values, as the kernels do, summed in another order.  B3 and B3f
 compute the same function, so both have ``matmul_hessian_sims_ref`` as
 their plain version.  Each kernel wrapper counts its kernel launches in
 ``<function>.launches``.
+
+Every wrapper takes ``scratch_bound``: the bytes its level buffers,
+partial sums and sims may hold at once (None: no bound).  Where one call
+of all P candidates would exceed it, the wrapper cuts the candidates into
+chunks (``candidate_chunk``), runs the kernel once a chunk and joins the
+sims in order (``in_chunks``); a candidate's sim does not depend on the
+others of its launch, so the chunked call equals the whole call bitwise.
+``*_scratch`` give a call's bytes as (fixed, per candidate); the
+calibrator plans with them (``calib/calibrator.kernel_scratch_bytes``).
 """
 from __future__ import annotations
 
@@ -300,6 +309,83 @@ def mm_fold_factor(G: int, Ci: int, Co: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# candidate chunks: the scratch of a call and its bound
+# ---------------------------------------------------------------------------
+
+def linear_w_scratch(M: int, ic: int, oc: int, n_V: int = 1,
+                     twin: bool = False):
+    """B1's scratch as (fixed, per candidate) bytes: the input levels (and
+    the twin's negative levels); per candidate the weight levels, the
+    per-block partial sums and the sims."""
+    kp, parts = k_pad(ic), -(-M // LQ_ROWS) * -(-oc // LQ_ROWS)
+    return (2 if twin else 1) * M * kp, oc * kp + 4 * n_V * (parts + 1)
+
+
+def linear_a_scratch(M: int, ic: int, oc: int, postgelu: bool = False):
+    """B2's scratch as (fixed, per candidate) bytes: the weight levels
+    (and the post-GELU negative input levels); per candidate the input
+    levels, the partial sums and the sim."""
+    kp, parts = k_pad(ic), -(-M // LQ_ROWS) * -(-oc // LQ_ROWS)
+    return oc * kp + (M * kp if postgelu else 0), M * kp + 4 * (parts + 1)
+
+
+def linear_w_f32_scratch(M: int, ic: int, oc: int, n_V: int = 1):
+    """B4w's scratch as (fixed, per candidate) bytes."""
+    parts = -(-M // F_TILE) * -(-oc // F_TILE)
+    return 0, oc * k_pad(ic) + 4 * n_V * (parts + 1)
+
+
+def linear_a_f32_scratch(M: int, ic: int, oc: int, postgelu: bool = False):
+    """B4a's scratch as (fixed, per candidate) bytes."""
+    kp, parts = k_pad(ic), -(-M // F_TILE) * -(-oc // F_TILE)
+    return (M * kp if postgelu else 0), M * kp + 4 * (parts + 1)
+
+
+def matmul_scratch(S: int, G: int, R: int, Ci: int, Co: int, mode: str):
+    """B3's / B3f's scratch as (fixed, per candidate) bytes: the fixed
+    side's levels (two sets in "b_sos"); per candidate its side's levels,
+    the per-warp partial sums and the sims of G heads."""
+    kp, Z = k_pad(Ci), S * G
+    parts = S * -(-R // MM_ROWS) * -(-Co // mm_width(Co)) * MM_WARPS
+    tail = 4 * G * (parts + 1)
+    if mode == "a":
+        return Z * Co * kp, Z * R * kp + tail
+    return (2 if mode == "b_sos" else 1) * Z * R * kp, Z * Co * kp + tail
+
+
+def candidate_chunk(P: int, scratch, bound: Optional[int]) -> int:
+    """The candidates one launch takes so that its scratch, ``scratch`` =
+    (fixed, per candidate) bytes, stays within ``bound`` bytes: all P where
+    they fit (or ``bound`` is None), else as many as fit; a bound below
+    one candidate's scratch raises."""
+    fixed, per = scratch
+    if bound is None or fixed + P * per <= bound:
+        return P
+    if fixed + per > bound:
+        raise ValueError(f"a scratch bound of {bound} bytes holds no "
+                         f"candidate ({fixed} bytes and {per} a candidate)")
+    return (bound - fixed) // per
+
+
+def in_chunks(fn, cands, chunk: int):
+    """``fn`` on the candidates (first axis of ``cands``) in chunks of
+    ``chunk``, the results joined in order; one call where they fit.  The
+    calls cut into chunks are counted in ``in_chunks.calls``."""
+    P = cands.shape[0]
+    if chunk >= P:
+        return fn(cands)
+    in_chunks.calls += 1
+    return torch.cat([fn(cands[p0:p0 + chunk].contiguous())
+                      for p0 in range(0, P, chunk)])
+
+
+def chunked_calls() -> int:
+    """Wrapper calls cut into candidate chunks since the last
+    ``reset_launch_counts``."""
+    return in_chunks.calls
+
+
+# ---------------------------------------------------------------------------
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
 
@@ -508,26 +594,30 @@ def _levels_scratch(shape, device):
 
 
 def linear_w_hessian_sims_i8(x_lv, x_neg_lv, a, a_neg, w, cands,
-                             raw_minus_bias, grad, qmax: int):
+                             raw_minus_bias, grad, qmax: int,
+                             scratch_bound: Optional[int] = None):
     """B1: int8-scored weight-interval search (n_a = 1).
 
     x_lv, x_neg_lv: (M, ic) int8 input levels (x_neg_lv None unless the
     post-GELU twin); a, a_neg: input scales; w: (oc, ic) fp32;
     cands: (P,) or (P, n_V) with oc % n_V == 0; raw_minus_bias, grad:
-    (M, oc) fp32.  Returns (P,) or (P, n_V)."""
-    if not w.is_cuda:
-        return linear_w_hessian_sims_i8_ref(x_lv, x_neg_lv, a, a_neg, w,
-                                            cands, raw_minus_bias, grad, qmax)
-    from .build import load
-    lib = load()
-    dev = w.device
+    (M, oc) fp32; scratch_bound: see the module docstring.  Returns (P,)
+    or (P, n_V)."""
     M, ic = x_lv.shape
     oc = w.shape[0]
     squeeze = cands.ndim == 1
     c2 = (cands[:, None] if squeeze else cands).contiguous()
     P, n_V = c2.shape
+    chunk = candidate_chunk(P, linear_w_scratch(
+        M, ic, oc, n_V, x_neg_lv is not None), scratch_bound)
+    if not w.is_cuda:
+        out = in_chunks(lambda c: linear_w_hessian_sims_i8_ref(
+            x_lv, x_neg_lv, a, a_neg, w, c, raw_minus_bias, grad, qmax),
+            c2, chunk)
+        return out[:, 0] if squeeze else out
     if oc % n_V or n_V > 256:
         raise ValueError(f"n_V={n_V} must divide oc={oc} and be <= 256")
+    dev = w.device
     _check(x_lv, "x_lv", torch.int8, (M, ic), dev)
     if x_neg_lv is not None:
         _check(x_neg_lv, "x_neg_lv", torch.int8, (M, ic), dev)
@@ -535,134 +625,165 @@ def linear_w_hessian_sims_i8(x_lv, x_neg_lv, a, a_neg, w, cands,
     _check(c2, "cands", torch.float32, (P, n_V), dev)
     _check(raw_minus_bias, "raw_minus_bias", torch.float32, (M, oc), dev)
     _check(grad, "grad", torch.float32, (M, oc), dev)
+    from .build import load
+    lib = load()
     kp = lib.ptq_k_pad(ic)
     lx = _levels_scratch((M, kp), dev)
     lxn = _levels_scratch((M, kp), dev) if x_neg_lv is not None else None
-    lw = _levels_scratch((P, oc, kp), dev)
-    plan = linear_plan("w", M, oc, ic, P, n_V, x_neg_lv is not None)
-    partial = torch.empty(lib.ptq_linear_num_partials(M, oc) * P * n_V,
-                          dtype=torch.float32, device=dev)
-    out = torch.empty(P, n_V, dtype=torch.float32, device=dev)
-    _launch(lib.ptq_linear_w_sims, _ptr(x_lv), _ptr(x_neg_lv), _ptr(w),
-            _ptr(c2), _ptr(raw_minus_bias), _ptr(grad), float(a),
-            float(a_neg) if a_neg is not None else 1.0, M, ic, oc, P, n_V,
-            qmax, int(plan.resident), plan.stages, plan.pc, plan.nbl,
-            _ptr(lx), _ptr(lxn), _ptr(lw), _ptr(partial), _ptr(out),
-            _stream())
-    linear_w_hessian_sims_i8.launches += 1
+
+    def launch(c):
+        Pc = c.shape[0]
+        lw = _levels_scratch((Pc, oc, kp), dev)
+        plan = linear_plan("w", M, oc, ic, Pc, n_V, x_neg_lv is not None)
+        partial = torch.empty(lib.ptq_linear_num_partials(M, oc) * Pc * n_V,
+                              dtype=torch.float32, device=dev)
+        out = torch.empty(Pc, n_V, dtype=torch.float32, device=dev)
+        _launch(lib.ptq_linear_w_sims, _ptr(x_lv), _ptr(x_neg_lv), _ptr(w),
+                _ptr(c), _ptr(raw_minus_bias), _ptr(grad), float(a),
+                float(a_neg) if a_neg is not None else 1.0, M, ic, oc, Pc,
+                n_V, qmax, int(plan.resident), plan.stages, plan.pc,
+                plan.nbl, _ptr(lx), _ptr(lxn), _ptr(lw), _ptr(partial),
+                _ptr(out), _stream())
+        linear_w_hessian_sims_i8.launches += 1
+        return out
+    out = in_chunks(launch, c2, chunk)
     return out[:, 0] if squeeze else out
 
 
 def linear_a_hessian_sims_i8(x, w_lv, w_scale, cands, raw_minus_bias, grad,
                              a_qmax: int, postgelu: bool = False,
-                             a_neg: float = 0.0):
+                             a_neg: float = 0.0,
+                             scratch_bound: Optional[int] = None):
     """B2: int8-scored input-interval search (n_H = 1).
 
     x: (M, ic) raw fp32 activations; w_lv: (oc, ic) int8 weight levels;
     w_scale: (oc,) fp32; cands: (P,).  Returns (P,)."""
-    if not x.is_cuda:
-        return linear_a_hessian_sims_i8_ref(x, w_lv, w_scale, cands,
-                                            raw_minus_bias, grad, a_qmax,
-                                            postgelu, a_neg)
-    from .build import load
-    lib = load()
-    dev = x.device
     M, ic = x.shape
     oc = w_lv.shape[0]
     P = cands.shape[0]
+    chunk = candidate_chunk(P, linear_a_scratch(M, ic, oc, postgelu),
+                            scratch_bound)
+    if not x.is_cuda:
+        return in_chunks(lambda c: linear_a_hessian_sims_i8_ref(
+            x, w_lv, w_scale, c, raw_minus_bias, grad, a_qmax, postgelu,
+            a_neg), cands, chunk)
+    dev = x.device
     _check(x, "x", torch.float32, (M, ic), dev)
     _check(w_lv, "w_lv", torch.int8, (oc, ic), dev)
     _check(w_scale, "w_scale", torch.float32, (oc,), dev)
     _check(cands, "cands", torch.float32, (P,), dev)
     _check(raw_minus_bias, "raw_minus_bias", torch.float32, (M, oc), dev)
     _check(grad, "grad", torch.float32, (M, oc), dev)
+    from .build import load
+    lib = load()
     kp = lib.ptq_k_pad(ic)
-    lx = _levels_scratch((P, M, kp), dev)
     lneg = _levels_scratch((M, kp), dev) if postgelu else None
     lw = _levels_scratch((oc, kp), dev)
-    plan = linear_plan("a", M, oc, ic, P)
-    partial = torch.empty(lib.ptq_linear_num_partials(M, oc) * P,
-                          dtype=torch.float32, device=dev)
-    out = torch.empty(P, dtype=torch.float32, device=dev)
-    _launch(lib.ptq_linear_a_sims, _ptr(x), _ptr(w_lv), _ptr(w_scale),
-            _ptr(cands), _ptr(raw_minus_bias), _ptr(grad), float(a_neg), M,
-            ic, oc, P, a_qmax, int(postgelu), int(plan.resident),
-            plan.stages, plan.pc, _ptr(lx), _ptr(lneg), _ptr(lw),
-            _ptr(partial), _ptr(out), _stream())
-    linear_a_hessian_sims_i8.launches += 1
-    return out
+
+    def launch(c):
+        Pc = c.shape[0]
+        lx = _levels_scratch((Pc, M, kp), dev)
+        plan = linear_plan("a", M, oc, ic, Pc)
+        partial = torch.empty(lib.ptq_linear_num_partials(M, oc) * Pc,
+                              dtype=torch.float32, device=dev)
+        out = torch.empty(Pc, dtype=torch.float32, device=dev)
+        _launch(lib.ptq_linear_a_sims, _ptr(x), _ptr(w_lv), _ptr(w_scale),
+                _ptr(c), _ptr(raw_minus_bias), _ptr(grad), float(a_neg), M,
+                ic, oc, Pc, a_qmax, int(postgelu), int(plan.resident),
+                plan.stages, plan.pc, _ptr(lx), _ptr(lneg), _ptr(lw),
+                _ptr(partial), _ptr(out), _stream())
+        linear_a_hessian_sims_i8.launches += 1
+        return out
+    return in_chunks(launch, cands.contiguous(), chunk)
 
 
-def linear_w_hessian_sims(x_sim, w, cands, raw_minus_bias, grad, qmax: int):
+def linear_w_hessian_sims(x_sim, w, cands, raw_minus_bias, grad, qmax: int,
+                          scratch_bound: Optional[int] = None):
     """B4w: exact (fp32-scored) weight-interval search, n_H = 1.
 
     x_sim: (M, ic) already input-quantized activations; w: (oc, ic) fp32;
     cands: (P,) or (P, n_V) with oc % n_V == 0; raw_minus_bias, grad:
     (M, oc) fp32.  Returns (P,) or (P, n_V)."""
-    if not w.is_cuda:
-        return linear_w_hessian_sims_ref(x_sim, w, cands, raw_minus_bias,
-                                         grad, qmax)
-    from .build import load
-    lib = load()
-    dev = w.device
     M, ic = x_sim.shape
     oc = w.shape[0]
     squeeze = cands.ndim == 1
     c2 = (cands[:, None] if squeeze else cands).contiguous()
     P, n_V = c2.shape
+    chunk = candidate_chunk(P, linear_w_f32_scratch(M, ic, oc, n_V),
+                            scratch_bound)
+    if not w.is_cuda:
+        out = in_chunks(lambda c: linear_w_hessian_sims_ref(
+            x_sim, w, c, raw_minus_bias, grad, qmax), c2, chunk)
+        return out[:, 0] if squeeze else out
     if oc % n_V or n_V > 256:
         raise ValueError(f"n_V={n_V} must divide oc={oc} and be <= 256")
+    dev = w.device
     _check(x_sim, "x_sim", torch.float32, (M, ic), dev)
     _check(w, "w", torch.float32, (oc, ic), dev)
     _check(c2, "cands", torch.float32, (P, n_V), dev)
     _check(raw_minus_bias, "raw_minus_bias", torch.float32, (M, oc), dev)
     _check(grad, "grad", torch.float32, (M, oc), dev)
-    lw = _levels_scratch((P, oc, lib.ptq_k_pad(ic)), dev)
-    plan = fp32_plan("w", M, oc, ic, P, num_sms=_num_sms(dev))
-    partial = torch.empty(lib.ptq_fp32_num_partials(M, oc) * P * n_V,
-                          dtype=torch.float32, device=dev)
-    out = torch.empty(P, n_V, dtype=torch.float32, device=dev)
-    _launch(lib.ptq_linear_w_sims_f32, _ptr(x_sim), _ptr(w), _ptr(c2),
-            _ptr(raw_minus_bias), _ptr(grad), M, ic, oc, P, n_V, qmax,
-            plan.stages, plan.pc, _ptr(lw), _ptr(partial), _ptr(out),
-            _stream())
-    linear_w_hessian_sims.launches += 1
+    from .build import load
+    lib = load()
+
+    def launch(c):
+        Pc = c.shape[0]
+        lw = _levels_scratch((Pc, oc, lib.ptq_k_pad(ic)), dev)
+        plan = fp32_plan("w", M, oc, ic, Pc, num_sms=_num_sms(dev))
+        partial = torch.empty(lib.ptq_fp32_num_partials(M, oc) * Pc * n_V,
+                              dtype=torch.float32, device=dev)
+        out = torch.empty(Pc, n_V, dtype=torch.float32, device=dev)
+        _launch(lib.ptq_linear_w_sims_f32, _ptr(x_sim), _ptr(w), _ptr(c),
+                _ptr(raw_minus_bias), _ptr(grad), M, ic, oc, Pc, n_V, qmax,
+                plan.stages, plan.pc, _ptr(lw), _ptr(partial), _ptr(out),
+                _stream())
+        linear_w_hessian_sims.launches += 1
+        return out
+    out = in_chunks(launch, c2, chunk)
     return out[:, 0] if squeeze else out
 
 
 def linear_a_hessian_sims(x, w_sim, cands, raw_minus_bias, grad, a_qmax: int,
-                          postgelu: bool = False, a_neg: float = 0.0):
+                          postgelu: bool = False, a_neg: float = 0.0,
+                          scratch_bound: Optional[int] = None):
     """B4a: exact (fp32-scored) input-interval search, n_a = 1.
 
     x: (M, ic) raw fp32 activations; w_sim: (oc, ic) fake-quant weight;
     cands: (P,).  Returns (P,)."""
-    if not x.is_cuda:
-        return linear_a_hessian_sims_ref(x, w_sim, cands, raw_minus_bias,
-                                         grad, a_qmax, postgelu, a_neg)
-    from .build import load
-    lib = load()
-    dev = x.device
     M, ic = x.shape
     oc = w_sim.shape[0]
     P = cands.shape[0]
+    chunk = candidate_chunk(P, linear_a_f32_scratch(M, ic, oc, postgelu),
+                            scratch_bound)
+    if not x.is_cuda:
+        return in_chunks(lambda c: linear_a_hessian_sims_ref(
+            x, w_sim, c, raw_minus_bias, grad, a_qmax, postgelu, a_neg),
+            cands, chunk)
+    dev = x.device
     _check(x, "x", torch.float32, (M, ic), dev)
     _check(w_sim, "w_sim", torch.float32, (oc, ic), dev)
     _check(cands, "cands", torch.float32, (P,), dev)
     _check(raw_minus_bias, "raw_minus_bias", torch.float32, (M, oc), dev)
     _check(grad, "grad", torch.float32, (M, oc), dev)
+    from .build import load
+    lib = load()
     kp = lib.ptq_k_pad(ic)
-    lx = _levels_scratch((P, M, kp), dev)
     lneg = _levels_scratch((M, kp), dev) if postgelu else None
-    plan = fp32_plan("a", M, oc, ic, P, postgelu, _num_sms(dev))
-    partial = torch.empty(lib.ptq_fp32_num_partials(M, oc) * P,
-                          dtype=torch.float32, device=dev)
-    out = torch.empty(P, dtype=torch.float32, device=dev)
-    _launch(lib.ptq_linear_a_sims_f32, _ptr(x), _ptr(w_sim), _ptr(cands),
-            _ptr(raw_minus_bias), _ptr(grad), float(a_neg), M, ic, oc, P,
-            a_qmax, int(postgelu), plan.stages, plan.pc, _ptr(lx),
-            _ptr(lneg), _ptr(partial), _ptr(out), _stream())
-    linear_a_hessian_sims.launches += 1
-    return out
+
+    def launch(c):
+        Pc = c.shape[0]
+        lx = _levels_scratch((Pc, M, kp), dev)
+        plan = fp32_plan("a", M, oc, ic, Pc, postgelu, _num_sms(dev))
+        partial = torch.empty(lib.ptq_fp32_num_partials(M, oc) * Pc,
+                              dtype=torch.float32, device=dev)
+        out = torch.empty(Pc, dtype=torch.float32, device=dev)
+        _launch(lib.ptq_linear_a_sims_f32, _ptr(x), _ptr(w_sim), _ptr(c),
+                _ptr(raw_minus_bias), _ptr(grad), float(a_neg), M, ic, oc,
+                Pc, a_qmax, int(postgelu), plan.stages, plan.pc, _ptr(lx),
+                _ptr(lneg), _ptr(partial), _ptr(out), _stream())
+        linear_a_hessian_sims.launches += 1
+        return out
+    return in_chunks(launch, cands.contiguous(), chunk)
 
 
 _MODES = {"a": 0, "b": 1, "b_sos": 2}
@@ -720,55 +841,68 @@ def _matmul_launch(A, B, grad, cands, fixed_int, mode, cand_qmax,
 
 def matmul_hessian_sims(A, B, grad, cands, fixed_int, mode: str,
                         cand_qmax: int, fixed_qmax: int,
-                        sos: Optional[Sequence] = None):
+                        sos: Optional[Sequence] = None,
+                        scratch_bound: Optional[int] = None):
     """Per-head attention-matmul scorer (the JAX ``matmul_hessian_sims``).
 
     A (S, G, R, Ci), B (S, G, Ci, Co), grad (S, G, R, Co): all fp32 or all
     bf16 (the calibration caches' stored dtype); cands (P, G) fp32;
     fixed_int (G,); mode "a" | "b" | "b_sos"; sos = (split, a_int, s_hi,
-    s_lo) scalars for "b_sos".  Returns (P, G).  On the card it counts the
-    launch as B3f where ``mm_fold_factor(G, Ci, Co) > 1`` (Swin windows),
-    as the JAX function picks its folded body there, and as B3 elsewhere;
-    both run the same tensor-core kernel (``matmul_plan``, see
-    csrc/search_kernels.cu)."""
-    if not A.is_cuda:
-        return matmul_hessian_sims_ref(A, B, grad, cands, fixed_int, mode,
-                                       cand_qmax, fixed_qmax, sos)
+    s_lo) scalars for "b_sos"; scratch_bound: see the module docstring.
+    Returns (P, G).  On the card it counts the launch as B3f where
+    ``mm_fold_factor(G, Ci, Co) > 1`` (Swin windows), as the JAX function
+    picks its folded body there, and as B3 elsewhere; both run the same
+    tensor-core kernel (``matmul_plan``, see csrc/search_kernels.cu)."""
     G, Ci, Co = A.shape[1], A.shape[3], B.shape[-1]
     F = mm_fold_factor(G, Ci, Co)
     kern = matmul_hessian_sims_b3f if F > 1 else matmul_hessian_sims_b3
     return kern(A, B, grad, cands, fixed_int, mode, cand_qmax, fixed_qmax,
-                sos)
+                sos, scratch_bound)
+
+
+def _matmul_chunks(kern, A, B, grad, cands, fixed_int, mode, cand_qmax,
+                   fixed_qmax, sos, scratch_bound):
+    """A B3 / B3f call in candidate chunks within ``scratch_bound``: the
+    plain version on the CPU, else one launch a chunk, counted on
+    ``kern``."""
+    S, G, R, Ci = A.shape
+    chunk = candidate_chunk(cands.shape[0], matmul_scratch(
+        S, G, R, Ci, B.shape[-1], mode), scratch_bound)
+    if not A.is_cuda:
+        return in_chunks(lambda c: matmul_hessian_sims_ref(
+            A, B, grad, c, fixed_int, mode, cand_qmax, fixed_qmax, sos),
+            cands, chunk)
+
+    def launch(c):
+        out = _matmul_launch(A, B, grad, c, fixed_int, mode, cand_qmax,
+                             fixed_qmax, sos)
+        kern.launches += 1
+        return out
+    return in_chunks(launch, cands, chunk)
 
 
 def matmul_hessian_sims_b3(A, B, grad, cands, fixed_int, mode: str,
                            cand_qmax: int, fixed_qmax: int,
-                           sos: Optional[Sequence] = None):
+                           sos: Optional[Sequence] = None,
+                           scratch_bound: Optional[int] = None):
     """B3: the per-head scorer where the JAX function runs its unfolded
     body ``_mm_kernel`` (ViT); arguments as ``matmul_hessian_sims``."""
-    if not A.is_cuda:
-        return matmul_hessian_sims_ref(A, B, grad, cands, fixed_int, mode,
-                                       cand_qmax, fixed_qmax, sos)
-    out = _matmul_launch(A, B, grad, cands, fixed_int, mode, cand_qmax,
-                         fixed_qmax, sos)
-    matmul_hessian_sims_b3.launches += 1
-    return out
+    return _matmul_chunks(matmul_hessian_sims_b3, A, B, grad, cands,
+                          fixed_int, mode, cand_qmax, fixed_qmax, sos,
+                          scratch_bound)
 
 
 def matmul_hessian_sims_b3f(A, B, grad, cands, fixed_int, mode: str,
                             cand_qmax: int, fixed_qmax: int,
-                            sos: Optional[Sequence] = None):
+                            sos: Optional[Sequence] = None,
+                            scratch_bound: Optional[int] = None):
     """B3f: the per-head scorer where the JAX function runs its
     head-folded body ``_mm_kernel_folded`` (Swin's windows).  The card
     needs no fold: the tile's width fits Co instead (``mm_width``).
     Arguments and result as ``matmul_hessian_sims``."""
-    if not A.is_cuda:
-        return matmul_hessian_sims_ref(A, B, grad, cands, fixed_int, mode,
-                                       cand_qmax, fixed_qmax, sos)
-    out = _matmul_launch(A, B, grad, cands, fixed_int, mode, cand_qmax,
-                         fixed_qmax, sos)
-    matmul_hessian_sims_b3f.launches += 1
-    return out
+    return _matmul_chunks(matmul_hessian_sims_b3f, A, B, grad, cands,
+                          fixed_int, mode, cand_qmax, fixed_qmax, sos,
+                          scratch_bound)
 
 
 KERNELS = (linear_w_hessian_sims_i8, linear_a_hessian_sims_i8,
@@ -779,6 +913,7 @@ KERNELS = (linear_w_hessian_sims_i8, linear_a_hessian_sims_i8,
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    in_chunks.calls = 0
 
 
 def launch_counts() -> dict:

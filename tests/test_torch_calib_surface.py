@@ -152,7 +152,7 @@ def test_group_budget_counts_the_allocators_free_blocks(tiny, monkeypatch):
 
     def budget(free, cached, need):
         card.update(free=free, cached=cached)
-        return c._group_budget(True, policies, need)
+        return c._group_budget(c._plan_search(True, policies, need))
     fresh = budget(60 * gib, 0, 0)
     assert fresh > 40 * gib
     assert budget(12 * gib, 48 * gib, 50 * gib) == fresh

@@ -124,12 +124,13 @@ def test_cuda_paths_refuse_plain_scoring():
 
 class _NoCall:
     """A kernel wrapper stand-in that records the kernel each search case
-    picks, returning the plain version's sims."""
+    picks, returning the plain version's sims (the wrapper's own
+    ``scratch_bound`` is not the plain version's)."""
 
     def __init__(self, name, fn):
         self.name, self.fn = name, fn
 
-    def __call__(self, *a, **k):
+    def __call__(self, *a, scratch_bound=None, **k):
         _NoCall.calls.append(self.name)
         return self.fn(*a, **k)
 
