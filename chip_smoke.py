@@ -72,6 +72,16 @@ Phases (any failure raises, so the exit code is non-zero):
      window rows (4 images); B6 at ViT-L's fc1 / fc2 and Swin-L's stage-1
      fc1 and stage-4 fc2, B7 int8 SoS at 16 heads, B10 / B11 and B9 int8
      SoS at Swin-L's stages 1 and 4 (32 images); each call's plan logged;
+     then the 224-px models' shapes (``grid_kernel_phase``), under the
+     same rules: B1 / B2 at Swin-T's stage-1 fc1 (K 96) and twin fc2 (K
+     384, N 96), B3 a / b / b_sos at window 7 with 3 heads (N = 49, fold
+     1), B3f at 4 heads (Swin-B/224 stage 1, fold 4) and at ViT-S/32's 6
+     heads of N = 50 (fold 2), 4 images; B6 at Swin-T's stage-1 fc1 / fc2
+     and the distilled DeiT-S's head_dist, fc1's relaxed variant, B7 int8
+     SoS and its relaxed variant at N = 50 (6 heads), 198 (6) and 197 (3),
+     B10 / B11 at res 56, C 96, window 7 (B10 relaxed too), B9 at window 7
+     on stage 1's shifted block (3 heads, 64 masks; int8 and float SoS,
+     relaxed) and stage 4's clamped window (24 heads), 32 images;
   4. the ViT path: quantize("vit_base_patch16_384", 8 images, PTQ4ViT W8A8)
      with random weights from a seeded generator; B1, B2 and B3 must be
      launched and every interval finite and positive; serve 4 images with
@@ -87,13 +97,13 @@ Phases (any failure raises, so the exit code is non-zero):
      (no second calibration), pack_weights, then ServingEngine (bf16,
      fused kernels) on 4 requests of 32 images each: ViT-B/384 launches B6
      exactly 4 x 49 times and B7 4 x 12, Swin-B/384 B6 4 x 52 and B9, B10
-     and B11 4 x 24 each (SERVE_LAUNCHES), and no other kernel; finite
+     and B11 4 x 24 each (serve_launches), and no other kernel; finite
      logits; cosine >= 0.99 between the engine's logits and the fused
      fp32 forward's, between the fused fp32 and exact int8=True forwards
      and between int8=True and the fake-quant forward; img/s of the engine
      and of those three forwards; then the relaxed engine
      (ServingEngine(relaxed=True)) on the same requests: each kernel
-     launched exactly as RELAXED_LAUNCHES says (ViT-B/384 a request: B6
+     launched exactly as serve_launches says (ViT-B/384 a request: B6
      25 exact and 24 relaxed, B7 12 relaxed; Swin-B/384: B6 28 and 24,
      B9 / B10 24 relaxed, B11 24), its img/s (then the exact engine's
      again: exact, relaxed, exact), and its logits against the exact
@@ -124,7 +134,7 @@ Phases (any failure raises, so the exit code is non-zero):
      0-5 calibrated into a fresh checkpoint directory (wrapped_modules),
      then every op on it: only blocks 6-11 and the head are searched, B1
      and B2 launched 75 times and B3 54 (25 linears and 6 + 6 matmuls
-     over 3 rounds, resume_launches), and the resumed qstate equal to
+     over 3 rounds, search_launches), and the resumed qstate equal to
      experiment_basic's uninterrupted one in every interval slot; W6A6 on the
      same directory searches every op again; minmax_calib (finite
      positive intervals, finite logits) and apply_bias_correction (some
@@ -174,14 +184,23 @@ Phases (any failure raises, so the exit code is non-zero):
   12. the large models (large_model_phase): ViT-L/384 and Swin-L/384 at
      full width and depth through quantize (PTQ4ViT W8A8, 8 images,
      micro-batch 4), B1 / B2 / B3 (Swin: B3f) launched exactly as their
-     inventories need (ViT-L 291 / 291 / 216: 97 linears and 24 + 24
-     matmuls over 3 rounds; Swin-L 300 / 300 / 216), served as phase 4
-     serves, then ServingEngine on 2 requests of 32 images (ViT-L B6 97
-     and B7 24 a request; Swin-L as Swin-B) and the relaxed engine on the
-     first (ViT-L B6 49 exact and 48 relaxed, B7 24 relaxed), under phase
-     7's cosine gates; then Swin-B/384 under exact scoring (B4w / B4a 300
-     each, B1-B3f never) and the flip count against phase 5's qstate;
-  13. print the kernels' JSON line (the thirteen kernels and the five
+     inventories need (``model_launches``: ViT-L 291 / 291 / 216: 97
+     linears and 24 + 24 matmuls over 3 rounds; Swin-L 300 / 300 / 216),
+     served as phase 4 serves, then ServingEngine on 2 requests of 32
+     images (``serve_launches``: ViT-L B6 97 and B7 24 a request; Swin-L
+     as Swin-B) and the relaxed engine on the first (ViT-L B6 49 exact and
+     48 relaxed, B7 24 relaxed), under phase 7's cosine gates; then
+     Swin-B/384 under exact scoring (B4w / B4a 300 each, B1-B3f never) and
+     the flip count against phase 5's qstate;
+  13. the paper's 224-px grid (grid_phase): ViT-S/32, DeiT-T, ViT-B/224,
+     the distilled DeiT-S, Swin-T and Swin-B/224 as phase 12 runs its
+     models, every launch exact: ViT-S/32 B1 / B2 147 and B3f 108 (its 6
+     heads at N = 50 fold by 2, as in JAX), DeiT-T and ViT-B/224 147 /
+     147 / 108 on B3, DeiT-S distilled 150 / 150 / 108 (head_dist is
+     searched) and B6 50 a request (both heads), Swin-T 156 / 156, B3 18
+     (stage 1's 3 heads) and B3f 90, B6 28 and B9-B11 12 a request,
+     Swin-B/224 as Swin-B/384;
+  14. print the kernels' JSON line (the thirteen kernels and the five
      relaxed variants), the card line, then the result line.
 Each path is driven with the launch counts set to 0 just before it and
 read just after.
@@ -280,7 +299,7 @@ PATHS = {
          "matmul_hessian_sims_b3f": None}, ()),
     # the calibration surface (phase 9): experiment_basic on an
     # ImageFolder, the part calibrated first, the resumed rest (exact
-    # counts set by resume_launches), the changed scope, min-max and bias
+    # counts set by search_launches), the changed scope, min-max and bias
     # correction
     EXAMPLE_PATH: (
         {"linear_w_hessian_sims_i8": None, "linear_a_hessian_sims_i8": None,
@@ -298,8 +317,8 @@ PATHS = {
 }
 # the drivers (phase 10): the bench scripts in process, one cell of each
 # grid, the integer export and the stability study; bench_torch's paths
-# are checked exactly by resume_launches, its serving ones by
-# SERVE_LAUNCHES
+# are checked exactly by model_launches, its serving ones by
+# serve_launches
 BENCH_CALIB, BENCH_REPEATS = 32, 2
 INFER_ITERS, E2E_BATCHES = 3, 4
 BENCH_VIT = (f"vit_base_patch16_384 bench_torch.py, {BENCH_CALIB} images, "
@@ -331,59 +350,26 @@ PATHS.update({
                       "matmul_hessian_sims_b3": None},
                      ("matmul_hessian_sims_b3f",) + EXACT),
 })
-# launches of the serving kernels a request makes (every other kernel: 0).
-# ViT-B/384: B6 for qkv, proj, fc1 and fc2 of 12 blocks and the head, B7
-# in each block.  Swin-B/384: each of its 24 blocks runs B10 (qkv), B9
-# and B11 (proj), and B6 for fc1 and fc2; B6 also for the 3 patch-merging
-# reductions and the head: 2 x 24 + 3 + 1 = 52
-SERVE_LAUNCHES = {
-    "vit_base_patch16_384": {"q8_linear": 49, "fused_attention_qkv": 12},
-    "swin_base_patch4_window12_384": {
-        "q8_linear": 52, "fused_window_attention_qkv": 24, "q8_win_qkv": 24,
-        "q8_win_proj": 24},
-}
-# the same in the relaxed mode (ServingEngine(relaxed=True)): qkv (B10),
-# fc1 and the attention run the relaxed variants; proj, fc2, B11, the
-# reductions and the head (float outputs without GELU, the same function)
-# the exact kernels -- B6 49 and 52 a request in all, as exact
-RELAXED_LAUNCHES = {
-    "vit_base_patch16_384": {"q8_linear": 25, "q8_linear_relaxed": 24,
-                             "fused_attention_qkv_relaxed": 12},
-    "swin_base_patch4_window12_384": {
-        "q8_linear": 28, "q8_linear_relaxed": 24,
-        "fused_window_attention_qkv_relaxed": 24, "q8_win_qkv_relaxed": 24,
-        "q8_win_proj": 24},
-}
-# the large models (phase 12): ViT-L/384 runs B6 for qkv, proj, fc1 and
-# fc2 of 24 blocks and the head (97), B7 in each block; Swin-L/384 has
-# Swin-B/384's 24 blocks, 3 reductions and head.  Relaxed: qkv and fc1
-# (ViT-L: 48 a request) and the attention run the relaxed variants
+# the /384 models of phases 4-7 and 11; their serving launches a request
+# (``serve_launches``): ViT-B/384 B6 49 and B7 12, Swin-B/384 B6 52 and B9,
+# B10 and B11 24 each; relaxed, ViT-B/384 B6 25 exact and 24 relaxed, B7 12
+# relaxed, Swin-B/384 B6 28 and 24, B9 / B10 24 relaxed, B11 24
+BASE = ("vit_base_patch16_384", "swin_base_patch4_window12_384")
+# the large models (phase 12) and the paper's 224-px grid (phase 13), each
+# calibrated, then served on MODEL_REQUESTS requests through the engine and
+# MODEL_RELAXED_REQUESTS through the relaxed one; every launch count
+# exact, from the model's op inventory (``search_launches``,
+# ``serve_launches``)
 LARGE = ("vit_large_patch16_384", "swin_large_patch4_window12_384")
-LARGE_REQUESTS, LARGE_RELAXED_REQUESTS = 2, 1
-SERVE_LAUNCHES_LARGE = {
-    "vit_large_patch16_384": {"q8_linear": 97, "fused_attention_qkv": 24},
-    "swin_large_patch4_window12_384":
-        SERVE_LAUNCHES["swin_base_patch4_window12_384"]}
-RELAXED_LAUNCHES_LARGE = {
-    "vit_large_patch16_384": {"q8_linear": 49, "q8_linear_relaxed": 48,
-                              "fused_attention_qkv_relaxed": 24},
-    "swin_large_patch4_window12_384":
-        RELAXED_LAUNCHES["swin_base_patch4_window12_384"]}
-# each large model's attention scorer: B3 at ViT's shapes, B3f at Swin's
-LARGE_MATMUL = {"vit_large_patch16_384": "matmul_hessian_sims_b3",
-                "swin_large_patch4_window12_384": "matmul_hessian_sims_b3f"}
+GRID = ("vit_small_patch32_224", "deit_tiny_patch16_224",
+        "vit_base_patch16_224", "deit_small_distilled_patch16_224",
+        "swin_tiny_patch4_window7_224", "swin_base_patch4_window7_224")
+MODEL_REQUESTS, MODEL_RELAXED_REQUESTS = 2, 1
 # Swin-B/384 under exact scoring (phase 12): 100 linears x 3 rounds each
 SWIN_EXACT_PATH = "swin_base_patch4_window12_384 exact"
-PATHS.update({
-    "vit_large_patch16_384": (
-        {"linear_w_hessian_sims_i8": None, "linear_a_hessian_sims_i8": None,
-         "matmul_hessian_sims_b3": None}, ()),
-    "swin_large_patch4_window12_384": (
-        {"linear_w_hessian_sims_i8": None, "linear_a_hessian_sims_i8": None,
-         "matmul_hessian_sims_b3f": None}, ()),
-    SWIN_EXACT_PATH: (
-        {"linear_w_hessian_sims": 300, "linear_a_hessian_sims": 300}, INT8),
-})
+PATHS.update({name: ({}, ()) for name in LARGE + GRID})
+PATHS[SWIN_EXACT_PATH] = (
+    {"linear_w_hessian_sims": 300, "linear_a_hessian_sims": 300}, INT8)
 # candidates a chunk in the chunked-versus-whole cases (phase 3): odd, so
 # that B3's candidate pairs change places from one chunk to the next
 CHUNK = 37
@@ -1096,13 +1082,14 @@ def relaxed_plain(sv, args, kw):
     return sv.q8_linear_ref(x, *args[1:], **kw)
 
 
-def relaxed_linear_cases(sv, rng, inputs):
-    """B6's relaxed variant (RELAXED_B6) as measure_serving takes them:
+def relaxed_linear_cases(sv, rng, inputs, specs=RELAXED_B6):
+    """B6's relaxed variant (``specs``: RELAXED_B6's form) as
+    measure_serving takes them:
     the kernel with relaxed=True against the relaxed plain version
     (``relaxed_plain``), the exact kernel on the same inputs timed beside
     it; the bound is the exact case's (the same work)."""
     cases = []
-    for label, spec in RELAXED_B6:
+    for label, spec in specs:
         if spec is None:
             args, kw = inputs[label]
             m, K = args[0].shape
@@ -1200,14 +1187,18 @@ def attention_plain(sv, kname, args, kw):
     return out.transpose(1, 2).reshape(Bx, Nx, d3 // 3)
 
 
-def vit_attention_cases(sv, dev, rng, H=12, tag="", full=True):
+def vit_attention_cases(sv, dev, rng, H=12, tag="", full=True, N=577,
+                        relaxed=None):
     """B7 (int8 -> int8 and float -> float, SoS and per-head) and B8
-    (float, SoS) at ViT-B/384 shapes (``H`` heads of 64: ViT-L/384's 16
-    with ``tag`` before the labels; ``full`` False: the int8 -> int8 SoS
-    case alone) with SERVE_BATCH images, as measure_serving takes them,
-    with SDPA on the same q, k, v as context."""
+    (float, SoS) at ViT-B/384 shapes (``H`` heads of 64 and ``N`` tokens:
+    ViT-L/384's 16 heads, or the 224-px models' shapes, with ``tag``
+    before the labels; ``full`` False: the int8 -> int8 SoS case alone,
+    and its relaxed variant with ``relaxed``, which defaults to ``full``)
+    with SERVE_BATCH images, as measure_serving takes them, with SDPA on
+    the same q, k, v as context."""
     from ptq4vit_tpu_torch.quant.qparams import MatMulQP
-    B, N, hd = SERVE_BATCH, 577, 64
+    B, hd = SERVE_BATCH, 64
+    relaxed = full if relaxed is None else relaxed
     d = H * hd
     qkv = torch.from_numpy(rng.standard_normal((B, N, 3 * d))
                            .astype(np.float32)).to(dev)
@@ -1250,7 +1241,7 @@ def vit_attention_cases(sv, dev, rng, H=12, tag="", full=True):
         calls += [(k + "_relaxed", f"{label} (relaxed)", args,
                    dict(kw, relaxed=True), st)
                   for k, label, args, kw, st in calls
-                  if full and (k == "fused_attention" or kw.get("in_q8"))]
+                  if relaxed and (k == "fused_attention" or kw.get("in_q8"))]
         for kname, label, args, kw, st in calls:
             base = kname.replace("_relaxed", "")
             relaxed = kname != base
@@ -1374,17 +1365,18 @@ WINDOW_ATTN_STAGES = ((1, 96, 4, 6, ("int8 SoS", "float SoS",
 
 
 def window_attention_cases(sv, dev, rng, stages=WINDOW_ATTN_STAGES, tag="",
-                           relaxed=True):
+                           relaxed=True, ws=12):
     """B9 int8 -> int8 on Swin-B/384 stage 1's shifted block (64 masks) and
     stage 4's one unshifted window (32 heads), and float -> float (SoS and
     per-head) on stage 1's shifted block (or the ``stages`` given, with
     ``tag`` before the labels), with SERVE_BATCH images (window 12: N =
     144 tokens, head dim 32), as measure_serving takes them, with SDPA on
     the float q, k, v and the same additive bias and mask as context; with
-    ``relaxed``, the relaxed variant on stage 1's int8 SoS inputs."""
+    ``relaxed``, the relaxed variant on stage 1's int8 SoS inputs; ``ws``:
+    the window (7 at the 224-px models: N = 49)."""
     from ptq4vit_tpu_torch.models.swin import shifted_window_mask
     from ptq4vit_tpu_torch.quant.qparams import MatMulQP
-    B, ws, hd, q = SERVE_BATCH, 12, 32, 128
+    B, hd, q = SERVE_BATCH, 32, 128
     N = ws * ws
 
     def t(a, dt=torch.float32):
@@ -1431,7 +1423,7 @@ def window_attention_cases(sv, dev, rng, stages=WINDOW_ATTN_STAGES, tag="",
             else:
                 x, kw, label = qkv, {}, f"{mode}, float -> float"
                 step = attn_level_step(ph, sos).repeat_interleave(hd)
-            where = "shifted, 64 masks" if shift else "one window"
+            where = f"shifted, {nW} masks" if shift else "one window"
             label = f"{tag}stage {stage}, {where}: {label}"
             args = (x, H, nW, qp1, qp2, s, bias, mask)
             ref_args = (x, H, nW, ph, split if sos else None, s, bias, mask,
@@ -1695,10 +1687,11 @@ def window_kernel_phase(sv, dev):
 
 def window_kernel_cases(sv, dev, stages=WINDOW_STAGES,
                         attn_stages=WINDOW_ATTN_STAGES, tag="", relaxed=True,
-                        seed=6):
+                        seed=6, ws=12):
     """window_kernel_phase's cases, as measure_serving takes them (or at
-    the ``stages`` and ``attn_stages`` given, with ``tag`` before the
-    labels and, without ``relaxed``, no relaxed variant)."""
+    the ``stages`` and ``attn_stages`` given in windows of ``ws``, with
+    ``tag`` before the labels and, without ``relaxed``, no relaxed
+    variant)."""
     rng = np.random.default_rng(seed)
     B, q = SERVE_BATCH, 128
 
@@ -1709,7 +1702,7 @@ def window_kernel_cases(sv, dev, stages=WINDOW_STAGES,
     cases = []        # as measure_serving takes them
     for stage, res, C in stages:
         M = B * res * res
-        args, proj_args = window_linear_inputs(rng, res, C)
+        args, proj_args = window_linear_inputs(rng, res, C, ws=ws)
         x4, w, a = args[0], args[1], args[4]
         lv = levels(x4.reshape(M, C), a)
         kw = dict(a_qmax=q, out_qmax=q, w_kmaj=kmajor_levels(w.t()))
@@ -1723,8 +1716,8 @@ def window_kernel_cases(sv, dev, stages=WINDOW_STAGES,
         if relaxed and stage == 1:
             # the relaxed variant on the same inputs
             cases.append((
-                "q8_win_qkv_relaxed", f"stage {stage}: LN, quantize -> int8 "
-                "per column (relaxed)",
+                "q8_win_qkv_relaxed", f"{tag}stage {stage}: LN, quantize -> "
+                "int8 per column (relaxed)",
                 lambda args=args, kw=kw: sv.q8_win_qkv(*args, relaxed=True,
                                                        **kw),
                 lambda args=args, kw=kw: win_qkv_relaxed_plain(sv, args, kw),
@@ -1743,7 +1736,7 @@ def window_kernel_cases(sv, dev, stages=WINDOW_STAGES,
                       int_mm_calls(y_q.reshape(M, C), wp), None, None))
 
     return cases + window_attention_cases(sv, dev, rng, attn_stages, tag,
-                                          relaxed)
+                                          relaxed, ws)
 
 
 def profile_call(fn):
@@ -1781,7 +1774,7 @@ def serving_phase(sk, sv, name, qcpu, requests=SERVE_REQUESTS,
     its qstate (no second calibration), pack_weights, then ServingEngine
     (bf16) on ``requests`` requests of SERVE_BATCH images with the
     launch counts set to 0 just before and read just after, each kernel
-    launched exactly as SERVE_LAUNCHES (SERVE_LAUNCHES_LARGE) says, then
+    launched exactly as ``serve_launches`` says, then
     the relaxed engine on the first ``relaxed_requests``; then the fused
     fp32, exact int8 and fake-quant forwards on the first request, held to
     each other and the engine's logits to the fused fp32 ones by cosine
@@ -1814,8 +1807,7 @@ def serving_phase(sk, sv, name, qcpu, requests=SERVE_REQUESTS,
     wall = time.time() - t0
     launches = {**sk.launch_counts(), **sv.launch_counts()}
     check_exact_launches(path, launches, {
-        k: requests * n for k, n in
-        {**SERVE_LAUNCHES, **SERVE_LAUNCHES_LARGE}[name].items()})
+        k: requests * n for k, n in serve_launches(name).items()})
     for o in outs:
         if o.shape != (SERVE_BATCH, classes) or not torch.isfinite(
                 o.float()).all():
@@ -1892,7 +1884,8 @@ def relaxed_serving(sk, sv, name, net, qstate, reqs, exact):
     """The relaxed engine (ServingEngine(relaxed=True), bf16) on the same
     requests as the exact engine, whose logits are ``exact``: the launch
     counts set to 0 just before its requests and read just after, each
-    kernel launched exactly as RELAXED_LAUNCHES says; finite logits; its
+    kernel launched exactly as ``serve_launches(name, True)`` says;
+    finite logits; its
     img/s; the logits against the exact engine's: the max shift as a
     share of max |logit|, top-1 agreement, and the least cosine (at least
     RELAXED_COSINE).  Returns the summary, its path and launches
@@ -1910,8 +1903,7 @@ def relaxed_serving(sk, sv, name, net, qstate, reqs, exact):
     wall = time.time() - t0
     launches = {**sk.launch_counts(), **sv.launch_counts()}
     check_exact_launches(path, launches, {
-        k: len(reqs) * n for k, n in
-        {**RELAXED_LAUNCHES, **RELAXED_LAUNCHES_LARGE}[name].items()})
+        k: len(reqs) * n for k, n in serve_launches(name, True).items()})
     r = torch.cat([o.float() for o in outs])
     e = torch.cat([o.float() for o in exact])
     if r.shape != e.shape or not torch.isfinite(r).all():
@@ -2072,25 +2064,70 @@ def write_image_folder(root, per_class=24):
                     os.path.join(d, f"{split}_{i:03d}.jpg"), quality=90)
 
 
-def resume_launches(cfg, inventory, ops, matmul="matmul_hessian_sims_b3"):
-    """B1 / B2 / B3 launches that searching ``ops`` takes under int8
-    scoring: each linear launches B1 and B2 once a round; each attention
-    matmul B3 (``matmul``: B3f at Swin's window shapes) twice a round (its
-    A side, then its B side), except the SoS matmul, whose split search is
-    plain PyTorch (B side only)."""
-    n = {"linear_w_hessian_sims_i8": 0, "linear_a_hessian_sims_i8": 0,
-         matmul: 0}
+def search_launches(cfg, inventory, shapes, ops=None):
+    """B1 / B2 / B3 / B3f launches that searching ``ops`` (every op of
+    ``inventory`` when None) takes under int8 scoring: each linear
+    launches B1 and B2 once a round; each attention matmul twice a round
+    (its A side, then its B side), except the SoS matmul, whose split
+    search is plain PyTorch (B side only) -- on B3f where the head fold of
+    its shape (``shapes``, ``mm_fold_factor``) is above 1, as the JAX
+    function picks its folded body there, else on B3.  One Swin-T/S
+    calibration so launches both: B3 at stage 1's 3 heads, B3f at the
+    stages past it."""
+    from ptq4vit_tpu_torch.ops.search_kernels import mm_fold_factor
+    n = dict.fromkeys(INT8, 0)
     for op, mtype in inventory:
-        if op not in ops:
+        if ops is not None and op not in ops:
             continue
         pol = cfg.op_policy(mtype)
         if "qmatmul" in mtype:
-            n[matmul] += pol.search_round * (
+            info = shapes[op]
+            fold = mm_fold_factor(info["heads"], info["inner"], info["cols"])
+            n["matmul_hessian_sims_b3f" if fold > 1
+              else "matmul_hessian_sims_b3"] += pol.search_round * (
                 1 if pol.quantizer == "sos_matmul" else 2)
         elif mtype != "qconv":
             n["linear_w_hessian_sims_i8"] += pol.search_round
             n["linear_a_hessian_sims_i8"] += pol.search_round
     return n
+
+
+def model_launches(name):
+    """``search_launches`` of every op of the zoo model ``name`` under
+    PTQ4ViT W8A8."""
+    from ptq4vit_tpu_torch.configs import ptq4vit
+    inv, shapes = model_ops(name)
+    return search_launches(ptq4vit(), inv, shapes)
+
+
+def serve_launches(name, relaxed=False):
+    """Launches of the serving kernels that one request of the zoo model
+    ``name`` makes through the fused engine (every other kernel: 0).
+    ViT / DeiT: B6 for qkv, proj, fc1 and fc2 of each block and for the
+    head (and the distilled head), B7 in each block.  Swin: each block
+    runs B10 (qkv), B9 and B11 (proj), and B6 for fc1 and fc2; B6 also for
+    each patch-merging reduction and the head.  ``relaxed``: qkv (B10),
+    fc1 and the attention run the relaxed variants; proj, fc2, B11, the
+    reductions and the heads (float outputs without GELU, the same
+    function) the exact kernels -- B6 as many a request in all."""
+    from ptq4vit_tpu_torch.models import model_config, swin
+    cfg = model_config(name)
+    if isinstance(cfg, swin.SwinConfig):
+        blocks, tail = sum(cfg.depths), cfg.num_layers
+        if relaxed:
+            return {"q8_linear": blocks + tail, "q8_linear_relaxed": blocks,
+                    "fused_window_attention_qkv_relaxed": blocks,
+                    "q8_win_qkv_relaxed": blocks, "q8_win_proj": blocks}
+        return {"q8_linear": 2 * blocks + tail,
+                "fused_window_attention_qkv": blocks, "q8_win_qkv": blocks,
+                "q8_win_proj": blocks}
+    heads = 2 if cfg.distilled else 1
+    if relaxed:
+        return {"q8_linear": 2 * cfg.depth + heads,
+                "q8_linear_relaxed": 2 * cfg.depth,
+                "fused_attention_qkv_relaxed": cfg.depth}
+    return {"q8_linear": 4 * cfg.depth + heads,
+            "fused_attention_qkv": cfg.depth}
 
 
 def slot_diff(a, b):
@@ -2227,7 +2264,8 @@ def calibration_surface_phase(sk, sv, root):
                                  f"{sorted(r2.search_seconds)}, expected "
                                  f"the {len(rest)} ops of blocks 6-11 and "
                                  "the head")
-        expect = resume_launches(cfg, net.op_inventory, set(rest))
+        expect = search_launches(cfg, net.op_inventory, net.op_shapes,
+                                 set(rest))
         check_exact_launches(RESUME_PATH, launches, expect)
         diff = slot_diff(resumed, whole)
         summary.update(resume_searched=len(rest), resume_wall_s=wall,
@@ -2357,11 +2395,16 @@ def counted(path, sk, sv, fn, *a, **kw):
     return out, launches, wall
 
 
-def inventory(name):
+def model_ops(name):
+    """(op inventory, op shapes) of the zoo model ``name``."""
     from ptq4vit_tpu_torch.models import model_config, swin, vit
     cfg = model_config(name)
     mod = swin if isinstance(cfg, swin.SwinConfig) else vit
-    return mod.op_inventory(cfg)
+    return mod.op_inventory(cfg), mod.op_shapes(cfg)
+
+
+def inventory(name):
+    return model_ops(name)[0]
 
 
 def drivers_phase(sk, sv, root):
@@ -2395,16 +2438,13 @@ def drivers_phase(sk, sv, root):
     import torch_test_ablation
     import torch_test_all
     import torch_test_vit as tv
-    from ptq4vit_tpu_torch.configs import ptq4vit
     by_path, summary = {}, {"path": "drivers"}
     card_gib = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
 
     # bench_torch.py, in process, its stdout contract caught
-    for path, model, repeats, matmul in (
-            (BENCH_VIT, "vit_base_patch16_384", BENCH_REPEATS,
-             "matmul_hessian_sims_b3"),
-            (BENCH_SWIN, "swin_base_patch4_window12_384", 1,
-             "matmul_hessian_sims_b3f")):
+    for path, model, repeats in (
+            (BENCH_VIT, "vit_base_patch16_384", BENCH_REPEATS),
+            (BENCH_SWIN, "swin_base_patch4_window12_384", 1)):
         out, err = io.StringIO(), io.StringIO()
         (rc, row, qstate), launches, wall = counted(
             path, sk, sv, bench_torch.run,
@@ -2419,8 +2459,7 @@ def drivers_phase(sk, sv, root):
             raise AssertionError(f"{path}: bench_torch exited {rc}: "
                                  f"{lines[-1]}")
         inv = inventory(model)
-        per_run = resume_launches(ptq4vit(), inv, {n for n, _ in inv},
-                                  matmul)
+        per_run = model_launches(model)
         check_exact_launches(path, launches,
                              {k: v * repeats for k, v in per_run.items()})
         check_qstate(types.SimpleNamespace(op_inventory=inv), qstate, path)
@@ -2444,8 +2483,8 @@ def drivers_phase(sk, sv, root):
     if rc != 0:
         raise AssertionError(f"{INFER_PATH}: {row.get('error')}")
     # the fused and the relaxed modes, a warm-up and INFER_ITERS calls each
-    per_call = dict(RELAXED_LAUNCHES["vit_base_patch16_384"])
-    for k, n in SERVE_LAUNCHES["vit_base_patch16_384"].items():
+    per_call = dict(serve_launches("vit_base_patch16_384", True))
+    for k, n in serve_launches("vit_base_patch16_384").items():
         per_call[k] = per_call.get(k, 0) + n
     check_exact_launches(INFER_PATH, launches, {
         k: n * (INFER_ITERS + 1) for k, n in per_call.items()})
@@ -2463,7 +2502,7 @@ def drivers_phase(sk, sv, root):
     modes = torch_serve_e2e_bench.MODES
     check_exact_launches(E2E_PATH, launches, {
         k: n * len(modes) * (E2E_BATCHES + 1)
-        for k, n in SERVE_LAUNCHES["vit_base_patch16_384"].items()})
+        for k, n in serve_launches("vit_base_patch16_384").items()})
     summary[E2E_PATH] = {m: row[m] for m in modes}
     log(f"[serve_e2e] img/s, {E2E_BATCHES} batches of 32 a mode, the copy "
         "included: " + ", ".join(f"{m} {row[m]:.1f}" for m in modes)
@@ -2655,17 +2694,45 @@ def chunk_cases(sk, cases, stats, dev):
     torch.cuda.empty_cache()
 
 
-def large_search_cases(sk, dev):
-    """Search kernel cases at the shapes the large models bring, as
-    measure_search takes them (4 images, P = 100), each call's plan
-    logged: B1 twin and B2 post-GELU at ViT-L/384's fc2 (K 4096) and
-    Swin-L/384's stage-4 fc2 (K 6144, N 1536); B3 mode a at ViT-L/384's
-    16 heads; B3f b_sos at Swin-L/384's stage 1 (6 heads, 64 windows an
-    image) and b at its stage 4 (48 heads, one window); B4w / B4a at
-    Swin-B/384's stage-1 fc1 (9216 window rows an image)."""
+# search kernel shapes at 4 images: linears (label, M, K, N, post-GELU,
+# exact scoring: B4w / B4a, else B1 / B2) and attention matmuls (label,
+# samples, heads, tokens, head dim, modes)
+S4 = 4
+LARGE_LINEARS = (
+    ("ViT-L/384 fc2 twin", S4 * 577, 4096, 1024, True, False),
+    ("Swin-L/384 stage 4 fc2 twin", S4 * 144, 6144, 1536, True, False),
+    ("Swin-B/384 stage 1 fc1", S4 * 9216, 128, 512, False, True))
+LARGE_MATMULS = (
+    ("ViT-L/384 (16 heads)", S4, 16, 577, 64, ("a",)),
+    ("Swin-L/384 stage 1 (6 heads, 64 windows)", S4 * 64, 6, 144, 32,
+     ("b_sos",)),
+    ("Swin-L/384 stage 4 (48 heads, one window)", S4, 48, 144, 32,
+     ("b",)))
+# the 224-px grid: Swin-T stage 1 (3136 tokens, C 96) fc1 and its twin
+# fc2; window 7 (N = 49, 15 of a 64-wide tile idle) at Swin-T's 3 heads
+# (B3) and Swin-B/224's 4 (B3f, fold 4); ViT-S/32's 6 heads at N = 50
+# (B3f, fold 2)
+GRID_LINEARS = (
+    ("Swin-T stage 1 fc1", S4 * 3136, 96, 384, False, False),
+    ("Swin-T stage 1 fc2 twin", S4 * 3136, 384, 96, True, False))
+GRID_MATMULS = (
+    ("Swin-T stage 1 (3 heads, window 7, 64 windows)", S4 * 64, 3, 49, 32,
+     ("a", "b", "b_sos")),
+    ("Swin-B/224 stage 1 (4 heads, window 7, 64 windows)", S4 * 64, 4, 49,
+     32, ("a", "b", "b_sos")),
+    ("ViT-S/32 (6 heads, N = 50)", S4, 6, 50, 64, ("a", "b_sos")))
+
+
+def shape_search_cases(sk, dev, linears, matmuls, seed):
+    """Search kernel cases at the shapes given (``linears``,
+    ``matmuls``: as LARGE_LINEARS / LARGE_MATMULS), as measure_search
+    takes them (P = 100), each call's plan logged: B1 and B2 (twin / post-
+    GELU where the input is), or B4w and B4a under exact scoring, at each
+    linear; B3, or B3f where the shape's head fold is above 1, in each
+    mode of each matmul."""
     from ptq4vit_tpu_torch.quant.fakequant import GELU_NEG_CLIP
-    rng = np.random.default_rng(17)
-    S, P, q = 4, 100, 128
+    rng = np.random.default_rng(seed)
+    P, q = 100, 128
     grid = np.linspace(0.01, 1.2, P + 1)[:P].astype(np.float32)
     a_neg = np.float32(GELU_NEG_CLIP / q)
     i8 = torch.int8
@@ -2681,10 +2748,7 @@ def large_search_cases(sk, dev):
         log(f"[plan] {kname} {label}: "
             f"{call_plans(sk, kname, args, [P], dev)[0]}")
 
-    for label, M, ic, oc, pg in (
-            ("ViT-L/384 fc2 twin", S * 577, 4096, 1024, True),
-            ("Swin-L/384 stage 4 fc2 twin", S * 144, 6144, 1536, True),
-            ("Swin-B/384 stage 1 fc1", S * 9216, 128, 512, False)):
+    for label, M, ic, oc, pg, exact in linears:
         x = rng.standard_normal((M, ic)).astype(np.float32)
         if pg:
             x = x * 0.5 * (1 + np.tanh(0.7978845608 * (x + 0.044715 * x ** 3)))
@@ -2697,29 +2761,25 @@ def large_search_cases(sk, dev):
         w_int = np.float32(np.abs(w).max() / (q - 0.5))
         w_lv = np.clip(np.round(w / w_int), -q, q - 1)
         cw, ca = t(grid * w_int), t(grid * a)
-        if not pg:          # B4w / B4a at Swin-B/384's window rows
+        if exact:           # B4w / B4a
             case("linear_w_hessian_sims", label,
                  (t(x_lv * a), t(w), cw, t(raw), t(g), q))
             case("linear_a_hessian_sims", label,
                  (t(x), t(w_lv * w_int), ca, t(raw), t(g), q, False, 0.0))
             continue
-        x_neg = np.clip(np.round(x / a_neg), -q, 0)
+        x_neg = np.clip(np.round(x / a_neg), -q, 0) if pg else None
         case("linear_w_hessian_sims_i8", label,
-             (t(x_lv, i8), t(x_neg, i8), float(a), float(a_neg), t(w), cw,
-              t(raw), t(g), q))
+             (t(x_lv, i8), t(x_neg, i8) if pg else None, float(a),
+              float(a_neg) if pg else None, t(w), cw, t(raw), t(g), q))
         case("linear_a_hessian_sims_i8", label,
              (t(x), t(w_lv, i8), t(np.full(oc, w_int, np.float32)), ca,
-              t(raw), t(g), q, True, GELU_NEG_CLIP / q))
-    for label, S_, G, N, hd, mode in (
-            ("ViT-L/384 matmul1 (16 heads)", S, 16, 577, 64, "a"),
-            ("Swin-L/384 stage 1 matmul2 (6 heads, 64 windows)", S * 64, 6,
-             144, 32, "b_sos"),
-            ("Swin-L/384 stage 4 matmul1 (48 heads, one window)", S, 48,
-             144, 32, "b")):
-        for _, args in matmul_cases(rng, grid, S_, G, N, hd, q, t, (mode,)):
+              t(raw), t(g), q, pg, GELU_NEG_CLIP / q if pg else 0.0))
+    for label, S_, G, N, hd, modes in matmuls:
+        for mlabel, args in matmul_cases(rng, grid, S_, G, N, hd, q, t,
+                                         modes):
             fold = sk.mm_fold_factor(G, args[0].shape[-1], args[1].shape[-1])
             case("matmul_hessian_sims_b3f" if fold > 1
-                 else "matmul_hessian_sims_b3", f"{label} {mode}", args,
+                 else "matmul_hessian_sims_b3", f"{label} {mlabel}", args,
                  "matmul_hessian_sims_ref")
     return cases
 
@@ -2744,13 +2804,14 @@ LARGE_WINDOW_ATTN_STAGES = ((1, 96, 6, 6, ("int8 SoS",)),
 def large_kernel_phase(sk, sv, dev):
     """Phase 3's cases at the large models' shapes, each kernel against
     its plain version under the rules of its family: the search kernels
-    (``large_search_cases``), B6 at ViT-L/384's fc1 / fc2 and Swin-L/384's
-    stage-1 fc1 (C 192) and stage-4 fc2 (K 6144) (each call's q8_plan
-    logged), B7 int8 -> int8 SoS at ViT-L/384's 16 heads, B10 / B11 and B9
-    int8 -> int8 SoS at Swin-L/384's stages 1 (6 heads, shifted) and 4
-    (48 heads, one window), all with SERVE_BATCH images.  Returns the
-    stats by kernel."""
-    stats = measure_search(large_search_cases(sk, dev))
+    (``shape_search_cases`` at LARGE_LINEARS / LARGE_MATMULS), B6 at
+    ViT-L/384's fc1 / fc2 and Swin-L/384's stage-1 fc1 (C 192) and stage-4
+    fc2 (K 6144) (each call's q8_plan logged), B7 int8 -> int8 SoS at
+    ViT-L/384's 16 heads, B10 / B11 and B9 int8 -> int8 SoS at
+    Swin-L/384's stages 1 (6 heads, shifted) and 4 (48 heads, one window),
+    all with SERVE_BATCH images.  Returns the stats by kernel."""
+    stats = measure_search(shape_search_cases(sk, dev, LARGE_LINEARS,
+                                              LARGE_MATMULS, 17))
     rng = np.random.default_rng(18)
     cases = []
     for c in LARGE_B6_CASES:
@@ -2762,6 +2823,63 @@ def large_kernel_phase(sk, sv, dev):
     cases += window_kernel_cases(sv, dev, LARGE_WINDOW_STAGES,
                                  LARGE_WINDOW_ATTN_STAGES, "Swin-L/384 ",
                                  relaxed=False, seed=19)
+    merge_stats(stats, measure_serving(cases))
+    return stats
+
+
+# B6 at the 224-px models' shapes with SERVE_BATCH images, as B6_CASES:
+# Swin-T stage 1 (res 56, C 96) fc1 and fc2, the distilled DeiT-S's second
+# head; then fc1's relaxed variant on the same inputs
+GRID_B6_CASES = (
+    ("Swin-T stage 1 fc1: LN, quantize -> GELU -> twin int8",
+     SERVE_BATCH * 3136, 96, 384, "f", True, True, "twin", torch.bfloat16),
+    ("Swin-T stage 1 fc2: twin int8 in -> + residual", SERVE_BATCH * 3136,
+     384, 96, "q8twin", False, False, "residual", torch.bfloat16),
+    ("DeiT-S distilled head_dist: quantize -> float", SERVE_BATCH, 384, 1000,
+     "f", False, False, "float", torch.bfloat16))
+GRID_RELAXED_B6 = ((GRID_B6_CASES[0][0], None),)
+# B7 at the ViT / DeiT token counts (tag, heads, N)
+GRID_ATTENTION = (("ViT-S/32 6 heads, N = 50: ", 6, 50),
+                  ("DeiT-S distilled 6 heads, N = 198: ", 6, 198),
+                  ("DeiT-T 3 heads, N = 197: ", 3, 197))
+# B10 / B11 and B9 at Swin-T's window 7 (N = 49): stage 1 (res 56, C 96,
+# 3 heads, shifted: 64 masks) and stage 4 (res 7, one clamped window, 24
+# heads, no mask)
+GRID_WINDOW_STAGES = ((1, 56, 96),)
+GRID_WINDOW_ATTN_STAGES = ((1, 56, 3, 3, ("int8 SoS", "float SoS")),
+                           (4, 7, 24, 0, ("int8 SoS",)))
+
+
+def grid_kernel_phase(sk, sv, dev):
+    """Phase 3's cases at the 224-px models' shapes, each kernel against
+    its plain version under the rules of its family: the search kernels
+    (``shape_search_cases`` at GRID_LINEARS / GRID_MATMULS: B1 / B2 at
+    Swin-T's stage 1, B3 at window 7 with 3 heads, B3f at 4 and at
+    ViT-S/32's N = 50), B6 at GRID_B6_CASES (each call's q8_plan logged)
+    and fc1's relaxed variant, B7 int8 -> int8 SoS and its relaxed variant
+    at GRID_ATTENTION, B10 / B11 and B9 at Swin-T's window 7
+    (GRID_WINDOW_STAGES, GRID_WINDOW_ATTN_STAGES) with B10's and B9's
+    relaxed variants at stage 1, all with SERVE_BATCH images.  Returns
+    the stats by kernel."""
+    stats = measure_search(shape_search_cases(sk, dev, GRID_LINEARS,
+                                              GRID_MATMULS, 20))
+    rng = np.random.default_rng(21)
+    cases, inputs = [], {}
+    for c in GRID_B6_CASES:
+        case, args, kw = b6_case(sv, rng, *c)
+        cases.append(case)
+        inputs[c[0]] = (args, kw)
+        log(f"[plan] q8_linear {c[0]}: "
+            f"{sv.q8_plan(c[1], c[3], c[4], c[7] == 'residual')}")
+    cases += relaxed_linear_cases(sv, rng, inputs, GRID_RELAXED_B6)
+    for tag, H, N in GRID_ATTENTION:
+        log(f"[plan] attention {tag}{sv.attn_plan(N, 64)}")
+        cases += vit_attention_cases(sv, dev, rng, H=H, tag=tag, full=False,
+                                     N=N, relaxed=True)
+    log(f"[plan] window attention, window 7: {sv.attn_plan(49, 32)}")
+    cases += window_kernel_cases(sv, dev, GRID_WINDOW_STAGES,
+                                 GRID_WINDOW_ATTN_STAGES, "Swin-T window 7 ",
+                                 relaxed=True, seed=22, ws=7)
     merge_stats(stats, measure_serving(cases))
     return stats
 
@@ -2779,36 +2897,43 @@ def merge_stats(stats, more):
                 stats[k][key] = max(stats[k].get(key, 0.0), st[key])
 
 
-def large_model_phase(sk, sv, q_swin_b):
-    """Phase 12: ViT-L/384 and Swin-L/384 at full width and depth through
+def model_paths(sk, sv, names, by_path, summaries):
+    """Each zoo model of ``names`` at full width and depth through
     quantize (PTQ4ViT W8A8, random weights from a seeded generator, 8
-    images, micro-batch 4) with B1 / B2 / B3 (Swin: B3f) launched exactly
-    as their op inventories need (``resume_launches``), served as phase 4
-    serves, then serving_phase on each qstate: LARGE_REQUESTS requests of
+    images, micro-batch 4) with B1 / B2 / B3 / B3f launched exactly as its
+    op inventory needs (``model_launches``), served as phase 4 serves,
+    then serving_phase on its qstate: MODEL_REQUESTS requests of
     SERVE_BATCH images through the bf16 ServingEngine and
-    LARGE_RELAXED_REQUESTS through the relaxed one, launches exactly as
-    SERVE_LAUNCHES_LARGE / RELAXED_LAUNCHES_LARGE say, the cosine gates of
-    phase 7; then Swin-B/384 under exact scoring (B4w / B4a 300 each, B1 -
-    B3f never) and its flip count against phase 5's int8-scored qstate
-    ``q_swin_b`` (same net, images and probe).  Returns ({path: launches},
-    the summaries)."""
-    from ptq4vit_tpu_torch.configs import ptq4vit
-    t_phase = time.time()
-    by_path, summaries = {}, []
-    for name in LARGE:
+    MODEL_RELAXED_REQUESTS through the relaxed one, launches exactly as
+    ``serve_launches`` says, the cosine gates of phase 7.  Adds each
+    path's launches to ``by_path`` and its summary to ``summaries``."""
+    for name in names:
+        t0 = time.time()
         qcpu, launches, summary = calibrate_and_serve(name, name, sk)
-        inv = inventory(name)
-        check_exact_launches(name, launches, resume_launches(
-            ptq4vit(), inv, {op for op, _ in inv}, LARGE_MATMUL[name]))
+        check_exact_launches(name, launches, model_launches(name))
         by_path[name] = launches
         summaries.append(summary)
         launches, summary, (net, qstate, x0, _) = serving_phase(
-            sk, sv, name, qcpu, LARGE_REQUESTS, LARGE_RELAXED_REQUESTS)
+            sk, sv, name, qcpu, MODEL_REQUESTS, MODEL_RELAXED_REQUESTS)
         by_path[summary["path"]] = launches
         by_path[summary["relaxed"]["path"]] = summary["relaxed"]["launches"]
+        summary["model_s"] = time.time() - t0
         summaries.append(summary)
+        log(f"[model] {name}: calibrated and served in "
+            f"{summary['model_s']:.1f} s")
         del net, qstate, x0
         torch.cuda.empty_cache()
+
+
+def large_model_phase(sk, sv, q_swin_b):
+    """Phase 12: ViT-L/384 and Swin-L/384 through ``model_paths``; then
+    Swin-B/384 under exact scoring (B4w / B4a 300 each, B1 - B3f never)
+    and its flip count against phase 5's int8-scored qstate ``q_swin_b``
+    (same net, images and probe).  Returns ({path: launches}, the
+    summaries)."""
+    t_phase = time.time()
+    by_path, summaries = {}, []
+    model_paths(sk, sv, LARGE, by_path, summaries)
     swin_b = "swin_base_patch4_window12_384"
     q_exact, by_path[SWIN_EXACT_PATH], summary = calibrate_and_serve(
         SWIN_EXACT_PATH, swin_b, sk, int8_score=False)
@@ -2820,6 +2945,20 @@ def large_model_phase(sk, sv, q_swin_b):
     log(f"[flips] int8 vs exact scoring, {swin_b}, {NUM_CALIB} images: "
         + json.dumps(summary["flips"]))
     log(f"[large] phase 12: {time.time() - t_phase:.1f} s")
+    return by_path, summaries
+
+
+def grid_phase(sk, sv):
+    """Phase 13, the paper's 224-px grid: ViT-S/32 (N = 50, its matmuls on
+    B3f: 6 heads fold by 2), DeiT-T (3 heads), ViT-B/224 (N = 197), the
+    distilled DeiT-S (N = 198, two heads averaged), Swin-T (window 7: B3
+    at stage 1's 3 heads, B3f past it; stage 4 one clamped window) and
+    Swin-B/224 through ``model_paths``.  Returns ({path: launches}, the
+    summaries)."""
+    t_phase = time.time()
+    by_path, summaries = {}, []
+    model_paths(sk, sv, GRID, by_path, summaries)
+    log(f"[grid] phase 13: {time.time() - t_phase:.1f} s")
     return by_path, summaries
 
 
@@ -2934,7 +3073,7 @@ def mesh_rank(rank, job_path, out_dir):
             "qstate": qstate_to(q, "cpu"), "trace": host_trace(trace)}
 
     nets, calibs = {}, {}
-    for name in SERVE_LAUNCHES:
+    for name in BASE:
         net = nets[name] = get_net(name, seed=0)
         size = net.cfg.img_size
         calibs[name] = np.random.default_rng(1).standard_normal(
@@ -3149,7 +3288,7 @@ def mesh_phase(sk, sv, qstates, traces, launches, served):
     backend = launch.choose_backend(devices)
     with tempfile.TemporaryDirectory(prefix="ptq4vit_smoke_mesh_") as tmp:
         job = os.path.join(tmp, "job.pt")
-        torch.save({"qstates": {k: qstates[k] for k in SERVE_LAUNCHES},
+        torch.save({"qstates": {k: qstates[k] for k in BASE},
                     "labels": labels}, job)
         t0 = time.time()
         launch.spawn(mesh_rank, MESH_WORLD, devices=devices, args=(job, tmp),
@@ -3173,7 +3312,7 @@ def mesh_phase(sk, sv, qstates, traces, launches, served):
     # exactly what the single device's path does
     refs = {f"mesh {p} calibration": (
                 f"the single device's ({p})", qstates[p], traces[p],
-                launches[p]) for p in SERVE_LAUNCHES}
+                launches[p]) for p in BASE}
     refs[f"mesh {MESH_EXACT_PATH} calibration"] = (
         "the single device's", q_exact, trace_exact,
         by_path[MESH_EXACT_PATH])
@@ -3206,12 +3345,12 @@ def mesh_phase(sk, sv, qstates, traces, launches, served):
     summary["micro-batch witness"] = witness
 
     # data-parallel serving against phase 7's first request
-    for name in SERVE_LAUNCHES:
+    for name in BASE:
         key = f"mesh {name} serving"
         ref = served[name]
         for r, res in enumerate(ranks):
             check_exact_launches(f"rank {r} {key}", res["paths"][key][
-                "launches"], SERVE_LAUNCHES[name])
+                "launches"], serve_launches(name))
             got = res["paths"][key]["logits"]
             if not torch.equal(got, ranks[0]["paths"][key]["logits"]):
                 raise AssertionError(f"{key}: ranks gathered different "
@@ -3264,7 +3403,7 @@ def mesh_phase(sk, sv, qstates, traces, launches, served):
     # the one-rank NCCL world
     ref = served["vit_base_patch16_384"]
     check_exact_launches("one-rank NCCL serving", one["launches"],
-                         SERVE_LAUNCHES["vit_base_patch16_384"])
+                         serve_launches("vit_base_patch16_384"))
     diff = int((one["logits"] != ref).sum())
     log(f"[mesh] one-rank world, backend {one['backend']}: ServingEngine("
         f"mesh=) {diff} of {ref.numel()} logits differ from phase 7's; "
@@ -3300,7 +3439,7 @@ def mesh_only(sk, sv):
     from ptq4vit_tpu_torch.models import get_net
     from ptq4vit_tpu_torch.utils.convert import qstate_to
     qstates, traces, launches, served = {}, {}, {}, {}
-    for name in SERVE_LAUNCHES:
+    for name in BASE:
         with S.argmax_trace() as trace:
             qstates[name], launches[name], _ = calibrate_and_serve(
                 name, name, sk)
@@ -3354,6 +3493,7 @@ def main() -> int:
     # the large shapes after each kernel's phase-3 cases: the first stays
     # its headline
     merge_stats(stats, large_kernel_phase(sk, sv, torch.device("cuda")))
+    merge_stats(stats, grid_kernel_phase(sk, sv, torch.device("cuda")))
 
     from ptq4vit_tpu_torch.calib import search as S
     by_path, summaries, qstates, traces, served = {}, [], {}, {}, {}
@@ -3376,7 +3516,7 @@ def main() -> int:
              sum(v[1] for v in flips.values())]
     log("[flips] int8 vs exact scoring, vit_base_patch16_384, 8 images: "
         + json.dumps({"by_op_type": flips, "total": total}))
-    for name in SERVE_LAUNCHES:
+    for name in BASE:
         launches, summary, (net, qstate, x0, served[name]) = serving_phase(
             sk, sv, name, qstates[name])
         by_path[summary["path"]] = launches
@@ -3406,6 +3546,9 @@ def main() -> int:
             summaries.append(summary)
     launches, summary = large_model_phase(
         sk, sv, qstates["swin_base_patch4_window12_384"])
+    by_path.update(launches)
+    summaries += summary
+    launches, summary = grid_phase(sk, sv)
     by_path.update(launches)
     summaries += summary
     launches, summary = mesh_phase(sk, sv, qstates, traces, by_path, served)

@@ -15,8 +15,9 @@ every cell, with per-cell calibration timing.
 
 Prints one JSON line a cell on stdout with test_all.py's keys, and one
 on stderr with the cell's peak device memory (``peak_gib``, null on the
-CPU).  ``--names`` / ``--calib_sizes`` keep a part of the grid, in the
-grid's order.  With
+CPU), capture passes (``num_groups``) and the ops and kernel calls run in
+candidate chunks (``chunked_ops``, ``chunked_calls``).  ``--names`` /
+``--calib_sizes`` keep a part of the grid, in the grid's order.  With
 ``--multiprocess`` the cells go to one spawned worker per card (one card:
 one worker, the cells in order).  With random weights (``--synthetic``,
 or no checkpoint in ``$PTQ4VIT_TPU_CKPT_DIR``) top-1 means nothing.
@@ -58,6 +59,7 @@ def test_all(name, cfg_modifier=None, calib_size=32, config_name="PTQ4ViT",
     """One grid cell: build, calibrate (timed), evaluate, report.  Returns
     the stdout row with the net and the qstate."""
     from ptq4vit_tpu_torch.calib.calibrator import HessianQuantCalibrator
+    from ptq4vit_tpu_torch.ops import search_kernels
     quant_cfg = init_config(config_name)
     if cfg_modifier is not None:
         quant_cfg = cfg_modifier(quant_cfg)
@@ -65,6 +67,7 @@ def test_all(name, cfg_modifier=None, calib_size=32, config_name="PTQ4ViT",
     net, test_loader, calib = build_net_and_data(name, args, calib_size)
 
     reset_peak(net)
+    chunked = search_kernels.chunked_calls()
     calib_start_time = time.time()
     calibrator = HessianQuantCalibrator(net, quant_cfg, calib,
                                         sequential=False, batch_size=4)
@@ -91,7 +94,10 @@ def test_all(name, cfg_modifier=None, calib_size=32, config_name="PTQ4ViT",
     print(json.dumps({"model": name, "config": config_name,
                       "calib_size": calib_size, "w_bit": quant_cfg.bit,
                       "peak_gib": peak,
-                      "num_groups": calibrator.report.num_groups}),
+                      "num_groups": calibrator.report.num_groups,
+                      "chunked_ops": len(calibrator.scratch_bounds),
+                      "chunked_calls": search_kernels.chunked_calls()
+                      - chunked}),
           file=sys.stderr, flush=True)
     return {**row, "peak_gib": peak, "net": net, "qstate": qstate}
 

@@ -70,7 +70,8 @@ class Recorder:
         return types.SimpleNamespace(
             batching_quant_calib=lambda verbose=False: qstate or {},
             report=types.SimpleNamespace(capture_seconds=0.0,
-                                         search_seconds={}, num_groups=0))
+                                         search_seconds={}, num_groups=0),
+            scratch_bounds={})
 
 
 class FakeNet:
