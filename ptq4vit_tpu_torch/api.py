@@ -21,6 +21,7 @@ from .configs import get_config
 from .models import Net, get_net
 from .models.registry import resolve_device
 from .utils.timm_port import load_timm_checkpoint_if_any
+from .utils.tracing import span
 
 
 def quantize(model, calib_x, *, config="PTQ4ViT",
@@ -41,24 +42,24 @@ def quantize(model, calib_x, *, config="PTQ4ViT",
     classes) fixes the hessian probe noise (see calib/capture.py);
     ``int8_score`` defaults to int8 scoring on the card and exact scoring
     on the CPU.  Other keywords go to ``HessianQuantCalibrator``.
-    ``return_report=True`` returns (net, qstate, CalibReport)."""
-    device = resolve_device(device)
-    if isinstance(model, Net):
-        net = model
-    else:
-        if params is None:
-            params = load_timm_checkpoint_if_any(model)
-        net = get_net(model, params=params, seed=seed, device=device)
-    cfg = (get_config(config) if isinstance(config, str) else config) \
-        .set_bits(*bits)
-    calibrator = HessianQuantCalibrator(net, cfg, calib_x,
-                                        sequential=sequential,
-                                        batch_size=batch_size,
-                                        checkpoint_dir=checkpoint_dir,
-                                        device=device,
-                                        probe_u=probe_u,
-                                        int8_score=int8_score, **calib_kwargs)
-    qstate = calibrator.batching_quant_calib(verbose=verbose)
-    if return_report:
-        return net, qstate, calibrator.report
-    return net, qstate
+    ``return_report=True`` returns (net, qstate, CalibReport).  Under a
+    running ``torch.profiler`` the whole call is the span
+    ``ptq.calib.job`` (utils/tracing)."""
+    with span("ptq.calib.job"):
+        device = resolve_device(device)
+        if isinstance(model, Net):
+            net = model
+        else:
+            if params is None:
+                params = load_timm_checkpoint_if_any(model)
+            net = get_net(model, params=params, seed=seed, device=device)
+        cfg = (get_config(config) if isinstance(config, str) else config) \
+            .set_bits(*bits)
+        calibrator = HessianQuantCalibrator(
+            net, cfg, calib_x, sequential=sequential, batch_size=batch_size,
+            checkpoint_dir=checkpoint_dir, device=device, probe_u=probe_u,
+            int8_score=int8_score, **calib_kwargs)
+        qstate = calibrator.batching_quant_calib(verbose=verbose)
+        if return_report:
+            return net, qstate, calibrator.report
+        return net, qstate

@@ -50,6 +50,7 @@ from ..parallel.mesh import all_gather, axis_size, check_mesh, pmin
 from ..quant import fakequant as fq
 from ..quant.qparams import ConvQP, LinearQP, MatMulQP
 from ..utils.convert import qp_from_fields
+from ..utils.tracing import device_trace, span
 from . import search as S
 from .capture import OpCapture, capture, draw_probe_u, probe_target
 
@@ -217,6 +218,9 @@ class CalibReport:
     search_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
     capture_peak_bytes: int = 0     # CUDA: peak allocated by the end of a
                                     # capture pass (0 on the CPU)
+    device_allocs: int = 0          # CUDA: cudaMalloc calls the caching
+                                    # allocator made during the
+                                    # calibration (0 on the CPU)
 
     @property
     def total_seconds(self) -> float:
@@ -382,7 +386,7 @@ class HessianQuantCalibrator:
         out = room()
         if out - whole < need and torch.cuda.memory_reserved(self.device) > \
                 torch.cuda.memory_allocated(self.device):
-            torch.cuda.empty_cache()
+            self._release()
             out = room()
         if self.mesh is not None:
             out = int(pmin(torch.tensor([out], device=self.device),
@@ -420,7 +424,7 @@ class HessianQuantCalibrator:
         and the driver is not asked."""
         if self._tight and need > torch.cuda.mem_get_info(
                 self.device)[0] // self._sharing:
-            torch.cuda.empty_cache()
+            self._release()
 
     def _local_samples(self) -> int:
         """The calibration samples this rank captures."""
@@ -433,11 +437,28 @@ class HessianQuantCalibrator:
         return self.batching_quant_calib(verbose=verbose)
 
     def batching_quant_calib(self, verbose: bool = False) -> Dict[str, Any]:
+        allocs = self._device_allocs()
         if self.profile_dir is None:
-            return self._batching_quant_calib(verbose)
-        from ..utils.tracing import device_trace
-        with device_trace(self.profile_dir, self.device, "calibration"):
-            return self._batching_quant_calib(verbose)
+            qstate = self._batching_quant_calib(verbose)
+        else:
+            with device_trace(self.profile_dir, self.device, "calibration"):
+                qstate = self._batching_quant_calib(verbose)
+        self.report.device_allocs = self._device_allocs() - allocs
+        return qstate
+
+    def _device_allocs(self) -> int:
+        """The caching allocator's cudaMalloc calls so far (0 off the
+        card)."""
+        if self.device.type != "cuda":
+            return 0
+        return torch.cuda.memory_stats(self.device).get(
+            "num_device_alloc", 0)
+
+    def _release(self):
+        """Free the caching allocator's unused blocks on the device
+        (``torch.cuda.empty_cache``)."""
+        with span("ptq.calib.release"):
+            torch.cuda.empty_cache()
 
     def _batching_quant_calib(self, verbose: bool) -> Dict[str, Any]:
         t_setup = time.time()
@@ -448,23 +469,25 @@ class HessianQuantCalibrator:
                 if name not in qstate]
         if self.sequential:
             # one op's caches at a time: only the kernel scratch to plan
-            self._plan_search(need_grad, policies)
+            with span("ptq.calib.plan"):
+                self._plan_search(need_grad, policies)
             self.report.setup_seconds = time.time() - t_setup
             return self._sequential_calib(qstate, todo, policies, need_grad,
                                           verbose)
-        elem = torch.tensor([], dtype=self.cache_dtype).element_size()
-        sizes = tap_bytes(self.net, self._local_samples(), need_grad, False,
-                          elem)
-        budget = self._group_budget(self._plan_search(
-            need_grad, policies, sum(sizes[name] for name, _ in todo)))
-        groups: List[List[str]] = []
-        acc = 0
-        for name, _ in todo:
-            if not groups or acc + sizes[name] > budget:
-                groups.append([])
-                acc = 0
-            groups[-1].append(name)
-            acc += sizes[name]
+        with span("ptq.calib.plan"):
+            elem = torch.tensor([], dtype=self.cache_dtype).element_size()
+            sizes = tap_bytes(self.net, self._local_samples(), need_grad,
+                              False, elem)
+            budget = self._group_budget(self._plan_search(
+                need_grad, policies, sum(sizes[name] for name, _ in todo)))
+            groups: List[List[str]] = []
+            acc = 0
+            for name, _ in todo:
+                if not groups or acc + sizes[name] > budget:
+                    groups.append([])
+                    acc = 0
+                groups[-1].append(name)
+                acc += sizes[name]
         self.report.num_groups = len(groups)
         self.report.setup_seconds = time.time() - t_setup
 
@@ -477,7 +500,7 @@ class HessianQuantCalibrator:
                 # the searches: left cached, they fragmented the card so
                 # that B3's 50 GiB mode-a scratch of ViT-B/384 BasePTQ at
                 # 128 images found no room (ROADMAP C7)
-                torch.cuda.empty_cache()
+                self._release()
             for name in group:
                 qp = self._search_one(name, mtypes[name], policies[name],
                                       raw.pop(name), verbose)
@@ -525,22 +548,24 @@ class HessianQuantCalibrator:
         memory cannot hold the group's caches and its largest search, the
         caching allocator's free blocks are released first
         (``_release_unless_free``)."""
-        if self._tight:
-            self._release_unless_free(
-                sum(self._op_cache_bytes[op] for op in ops)
-                + max(self.search_needs[op] for op in ops))
-        t0 = time.time()
-        raw = capture(self.net, self.calib_x, batch_size=self.batch_size,
-                      need_grad=need_grad, probe_sigma=self.probe_sigma,
-                      ops=ops, store_raw_out=False,
-                      cache_dtype=self.cache_dtype, device=self.device,
-                      to_host=not self.device_resident, mesh=self.mesh, **kw)
-        self._sync()
-        self.report.capture_seconds += time.time() - t0
-        if self.device.type == "cuda":
-            self.report.capture_peak_bytes = max(
-                self.report.capture_peak_bytes,
-                torch.cuda.max_memory_allocated(self.device))
+        with span("ptq.calib.capture"):
+            if self._tight:
+                self._release_unless_free(
+                    sum(self._op_cache_bytes[op] for op in ops)
+                    + max(self.search_needs[op] for op in ops))
+            t0 = time.time()
+            raw = capture(self.net, self.calib_x, batch_size=self.batch_size,
+                          need_grad=need_grad, probe_sigma=self.probe_sigma,
+                          ops=ops, store_raw_out=False,
+                          cache_dtype=self.cache_dtype, device=self.device,
+                          to_host=not self.device_resident, mesh=self.mesh,
+                          **kw)
+            self._sync()
+            self.report.capture_seconds += time.time() - t0
+            if self.device.type == "cuda":
+                self.report.capture_peak_bytes = max(
+                    self.report.capture_peak_bytes,
+                    torch.cuda.max_memory_allocated(self.device))
         return raw
 
     def _sync(self):
@@ -552,14 +577,15 @@ class HessianQuantCalibrator:
         its seconds go to the report.  Where the driver's free memory
         cannot hold the search's planned bytes, the caching allocator's
         free blocks are released first (``_release_unless_free``)."""
-        self._release_unless_free(self.search_needs.get(name, 0))
-        t0 = time.time()
-        if not self.device_resident:
-            cap = cap_to(cap, self.device)
-        with S.traced_op(name):
-            qp = self._search_op(name, mtype, policy, cap)
-        self._sync()
-        self.report.search_seconds[name] = time.time() - t0
+        with span(f"ptq.calib.search.{policy.quantizer}"):
+            self._release_unless_free(self.search_needs.get(name, 0))
+            t0 = time.time()
+            if not self.device_resident:
+                cap = cap_to(cap, self.device)
+            with S.traced_op(name):
+                qp = self._search_op(name, mtype, policy, cap)
+            self._sync()
+            self.report.search_seconds[name] = time.time() - t0
         if verbose:
             print(f"[calib] {name}: {self.report.search_seconds[name]:.2f}s",
                   flush=True)

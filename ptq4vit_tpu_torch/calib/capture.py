@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import SampleShard, axis_rank, axis_size
+from ..utils.tracing import span
 
 TAP_FIELDS = {"linear": ("x",), "conv": ("x",), "matmul": ("a", "b")}
 
@@ -154,27 +155,29 @@ def capture(net, calib_x, *, batch_size: int = 8, need_grad: bool = True,
     for mb, s0 in enumerate(range(0, n_micro * loc, loc)):
         xb = x_all[s0:s0 + loc]
         if need_grad:
-            with torch.no_grad():
-                raw_logits, taps = fwd(params, xb, cfg, qstate=qstate,
-                                       capture=True)
-                target = (target_probs[s0:s0 + loc]
-                          if target_probs is not None else
-                          probe_target(raw_logits, u_all[s0:s0 + loc],
-                                       probe_sigma))
-                shapes = {n: taps[n]["out"].shape for n in names}
-                del taps
-            eps = {n: torch.zeros(sh, dtype=torch.float32, device=device,
-                                  requires_grad=True)
-                   for n, sh in shapes.items()}
-            with torch.enable_grad():
-                logits, taps = fwd(params, xb, cfg, qstate=qstate, eps=eps,
-                                   capture=True)
-                loss = _kl_batchmean(logits, target, batch_size)
+            with span("ptq.capture.forward"):
+                with torch.no_grad():
+                    raw_logits, taps = fwd(params, xb, cfg, qstate=qstate,
+                                           capture=True)
+                    target = (target_probs[s0:s0 + loc]
+                              if target_probs is not None else
+                              probe_target(raw_logits, u_all[s0:s0 + loc],
+                                           probe_sigma))
+                    shapes = {n: taps[n]["out"].shape for n in names}
+                    del taps
+                eps = {n: torch.zeros(sh, dtype=torch.float32, device=device,
+                                      requires_grad=True)
+                       for n, sh in shapes.items()}
+                with torch.enable_grad():
+                    logits, taps = fwd(params, xb, cfg, qstate=qstate,
+                                       eps=eps, capture=True)
+                    loss = _kl_batchmean(logits, target, batch_size)
+            with span("ptq.capture.backward"), torch.enable_grad():
                 grads = torch.autograd.grad(loss, [eps[n] for n in names])
             for n, g in zip(names, grads):
                 keep(n, "grad", g, mb)
         else:
-            with torch.no_grad():
+            with span("ptq.capture.forward"), torch.no_grad():
                 _, taps = fwd(params, xb, cfg, qstate=qstate, capture=True)
         for n in names:
             for field in TAP_FIELDS[kinds[n]]:

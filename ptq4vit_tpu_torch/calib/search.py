@@ -63,6 +63,7 @@ from ..ops import search_kernels as K
 from ..quant import fakequant as fq
 from ..quant.metrics import cosine_similarity
 from ..quant.qparams import ConvQP, LinearQP, MatMulQP
+from ..utils.tracing import span, spanned
 
 DEFAULT_BUDGET = 2 << 30  # bytes of out_sim scratch per candidate chunk
 
@@ -290,66 +291,72 @@ def _linear_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
                           device=dev) if postgelu else None)
     a_neg_f = fq.GELU_NEG_CLIP / a_qmax if postgelu else 0.0
 
-    if policy.init_layerwise:
-        w_int0 = fq.minmax_interval(w, w_qmax).reshape(1, 1, 1, 1) \
-            .expand(n_V, 1, n_H, 1).contiguous()
-        xg = fq.grouped_act_view(x, n_a)
-        v = xg if postgelu else torch.abs(xg)
-        a_int0 = fq.exact_div(_max(shard, torch.amax(v)), a_qmax - 0.5) \
-            .reshape(1, 1).expand(n_a, 1).contiguous()
-    else:
-        w_int0 = fq.blocked_weight_interval_init(w, n_V, n_H, w_qmax)
-        a_int0 = fq.grouped_act_interval_init(x, n_a, a_qmax,
-                                              signed=not postgelu,
-                                              reduce=_max_fn(shard))
+    with span("ptq.search.init"):
+        if policy.init_layerwise:
+            w_int0 = fq.minmax_interval(w, w_qmax).reshape(1, 1, 1, 1) \
+                .expand(n_V, 1, n_H, 1).contiguous()
+            xg = fq.grouped_act_view(x, n_a)
+            v = xg if postgelu else torch.abs(xg)
+            a_int0 = fq.exact_div(_max(shard, torch.amax(v)), a_qmax - 0.5) \
+                .reshape(1, 1).expand(n_a, 1).contiguous()
+        else:
+            w_int0 = fq.blocked_weight_interval_init(w, n_V, n_H, w_qmax)
+            a_int0 = fq.grouped_act_interval_init(x, n_a, a_qmax,
+                                                  signed=not postgelu,
+                                                  reduce=_max_fn(shard))
 
-    grid = fq.candidate_grid(policy.eq_alpha, policy.eq_beta, policy.eq_n,
-                             device=dev)
-    eq_n = policy.eq_n
-    w_cands = grid[:eq_n, None, None, None, None] * w_int0[None]
-    a_cands = grid[:eq_n, None, None] * a_int0[None]          # eq_n, n_a, 1
-    w4 = fq.blocked_weight_view(w, n_V, n_H)
+        grid = fq.candidate_grid(policy.eq_alpha, policy.eq_beta, policy.eq_n,
+                                 device=dev)
+        eq_n = policy.eq_n
+        w_cands = grid[:eq_n, None, None, None, None] * w_int0[None]
+        a_cands = grid[:eq_n, None, None] * a_int0[None]      # eq_n, n_a, 1
+        w4 = fq.blocked_weight_view(w, n_V, n_H)
 
-    if kern_w or kern_a:
-        rawb = (raw_out if b is None else raw_out - b).reshape(S * T, oc) \
-            .contiguous()
-        grad_f = raw_grad.reshape(S * T, oc).contiguous()
-        x2 = x.reshape(S * T, ic).contiguous()
-    if not (kern_w and kern_a):
-        xb, rb = _batch_chunks(x, bs), _batch_chunks(raw_out, bs)
-        gb = (_batch_chunks(raw_grad, bs) if metric == "hessian"
-              else [None] * len(xb))
+        if kern_w or kern_a:
+            rawb = (raw_out if b is None else raw_out - b).reshape(S * T, oc) \
+                .contiguous()
+            grad_f = raw_grad.reshape(S * T, oc).contiguous()
+            x2 = x.reshape(S * T, ic).contiguous()
+        if not (kern_w and kern_a):
+            xb, rb = _batch_chunks(x, bs), _batch_chunks(raw_out, bs)
+            gb = (_batch_chunks(raw_grad, bs) if metric == "hessian"
+                  else [None] * len(xb))
 
     def score_w_kernel(a_int):
         """B1 (int8 scoring, n_a == 1) or B4w: (eq_n, n_V) sims."""
         cands = w_cands.reshape(eq_n, n_V).contiguous()
         if int8_score and n_a == 1:
             a_sc = a_int.reshape(())
-            if postgelu:
-                x_lv = torch.clamp(torch.round(x2 / a_sc), 0, a_qmax - 1) \
-                    .to(torch.int8)
-                x_neg = torch.clamp(torch.round(x2 / a_neg), -a_qmax, 0) \
-                    .to(torch.int8)
-            else:
-                x_lv = torch.clamp(torch.round(x2 / a_sc), -a_qmax,
-                                   a_qmax - 1).to(torch.int8)
-                x_neg = None
+            with span("ptq.search.init"):
+                if postgelu:
+                    x_lv = torch.clamp(torch.round(x2 / a_sc), 0,
+                                       a_qmax - 1).to(torch.int8)
+                    x_neg = torch.clamp(torch.round(x2 / a_neg), -a_qmax,
+                                        0).to(torch.int8)
+                else:
+                    x_lv = torch.clamp(torch.round(x2 / a_sc), -a_qmax,
+                                       a_qmax - 1).to(torch.int8)
+                    x_neg = None
             sims = K.linear_w_hessian_sims_i8(
                 x_lv, x_neg, a_sc, a_neg, w, cands, rawb, grad_f, w_qmax,
                 scratch_bound=scratch_bound)
         else:
-            x_sim = _quant_act_linear(x2, a_int, a_neg, policy).contiguous()
+            with span("ptq.search.init"):
+                x_sim = _quant_act_linear(x2, a_int, a_neg, policy) \
+                    .contiguous()
             sims = K.linear_w_hessian_sims(x_sim, w, cands, rawb, grad_f,
                                            w_qmax, scratch_bound=scratch_bound)
         return fq.exact_div(_sum(shard, sims), float(T * crb_r))
 
+    @spanned("ptq.search.score")
     def score_w(w_int, a_int, h):
         """Summed similarities (eq_n, n_V) of the candidates for weight
         column block h (linear.py:455-495)."""
         if kern_w:
             return score_w_kernel(a_int)
-        x_sim = _quant_act_linear(x, a_int, a_neg, policy)
-        x_sim_all = _batch_chunks(x_sim, bs)
+        with span("ptq.search.init"):
+            x_sim_all = _batch_chunks(
+                _quant_act_linear(x, a_int, a_neg, policy), bs)
         mask_h = torch.arange(n_H, device=dev).reshape(1, 1, 1, n_H, 1) == h
         out_sims = []
         for wc in _candidate_chunks(w_cands, P):               # P,n_V,1,n_H,1
@@ -378,28 +385,32 @@ def _linear_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
         """B2 (int8 scoring, n_H == 1) or B4a: (eq_n,) sims."""
         cands = a_cands.reshape(eq_n).contiguous()
         if int8_score and n_H == 1:
-            w_lv = fq.int_quant(w4, w_int, w_qmax).to(torch.int8) \
-                .reshape(oc, ic)
-            w_sc = w_int[:, 0, 0, 0][:, None].expand(n_V, crb_r) \
-                .reshape(oc).contiguous()
+            with span("ptq.search.init"):
+                w_lv = fq.int_quant(w4, w_int, w_qmax).to(torch.int8) \
+                    .reshape(oc, ic)
+                w_sc = w_int[:, 0, 0, 0][:, None].expand(n_V, crb_r) \
+                    .reshape(oc).contiguous()
             sims = K.linear_a_hessian_sims_i8(
                 x2, w_lv, w_sc, cands, rawb, grad_f, a_qmax,
                 postgelu=postgelu, a_neg=a_neg_f, scratch_bound=scratch_bound)
         else:
-            w_sim = fq.fake_quant_weight_blocked(w, w_int, w_qmax) \
-                .contiguous()
+            with span("ptq.search.init"):
+                w_sim = fq.fake_quant_weight_blocked(w, w_int, w_qmax) \
+                    .contiguous()
             sims = K.linear_a_hessian_sims(x2, w_sim, cands, rawb, grad_f,
                                            a_qmax, postgelu=postgelu,
                                            a_neg=a_neg_f,
                                            scratch_bound=scratch_bound)
         return fq.exact_div(_sum(shard, sims), float(T * oc))
 
+    @spanned("ptq.search.score")
     def score_a(w_int, a_int, a):
         """Summed similarities (eq_n,) of the candidates for input group a
         (linear.py:497-533, :609-642)."""
         if kern_a:
             return score_a_kernel(w_int)
-        w_sim = fq.fake_quant_weight_blocked(w, w_int, w_qmax)
+        with span("ptq.search.init"):
+            w_sim = fq.fake_quant_weight_blocked(w, w_int, w_qmax)
         mask_a = torch.arange(n_a, device=dev).reshape(1, n_a, 1) == a
         out_sims = []
         for ac in _candidate_chunks(a_cands, P):               # P, n_a, 1
@@ -555,6 +566,7 @@ def _head_sims(out, raw, g_s, metric: str):
     return torch.sum(torch.mean(sim, dim=3), dim=1)
 
 
+@spanned("ptq.search.split")
 def _split_sims(splits, Ab, Bb, rb, gb, A_qmax: int, metric: str,
                 shard=None):
     """Summed similarities of the SoS split grid, B raw
@@ -601,27 +613,30 @@ def _matmul_search(A, B, raw_out, raw_grad, policy: OpPolicy, P: int,
         return fq.matmul_operand_interval_init(x, G, 1, 1, qmax,
                                                reduce=_max_fn(shard))
 
-    B_int0 = init_interval(B, B_qmax)
-    if sos:
-        a_state0 = torch.tensor(0.01, dtype=torch.float32, device=dev)
-    else:
-        a_state0 = init_interval(A, A_qmax)
+    with span("ptq.search.init"):
+        B_int0 = init_interval(B, B_qmax)
+        if sos:
+            a_state0 = torch.tensor(0.01, dtype=torch.float32, device=dev)
+        else:
+            a_state0 = init_interval(A, A_qmax)
 
-    grid = fq.candidate_grid(policy.eq_alpha, policy.eq_beta, policy.eq_n,
-                             device=dev)
-    eq_n = policy.eq_n
-    B_cands = grid[:eq_n].reshape(-1, 1, 1, 1, 1, 1, 1, 1) * B_int0[None]
-    A_cands = (None if sos else
-               grid[:eq_n].reshape(-1, 1, 1, 1, 1, 1, 1, 1) * a_state0[None])
-    splits = fq.sos_split_grid(20, device=dev)
+        grid = fq.candidate_grid(policy.eq_alpha, policy.eq_beta, policy.eq_n,
+                                 device=dev)
+        eq_n = policy.eq_n
+        B_cands = grid[:eq_n].reshape(-1, 1, 1, 1, 1, 1, 1, 1) * B_int0[None]
+        A_cands = (None if sos else
+                   grid[:eq_n].reshape(-1, 1, 1, 1, 1, 1, 1, 1)
+                   * a_state0[None])
+        splits = fq.sos_split_grid(20, device=dev)
 
-    if not kernels or sos:
-        Ab, Bb = _batch_chunks(A, bs), _batch_chunks(B, bs)
-        rb = ([None] * len(Ab) if raw_out is None
-              else _batch_chunks(raw_out.float(), bs))
-        gb = (_batch_chunks(raw_grad.float(), bs) if hessian
-              else [None] * len(Ab))
+        if not kernels or sos:
+            Ab, Bb = _batch_chunks(A, bs), _batch_chunks(B, bs)
+            rb = ([None] * len(Ab) if raw_out is None
+                  else _batch_chunks(raw_out.float(), bs))
+            gb = (_batch_chunks(raw_grad.float(), bs) if hessian
+                  else [None] * len(Ab))
 
+    @spanned("ptq.search.score")
     def score_A(B_int):
         """(eq_n, G) summed sims of the A-interval candidates
         (matmul.py:483-522)."""
@@ -633,8 +648,9 @@ def _matmul_search(A, B, raw_out, raw_grad, policy: OpPolicy, P: int,
             return fq.exact_div(_sum(shard, sims), float(R * Co))
         # the fixed side as levels; ONE rescale after the exact dot
         # (search.py:649-677)
-        B_fix = [_levels(b_s, B_int.reshape(1, G, 1, 1), B_qmax)
-                 for b_s in Bb]
+        with span("ptq.search.init"):
+            B_fix = [_levels(b_s, B_int.reshape(1, G, 1, 1), B_qmax)
+                     for b_s in Bb]
         b_sc = B_int.reshape(1, 1, G, 1, 1)
         out_sims = []
         for ac in _candidate_chunks(A_cands, P):
@@ -650,6 +666,7 @@ def _matmul_search(A, B, raw_out, raw_grad, policy: OpPolicy, P: int,
             out_sims.append(acc)
         return _sum(shard, torch.cat(out_sims)[:eq_n])
 
+    @spanned("ptq.search.score")
     def score_B(a_state, B_int):
         """(eq_n, G) summed sims of the B-interval candidates
         (matmul.py:524-563)."""
@@ -670,14 +687,15 @@ def _matmul_search(A, B, raw_out, raw_grad, policy: OpPolicy, P: int,
                     a_state.reshape(G), "b", B_qmax, A_qmax,
                     scratch_bound=scratch_bound)
             return fq.exact_div(_sum(shard, sims), float(R * Co))
-        if sos:                              # two level sets (:717-751)
-            A_fix = [_sos_levels(a_s, a_state, A_qmax)[:2] for a_s in Ab]
-            s_hi = fq.exact_div(torch.ones((), device=dev), A_qmax - 1)
-            s_lo = fq.exact_div(a_state, A_qmax - 1)
-        else:
-            A_fix = [(_levels(a_s, a_state.reshape(1, G, 1, 1), A_qmax),)
-                     for a_s in Ab]
-            a_sc = a_state.reshape(1, 1, G, 1, 1)
+        with span("ptq.search.init"):
+            if sos:                          # two level sets (:717-751)
+                A_fix = [_sos_levels(a_s, a_state, A_qmax)[:2] for a_s in Ab]
+                s_hi = fq.exact_div(torch.ones((), device=dev), A_qmax - 1)
+                s_lo = fq.exact_div(a_state, A_qmax - 1)
+            else:
+                A_fix = [(_levels(a_s, a_state.reshape(1, G, 1, 1),
+                                  A_qmax),) for a_s in Ab]
+                a_sc = a_state.reshape(1, 1, G, 1, 1)
         out_sims = []
         for bc in _candidate_chunks(B_cands, P):
             cur = bc.reshape(P, 1, G, 1, 1, 1)
@@ -744,21 +762,24 @@ def _matmul_blocked_search(A, B, raw_out, raw_grad, policy: OpPolicy,
         return fq.matmul_operand_interval_init(x, nG, nV, nH, qmax,
                                                reduce=_max_fn(shard))
 
-    B_int0 = init_interval(B, B_qmax, n_G_B, nVB, nHB)
-    a_state0 = (torch.tensor(0.01, dtype=torch.float32, device=dev) if sos
-                else init_interval(A, A_qmax, n_G_A, nVA, nHA))
-    grid = fq.candidate_grid(policy.eq_alpha, policy.eq_beta, policy.eq_n,
-                             device=dev)
-    eq_n = policy.eq_n
-    B_cands = grid[:eq_n].reshape(-1, 1, 1, 1, 1, 1, 1, 1) * B_int0[None]
-    A_cands = (None if sos else
-               grid[:eq_n].reshape(-1, 1, 1, 1, 1, 1, 1, 1) * a_state0[None])
-    splits = fq.sos_split_grid(20, device=dev)
+    with span("ptq.search.init"):
+        B_int0 = init_interval(B, B_qmax, n_G_B, nVB, nHB)
+        a_state0 = (torch.tensor(0.01, dtype=torch.float32, device=dev) if sos
+                    else init_interval(A, A_qmax, n_G_A, nVA, nHA))
+        grid = fq.candidate_grid(policy.eq_alpha, policy.eq_beta, policy.eq_n,
+                                 device=dev)
+        eq_n = policy.eq_n
+        B_cands = grid[:eq_n].reshape(-1, 1, 1, 1, 1, 1, 1, 1) * B_int0[None]
+        A_cands = (None if sos else
+                   grid[:eq_n].reshape(-1, 1, 1, 1, 1, 1, 1, 1)
+                   * a_state0[None])
+        splits = fq.sos_split_grid(20, device=dev)
 
-    Ab, Bb = _batch_chunks(A, bs), _batch_chunks(B, bs)
-    rb = ([None] * len(Ab) if raw_out is None
-          else _batch_chunks(raw_out.float(), bs))
-    gb = _batch_chunks(raw_grad.float(), bs) if hessian else [None] * len(Ab)
+        Ab, Bb = _batch_chunks(A, bs), _batch_chunks(B, bs)
+        rb = ([None] * len(Ab) if raw_out is None
+              else _batch_chunks(raw_out.float(), bs))
+        gb = (_batch_chunks(raw_grad.float(), bs) if hessian
+              else [None] * len(Ab))
 
     def quant_A_state(a, st):
         if sos:
@@ -791,34 +812,37 @@ def _matmul_blocked_search(A, B, raw_out, raw_grad, policy: OpPolicy,
         cands = A_cands if opA else B_cands
         qmax = A_qmax if opA else B_qmax
         interval = a_state if opA else B_int
-        if opA:
-            otherq = [fq.fake_quant_matmul_operand(b_s, B_int, B_qmax)
-                      for b_s in Bb]
-        else:
-            otherq = [quant_A_state(a_s, a_state) for a_s in Ab]
+        with span("ptq.search.init"):
+            if opA:
+                otherq = [fq.fake_quant_matmul_operand(b_s, B_int, B_qmax)
+                          for b_s in Bb]
+            else:
+                otherq = [quant_A_state(a_s, a_state) for a_s in Ab]
         for idx in range(nV * nH):
             v, h = divmod(idx, nH)
             m = ((torch.arange(nV, device=dev).reshape(1, 1, 1, nV, 1, 1, 1)
                   == v)
                  & (torch.arange(nH, device=dev).reshape(1, 1, 1, 1, 1, nH, 1)
                     == h))
-            out_sims = []
-            for cc in _candidate_chunks(cands, P):   # P,1,nG,1,nV,1,nH,1
-                cur = torch.where(m, cc, interval[None])
-                acc = torch.zeros(P, G, device=dev)
-                for a_s, b_s, oq, r_s, g_s in zip(Ab, Bb, otherq, rb, gb):
-                    if opA:
-                        out = torch.einsum(
-                            "pbgrc,bgco->pbgro",
-                            quant_P(a_s, cur, qmax, nG, nV, nH, R, Ci), oq)
-                    else:
-                        out = torch.einsum(
-                            "bgrc,pbgco->pbgro", oq,
-                            quant_P(b_s, cur, qmax, nG, nV, nH, Ci, Co))
-                    acc = acc + _head_sims(out, _raw_out(a_s, b_s, r_s), g_s,
-                                           policy.metric)
-                out_sims.append(acc)
-            sims = group_reduce(_sum(shard, torch.cat(out_sims)[:eq_n]), nG)
+            with span("ptq.search.score"):
+                out_sims = []
+                for cc in _candidate_chunks(cands, P):   # P,1,nG,1,nV,1,nH,1
+                    cur = torch.where(m, cc, interval[None])
+                    acc = torch.zeros(P, G, device=dev)
+                    for a_s, b_s, oq, r_s, g_s in zip(Ab, Bb, otherq, rb, gb):
+                        if opA:
+                            out = torch.einsum(
+                                "pbgrc,bgco->pbgro",
+                                quant_P(a_s, cur, qmax, nG, nV, nH, R, Ci), oq)
+                        else:
+                            out = torch.einsum(
+                                "bgrc,pbgco->pbgro", oq,
+                                quant_P(b_s, cur, qmax, nG, nV, nH, Ci, Co))
+                        acc = acc + _head_sims(
+                            out, _raw_out(a_s, b_s, r_s), g_s, policy.metric)
+                    out_sims.append(acc)
+                sims = group_reduce(
+                    _sum(shard, torch.cat(out_sims)[:eq_n]), nG)
             best = _argmax(sims, dim=0)                   # (nG,)
             chosen = torch.gather(
                 cands.reshape(eq_n, nG, nV, nH), 0,
@@ -896,6 +920,7 @@ def _conv_inputs(w, b, x, raw_out, raw_grad):
                                 else raw_grad.float())
 
 
+@spanned("ptq.search.score")
 def _conv_input_sims(w_sim, b, xb, rb, gb, a_cands, P: int, a_qmax: int,
                      reduce, shard=None):
     """Summed similarities (eq_n,) of the layerwise input-interval
@@ -932,26 +957,27 @@ def _conv_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
     quant_act = policy.a_bit < 32
     metric = policy.metric
 
-    if channelwise:
-        if policy.init_layerwise:
-            w_int0 = fq.minmax_interval(w, w_qmax).reshape(1, 1) \
-                .expand(oc, 1).contiguous()
+    with span("ptq.search.init"):
+        if channelwise:
+            if policy.init_layerwise:
+                w_int0 = fq.minmax_interval(w, w_qmax).reshape(1, 1) \
+                    .expand(oc, 1).contiguous()
+            else:
+                w_int0 = fq.exact_div(torch.amax(torch.abs(w), dim=1,
+                                                 keepdim=True), w_qmax - 0.5)
         else:
-            w_int0 = fq.exact_div(torch.amax(torch.abs(w), dim=1,
-                                             keepdim=True), w_qmax - 0.5)
-    else:
-        w_int0 = fq.minmax_interval(w, w_qmax).reshape(1, 1)
-    a_int0 = fq.exact_div(_max(shard, torch.amax(torch.abs(x))),
-                          a_qmax - 0.5)
+            w_int0 = fq.minmax_interval(w, w_qmax).reshape(1, 1)
+        a_int0 = fq.exact_div(_max(shard, torch.amax(torch.abs(x))),
+                              a_qmax - 0.5)
 
-    grid = fq.candidate_grid(policy.eq_alpha, policy.eq_beta, policy.eq_n,
-                             device=dev)
-    eq_n = policy.eq_n
-    w_cands = grid[:eq_n, None, None] * w_int0[None]            # eq_n,oc|1,1
-    a_cands = grid[:eq_n] * a_int0
-    xb, rb = _batch_chunks(x, bs), _batch_chunks(raw_out, bs)
-    gb = (_batch_chunks(raw_grad, bs) if metric == "hessian"
-          else [None] * len(xb))
+        grid = fq.candidate_grid(policy.eq_alpha, policy.eq_beta, policy.eq_n,
+                                 device=dev)
+        eq_n = policy.eq_n
+        w_cands = grid[:eq_n, None, None] * w_int0[None]        # eq_n,oc|1,1
+        a_cands = grid[:eq_n] * a_int0
+        xb, rb = _batch_chunks(x, bs), _batch_chunks(raw_out, bs)
+        gb = (_batch_chunks(raw_grad, bs) if metric == "hessian"
+              else [None] * len(xb))
 
     def reduce(out, r_s, g_s, for_w):
         raw = r_s[:, :, None]                                  # bs,N,1,oc
@@ -973,6 +999,7 @@ def _conv_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
         sim = _feature_similarity(raw, out, metric, gc, -1)
         return torch.mean(sim, dim=1)
 
+    @spanned("ptq.search.score")
     def score_w(a_int):
         out_sims = []
         for wc in _candidate_chunks(w_cands, P):               # P, oc|1, 1
@@ -1021,23 +1048,24 @@ def _conv_ptqsl_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
     quant_act = policy.a_bit < 32
     metric = policy.metric
 
-    if policy.init_layerwise:                                  # conv.py:246
-        w_int0 = fq.minmax_interval(w, w_qmax).reshape(1, 1, 1, 1) \
-            .expand(n_V, 1, n_H, 1).contiguous()
-    else:
-        w_int0 = fq.blocked_weight_interval_init(w, n_V, n_H, w_qmax)
-    a_int0 = fq.exact_div(_max(shard, torch.amax(torch.abs(x))),
-                          a_qmax - 0.5)
+    with span("ptq.search.init"):
+        if policy.init_layerwise:                              # conv.py:246
+            w_int0 = fq.minmax_interval(w, w_qmax).reshape(1, 1, 1, 1) \
+                .expand(n_V, 1, n_H, 1).contiguous()
+        else:
+            w_int0 = fq.blocked_weight_interval_init(w, n_V, n_H, w_qmax)
+        a_int0 = fq.exact_div(_max(shard, torch.amax(torch.abs(x))),
+                              a_qmax - 0.5)
 
-    grid = fq.candidate_grid(policy.eq_alpha, policy.eq_beta, policy.eq_n,
-                             device=dev)
-    eq_n = policy.eq_n
-    w_cands = grid[:eq_n, None, None, None, None] * w_int0[None]
-    a_cands = grid[:eq_n] * a_int0
-    xb, rb = _batch_chunks(x, bs), _batch_chunks(raw_out, bs)
-    gb = (_batch_chunks(raw_grad, bs) if metric == "hessian"
-          else [None] * len(xb))
-    w4 = fq.blocked_weight_view(w, n_V, n_H)
+        grid = fq.candidate_grid(policy.eq_alpha, policy.eq_beta, policy.eq_n,
+                                 device=dev)
+        eq_n = policy.eq_n
+        w_cands = grid[:eq_n, None, None, None, None] * w_int0[None]
+        a_cands = grid[:eq_n] * a_int0
+        xb, rb = _batch_chunks(x, bs), _batch_chunks(raw_out, bs)
+        gb = (_batch_chunks(raw_grad, bs) if metric == "hessian"
+              else [None] * len(xb))
+        w4 = fq.blocked_weight_view(w, n_V, n_H)
 
     def mask_vh(v, h):
         return ((torch.arange(n_V, device=dev).reshape(n_V, 1, 1, 1) == v)
@@ -1050,6 +1078,7 @@ def _conv_ptqsl_search(w, b, x, raw_out, raw_grad, policy: OpPolicy, P: int,
         sim = _feature_similarity(r_s[:, :, None], out, metric, gc, -1)
         return torch.mean(sim, dim=1)
 
+    @spanned("ptq.search.score")
     def score_w(w_int, a_int, m):
         out_sims = []
         for wc in _candidate_chunks(w_cands, P):               # P,n_V,1,n_H,1

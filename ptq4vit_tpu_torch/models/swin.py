@@ -21,6 +21,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.tracing import span
 from .common import QuantCtx, cast_params, layer_norm, softmax_f32
 
 
@@ -218,16 +219,18 @@ def forward(params: Dict[str, Any], x, cfg: SwinConfig,
     each block's fused path (``ctx.swin_block``: B10, B9, B11, B6) first,
     then the per-op one (B6 linears, B9 on the float qkv), then the
     generic ops."""
-    if compute_dtype is not None:
-        params = cast_params(params, compute_dtype)
-        x = x.to(compute_dtype)
-    ctx = QuantCtx(qstate=qstate, eps=eps, capture=capture, int8=int8,
-                   packed=packed, mesh=mesh)
+    with span("ptq.forward.prep"):
+        if compute_dtype is not None:
+            params = cast_params(params, compute_dtype)
+            x = x.to(compute_dtype)
+        ctx = QuantCtx(qstate=qstate, eps=eps, capture=capture, int8=int8,
+                       packed=packed, mesh=mesh)
     B = x.shape[0]
-    pe = params["patch_embed"]
-    x, _ = ctx.conv2d_patch("patch_embed.proj", x, pe["proj"]["weight"],
-                            pe["proj"]["bias"], cfg.patch_size)
-    x = layer_norm(x, pe["norm"]["weight"], pe["norm"]["bias"], cfg.ln_eps)
+    with span("ptq.forward.embed"):
+        pe = params["patch_embed"]
+        x, _ = ctx.conv2d_patch("patch_embed.proj", x, pe["proj"]["weight"],
+                                pe["proj"]["bias"], cfg.patch_size)
+        x = layer_norm(x, pe["norm"]["weight"], pe["norm"]["bias"], cfg.ln_eps)
 
     for i, layer in enumerate(params["layers"]):
         res = cfg.layer_resolution(i)
@@ -235,58 +238,64 @@ def forward(params: Dict[str, Any], x, cfg: SwinConfig,
         hd = d // cfg.num_heads[i]
         heads = ctx.local_heads(cfg.num_heads[i])
         for j, blk in enumerate(layer["blocks"]):
-            ws, shift = cfg.block_geometry(i, j)
-            p = f"layers.{i}.blocks.{j}"
-            rpi = torch.from_numpy(relative_position_index(ws).reshape(-1)) \
-                .to(x.device)
-            bias = blk["attn"]["relative_position_bias_table"][rpi]
-            bias = bias.reshape(ws * ws, ws * ws, heads).permute(2, 0, 1)
-            mask = shifted_window_mask(res, ws, shift)
-            if mask is not None:
-                mask = torch.from_numpy(mask).to(device=x.device,
-                                                 dtype=x.dtype)
-            xb = ctx.swin_block(p, x, blk, heads, ws, shift, res, bias, mask,
-                                cfg.ln_eps)
-            if xb is not None:
-                x = xb
-                continue
-            shortcut = x
-            y = layer_norm(x, blk["norm1"]["weight"], blk["norm1"]["bias"],
-                           cfg.ln_eps)
-            y = y.reshape(B, res, res, d)
-            if shift > 0:
-                y = torch.roll(y, (-shift, -shift), dims=(1, 2))
-            yw = _window_attention(ctx, f"{p}.attn", window_partition(y, ws),
-                                   blk["attn"], heads, hd, bias, mask)
-            y = window_reverse(yw, ws, res, res)
-            if shift > 0:
-                y = torch.roll(y, (shift, shift), dims=(1, 2))
-            x = shortcut + y.reshape(B, res * res, d)
-            y = layer_norm(x, blk["norm2"]["weight"], blk["norm2"]["bias"],
-                           cfg.ln_eps)
-            y = ctx.linear_gelu(f"{p}.mlp.fc1", y,
-                                blk["mlp"]["fc1"]["weight"],
-                                blk["mlp"]["fc1"]["bias"])
-            y = ctx.linear(f"{p}.mlp.fc2", y, blk["mlp"]["fc2"]["weight"],
-                           blk["mlp"]["fc2"]["bias"])
-            x = x + y
+            with span("ptq.forward.block"):
+                ws, shift = cfg.block_geometry(i, j)
+                p = f"layers.{i}.blocks.{j}"
+                with span("ptq.forward.geometry"):
+                    rpi = torch.from_numpy(
+                        relative_position_index(ws).reshape(-1)).to(x.device)
+                    bias = blk["attn"]["relative_position_bias_table"][rpi]
+                    bias = bias.reshape(ws * ws, ws * ws, heads) \
+                        .permute(2, 0, 1)
+                    mask = shifted_window_mask(res, ws, shift)
+                    if mask is not None:
+                        mask = torch.from_numpy(mask).to(device=x.device,
+                                                         dtype=x.dtype)
+                xb = ctx.swin_block(p, x, blk, heads, ws, shift, res, bias,
+                                    mask, cfg.ln_eps)
+                if xb is not None:
+                    x = xb
+                    continue
+                shortcut = x
+                y = layer_norm(x, blk["norm1"]["weight"], blk["norm1"]["bias"],
+                               cfg.ln_eps)
+                y = y.reshape(B, res, res, d)
+                if shift > 0:
+                    y = torch.roll(y, (-shift, -shift), dims=(1, 2))
+                yw = _window_attention(ctx, f"{p}.attn",
+                                       window_partition(y, ws), blk["attn"],
+                                       heads, hd, bias, mask)
+                y = window_reverse(yw, ws, res, res)
+                if shift > 0:
+                    y = torch.roll(y, (shift, shift), dims=(1, 2))
+                x = shortcut + y.reshape(B, res * res, d)
+                y = layer_norm(x, blk["norm2"]["weight"], blk["norm2"]["bias"],
+                               cfg.ln_eps)
+                y = ctx.linear_gelu(f"{p}.mlp.fc1", y,
+                                    blk["mlp"]["fc1"]["weight"],
+                                    blk["mlp"]["fc1"]["bias"])
+                y = ctx.linear(f"{p}.mlp.fc2", y, blk["mlp"]["fc2"]["weight"],
+                               blk["mlp"]["fc2"]["bias"])
+                x = x + y
         if "downsample" in layer:
-            # PatchMerging: 2x2 neighbourhood concat -> LN -> reduction
-            ds = layer["downsample"]
-            y = x.reshape(B, res, res, d)
-            y = torch.cat([y[:, 0::2, 0::2], y[:, 1::2, 0::2],
-                           y[:, 0::2, 1::2], y[:, 1::2, 1::2]], dim=-1)
-            y = y.reshape(B, (res // 2) * (res // 2), 4 * d)
-            y = layer_norm(y, ds["norm"]["weight"], ds["norm"]["bias"],
-                           cfg.ln_eps)
-            x = ctx.linear(f"layers.{i}.downsample.reduction", y,
-                           ds["reduction"]["weight"], None)
+            with span("ptq.forward.downsample"):
+                # PatchMerging: 2x2 neighbourhood concat -> LN -> reduction
+                ds = layer["downsample"]
+                y = x.reshape(B, res, res, d)
+                y = torch.cat([y[:, 0::2, 0::2], y[:, 1::2, 0::2],
+                               y[:, 0::2, 1::2], y[:, 1::2, 1::2]], dim=-1)
+                y = y.reshape(B, (res // 2) * (res // 2), 4 * d)
+                y = layer_norm(y, ds["norm"]["weight"], ds["norm"]["bias"],
+                               cfg.ln_eps)
+                x = ctx.linear(f"layers.{i}.downsample.reduction", y,
+                               ds["reduction"]["weight"], None)
 
-    x = layer_norm(x, params["norm"]["weight"], params["norm"]["bias"],
-                   cfg.ln_eps)
-    x = torch.mean(x, dim=1)                 # global average pool
-    logits = ctx.linear("head", x, params["head"]["weight"],
-                        params["head"]["bias"])
+    with span("ptq.forward.head"):
+        x = layer_norm(x, params["norm"]["weight"], params["norm"]["bias"],
+                       cfg.ln_eps)
+        x = torch.mean(x, dim=1)                 # global average pool
+        logits = ctx.linear("head", x, params["head"]["weight"],
+                            params["head"]["bias"])
     if capture:
         return logits, ctx.taps
     return logits

@@ -14,6 +14,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ..utils.tracing import span
 from .common import QuantCtx, cast_params, layer_norm, softmax_f32
 
 
@@ -103,65 +104,69 @@ def forward(params: Dict[str, Any], x, cfg: ViTConfig,
     ``packed`` weights stay as packed from the fp32 params).  ``mesh``
     with a "model" axis runs tensor-parallel on this rank's shards of the
     params and the qstate (see ``QuantCtx``)."""
-    if compute_dtype is not None:
-        params = cast_params(params, compute_dtype)
-        x = x.to(compute_dtype)
-    ctx = QuantCtx(qstate=qstate, eps=eps, capture=capture, int8=int8,
-                   packed=packed, mesh=mesh)
+    with span("ptq.forward.prep"):
+        if compute_dtype is not None:
+            params = cast_params(params, compute_dtype)
+            x = x.to(compute_dtype)
+        ctx = QuantCtx(qstate=qstate, eps=eps, capture=capture, int8=int8,
+                       packed=packed, mesh=mesh)
     B = x.shape[0]
     d, H = cfg.embed_dim, ctx.local_heads(cfg.num_heads)
     scale = cfg.head_dim ** -0.5
 
-    pe = params["patch_embed"]["proj"]
-    x, _ = ctx.conv2d_patch("patch_embed.proj", x, pe["weight"], pe["bias"],
-                            cfg.patch_size)
-    tokens = [params["cls_token"].expand(B, 1, d)]
-    if cfg.distilled:
-        tokens.append(params["dist_token"].expand(B, 1, d))
-    x = torch.cat(tokens + [x], dim=1) + params["pos_embed"]
+    with span("ptq.forward.embed"):
+        pe = params["patch_embed"]["proj"]
+        x, _ = ctx.conv2d_patch("patch_embed.proj", x, pe["weight"],
+                                pe["bias"], cfg.patch_size)
+        tokens = [params["cls_token"].expand(B, 1, d)]
+        if cfg.distilled:
+            tokens.append(params["dist_token"].expand(B, 1, d))
+        x = torch.cat(tokens + [x], dim=1) + params["pos_embed"]
 
     for i, blk in enumerate(params["blocks"]):
-        p = f"blocks.{i}"
-        xb = ctx.vit_block(p, x, blk, H, scale, cfg.ln_eps)
-        if xb is not None:
-            x = xb
-            continue
-        y = layer_norm(x, blk["norm1"]["weight"], blk["norm1"]["bias"],
-                       cfg.ln_eps)
-        qkv = ctx.linear(f"{p}.attn.qkv", y, blk["attn"]["qkv"]["weight"],
-                         blk["attn"]["qkv"]["bias"])
-        N = qkv.shape[1]
-        y = ctx.attention_qkv(f"{p}.attn.matmul1", f"{p}.attn.matmul2",
-                              qkv, H, scale)
-        if y is None:
-            qkv = qkv.reshape(B, N, 3, H, cfg.head_dim) \
-                .permute(2, 0, 3, 1, 4)
-            q, k, v = qkv[0], qkv[1], qkv[2]
-            attn = ctx.matmul(f"{p}.attn.matmul1", q, k.transpose(-2, -1)) \
-                * scale
-            attn = softmax_f32(attn, dim=-1)
-            y = ctx.matmul(f"{p}.attn.matmul2", attn, v)
-            y = y.transpose(1, 2).reshape(B, N, H * cfg.head_dim)
-        y = ctx.linear(f"{p}.attn.proj", y, blk["attn"]["proj"]["weight"],
-                       blk["attn"]["proj"]["bias"])
-        x = x + y
-        y = layer_norm(x, blk["norm2"]["weight"], blk["norm2"]["bias"],
-                       cfg.ln_eps)
-        y = ctx.linear_gelu(f"{p}.mlp.fc1", y, blk["mlp"]["fc1"]["weight"],
-                            blk["mlp"]["fc1"]["bias"])
-        y = ctx.linear(f"{p}.mlp.fc2", y, blk["mlp"]["fc2"]["weight"],
-                       blk["mlp"]["fc2"]["bias"])
-        x = x + y
+        with span("ptq.forward.block"):
+            p = f"blocks.{i}"
+            xb = ctx.vit_block(p, x, blk, H, scale, cfg.ln_eps)
+            if xb is not None:
+                x = xb
+                continue
+            y = layer_norm(x, blk["norm1"]["weight"], blk["norm1"]["bias"],
+                           cfg.ln_eps)
+            qkv = ctx.linear(f"{p}.attn.qkv", y, blk["attn"]["qkv"]["weight"],
+                             blk["attn"]["qkv"]["bias"])
+            N = qkv.shape[1]
+            y = ctx.attention_qkv(f"{p}.attn.matmul1", f"{p}.attn.matmul2",
+                                  qkv, H, scale)
+            if y is None:
+                qkv = qkv.reshape(B, N, 3, H, cfg.head_dim) \
+                    .permute(2, 0, 3, 1, 4)
+                q, k, v = qkv[0], qkv[1], qkv[2]
+                attn = ctx.matmul(f"{p}.attn.matmul1", q,
+                                  k.transpose(-2, -1)) * scale
+                attn = softmax_f32(attn, dim=-1)
+                y = ctx.matmul(f"{p}.attn.matmul2", attn, v)
+                y = y.transpose(1, 2).reshape(B, N, H * cfg.head_dim)
+            y = ctx.linear(f"{p}.attn.proj", y, blk["attn"]["proj"]["weight"],
+                           blk["attn"]["proj"]["bias"])
+            x = x + y
+            y = layer_norm(x, blk["norm2"]["weight"], blk["norm2"]["bias"],
+                           cfg.ln_eps)
+            y = ctx.linear_gelu(f"{p}.mlp.fc1", y, blk["mlp"]["fc1"]["weight"],
+                                blk["mlp"]["fc1"]["bias"])
+            y = ctx.linear(f"{p}.mlp.fc2", y, blk["mlp"]["fc2"]["weight"],
+                           blk["mlp"]["fc2"]["bias"])
+            x = x + y
 
-    x = layer_norm(x, params["norm"]["weight"], params["norm"]["bias"],
-                   cfg.ln_eps)
-    logits = ctx.linear("head", x[:, 0], params["head"]["weight"],
-                        params["head"]["bias"])
-    if cfg.distilled:
-        logits_d = ctx.linear("head_dist", x[:, 1],
-                              params["head_dist"]["weight"],
-                              params["head_dist"]["bias"])
-        logits = (logits + logits_d) / 2
+    with span("ptq.forward.head"):
+        x = layer_norm(x, params["norm"]["weight"], params["norm"]["bias"],
+                       cfg.ln_eps)
+        logits = ctx.linear("head", x[:, 0], params["head"]["weight"],
+                            params["head"]["bias"])
+        if cfg.distilled:
+            logits_d = ctx.linear("head_dist", x[:, 1],
+                                  params["head_dist"]["weight"],
+                                  params["head_dist"]["bias"])
+            logits = (logits + logits_d) / 2
     if capture:
         return logits, ctx.taps
     return logits

@@ -31,7 +31,9 @@ For CUDA tensors the wrappers launch the hand-written kernels of
 PyTorch versions beside them (the ``*_ref`` functions), which follow the
 same formulas with the int8 dot as an exact float64 matmul of the levels.
 Each kernel wrapper counts its launches in ``<function>.launches``, and
-those of its relaxed variant (below) in ``<function>.relaxed_launches``.
+those of its relaxed variant (below) in ``<function>.relaxed_launches``;
+either runs inside the span ``ptq.kernel.<function>``
+(``utils/tracing.span``).
 B6, B10 and B11 are one tensor-core kernel (``q8_tc_kernel``), after a
 pre-pass that quantizes a float input once a row (``q8_levels_kernel``),
 and ``q8_epilogue_kernel`` does its epilogue on summed partial sums;
@@ -65,6 +67,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..quant import fakequant as fq
+from ..utils.tracing import spanned
 from .int8 import int_dot, levels
 from .pack import K_ALIGN, kmajor_levels, linear_w_levels, linear_w_scale
 from .search_kernels import (NUM_SMS, SM_SMEM, SMEM_LIMIT, _check, _launch,
@@ -518,6 +521,7 @@ def _kmajor(w_kmaj, w_intT):
            w_intT.device)
     return w_kmaj
 
+@spanned("ptq.kernel.q8_linear")
 def q8_linear(x, w_intT, w_scale, b, a_interval, a_neg_interval, *,
               a_qmax: int, postgelu: bool, epilogue: str = None,
               ln=None, in_q: str = None, out_q: str = None,
@@ -741,6 +745,7 @@ def _attn_launch(q, k, v, strides, out, ostrides, ph, split, scale, a_out,
     _launch(lib.ptq_window_attention, *head, _ptr(term), period, *tail)
 
 
+@spanned("ptq.kernel.fused_attention_qkv")
 def fused_attention_qkv(qkv, heads: int, qp1, qp2, scale, *,
                         in_q8: bool = False, out_scale=None,
                         out_qmax: int = 128, relaxed: bool = False):
@@ -791,6 +796,7 @@ def fused_attention_qkv(qkv, heads: int, qp1, qp2, scale, *,
     return out
 
 
+@spanned("ptq.kernel.fused_attention")
 def fused_attention(q, k, v, qp1, qp2, scale, relaxed: bool = False):
     """B8: the B7 kernel entered with the strides of the (B, H, N, hd)
     layout; float in, float out (``relaxed`` as in B7).  Returns (B, H, N,
@@ -819,6 +825,7 @@ def fused_attention(q, k, v, qp1, qp2, scale, relaxed: bool = False):
     return out
 
 
+@spanned("ptq.kernel.fused_window_attention_qkv")
 def fused_window_attention_qkv(qkv, heads: int, nW: int, qp1, qp2,
                                prescale, bias, mask, *, in_q8: bool = False,
                                out_scale=None, out_qmax: int = 128,
@@ -872,6 +879,7 @@ def fused_window_attention_qkv(qkv, heads: int, nW: int, qp1, qp2,
     return out
 
 
+@spanned("ptq.kernel.q8_win_qkv")
 def q8_win_qkv(x4, w_intT, w_scale, b, a_interval, ln, ws: int, col_scales,
                *, a_qmax: int, out_qmax: int = 128, w_kmaj=None,
                relaxed: bool = False):
@@ -926,6 +934,7 @@ def q8_win_qkv(x4, w_intT, w_scale, b, a_interval, ln, ws: int, col_scales,
     return out
 
 
+@spanned("ptq.kernel.q8_win_proj")
 def q8_win_proj(y_q, w_intT, w_scale, b, a_interval, ws: int, res: int,
                 residual4, *, a_qmax: int, w_kmaj=None, out_q: str = None):
     """B11: the Swin proj linear over the window-layout int8 context
@@ -988,6 +997,7 @@ def q8_win_proj(y_q, w_intT, w_scale, b, a_interval, ws: int, res: int,
 EP_BLOCKS_PER_SM = 8          # q8_epilogue_kernel: 256-thread blocks an SM
 
 
+@spanned("ptq.kernel.q8_epilogue")
 def q8_epilogue(acc, w_scale, b, a_interval, a_neg_interval=None, *,
                 residual=None, out_dtype=None, window=None):
     """B6's (and B11's) epilogue split off, for a row-parallel linear under

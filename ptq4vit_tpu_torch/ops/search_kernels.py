@@ -23,7 +23,8 @@ kernels' operation order; the fp32 scorers take fp32 products of the
 fake-quant values, as the kernels do, summed in another order.  B3 and B3f
 compute the same function, so both have ``matmul_hessian_sims_ref`` as
 their plain version.  Each kernel wrapper counts its kernel launches in
-``<function>.launches``.
+``<function>.launches`` and runs inside the span ``ptq.kernel.<function>``
+(``utils/tracing.span``: its host preparation and its launches).
 
 Every wrapper takes ``scratch_bound``: the bytes its level buffers,
 partial sums and sims may hold at once (None: no bound).  Where one call
@@ -43,6 +44,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from ..quant.fakequant import exact_div
+from ..utils.tracing import spanned
 
 K_PAD = 32   # level rows are K-padded to this many bytes (csrc TK)
 
@@ -593,6 +595,7 @@ def _levels_scratch(shape, device):
     return torch.empty(shape, dtype=torch.int8, device=device)
 
 
+@spanned("ptq.kernel.linear_w_hessian_sims_i8")
 def linear_w_hessian_sims_i8(x_lv, x_neg_lv, a, a_neg, w, cands,
                              raw_minus_bias, grad, qmax: int,
                              scratch_bound: Optional[int] = None):
@@ -650,6 +653,7 @@ def linear_w_hessian_sims_i8(x_lv, x_neg_lv, a, a_neg, w, cands,
     return out[:, 0] if squeeze else out
 
 
+@spanned("ptq.kernel.linear_a_hessian_sims_i8")
 def linear_a_hessian_sims_i8(x, w_lv, w_scale, cands, raw_minus_bias, grad,
                              a_qmax: int, postgelu: bool = False,
                              a_neg: float = 0.0,
@@ -697,6 +701,7 @@ def linear_a_hessian_sims_i8(x, w_lv, w_scale, cands, raw_minus_bias, grad,
     return in_chunks(launch, cands.contiguous(), chunk)
 
 
+@spanned("ptq.kernel.linear_w_hessian_sims")
 def linear_w_hessian_sims(x_sim, w, cands, raw_minus_bias, grad, qmax: int,
                           scratch_bound: Optional[int] = None):
     """B4w: exact (fp32-scored) weight-interval search, n_H = 1.
@@ -743,6 +748,7 @@ def linear_w_hessian_sims(x_sim, w, cands, raw_minus_bias, grad, qmax: int,
     return out[:, 0] if squeeze else out
 
 
+@spanned("ptq.kernel.linear_a_hessian_sims")
 def linear_a_hessian_sims(x, w_sim, cands, raw_minus_bias, grad, a_qmax: int,
                           postgelu: bool = False, a_neg: float = 0.0,
                           scratch_bound: Optional[int] = None):
@@ -881,6 +887,7 @@ def _matmul_chunks(kern, A, B, grad, cands, fixed_int, mode, cand_qmax,
     return in_chunks(launch, cands, chunk)
 
 
+@spanned("ptq.kernel.matmul_hessian_sims_b3")
 def matmul_hessian_sims_b3(A, B, grad, cands, fixed_int, mode: str,
                            cand_qmax: int, fixed_qmax: int,
                            sos: Optional[Sequence] = None,
@@ -892,6 +899,7 @@ def matmul_hessian_sims_b3(A, B, grad, cands, fixed_int, mode: str,
                           scratch_bound)
 
 
+@spanned("ptq.kernel.matmul_hessian_sims_b3f")
 def matmul_hessian_sims_b3f(A, B, grad, cands, fixed_int, mode: str,
                             cand_qmax: int, fixed_qmax: int,
                             sos: Optional[Sequence] = None,

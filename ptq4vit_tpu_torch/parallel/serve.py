@@ -24,6 +24,7 @@ from ..models.registry import resolve_device
 from ..ops.pack import pack_weights
 from ..quant.fakequant import exact_div
 from ..utils.convert import params_from_numpy, qstate_to
+from ..utils.tracing import span
 from .mesh import all_gather, axis_size, check_mesh, shard_batch
 
 
@@ -64,6 +65,22 @@ class ServingEngine:
         """x: (B, 3, H, W) float (or uint8 with ``raw_uint8``), numpy or a
         tensor -> (B, num_classes) logits in ``compute_dtype``.  With a
         mesh, B must divide by the data axis (pad upstream)."""
+        with span("ptq.serve.request"):
+            with span("ptq.serve.h2d"):
+                x = self._to_device(x)
+            with span("ptq.serve.forward"), torch.no_grad():
+                out = self.net.forward(self._params, x, self.net.cfg,
+                                       qstate=self._qstate, int8=self.mode,
+                                       packed=self._packed,
+                                       compute_dtype=self.compute_dtype)
+            if self.mesh is None:
+                return out
+            with span("ptq.serve.gather"):
+                return all_gather(out, self.mesh, "data")
+
+    def _to_device(self, x) -> torch.Tensor:
+        """The request's images on this rank's device: its block of the
+        batch over a mesh, normalized there with ``raw_uint8``."""
         x = torch.as_tensor(x)
         if self.mesh is not None:
             if x.shape[0] % axis_size(self.mesh, "data"):
@@ -75,10 +92,4 @@ class ServingEngine:
         if self._norm is not None:
             mean, std = self._norm
             x = exact_div(exact_div(x.float(), 255.0) - mean, std)
-        with torch.no_grad():
-            out = self.net.forward(self._params, x, self.net.cfg,
-                                   qstate=self._qstate, int8=self.mode,
-                                   packed=self._packed,
-                                   compute_dtype=self.compute_dtype)
-        return out if self.mesh is None else \
-            all_gather(out, self.mesh, "data")
+        return x

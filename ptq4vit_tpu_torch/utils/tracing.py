@@ -1,19 +1,51 @@
-"""Tracing and profiling: nested wall-clock spans, and device traces.
+"""Tracing and profiling: named spans on the profiler's clock, and device
+traces.
 
-The counterpart of ``ptq4vit_tpu/utils/tracing.py``: ``Tracer.span`` and
-``summary`` as there; ``device_trace`` takes the place of ``xla_trace``,
+``span(name)`` marks a region of the port's host code.  While a
+``torch.profiler`` records on the calling thread it is a
+``record_function`` range, so the span lands in the same Chrome trace as
+the kernels, copies and runtime calls it launched, nested under the span
+that was open when it began; otherwise it is one shared no-op context,
+and a span costs one flag read.  It never synchronizes or reads a device
+value.  Span names are fixed (``ptq.<layer>.<part>``), never one per op
+or block: a trace sums its idle gaps by name, and an op's or a block's
+identity comes from the order and nesting of its spans.
+
+``device_trace`` takes the place of the JAX package's ``xla_trace``,
 wrapping a region in ``torch.profiler`` (CUDA activity on the card) and
 exporting a Chrome trace (chrome://tracing, Perfetto) into a directory.
 """
 from __future__ import annotations
 
 import contextlib
-import json
+import functools
 import os
 import time
-from typing import Dict, Optional
 
 import torch
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that marks ``name`` in the trace of a running
+    ``torch.profiler``, and does nothing when none records."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+def spanned(name: str):
+    """Decorator: every call of the function runs inside ``span(name)``;
+    the function's attributes (launch counters) stay reachable under its
+    name."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
 
 
 @contextlib.contextmanager
@@ -31,37 +63,3 @@ def device_trace(profile_dir: str, device=None, name: str = "trace"):
         yield prof
     prof.export_chrome_trace(os.path.join(
         profile_dir, f"{name}.{os.getpid()}.{time.time_ns()}.json"))
-
-
-class Tracer:
-    """Nested scoped wall-clock timing, with optional device traces."""
-
-    def __init__(self, profile_dir: Optional[str] = None):
-        self.profile_dir = profile_dir
-        self.spans: Dict[str, float] = {}
-        self._stack = []
-
-    @contextlib.contextmanager
-    def span(self, name: str):
-        self._stack.append(name)
-        key = "/".join(self._stack)
-        t0 = time.time()
-        try:
-            yield
-        finally:
-            self.spans[key] = self.spans.get(key, 0.0) + time.time() - t0
-            self._stack.pop()
-
-    @contextlib.contextmanager
-    def device_trace(self, device=None):
-        """Wrap a region in ``torch.profiler`` when ``profile_dir`` is
-        set (see :func:`device_trace`)."""
-        if self.profile_dir is None:
-            yield
-            return
-        with device_trace(self.profile_dir, device):
-            yield
-
-    def summary(self) -> str:
-        return json.dumps(
-            {k: round(v, 3) for k, v in sorted(self.spans.items())}, indent=2)

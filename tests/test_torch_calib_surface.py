@@ -115,9 +115,10 @@ def test_signature_takes_jax_arguments_in_order():
         assert p.kind == inspect.Parameter.POSITIONAL_OR_KEYWORD, p.name
     assert P.QuantCalibrator is P.HessianQuantCalibrator
     # the report: JAX's fields in JAX's order, then the port's peak memory
+    # and its device allocation count
     jf = [f.name for f in dataclasses.fields(J.CalibReport)]
     pf = [f.name for f in dataclasses.fields(P.CalibReport)]
-    assert pf == jf + ["capture_peak_bytes"]
+    assert pf == jf + ["capture_peak_bytes", "device_allocs"]
     assert isinstance(inspect.getattr_static(P.CalibReport, "total_seconds"),
                       property)
 

@@ -6,7 +6,8 @@ matches JAX's native path bitwise (skipped where g++ or libjpeg is
 missing, as tests/test_native.py is; the JAX library's availability is
 steadied against a build another process runs at the same time:
 ``jax_native_available``); ``synthetic_images`` gives JAX's
-bytes and ``synthetic_qstate`` JAX's fields; ``Tracer`` spans nest."""
+bytes and ``synthetic_qstate`` JAX's fields; ``device_trace`` writes a
+Chrome trace."""
 import io
 import json
 import os
@@ -27,7 +28,7 @@ from ptq4vit_tpu_torch import native as pnative
 from ptq4vit_tpu_torch.configs import ptq4vit as pptq4vit
 from ptq4vit_tpu_torch.utils import datasets as P
 from ptq4vit_tpu_torch.utils import synthetic as psyn
-from ptq4vit_tpu_torch.utils.tracing import Tracer, device_trace
+from ptq4vit_tpu_torch.utils.tracing import device_trace
 from tests.torch_port_helpers import (SWIN3, TINY, jax_native_available,
                                       jax_net, jax_swin_net, np_fields,
                                       port_net)
@@ -275,22 +276,8 @@ def test_synthetic_qstate_matches_jax(kind):
     assert torch.isfinite(out).all()
 
 
-def test_tracer_spans_nest():
-    """JAX's test_tracer_spans."""
-    tr = Tracer()
-    with tr.span("calib"):
-        with tr.span("capture"):
-            time.sleep(0.01)
-    assert tr.spans["calib/capture"] >= 0.01
-    assert tr.spans["calib"] >= tr.spans["calib/capture"]
-    assert "calib" in tr.spans and "{" in tr.summary()
-    with tr.device_trace():                     # no profile_dir: no trace
-        pass
-
-
 def test_device_trace_writes_a_chrome_trace(tmp_path):
-    tr = Tracer(profile_dir=str(tmp_path))
-    with tr.device_trace(device="cpu"):
+    with device_trace(str(tmp_path), "cpu"):
         torch.ones(8).sum()
     with device_trace(str(tmp_path), "cpu", name="again"):
         torch.ones(8).sum()
