@@ -194,23 +194,25 @@ class QuantCtx:
                                          relaxed=self.relaxed)
 
     def swin_block(self, prefix, x, blk, heads, ws, shift, res, bias, mask,
-                   ln_eps):
+                   ln_eps, term=None):
         """The whole-Swin-block fused path (ops/int8_serve.fused_swin_block:
         B10, B9, B11 and two B6): returns the new residual stream, or None
-        (the caller runs the generic per-op path)."""
+        (the caller runs the generic per-op path).  ``term``: B9's term of
+        bias and mask, made once by a serving engine (bias and mask are
+        then None)."""
         if not self._serving():
             return None
         qps, pks = self._block_ops(prefix)
         return serve.fused_swin_block(x, blk, qps, pks, heads, ws, shift, res,
                                       bias, mask, ln_eps, self._row_reduce(),
-                                      self.relaxed)
+                                      self.relaxed, term=term)
 
     def window_attention_qkv(self, name1, name2, qkv, heads, nW, prescale,
-                             bias, mask):
+                             bias, mask, term=None):
         """Fused Swin window attention (B9) on the float (B·nW, N, 3C) qkv
-        output, bias and shifted mask in-kernel; returns the (B·nW, N, C)
-        context, or None for the generic matmul1 / softmax / matmul2
-        sequence."""
+        output, bias and shifted mask (or their ``term``) in-kernel;
+        returns the (B·nW, N, C) context, or None for the generic matmul1
+        / softmax / matmul2 sequence."""
         if not self._serving():
             return None
         qp1, qp2 = self.qstate.get(name1), self.qstate.get(name2)
@@ -218,7 +220,8 @@ class QuantCtx:
             return None
         return serve.fused_window_attention_qkv(qkv, heads, nW, qp1, qp2,
                                                 prescale, bias, mask,
-                                                relaxed=self.relaxed)
+                                                relaxed=self.relaxed,
+                                                term=term)
 
     def conv2d_patch(self, name, x, w, b, patch: int):
         """Non-overlapping patch-embedding conv (stride == kernel) as

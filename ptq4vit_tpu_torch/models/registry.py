@@ -107,6 +107,9 @@ class Net:
     op_inventory: list             # ordered (op name, module_type)
     op_shapes: Dict[str, Any]
     data_config: DataConfig
+    # serving_terms(params, cfg, compute_dtype) -> ``packed`` entries a
+    # serving engine builds once (Swin: B9's window terms), or None
+    serving_terms: Optional[Callable] = None
 
     def apply(self, x, qstate=None, eps=None, capture=False, int8=False,
               packed=None, compute_dtype=None):
@@ -143,7 +146,8 @@ def net_from_config(cfg, params: Dict[str, Any],
     mod = _model_module(cfg)
     return Net(name=cfg.name, cfg=cfg, params=params, forward=mod.forward,
                op_inventory=mod.op_inventory(cfg),
-               op_shapes=mod.op_shapes(cfg), data_config=data_config)
+               op_shapes=mod.op_shapes(cfg), data_config=data_config,
+               serving_terms=getattr(mod, "serving_terms", None))
 
 
 def resolve_device(device=None) -> torch.device:

@@ -11,6 +11,12 @@ without bias.
 Window-attention taps are (B·nW, heads, N, ·) with the window axis
 images-major, so a capture's per-micro-batch concatenation is (images ×
 windows)-major, as in the JAX capture.
+
+The window geometry (the rel-pos index, the shifted mask) is made on the
+device once per shape and then cached, so a forward copies nothing from
+the host; a serving engine also makes each block's B9 term of bias and
+mask once (``serving_terms``).  ``geometry_counts()`` counts the builds
+and the hits.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops import int8_serve as serve
 from ..utils.tracing import span
 from .common import QuantCtx, cast_params, layer_norm, softmax_f32
 
@@ -102,6 +109,92 @@ def shifted_window_mask(res: int, ws: int,
     return np.where(mask != 0, -100.0, 0.0).astype(np.float32)
 
 
+# ---------------------------------------------------------------------------
+# device geometry (built on first use, then cached per shape and device)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def device_relative_position_index(ws: int,
+                                   device: torch.device) -> torch.Tensor:
+    """``relative_position_index(ws)`` flattened, as int64 on ``device``."""
+    return torch.from_numpy(relative_position_index(ws).reshape(-1)) \
+        .to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def device_shifted_window_mask(res: int, ws: int, shift: int,
+                               device: torch.device,
+                               dtype: torch.dtype) -> torch.Tensor:
+    """``shifted_window_mask(res, ws, shift)`` (shift > 0) cast to ``dtype``
+    on ``device``."""
+    return torch.from_numpy(shifted_window_mask(res, ws, shift)).to(
+        device=device, dtype=dtype)
+
+
+def window_bias_mask(table, ws: int, shift: int, res: int, dtype):
+    """A block's (heads, N, N) rel-pos bias gathered from its (2ws-1)²
+    ``table`` (heads its columns) and its (nW, N, N) shifted mask in
+    ``dtype``, or None unshifted; on the table's device."""
+    rpi = device_relative_position_index(ws, table.device)
+    bias = table[rpi].reshape(ws * ws, ws * ws, table.shape[-1]) \
+        .permute(2, 0, 1)
+    mask = (device_shifted_window_mask(res, ws, shift, table.device, dtype)
+            if shift else None)
+    return bias, mask
+
+
+# builds of the serving engines' B9 terms (``serving_terms``) and their
+# lookups by the forward
+_TERM_COUNTS = {"builds": 0, "hits": 0}
+_GEOMETRY_CACHES = (("index", device_relative_position_index),
+                    ("mask", device_shifted_window_mask))
+_ZERO: Dict[str, Tuple[int, int]] = {}     # cache_info at the last reset
+
+
+def geometry_counts() -> dict:
+    """Builds and hits, since ``reset_geometry_counts``, of the device
+    rel-pos index, the device shifted mask and the engines' B9 terms."""
+    out = {}
+    for key, fn in _GEOMETRY_CACHES:
+        info = fn.cache_info()
+        misses, hits = _ZERO.get(key, (0, 0))
+        out[f"{key}_builds"] = info.misses - misses
+        out[f"{key}_hits"] = info.hits - hits
+    out["term_builds"] = _TERM_COUNTS["builds"]
+    out["term_hits"] = _TERM_COUNTS["hits"]
+    return out
+
+
+def reset_geometry_counts() -> None:
+    for key, fn in _GEOMETRY_CACHES:
+        info = fn.cache_info()
+        _ZERO[key] = (info.misses, info.hits)
+    _TERM_COUNTS.update(builds=0, hits=0)
+
+
+def serving_terms(params: Dict[str, Any], cfg: SwinConfig,
+                  compute_dtype) -> Dict[str, Any]:
+    """B9's additive logit term of every block, built once by a serving
+    engine (``parallel/serve.ServingEngine``) from its params: ``packed``
+    entries ``{"layers.i.blocks.j.attn": {"window_term": term}}``.  The
+    term is made as the forward would make it a request: the table cast
+    to ``compute_dtype``, gathered and permuted, the mask in
+    ``compute_dtype``, then ``ops/int8_serve.window_term``."""
+    terms = {}
+    for i, layer in enumerate(params["layers"]):
+        res = cfg.layer_resolution(i)
+        for j, blk in enumerate(layer["blocks"]):
+            ws, shift = cfg.block_geometry(i, j)
+            table = blk["attn"]["relative_position_bias_table"] \
+                .to(compute_dtype)
+            bias, mask = window_bias_mask(table, ws, shift, res,
+                                          compute_dtype)
+            terms[f"layers.{i}.blocks.{j}.attn"] = {
+                "window_term": serve.window_term(bias, mask)}
+            _TERM_COUNTS["builds"] += 1
+    return terms
+
+
 def window_partition(x, ws: int):
     """(B, H, W, C) -> (B·nW, ws², C), images-major."""
     B, H, W, C = x.shape
@@ -178,18 +271,20 @@ def init_params(cfg: SwinConfig, generator: np.random.Generator,
 # ---------------------------------------------------------------------------
 
 def _window_attention(ctx: QuantCtx, prefix: str, x, attn_p, heads: int,
-                      hd: int, bias, mask):
+                      hd: int, bias, mask, term=None):
     """Window attention of ``heads`` heads of width ``hd`` (this rank's
     under tensor parallelism) over (B·nW, N, C) windows; bias (heads, N,
     N), mask (nW, N, N) tensor or None.  In fused serving the attention
-    runs in B9 on the float qkv (``ctx.window_attention_qkv``)."""
+    runs in B9 on the float qkv (``ctx.window_attention_qkv``), with the
+    engine's ``term`` of bias and mask if it has one."""
     B_, N, _ = x.shape
     C = heads * hd
     qkv = ctx.linear(f"{prefix}.qkv", x, attn_p["qkv"]["weight"],
                      attn_p["qkv"]["bias"])
     nW = mask.shape[0] if mask is not None else 1
     y = ctx.window_attention_qkv(f"{prefix}.matmul1", f"{prefix}.matmul2",
-                                 qkv, heads, nW, hd ** -0.5, bias, mask)
+                                 qkv, heads, nW, hd ** -0.5, bias, mask,
+                                 term)
     if y is None:
         qkv = qkv.reshape(B_, N, 3, heads, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]
@@ -241,21 +336,26 @@ def forward(params: Dict[str, Any], x, cfg: SwinConfig,
             with span("ptq.forward.block"):
                 ws, shift = cfg.block_geometry(i, j)
                 p = f"layers.{i}.blocks.{j}"
+                table = blk["attn"]["relative_position_bias_table"]
                 with span("ptq.forward.geometry"):
-                    rpi = torch.from_numpy(
-                        relative_position_index(ws).reshape(-1)).to(x.device)
-                    bias = blk["attn"]["relative_position_bias_table"][rpi]
-                    bias = bias.reshape(ws * ws, ws * ws, heads) \
-                        .permute(2, 0, 1)
-                    mask = shifted_window_mask(res, ws, shift)
-                    if mask is not None:
-                        mask = torch.from_numpy(mask).to(device=x.device,
-                                                         dtype=x.dtype)
+                    # a serving engine's term of bias and mask, else both
+                    # from the device caches
+                    term = (ctx.packed.get(f"{p}.attn") or {}).get(
+                        "window_term")
+                    if term is not None:
+                        _TERM_COUNTS["hits"] += 1
+                        bias = mask = None
+                    else:
+                        bias, mask = window_bias_mask(table, ws, shift, res,
+                                                      x.dtype)
                 xb = ctx.swin_block(p, x, blk, heads, ws, shift, res, bias,
-                                    mask, cfg.ln_eps)
+                                    mask, cfg.ln_eps, term)
                 if xb is not None:
                     x = xb
                     continue
+                if bias is None:
+                    bias, mask = window_bias_mask(table, ws, shift, res,
+                                                  x.dtype)
                 shortcut = x
                 y = layer_norm(x, blk["norm1"]["weight"], blk["norm1"]["bias"],
                                cfg.ln_eps)
@@ -264,7 +364,7 @@ def forward(params: Dict[str, Any], x, cfg: SwinConfig,
                     y = torch.roll(y, (-shift, -shift), dims=(1, 2))
                 yw = _window_attention(ctx, f"{p}.attn",
                                        window_partition(y, ws), blk["attn"],
-                                       heads, hd, bias, mask)
+                                       heads, hd, bias, mask, term)
                 y = window_reverse(yw, ws, res, res)
                 if shift > 0:
                     y = torch.roll(y, (shift, shift), dims=(1, 2))

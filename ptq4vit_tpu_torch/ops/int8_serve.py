@@ -366,23 +366,33 @@ def fused_attention_ref(q, k, v, ph, split, scale, a_out, *, sos: bool,
     return out.to(out_dtype)
 
 
+def window_term(bias, mask):
+    """B9's additive logit term: bias (H, N, N) in fp32, or with the
+    shifted mask (nW, N, N) bias[h] + mask[w] (nW, H, N, N) in fp32, in
+    that order (JAX's ``extra``, int8_serve.py:625); contiguous.  It is
+    fixed for a block: a serving engine builds it once
+    (``models/swin.serving_terms``)."""
+    bias = bias.float().contiguous()
+    if mask is None:
+        return bias
+    return (bias[None] + mask.float()[:, None]).contiguous()
+
+
 def fused_window_attention_ref(qkv, heads: int, nW: int, ph, split,
                                prescale, bias, mask, a_out, *, sos: bool,
                                in_q8: bool, qmaxes, out_dtype,
-                               relaxed: bool = False):
+                               relaxed: bool = False, term=None):
     """Plain version of B9 on the (B·nW, N, 3C) qkv: ph[0] holds a1/s and
-    ``prescale`` is s; the logits get bias (H, N, N) + mask (nW, N, N), in
-    that order (JAX's ``extra``, int8_serve.py:625).  Returns (B·nW, N,
-    C)."""
+    ``prescale`` is s; the logits get ``term``, by default
+    ``window_term(bias, mask)``.  Returns (B·nW, N, C)."""
     B_, N, c3 = qkv.shape
     C = c3 // 3
-    extra = bias.float()[None]
-    if mask is not None:
-        extra = extra + mask.float()[:, None]
+    if term is None:
+        term = window_term(bias, mask)
     t = qkv.reshape(B_, N, 3, heads, C // heads).permute(2, 0, 3, 1, 4)
     out = fused_attention_ref(t[0], t[1], t[2], ph, split, prescale, a_out,
                               sos=sos, in_q8=in_q8, qmaxes=qmaxes,
-                              out_dtype=out_dtype, extra=extra,
+                              out_dtype=out_dtype, extra=term,
                               relaxed=relaxed)
     return out.transpose(1, 2).reshape(B_, N, C)
 
@@ -712,8 +722,9 @@ def attn_plan(N: int, hd: int) -> AttnPlan:
 def _attn_launch(q, k, v, strides, out, ostrides, ph, split, scale, a_out,
                  B, H, N, hd, sos, qmaxes, in_dtype, window=None,
                  relaxed=False):
-    """Launch the B7 / B8 kernel, or B9's with ``window`` = (bias (H, N,
-    N), mask (nW, N, N) or None, nW); q, k, v are element addresses;
+    """Launch the B7 / B8 kernel, or B9's with ``window`` = (term (H, N,
+    N) or (nW, H, N, N), ``window_term``'s, and nW); q, k, v are element
+    addresses;
     ``relaxed``: its relaxed variant.  The library plans the call as
     ``attn_plan`` does; a shape it refuses raises here first."""
     from .build import load
@@ -732,16 +743,11 @@ def _attn_launch(q, k, v, strides, out, ostrides, ph, split, scale, a_out,
     if window is None:
         _launch(lib.ptq_fused_attention, *head, *tail)
         return
-    bias, mask, nW = window
-    bias = bias.float().contiguous()
-    _check(bias, "bias", torch.float32, (H, N, N), dev)
-    term, period = bias, 1
-    if mask is not None:
-        mask = mask.float().contiguous()
-        _check(mask, "mask", torch.float32, (nW, N, N), dev)
-        # bias[h] + mask[w] in fp32, that order (JAX's extra), summed once
-        # a call: the kernel then reads one float a logit
-        term, period = (bias[None] + mask[:, None]).contiguous(), nW
+    term, nW = window
+    # one float a logit: the kernel reads term[w % period][h]
+    _check(term, "window term", torch.float32, (nW, H, N, N)[-term.ndim:],
+           dev)
+    period = nW if term.ndim == 4 else 1
     _launch(lib.ptq_window_attention, *head, _ptr(term), period, *tail)
 
 
@@ -829,7 +835,7 @@ def fused_attention(q, k, v, qp1, qp2, scale, relaxed: bool = False):
 def fused_window_attention_qkv(qkv, heads: int, nW: int, qp1, qp2,
                                prescale, bias, mask, *, in_q8: bool = False,
                                out_scale=None, out_qmax: int = 128,
-                               relaxed: bool = False):
+                               relaxed: bool = False, term=None):
     """B9: fused Swin window attention softmax(q·s·kᵀ + bias [+ mask])·v
     from the packed (B·nW, N, 3C) qkv-linear output, windows images-major,
     written as (B·nW, N, C).
@@ -838,7 +844,9 @@ def fused_window_attention_qkv(qkv, heads: int, nW: int, qp1, qp2,
     A operand quantizes q·s: folded into the q scale a1/s (an exact
     division) with the logits rescaled by (a1/s · b1) · s.
     bias: (H, N, N) relative-position bias; mask: (nW, N, N) additive
-    shifted-window mask or None (both used in fp32).  in_q8: qkv holds
+    shifted-window mask or None (both used in fp32, summed by
+    ``window_term``); term: that sum made beforehand (a serving engine's),
+    in place of bias and mask, which are then not read.  in_q8: qkv holds
     int8 levels at the (a1/s, b1, b2) head scales (B10's output);
     out_scale: the context is requantized at this scalar and returned
     int8.  relaxed: as in B7.  Returns (B·nW, N, C) in qkv's dtype
@@ -857,11 +865,13 @@ def fused_window_attention_qkv(qkv, heads: int, nW: int, qp1, qp2,
     qmaxes = attn_qmaxes(qp1, qp2, out_qmax)
     split = qp2.split if sos else None
     fdt = qkv.dtype if qkv.is_floating_point() else torch.float32
+    if term is None:
+        term = window_term(bias, mask)
     if not qkv.is_cuda:
         return fused_window_attention_ref(
-            qkv, heads, nW, ph, split, prescale, bias, mask, out_scale,
+            qkv, heads, nW, ph, split, prescale, None, None, out_scale,
             sos=sos, in_q8=in_q8, qmaxes=qmaxes, out_dtype=fdt,
-            relaxed=relaxed)
+            relaxed=relaxed, term=term)
     if (qkv.dtype == torch.int8) != bool(in_q8):
         raise TypeError("qkv must be int8 exactly when in_q8")
     if qkv.dtype not in _KINDS:
@@ -874,7 +884,7 @@ def fused_window_attention_qkv(qkv, heads: int, nW: int, qp1, qp2,
     _attn_launch(base, base + C * es, base + 2 * C * es, (N * c3, hd, c3),
                  out, (N * C, hd, C), ph, split, prescale, out_scale, B_,
                  heads, N, hd, sos, qmaxes, qkv.dtype,
-                 window=(bias, mask, nW), relaxed=relaxed)
+                 window=(term, nW), relaxed=relaxed)
     _count(fused_window_attention_qkv, relaxed)
     return out
 
@@ -1327,7 +1337,7 @@ def fused_vit_block(x, blk, qps, pks, heads: int, scale, ln_eps,
 
 def fused_swin_block(x, blk, qps, pks, heads: int, ws: int, shift: int,
                      res: int, bias, mask, ln_eps, reduce=None,
-                     relaxed: bool = False):
+                     relaxed: bool = False, term=None):
     """One Swin block with int8 handoffs, the window analogue of
     :func:`fused_vit_block`, in five launches and two rolls:
 
@@ -1345,7 +1355,8 @@ def fused_swin_block(x, blk, qps, pks, heads: int, ws: int, shift: int,
         residual;
       * LN2 -> fc1 / GELU -> twin-packed int8 -> fc2 + residual (B6).
 
-    x: (B, res·res, C); bias: (H, N, N); mask: (nW, N, N) or None.
+    x: (B, res·res, C); bias: (H, N, N); mask: (nW, N, N) or None;
+    ``term``: B9's ``window_term`` of them made beforehand, in their place.
     ``reduce``: tensor parallelism, as in :func:`fused_vit_block` (B11's
     partial sums reduced in the window layout, then the row map, bias and
     rolled residual in ``q8_epilogue``).  ``relaxed``: B10's requant, B9
@@ -1377,9 +1388,9 @@ def fused_swin_block(x, blk, qps, pks, heads: int, ws: int, shift: int,
                        a_qmax=qp_qkv.a_qmax, out_qmax=qp1.A_qmax,
                        w_kmaj=w_qkv.w_kmaj, relaxed=relaxed)
     y_q = fused_window_attention_qkv(
-        qkv_q, heads, 1 if mask is None else mask.shape[0], qp1, qp2, s,
-        bias, mask, in_q8=True, out_scale=qp_proj.a_interval[0, 0],
-        out_qmax=qp_proj.a_qmax, relaxed=relaxed)
+        qkv_q, heads, (res // ws) ** 2 if shift else 1, qp1, qp2, s, bias,
+        mask, in_q8=True, out_scale=qp_proj.a_interval[0, 0],
+        out_qmax=qp_proj.a_qmax, relaxed=relaxed, term=term)
     if reduce is not None:
         y4 = row_parallel(y_q, w_proj, attn["proj"]["bias"], qp_proj, reduce,
                           in_q="q8", residual=x4, window=(ws, res))

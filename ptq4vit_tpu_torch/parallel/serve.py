@@ -54,6 +54,11 @@ class ServingEngine:
         self._params = params_from_numpy(net.params, self.device)
         self._qstate = qstate_to(qstate, self.device)
         self._packed = pack_weights(self._params, self._qstate)
+        if net.serving_terms is not None:
+            # fixed per-block operands (Swin's B9 terms), made once here
+            # and not in every request
+            self._packed.update(net.serving_terms(self._params, net.cfg,
+                                                  compute_dtype))
         self._norm = None
         if raw_uint8:
             dc = net.data_config

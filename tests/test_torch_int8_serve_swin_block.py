@@ -19,16 +19,19 @@ import torch
 
 from ptq4vit_tpu.models.common import QuantCtx as JQuantCtx
 from ptq4vit_tpu.ops.pack import pack_weights as jpack
+from ptq4vit_tpu_torch import ServingEngine
+from ptq4vit_tpu_torch.models import swin as pswin
 from ptq4vit_tpu_torch.models.common import QuantCtx
 from ptq4vit_tpu_torch.models.swin import (relative_position_index,
                                            shifted_window_mask)
 from ptq4vit_tpu_torch.ops import int8_serve as pserve
 from ptq4vit_tpu_torch.ops.pack import pack_weights
 from ptq4vit_tpu_torch.utils.convert import qstate_from_numpy
+from tests.test_torch_window7 import W7
 from tests.torch_port_helpers import (WIDE_SWIN, WIDE_SWIN32, images,
                                       jax_swin_net, minmax_qstate, port_net)
 
-SHAPES = {"hd64": WIDE_SWIN, "hd32": WIDE_SWIN32}
+SHAPES = {"hd64": WIDE_SWIN, "hd32": WIDE_SWIN32, "w7": W7}
 REFS = {"q8_linear": "q8_linear_ref", "attention": "fused_attention_ref",
         "window_attention": "fused_window_attention_ref",
         "win_qkv": "q8_win_qkv_ref", "win_proj": "q8_win_proj_ref"}
@@ -153,3 +156,104 @@ def test_per_op_window_path_matches_jax(nets, ref_calls):
                          "window_attention": 3, "win_qkv": 0, "win_proj": 0}
     assert (got.argmax(-1).numpy() == ref.argmax(-1)).all()
     close(got, ref)
+
+
+# -- the serving engine's window terms ----------------------------------------
+
+def per_call_geometry(monkeypatch):
+    """The forward's device geometry made anew each call from numpy, as
+    before it was cached."""
+    monkeypatch.setattr(pswin, "device_relative_position_index",
+                        lambda ws, device: torch.from_numpy(
+                            relative_position_index(ws).reshape(-1))
+                        .to(device))
+    monkeypatch.setattr(pswin, "device_shifted_window_mask",
+                        lambda res, ws, shift, device, dtype:
+                        torch.from_numpy(shifted_window_mask(res, ws, shift))
+                        .to(device=device, dtype=dtype))
+
+
+def blocks_of(cfg):
+    return [(i, j) for i, d in enumerate(cfg.depths) for j in range(d)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("mode", ["fused", "fused_relaxed"])
+@pytest.mark.parametrize("case", ["hd32", "w7", "per_op"])
+def test_engine_logits_equal_per_call_geometry(case, mode, dtype, nets,
+                                               ref_calls, monkeypatch):
+    """``ServingEngine`` builds B9's terms once (one a block) and a request
+    builds no geometry; its logits are bitwise those of the same forward
+    building the geometry and summing the term in every call, exact and
+    relaxed, on the fused block path (window 4 and window 7) and on the
+    per-op window path (``per_op``: fc2 not post-GELU)."""
+    shape = "hd32" if case == "per_op" else case
+    _, (pnet, pq, ppk), x = nets(shape, 8, postgelu=case != "per_op")
+    n = len(blocks_of(pnet.cfg))
+    pswin.reset_geometry_counts()
+    engine = ServingEngine(pnet, pq, compute_dtype=dtype,
+                           relaxed=mode == "fused_relaxed", device="cpu")
+    assert pswin.geometry_counts()["term_builds"] == n
+    engine(x)
+    pswin.reset_geometry_counts()
+    got = engine(x)
+    # the per-op path gathers the bias for the generic ops it falls back
+    # to; B9 takes the engine's term all the same
+    shifted = sum(pnet.cfg.block_geometry(i, j)[1] > 0
+                  for i, j in blocks_of(pnet.cfg))
+    per_op = case == "per_op"
+    assert pswin.geometry_counts() == {
+        "index_builds": 0, "index_hits": n if per_op else 0,
+        "mask_builds": 0, "mask_hits": shifted if per_op else 0,
+        "term_builds": 0, "term_hits": n}
+    assert ref_calls["window_attention"] == 2 * n
+    with monkeypatch.context() as m:
+        per_call_geometry(m)
+        want = pnet.apply(torch.from_numpy(x), qstate=pq, int8=mode,
+                          packed=pack_weights(pnet.params, pq),
+                          compute_dtype=dtype)
+    assert ref_calls["window_attention"] == 3 * n
+    assert got.dtype == want.dtype == dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", ["hd32", "w7"])
+def test_engine_term_is_bias_plus_mask(shape, dtype, nets, monkeypatch):
+    """The term a request hands B9 is the engine's, and bitwise
+    bias[None] + mask[:, None] in fp32 (bias alone unshifted) of the
+    table cast to the compute dtype and the mask in it."""
+    _, (pnet, pq, _), x = nets(shape, 8)
+    cfg = pnet.cfg
+    engine = ServingEngine(pnet, pq, compute_dtype=dtype, device="cpu")
+    seen = []
+    orig = pserve.fused_window_attention_qkv
+
+    def spy(*a, **kw):
+        seen.append(kw["term"])
+        return orig(*a, **kw)
+    monkeypatch.setattr(pserve, "fused_window_attention_qkv", spy)
+    engine(x)
+    blocks = blocks_of(cfg)
+    assert len(seen) == len(blocks)
+    for (i, j), term in zip(blocks, seen):
+        assert term is engine._packed[f"layers.{i}.blocks.{j}.attn"][
+            "window_term"]
+        ws, shift = cfg.block_geometry(i, j)
+        N, heads = ws * ws, cfg.num_heads[i]
+        table = pnet.params["layers"][i]["blocks"][j]["attn"][
+            "relative_position_bias_table"].to(dtype)
+        bias = table[torch.from_numpy(relative_position_index(ws)
+                                      .reshape(-1))] \
+            .reshape(N, N, heads).permute(2, 0, 1).float()
+        if shift:
+            mask = torch.from_numpy(shifted_window_mask(
+                cfg.layer_resolution(i), ws, shift)).to(dtype).float()
+            want = bias[None] + mask[:, None]
+        else:
+            want = bias
+        assert term.dtype == torch.float32 and term.is_contiguous()
+        assert torch.equal(term, want)
+    assert any(t.ndim == 4 for t in seen) and any(t.ndim == 3 for t in seen)

@@ -22,6 +22,7 @@ from ptq4vit_tpu_torch.models import swin as pswin
 from ptq4vit_tpu_torch.utils import timm_port as ptp
 from ptq4vit_tpu_torch.utils.convert import (params_from_numpy,
                                              qstate_from_numpy)
+from ptq4vit_tpu_torch.utils.synthetic import synthetic_qstate
 from tests import test_reference_goldens as G
 from tests.test_torch_models import minmax_jax_qstate
 from tests.torch_port_helpers import (SWIN3, TINY_SWIN, assert_logits_close,
@@ -251,3 +252,56 @@ def test_kernel_scratch_bytes_at_swin_b384():
                 for n, i in shapes.items())
     assert worst == kernel_scratch_bytes(shapes[fc2], 32,
                                          pol.op_policy(inv[fc2]))
+
+
+# -- the device geometry ------------------------------------------------------
+
+@pytest.mark.parametrize("res,ws,shift", [(8, 4, 2), (14, 7, 3), (24, 12, 6)],
+                         ids=["window4", "window7", "window12"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_device_geometry_equals_numpy(res, ws, shift, dtype):
+    """The cached device index is the numpy one flattened, int64; the
+    cached mask is the numpy one cast to the asked dtype; a repeated
+    lookup returns the cached tensor."""
+    dev = torch.device("cpu")
+    rpi = pswin.device_relative_position_index(ws, dev)
+    want = pswin.relative_position_index(ws).reshape(-1)
+    assert rpi.dtype == torch.int64 and want.dtype == np.int64
+    assert np.array_equal(rpi.numpy(), want)
+    mask = pswin.device_shifted_window_mask(res, ws, shift, dev, dtype)
+    want = torch.from_numpy(pswin.shifted_window_mask(res, ws, shift))
+    assert mask.dtype == dtype and mask.shape == want.shape
+    assert torch.equal(mask, want.to(dtype))
+    assert pswin.device_relative_position_index(ws, dev) is rpi
+    assert pswin.device_shifted_window_mask(res, ws, shift, dev, dtype) \
+        is mask
+
+
+W7 = dict(img_size=28, patch_size=2, embed_dim=24, depths=(2, 2),
+          num_heads=(3, 6), window_size=7, num_classes=10)
+
+
+@pytest.mark.parametrize("shape", [TINY_SWIN, W7], ids=["window4", "window7"])
+@pytest.mark.parametrize("mode", ["float", "fake_quant", "capture"])
+def test_second_forward_adds_only_geometry_hits(shape, mode):
+    """A forward's geometry comes from the device caches: a second one
+    builds nothing and looks the index up once a block and the mask once
+    a shifted block (window 4: the second block of both stages; window
+    7: the first stage's second block, the second stage one window)."""
+    cfg = pswin.SwinConfig(name="geometry", **shape)
+    net = net_from_config(cfg, pswin.init_params(
+        cfg, np.random.default_rng(0)))
+    x = torch.from_numpy(images(2, cfg.img_size))
+    kw = {"float": {}, "capture": {"capture": True},
+          "fake_quant": {"qstate": synthetic_qstate(net, pptq4vit())}}[mode]
+    net.apply(x, **kw)
+    pswin.reset_geometry_counts()
+    net.apply(x, **kw)
+    blocks = [cfg.block_geometry(i, j) for i, d in enumerate(cfg.depths)
+              for j in range(d)]
+    shifted = sum(shift > 0 for _, shift in blocks)
+    assert shifted >= 1
+    assert pswin.geometry_counts() == {
+        "index_builds": 0, "index_hits": len(blocks), "mask_builds": 0,
+        "mask_hits": shifted, "term_builds": 0, "term_hits": 0}

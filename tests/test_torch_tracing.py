@@ -7,7 +7,8 @@ and a tiny Swin's ``ServingEngine`` call, and a tiny ``quantize``, give
 the span tree the layers promise: one request or job span with every
 part nested in it, one block span a block, one search span an op named by
 its quantizer; the calibrator's ``profile_dir`` trace holds the same
-spans.  The readers of ``benchmark/metrics`` give known values on a
+spans.  On the card (``-m cuda``) a Swin request's forward makes no host
+wait.  The readers of ``benchmark/metrics`` give known values on a
 hand-built trace."""
 import collections
 import json
@@ -25,11 +26,12 @@ from benchmark.trace import Trace
 from ptq4vit_tpu_torch import ServingEngine, quantize
 from ptq4vit_tpu_torch.calib.calibrator import CalibReport
 from ptq4vit_tpu_torch.configs import ptq4vit
-from ptq4vit_tpu_torch.models import swin, vit
+from ptq4vit_tpu_torch.models import get_net, swin, vit
 from ptq4vit_tpu_torch.models.registry import net_from_config
 from ptq4vit_tpu_torch.ops import int8_serve, search_kernels
 from ptq4vit_tpu_torch.utils import tracing
-from ptq4vit_tpu_torch.utils.synthetic import synthetic_qstate
+from ptq4vit_tpu_torch.utils.synthetic import (synthetic_images,
+                                               synthetic_qstate)
 
 TINY_VIT = vit.ViTConfig(name="tiny_vit", img_size=32, patch_size=8,
                          embed_dim=32, depth=2, num_heads=2, num_classes=10)
@@ -147,6 +149,44 @@ def test_serving_request_spans(model, tmp_path):
     # each block's geometry opens inside that block
     for iv in spans.get("ptq.forward.geometry", []):
         assert any(inside(iv, b) for b in spans["ptq.forward.block"])
+
+
+@pytest.mark.cuda
+def test_swin_request_forward_waits_for_nothing_on_the_card(tmp_path):
+    """After warm-up a Swin-T/224 engine request (random weights, a
+    synthetic qstate, 8 images) under ``torch.profiler``: no
+    ``cudaStreamSynchronize`` or ``cudaMemcpy``, and no host-to-device
+    ``cudaMemcpyAsync``, starts inside ``ptq.serve.forward``; B9 runs once
+    a block on the engine's terms and the request builds no geometry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    net = get_net("swin_tiny_patch4_window7_224", device="cuda")
+    engine = ServingEngine(net, synthetic_qstate(net, ptq4vit()))
+    x = synthetic_images(8, 224)
+    engine(x).cpu()
+    swin.reset_geometry_counts()
+    int8_serve.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        assert engine(x).cpu().shape == (8, 1000)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    (fwd,) = ptq_spans(events)["ptq.serve.forward"]
+    copies = {e["args"]["correlation"]: e["name"] for e in events
+              if e.get("cat") == "gpu_memcpy" and "correlation" in
+              e.get("args", {})}
+    waits = [e["name"] for e in events
+             if e.get("cat") == "cuda_runtime" and fwd[0] <= e["ts"] < fwd[1]
+             and (e["name"] in ("cudaStreamSynchronize", "cudaMemcpy")
+                  or e["name"] == "cudaMemcpyAsync" and "HtoD" in copies.get(
+                      e.get("args", {}).get("correlation"), "HtoD"))]
+    assert waits == []
+    blocks = sum(net.cfg.depths)
+    assert int8_serve.launch_counts()["fused_window_attention_qkv"] == blocks
+    assert swin.geometry_counts() == {
+        "index_builds": 0, "index_hits": 0, "mask_builds": 0, "mask_hits": 0,
+        "term_builds": 0, "term_hits": blocks}
 
 
 @pytest.mark.parametrize("model", ["vit", "swin"])
