@@ -2,12 +2,14 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --mesh [--micro-batch N]
+    python3 chip_smoke.py --swinv2
 
 ``--mesh`` runs phase 11 alone, after what it reads (the build, phases 4
 and 5's calibrations, phase 7's first request through the engine), its
 mesh calibrations on micro-batches of N images (default 8: 4 a rank, the
 single device's micro-batch shape), then the phase's summary as JSON and
-the result line; about 3 minutes.
+the result line; about 3 minutes.  ``--swinv2`` runs phase 14 alone
+after the build, then its kernels' JSON line and the result line.
 
 Phases (any failure raises, so the exit code is non-zero):
   1. the card's name and power limit; CUDA is required, TF32 is off;
@@ -200,8 +202,26 @@ Phases (any failure raises, so the exit code is non-zero):
      searched) and B6 50 a request (both heads), Swin-T 156 / 156, B3 18
      (stage 1's 3 heads) and B3f 90, B6 28 and B9-B11 12 a request,
      Swin-B/224 as Swin-B/384;
-  14. print the kernels' JSON line (the thirteen kernels and the five
-     relaxed variants), the card line, then the result line.
+  14. Swin V2 (swinv2_phase; the JAX package has no V2, so each kernel is
+     held to its plain version alone): at SwinV2-B/384's four stages with
+     32 images (windows of 24, 24, 24 and the clamped 12; 4 to 32 heads
+     of 32 columns), B10 with no LayerNorm and q and k L2-normalized per
+     head in its epilogue (q8_win_qkv(norm_heads=)) bitwise, B9 on int8
+     q-hat, k-hat, v with a per-head tau folded into the q scale and a
+     held fp32 term (the position bias, and the shifted mask at stages 1
+     and 2: 576 keys, the unparked path; 144 keys at stage 4) under the
+     attention rules of phase 3, and q8_postnorm (residual + LayerNorm of
+     the rescaled sums: one plane in B11's window row map at each stage,
+     fc2's twin planes at stages 1 and 3) bitwise; then the model
+     through model_paths: quantize (PTQ4ViT W8A8, 8 images; B1 / B2 /
+     B3 / B3f exactly as its inventory needs), served as phase 4 serves,
+     and ServingEngine (bf16) on MODEL_REQUESTS requests of 32 images:
+     a request launches B6 52 times (fc1 and fc2 of each block, the
+     three reductions, the head), B10's normalizing instance, B9 and
+     B11 24 each and q8_postnorm 48 (serve_launches), no relaxed engine
+     (V2 has none), under phase 7's cosine gates;
+  15. print the kernels' JSON line (the thirteen kernels, the five
+     relaxed variants and V2's two), the card line, then the result line.
 Each path is driven with the launch counts set to 0 just before it and
 read just after.
 """
@@ -274,6 +294,10 @@ KERNELS = {
         SERVE_SOURCE, "ptq4vit_tpu/ops/int8_serve.py:343"),
     "q8_win_qkv_relaxed": (SERVE_SOURCE,
                            "ptq4vit_tpu/ops/int8_serve.py:891"),
+    # Swin V2, which the JAX package lacks: B10's instance with q and k
+    # L2-normalized per head in its epilogue, and the res-post-norm
+    "q8_win_qkv_norm": (SERVE_SOURCE, None),
+    "q8_postnorm": (SERVE_SOURCE, None),
 }
 SEARCH = tuple(k for k, (src, _) in KERNELS.items() if src == SEARCH_SOURCE)
 # the kernels each path must launch (None: at least once) and must not
@@ -370,6 +394,13 @@ SWIN_EXACT_PATH = "swin_base_patch4_window12_384 exact"
 PATHS.update({name: ({}, ()) for name in LARGE + GRID})
 PATHS[SWIN_EXACT_PATH] = (
     {"linear_w_hessian_sims": 300, "linear_a_hessian_sims": 300}, INT8)
+# Swin V2 (phase 14): SwinV2-B/384, window 24; its stages at 32 images
+# (stage, resolution, channels, heads, window); it has no relaxed engine
+SWINV2 = "swinv2_base_window12to24_192to384"
+SWINV2_STAGES = ((1, 96, 128, 4, 24), (2, 48, 256, 8, 24),
+                 (3, 24, 512, 16, 24), (4, 12, 1024, 32, 12))
+PATHS[SWINV2] = ({}, ())
+NO_RELAXED = (SWINV2,)
 # candidates a chunk in the chunked-versus-whole cases (phase 3): odd, so
 # that B3's candidate pairs change places from one chunk to the next
 CHUNK = 37
@@ -1775,7 +1806,8 @@ def serving_phase(sk, sv, name, qcpu, requests=SERVE_REQUESTS,
     (bf16) on ``requests`` requests of SERVE_BATCH images with the
     launch counts set to 0 just before and read just after, each kernel
     launched exactly as ``serve_launches`` says, then
-    the relaxed engine on the first ``relaxed_requests``; then the fused
+    the relaxed engine on the first ``relaxed_requests`` (none: no relaxed
+    engine, summary["relaxed"] None); then the fused
     fp32, exact int8 and fake-quant forwards on the first request, held to
     each other and the engine's logits to the fused fp32 ones by cosine
     (>= 0.99), and the img/s of each.  Returns (launches, summary, (net,
@@ -1816,10 +1848,12 @@ def serving_phase(sk, sv, name, qcpu, requests=SERVE_REQUESTS,
     n_img = SERVE_BATCH * requests
     x0 = torch.from_numpy(reqs[0]).cuda()
     ips = {"fused bf16 engine": n_img / wall}
-    relaxed = relaxed_serving(sk, sv, name, net, qstate,
-                              reqs[:relaxed_requests],
-                              outs[:relaxed_requests])
-    ips["relaxed bf16 engine"] = relaxed["img_per_s"]
+    relaxed = None
+    if relaxed_requests:
+        relaxed = relaxed_serving(sk, sv, name, net, qstate,
+                                  reqs[:relaxed_requests],
+                                  outs[:relaxed_requests])
+        ips["relaxed bf16 engine"] = relaxed["img_per_s"]
     # the exact engine again, so the two alternate (exact, relaxed, exact)
     t0 = time.time()
     for x in reqs:
@@ -2109,9 +2143,17 @@ def serve_launches(name, relaxed=False):
     each patch-merging reduction and the head.  ``relaxed``: qkv (B10),
     fc1 and the attention run the relaxed variants; proj, fc2, B11, the
     reductions and the heads (float outputs without GELU, the same
-    function) the exact kernels -- B6 as many a request in all."""
-    from ptq4vit_tpu_torch.models import model_config, swin
+    function) the exact kernels -- B6 as many a request in all.  Swin V2
+    (no relaxed engine): B10's normalizing instance in place of B10, and
+    q8_postnorm twice a block after B11's and fc2's sums."""
+    from ptq4vit_tpu_torch.models import model_config, swin, swinv2
     cfg = model_config(name)
+    if isinstance(cfg, swinv2.SwinV2Config):
+        blocks = sum(cfg.depths)
+        return {"q8_linear": 2 * blocks + cfg.num_layers,
+                "fused_window_attention_qkv": blocks,
+                "q8_win_qkv_norm": blocks, "q8_win_proj": blocks,
+                "q8_postnorm": 2 * blocks}
     if isinstance(cfg, swin.SwinConfig):
         blocks, tail = sum(cfg.depths), cfg.num_layers
         if relaxed:
@@ -2397,9 +2439,10 @@ def counted(path, sk, sv, fn, *a, **kw):
 
 def model_ops(name):
     """(op inventory, op shapes) of the zoo model ``name``."""
-    from ptq4vit_tpu_torch.models import model_config, swin, vit
+    from ptq4vit_tpu_torch.models import model_config, swin, swinv2, vit
     cfg = model_config(name)
-    mod = swin if isinstance(cfg, swin.SwinConfig) else vit
+    mod = (swinv2 if isinstance(cfg, swinv2.SwinV2Config)
+           else swin if isinstance(cfg, swin.SwinConfig) else vit)
     return mod.op_inventory(cfg), mod.op_shapes(cfg)
 
 
@@ -2904,7 +2947,8 @@ def model_paths(sk, sv, names, by_path, summaries):
     op inventory needs (``model_launches``), served as phase 4 serves,
     then serving_phase on its qstate: MODEL_REQUESTS requests of
     SERVE_BATCH images through the bf16 ServingEngine and
-    MODEL_RELAXED_REQUESTS through the relaxed one, launches exactly as
+    MODEL_RELAXED_REQUESTS through the relaxed one (none for the models
+    of NO_RELAXED), launches exactly as
     ``serve_launches`` says, the cosine gates of phase 7.  Adds each
     path's launches to ``by_path`` and its summary to ``summaries``."""
     for name in names:
@@ -2914,9 +2958,12 @@ def model_paths(sk, sv, names, by_path, summaries):
         by_path[name] = launches
         summaries.append(summary)
         launches, summary, (net, qstate, x0, _) = serving_phase(
-            sk, sv, name, qcpu, MODEL_REQUESTS, MODEL_RELAXED_REQUESTS)
+            sk, sv, name, qcpu, MODEL_REQUESTS,
+            0 if name in NO_RELAXED else MODEL_RELAXED_REQUESTS)
         by_path[summary["path"]] = launches
-        by_path[summary["relaxed"]["path"]] = summary["relaxed"]["launches"]
+        if summary["relaxed"] is not None:
+            by_path[summary["relaxed"]["path"]] = \
+                summary["relaxed"]["launches"]
         summary["model_s"] = time.time() - t0
         summaries.append(summary)
         log(f"[model] {name}: calibrated and served in "
@@ -2960,6 +3007,143 @@ def grid_phase(sk, sv):
     model_paths(sk, sv, GRID, by_path, summaries)
     log(f"[grid] phase 13: {time.time() - t_phase:.1f} s")
     return by_path, summaries
+
+
+def swinv2_kernel_cases(sv, dev, stages=SWINV2_STAGES, seed=23):
+    """Phase 14's kernel cases, as measure_serving takes them, at the
+    ``stages`` of SWINV2_STAGES with SERVE_BATCH images: B10's normalizing
+    instance (no LayerNorm; q's and k's columns requantized at 1/127, v's
+    at window_linear_inputs' scales) bitwise its plain version beside
+    torch._int_mm on the same levels; B9 on int8 q-hat and k-hat (unit
+    rows at 1/127) and v (levels within +-127 at 0.05), per-head tau in
+    [1, 100], the fp32 term 16 sigmoid(.) (+ the shifted mask where the
+    map holds more than one window), SoS levels, under the attention
+    rules: the context int8 at v's scale (min-max's scale of a context,
+    so that a probability one level off, as a softmax summed in another
+    order rounds it, moves a context level by at most one) and, at
+    stages 1 and 3, float (within one probability level's
+    contribution); and
+    q8_postnorm bitwise: one plane (B11's sums) in the window row map at
+    each stage, two (fc2's twin) in the image layout at stages 1 and 3."""
+    from ptq4vit_tpu_torch.models.swin import device_shifted_window_mask
+    from ptq4vit_tpu_torch.quant.qparams import MatMulQP
+    rng = np.random.default_rng(seed)
+    B, hd, q = SERVE_BATCH, 32, 128
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
+
+    def unit_levels(shape):
+        u = rng.standard_normal(shape)
+        u /= np.linalg.norm(u, axis=-1, keepdims=True)
+        return np.clip(np.round(u * (q - 1)), -q, q - 1)
+
+    cases = []
+    for stage, res, C, H, ws in stages:
+        M, N, nW = B * res * res, ws * ws, (res // ws) ** 2
+        tag = f"V2 stage {stage} (res {res}, C {C}, {H} heads, window {ws})"
+        (x4, w, wsc, b, a, _, _, col), _ = window_linear_inputs(
+            rng, res, C, ws=ws)
+        col = torch.cat([torch.full((2 * C,), 1.0 / (q - 1), device=dev),
+                         col[2 * C:]])
+        args = (x4, w, wsc, b, a, None, ws, col)
+        kw = dict(a_qmax=q, out_qmax=q, w_kmaj=kmajor_levels(w.t()),
+                  norm_heads=H)
+        lv = torch.clamp(torch.round(x4.reshape(M, C).float() / a), -q,
+                         q - 1).to(torch.int8)
+        cases.append((
+            "q8_win_qkv_norm", f"{tag}: no LN, quantize -> q, k normalized "
+            "per head -> int8 per column",
+            lambda args=args, kw=kw: sv.q8_win_qkv(*args, **kw),
+            lambda args=args, kw=kw: sv.q8_win_qkv_ref(*args, **kw),
+            nbytes(args), {"int8": 2 * M * C * 3 * C},
+            int_mm_calls(lv, w), None, None, None, True))
+        # B9: q-hat and k-hat as unit rows at 1/127, v levels, tau per head
+        B_ = B * nW
+        qk = unit_levels((2, B_, N, H, hd))
+        v = rng.integers(1 - q, q, (B_, N, H, hd))
+        qkv = t(np.concatenate([qk[0].reshape(B_, N, C),
+                                qk[1].reshape(B_, N, C),
+                                v.reshape(B_, N, C)], -1), torch.int8)
+        shift = ws // 2 if res > ws else 0
+        mask = device_shifted_window_mask(res, ws, shift, dev,
+                                          torch.float32) if shift else None
+        term = sv.window_term(
+            16 / (1 + torch.exp(-t(rng.standard_normal((H, N, N))))), mask)
+        tau = t(np.exp(rng.random(H) * np.log(100.0)))
+        shape = (1, H, 1, 1, 1, 1, 1)
+        qp1 = MatMulQP(A_interval=torch.full(shape, 1.0 / (q - 1),
+                                             device=dev),
+                       B_interval=torch.full(shape, 1.0 / (q - 1),
+                                             device=dev))
+        split = torch.tensor(2.0 ** -5, device=dev)
+        qp2 = MatMulQP(A_interval=split / (q - 1),
+                       B_interval=torch.full(shape, 0.05, device=dev),
+                       split=split)
+        ph, sos = sv.window_attn_scope(qp1, qp2, H, 1.0)
+        ph = torch.cat([ph[:1] * tau[None], ph[1:]])
+        bargs = (qkv, H, nW, qp1, qp2, 1.0, None, None)
+        where = f"shifted, {nW} masks" if shift else "one window"
+        for out_scale in ((torch.tensor(0.05, device=dev), None)
+                          if stage in (1, 3) else
+                          (torch.tensor(0.05, device=dev),)):
+            bkw = dict(in_q8=True, out_scale=out_scale, term=term, tau=tau)
+            cases.append((
+                "fused_window_attention_qkv",
+                f"{tag}, {where}, {N} keys: int8 q-hat k-hat v, tau per "
+                "head, SoS, int8 -> "
+                + ("int8" if out_scale is not None else "float"),
+                lambda a_=bargs, k_=bkw: sv.fused_window_attention_qkv(
+                    *a_, **k_),
+                lambda x=qkv, H=H, nW=nW, ph=ph, term=term, o=out_scale:
+                sv.fused_window_attention_ref(
+                    x, H, nW, ph, split, 1.0, None, None, o, sos=sos,
+                    in_q8=True, qmaxes=(q,) * 5, out_dtype=torch.float32,
+                    term=term),
+                nbytes(qkv, term),
+                {"int8": 2 * B_ * H * N * N * hd * 3,
+                 "fp32": 7 * B_ * H * N * N},
+                {}, None if out_scale is not None
+                else attn_level_step(ph, sos).repeat_interleave(hd),
+                cuda_core_floor(B_ * H * N * N, sos, window=True)))
+        # q8_postnorm: B11's sums in the window layout, fc2's twin planes
+        for planes in ((1, 2) if stage in (1, 3) else (1,)):
+            lead = (B * nW, N) if planes == 1 else (B, res * res)
+            acc = t(rng.integers(-20000, 20000, (planes,) + lead + (C,)),
+                    torch.int32)
+            resid = t(rng.standard_normal((B, res, res, C) if planes == 1
+                                          else lead + (C,)), torch.bfloat16)
+            pargs = (acc, t(rng.random(C) * 1e-3 + 1e-4),
+                     t(rng.standard_normal(C) * 0.1),
+                     torch.tensor(0.02, device=dev),
+                     torch.tensor(0.003, device=dev) if planes == 2
+                     else None,
+                     (t(1 + 0.1 * rng.standard_normal(C)),
+                      t(0.1 * rng.standard_normal(C)), 1e-5), resid)
+            pkw = dict(window=(ws, res)) if planes == 1 else {}
+            cases.append((
+                "q8_postnorm",
+                f"{tag}: " + ("B11's sums, window row map" if planes == 1
+                              else "fc2's twin planes")
+                + " -> + residual + LayerNorm, bf16",
+                lambda a_=pargs, k_=pkw: sv.q8_postnorm(*a_, **k_),
+                lambda a_=pargs, k_=pkw: sv.q8_postnorm_ref(*a_, **k_),
+                nbytes(pargs), {"fp32": (2 * planes + 13) * M * C}, {},
+                None, None, None, True))
+    return cases
+
+
+def swinv2_phase(sk, sv):
+    """Phase 14: Swin V2's kernels at SwinV2-B/384's stages
+    (``swinv2_kernel_cases``), then SwinV2-B/384 through ``model_paths``
+    (quantize, serve, the bf16 engine; no relaxed engine).  Returns (the
+    kernels' stats, {path: launches}, the summaries)."""
+    t_phase = time.time()
+    stats = measure_serving(swinv2_kernel_cases(sv, torch.device("cuda")))
+    by_path, summaries = {}, []
+    model_paths(sk, sv, (SWINV2,), by_path, summaries)
+    log(f"[swinv2] phase 14: {time.time() - t_phase:.1f} s")
+    return stats, by_path, summaries
 
 
 # ---------------------------------------------------------------------------
@@ -3453,11 +3637,32 @@ def mesh_only(sk, sv):
     print(json.dumps(summary))
 
 
+def kernel_entries(stats, by_path):
+    """The kernels' JSON entries: each kernel of KERNELS that ``stats``
+    measured, its launches over the paths of ``by_path``, its headline
+    case's times and every case."""
+    return [{"name": k, "route": "cuda", "source": src, "replaces": rep,
+             "launches": sum(c.get(k, 0) for c in by_path.values()),
+             "launches_by_path": {n: c.get(k, 0)
+                                  for n, c in by_path.items()},
+             "max_abs_err": stats[k]["max_abs_err"],
+             "ms": stats[k]["ms"], "plain_ms": stats[k]["plain_ms"],
+             "bound_ms": stats[k]["bound_ms"],
+             "bound_by": stats[k]["bound_by"],
+             # no PyTorch call computes the sims or the quantized
+             # function: the B4 cases carry torch.mm, the serving cases
+             # torch._int_mm / SDPA times as context
+             "library_ms": None, "cases": stats[k]["cases"]}
+            for k, (src, rep) in KERNELS.items() if k in stats]
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Card check of the port.")
     ap.add_argument("--mesh", action="store_true",
                     help="phase 11 alone, after what it reads")
+    ap.add_argument("--swinv2", action="store_true",
+                    help="phase 14 (Swin V2) alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3481,6 +3686,16 @@ def main() -> int:
 
     if args.mesh:
         mesh_only(sk, sv)
+        log(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
+    if args.swinv2:
+        stats, by_path, summaries = swinv2_phase(sk, sv)
+        log("[paths] " + json.dumps({"card": card, "paths": summaries}))
+        print(json.dumps({"kernels": kernel_entries(stats, by_path)}))
         log(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3551,25 +3766,15 @@ def main() -> int:
     launches, summary = grid_phase(sk, sv)
     by_path.update(launches)
     summaries += summary
+    v2_stats, launches, summary = swinv2_phase(sk, sv)
+    merge_stats(stats, v2_stats)
+    by_path.update(launches)
+    summaries += summary
     launches, summary = mesh_phase(sk, sv, qstates, traces, by_path, served)
     by_path.update(launches)
     summaries.append(summary)
     log("[paths] " + json.dumps({"card": card, "paths": summaries}))
-
-    entries = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
-                "launches": sum(c.get(k, 0) for c in by_path.values()),
-                "launches_by_path": {n: c.get(k, 0)
-                                     for n, c in by_path.items()},
-                "max_abs_err": stats[k]["max_abs_err"],
-                "ms": stats[k]["ms"], "plain_ms": stats[k]["plain_ms"],
-                "bound_ms": stats[k]["bound_ms"],
-                "bound_by": stats[k]["bound_by"],
-                # no PyTorch call computes the sims or the quantized
-                # function: the B4 cases carry torch.mm, the serving cases
-                # torch._int_mm / SDPA times as context
-                "library_ms": None, "cases": stats[k]["cases"]}
-               for k, (src, rep) in KERNELS.items()]
-    print(json.dumps({"kernels": entries}))
+    print(json.dumps({"kernels": kernel_entries(stats, by_path)}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -207,6 +207,18 @@ class QuantCtx:
                                       bias, mask, ln_eps, self._row_reduce(),
                                       self.relaxed, term=term)
 
+    def swinv2_block(self, prefix, x, blk, heads, ws, shift, res, bias, tau,
+                     mask, ln_eps, term=None):
+        """The whole-Swin-V2-block fused path
+        (ops/int8_serve.fused_swinv2_block): returns the new residual
+        stream, or None (the caller runs the generic per-op path)."""
+        if not self._serving():
+            return None
+        qps, pks = self._block_ops(prefix)
+        return serve.fused_swinv2_block(x, blk, qps, pks, heads, ws, shift,
+                                        res, bias, tau, mask, ln_eps,
+                                        term=term)
+
     def window_attention_qkv(self, name1, name2, qkv, heads, nW, prescale,
                              bias, mask, term=None):
         """Fused Swin window attention (B9) on the float (B·nW, N, 3C) qkv

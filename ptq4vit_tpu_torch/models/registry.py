@@ -14,6 +14,7 @@ import torch
 
 from ..utils.convert import params_from_numpy
 from . import swin as swin_mod
+from . import swinv2 as swinv2_mod
 from . import vit as vit_mod
 
 IMAGENET_DEFAULT_MEAN = (0.485, 0.456, 0.406)
@@ -34,6 +35,7 @@ class DataConfig:
 _VIT = dict(kind="vit", mean=IMAGENET_INCEPTION_MEAN, std=IMAGENET_INCEPTION_STD)
 _DEIT = dict(kind="vit", mean=IMAGENET_DEFAULT_MEAN, std=IMAGENET_DEFAULT_STD)
 _SWIN = dict(kind="swin", mean=IMAGENET_DEFAULT_MEAN, std=IMAGENET_DEFAULT_STD)
+_SWINV2 = dict(_SWIN, kind="swinv2")
 
 MODEL_ZOO: Dict[str, Dict[str, Any]] = {
     "vit_tiny_patch16_224": dict(**_VIT, img=224, patch=16, dim=192, depth=12,
@@ -94,6 +96,12 @@ MODEL_ZOO: Dict[str, Dict[str, Any]] = {
                                            dim=192, depths=(2, 2, 18, 2),
                                            heads=(6, 12, 24, 48), window=12,
                                            crop_pct=1.0),
+    # Swin V2-B fine-tuned at 384 px from 192 px (window 12 -> 24): the
+    # CPB coordinates keep the pretraining windows
+    "swinv2_base_window12to24_192to384": dict(
+        **_SWINV2, img=384, patch=4, dim=128, depths=(2, 2, 18, 2),
+        heads=(4, 8, 16, 32), window=24, pretrained_windows=(12, 12, 12, 6),
+        crop_pct=1.0),
 }
 
 
@@ -119,27 +127,33 @@ class Net:
 
 
 def model_config(name: str):
-    """The ViTConfig or SwinConfig of a MODEL_ZOO row."""
+    """The ViTConfig, SwinConfig or SwinV2Config of a MODEL_ZOO row."""
     z = MODEL_ZOO[name]
     if z["kind"] == "vit":
         return vit_mod.ViTConfig(name=name, img_size=z["img"],
                                  patch_size=z["patch"], embed_dim=z["dim"],
                                  depth=z["depth"], num_heads=z["heads"],
                                  distilled=z.get("distilled", False))
-    return swin_mod.SwinConfig(name=name, img_size=z["img"],
-                               patch_size=z["patch"], embed_dim=z["dim"],
-                               depths=z["depths"], num_heads=z["heads"],
-                               window_size=z["window"])
+    kw = dict(name=name, img_size=z["img"], patch_size=z["patch"],
+              embed_dim=z["dim"], depths=z["depths"], num_heads=z["heads"],
+              window_size=z["window"])
+    if z["kind"] == "swinv2":
+        return swinv2_mod.SwinV2Config(
+            pretrained_window_sizes=z["pretrained_windows"], **kw)
+    return swin_mod.SwinConfig(**kw)
 
 
 def _model_module(cfg):
+    if isinstance(cfg, swinv2_mod.SwinV2Config):
+        return swinv2_mod
     return swin_mod if isinstance(cfg, swin_mod.SwinConfig) else vit_mod
 
 
 def net_from_config(cfg, params: Dict[str, Any],
                     data_config: Optional[DataConfig] = None) -> Net:
-    """Bundle a ViT or Swin config and its params (also for custom-size
-    nets); the forward and op metadata follow the config's type."""
+    """Bundle a ViT, Swin or Swin V2 config and its params (also for
+    custom-size nets); the forward and op metadata follow the config's
+    type."""
     if data_config is None:
         data_config = DataConfig(cfg.img_size, 1.0, IMAGENET_INCEPTION_MEAN,
                                  IMAGENET_INCEPTION_STD)

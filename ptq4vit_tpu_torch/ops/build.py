@@ -62,11 +62,13 @@ _SERVE = {
                             _P, _P, _F] + [_I] * 11 + [_P],
     "ptq_window_attention": [_P, _P, _P, _I, _L, _L, _L, _P, _I, _L, _L, _L,
                              _P, _P, _F, _P, _I] + [_I] * 11 + [_P],
-    "ptq_q8_win_qkv": [_P, _I, _P, _I] + [_P] * 7 + [_F, _P] + [_I] * 10
+    "ptq_q8_win_qkv": [_P, _I, _P, _I] + [_P] * 7 + [_F, _P] + [_I] * 11
                       + [_P],
     "ptq_q8_win_proj": [_P, _P, _I] + [_P] * 4 + [_I, _P, _P] + [_I] * 10
                        + [_P],
     "ptq_q8_epilogue": [_P, _I] + [_P] * 4 + [_I, _P] + [_I] * 5 + [_P],
+    "ptq_q8_postnorm": [_P, _I] + [_P] * 6 + [_I, _P, _F] + [_I] * 4
+                       + [_P],
 }
 LIBRARIES = {"search_kernels": _SEARCH, "serve_kernels": _SERVE}
 

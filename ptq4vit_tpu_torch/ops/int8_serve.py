@@ -26,6 +26,13 @@ The counterpart of ``ptq4vit_tpu/ops/int8_serve.py``:
   fused_linear, fused_vit_block, fused_swin_block and the scope helpers
                        <- their namesakes
 
+Swin V2 (the JAX package has none): ``q8_win_qkv(..., norm_heads=H)``
+(B10 with q and k L2-normalized per head in its epilogue) and
+``q8_postnorm`` (res-post-norm: residual + LayerNorm of a linear's
+rescaled output, on the int32 sums of B11 and B6);
+``fused_swinv2_block`` composes them with B9, whose per-head logit scale
+τ folds into the q scale.
+
 For CUDA tensors the wrappers launch the hand-written kernels of
 ``csrc/serve_kernels.cu`` (or raise); for CPU tensors they run the plain
 PyTorch versions beside them (the ``*_ref`` functions), which follow the
@@ -399,14 +406,78 @@ def fused_window_attention_ref(qkv, heads: int, nW: int, ph, split,
 
 def q8_win_qkv_ref(x4, w_intT, w_scale, b, a_interval, ln, ws: int,
                    col_scales, *, a_qmax: int, out_qmax: int = 128,
-                   w_kmaj=None, relaxed: bool = False):
+                   w_kmaj=None, relaxed: bool = False, norm_heads: int = 0):
     """Plain version of B10: B6's LN / quantize / int8 dot / per-column
-    requant (``relaxed``: in bf16) on ``window_partition(x4, ws)``."""
+    requant (``relaxed``: in bf16) on ``window_partition(x4, ws)``;
+    ``ln=None`` quantizes the raw input, ``norm_heads`` L2-normalizes q
+    and k per head before the requant (Swin V2, ``qk_norm_ref``)."""
     from ..models.swin import window_partition
-    return q8_linear_ref(window_partition(x4, ws), w_intT, w_scale, b,
-                         a_interval, None, a_qmax=a_qmax, postgelu=False,
-                         ln=ln, out_q="vec", out_scale=col_scales,
-                         out_qmax=out_qmax, relaxed=relaxed)
+    if not norm_heads:
+        return q8_linear_ref(window_partition(x4, ws), w_intT, w_scale, b,
+                             a_interval, None, a_qmax=a_qmax, postgelu=False,
+                             ln=ln, out_q="vec", out_scale=col_scales,
+                             out_qmax=out_qmax, relaxed=relaxed)
+    acc = q8_linear_ref(window_partition(x4, ws), w_intT, w_scale, b,
+                        a_interval, None, a_qmax=a_qmax, postgelu=False,
+                        ln=ln, out_q="acc")
+    v = q8_epilogue_ref(acc, w_scale, b, a_interval, None,
+                        out_dtype=torch.float32)
+    return levels(qk_norm_ref(v, norm_heads), col_scales.float(),
+                  -out_qmax, out_qmax - 1).to(torch.int8)
+
+
+NORM_EPS = 1e-12          # F.normalize's
+
+
+def norm_head_dim(n3: int, heads: int) -> int:
+    """The head width of B10's per-head normalization (``norm_heads``) on
+    3C = ``n3`` columns; raises unless it divides 32 (the kernel sums a
+    head's squares over the lanes of one warp)."""
+    hd = n3 // (3 * heads) if heads > 0 and n3 % (3 * heads) == 0 else 0
+    if hd < 1 or 32 % hd:
+        raise ValueError(f"{n3} columns in 3 x {heads} heads: the head "
+                         "width must divide 32")
+    return hd
+
+
+def qk_norm_ref(v, heads: int):
+    """q's and k's columns of the rescaled qkv output v (..., 3C) divided
+    per head by max(||.||, 1e-12) (F.normalize), the squares summed as
+    the kernel's epilogue does: a butterfly over the head's hd lanes
+    (hd divides 32), every step one fp32 rounding; v's columns as they
+    are."""
+    N3 = v.shape[-1]
+    hd = norm_head_dim(N3, heads)
+    qk = v[..., :2 * N3 // 3]
+    s = (qk * qk).reshape(-1, hd)
+    lanes = torch.arange(hd, device=v.device)
+    off = hd // 2
+    while off:
+        s = s + s[:, lanes ^ off]
+        off //= 2
+    d = torch.clamp(torch.sqrt(s), min=NORM_EPS).reshape(qk.shape)
+    return torch.cat([qk / d, v[..., 2 * N3 // 3:]], -1)
+
+
+def q8_postnorm_ref(acc, w_scale, b, a_interval, a_neg_interval, ln,
+                    residual, *, window=None):
+    """Plain version of Swin V2's res-post-norm (csrc ``postnorm_kernel``)
+    on int32 sums acc (P, ..., N): B6's rescale (``q8_epilogue_ref``),
+    LayerNorm ``ln`` = (weight, bias, eps) in the kernel's order
+    (``layer_norm_kernel_order``), plus ``residual``, in its dtype;
+    ``window`` = (ws, res): acc's rows in the window layout, the residual
+    and the result in the (B, res, res, N) image layout."""
+    N = acc.shape[-1]
+    lead = acc.shape[1:-1]
+    v = q8_epilogue_ref(acc, w_scale, b, a_interval, a_neg_interval,
+                        out_dtype=torch.float32).reshape(-1, N)
+    y = layer_norm_kernel_order(v, ln[0], ln[1], ln[2]).reshape(
+        lead + (N,))
+    if window is not None:
+        from ..models.swin import window_reverse
+        ws, res = window
+        y = window_reverse(y, ws, res, res)
+    return (y + residual.float()).to(residual.dtype)
 
 
 def q8_win_proj_ref(y_q, w_intT, w_scale, b, a_interval, ws: int, res: int,
@@ -835,7 +906,7 @@ def fused_attention(q, k, v, qp1, qp2, scale, relaxed: bool = False):
 def fused_window_attention_qkv(qkv, heads: int, nW: int, qp1, qp2,
                                prescale, bias, mask, *, in_q8: bool = False,
                                out_scale=None, out_qmax: int = 128,
-                               relaxed: bool = False, term=None):
+                               relaxed: bool = False, term=None, tau=None):
     """B9: fused Swin window attention softmax(q·s·kᵀ + bias [+ mask])·v
     from the packed (B·nW, N, 3C) qkv-linear output, windows images-major,
     written as (B·nW, N, C).
@@ -849,7 +920,9 @@ def fused_window_attention_qkv(qkv, heads: int, nW: int, qp1, qp2,
     in place of bias and mask, which are then not read.  in_q8: qkv holds
     int8 levels at the (a1/s, b1, b2) head scales (B10's output);
     out_scale: the context is requantized at this scalar and returned
-    int8.  relaxed: as in B7.  Returns (B·nW, N, C) in qkv's dtype
+    int8.  relaxed: as in B7.  tau: (H,) float32 per-head logit scale
+    (Swin V2's cosine attention, ``prescale`` 1), folded into the q scale:
+    the logits are int·(a1·τ_h)·b1.  Returns (B·nW, N, C) in qkv's dtype
     (float32 for int8 in and float out, int8 with ``out_scale``), or None
     when the QPs are out of scope."""
     B_, N, c3 = qkv.shape
@@ -862,6 +935,8 @@ def fused_window_attention_qkv(qkv, heads: int, nW: int, qp1, qp2,
     if scoped is None:
         return None
     ph, sos = scoped
+    if tau is not None:
+        ph = torch.cat([ph[:1] * tau.float().reshape(1, heads), ph[1:]])
     qmaxes = attn_qmaxes(qp1, qp2, out_qmax)
     split = qp2.split if sos else None
     fdt = qkv.dtype if qkv.is_floating_point() else torch.float32
@@ -892,7 +967,7 @@ def fused_window_attention_qkv(qkv, heads: int, nW: int, qp1, qp2,
 @spanned("ptq.kernel.q8_win_qkv")
 def q8_win_qkv(x4, w_intT, w_scale, b, a_interval, ln, ws: int, col_scales,
                *, a_qmax: int, out_qmax: int = 128, w_kmaj=None,
-               relaxed: bool = False):
+               relaxed: bool = False, norm_heads: int = 0):
     """B10: the Swin qkv linear over the unshifted window grid of the
     (B, res, res, C) image layout (a shifted block passes its rolled
     stream): LayerNorm ``ln`` = (weight, bias, eps), quantize at
@@ -901,15 +976,21 @@ def q8_win_qkv(x4, w_intT, w_scale, b, a_interval, ln, ws: int, col_scales,
     repeated hd times).  Windows are read in place, in window_partition's
     order.  ``w_kmaj`` as in ``q8_linear``; ``relaxed``: the requant in
     bf16, by the kernel's relaxed variant.  Returns (B·(res/ws)², ws²,
-    3C) int8."""
+    3C) int8.  Swin V2: ``ln=None`` quantizes the raw stream (no
+    LayerNorm before attention) and ``norm_heads`` > 0 L2-normalizes q's
+    and k's columns per head of 3C / (3 ``norm_heads``) columns (which
+    must divide 32) before the requantization: B9's q̂, k̂ and v."""
     B, res, res2, C = x4.shape
     if res != res2 or res % ws:
         raise ValueError(f"x4 {tuple(x4.shape)}: not square whole "
                          f"windows of {ws}")
+    hd = norm_head_dim(w_intT.shape[1], norm_heads) if norm_heads else 0
+    if hd and relaxed:
+        raise ValueError("norm_heads has no relaxed variant")
     if not x4.is_cuda:
         return q8_win_qkv_ref(x4, w_intT, w_scale, b, a_interval, ln, ws,
                               col_scales, a_qmax=a_qmax, out_qmax=out_qmax,
-                              relaxed=relaxed)
+                              relaxed=relaxed, norm_heads=norm_heads)
     from .build import load
     lib = load("serve_kernels")
     dev = x4.device
@@ -924,9 +1005,11 @@ def q8_win_qkv(x4, w_intT, w_scale, b, a_interval, ln, ws: int, col_scales,
     bias = b.float().contiguous() if b is not None else None
     if bias is not None:
         _check(bias, "b", torch.float32, (N3,), dev)
-    lnw, lnb = ln[0].float().contiguous(), ln[1].float().contiguous()
-    _check(lnw, "ln weight", torch.float32, (C,), dev)
-    _check(lnb, "ln bias", torch.float32, (C,), dev)
+    lnw = lnb = None
+    if ln:
+        lnw, lnb = ln[0].float().contiguous(), ln[1].float().contiguous()
+        _check(lnw, "ln weight", torch.float32, (C,), dev)
+        _check(lnb, "ln bias", torch.float32, (C,), dev)
     osc = col_scales.float().contiguous()
     _check(osc, "col_scales", torch.float32, (N3,), dev)
     scal = _scalars(dev, a_interval)
@@ -937,10 +1020,14 @@ def q8_win_qkv(x4, w_intT, w_scale, b, a_interval, ln, ws: int, col_scales,
         plan = q8_plan(M, N3, "f", num_sms=_num_sms(dev))
         _launch(lib.ptq_q8_win_qkv, _ptr(x4), _KINDS[x4.dtype], _ptr(wk),
                 wk.shape[1], _ptr(wsc), _ptr(bias), _ptr(lnw), _ptr(lnb),
-                _ptr(osc), _ptr(out), _ptr(scal), float(ln[2]),
+                _ptr(osc), _ptr(out), _ptr(scal), float(ln[2]) if ln else 0.0,
                 _ptr(_levels(x4, C, "f")), M, C, N3, a_qmax, out_qmax, ws,
-                res, int(bool(relaxed)), plan.stages, plan.blocks, _stream())
-    _count(q8_win_qkv, relaxed)
+                res, int(bool(relaxed)), hd, plan.stages, plan.blocks,
+                _stream())
+    if hd:
+        q8_win_qkv.norm_launches += 1
+    else:
+        _count(q8_win_qkv, relaxed)
     return out
 
 
@@ -1071,8 +1158,64 @@ def q8_epilogue(acc, w_scale, b, a_interval, a_neg_interval=None, *,
     return out
 
 
+@spanned("ptq.kernel.q8_postnorm")
+def q8_postnorm(acc, w_scale, b, a_interval, a_neg_interval, ln, residual,
+                *, window=None):
+    """Swin V2's res-post-norm (csrc ``postnorm_kernel``): residual +
+    LayerNorm(acc*a (+ acc_neg*a_neg) * w_scale + b) on the int32 sums acc
+    (P, ..., N) of B6 or B11 (``out_q="acc"``; P = 2 after a twin input,
+    with ``a_neg_interval``), ``ln`` = (weight, bias, eps) over the whole
+    row, in the residual's dtype.  ``window`` = (ws, res): acc is in the
+    window layout and ``residual`` and the result in the (B, res, res, N)
+    image layout (B11's row map).  Returns the residual's shape."""
+    P, N = acc.shape[0], acc.shape[-1]
+    lead = acc.shape[1:-1]
+    if P not in (1, 2) or (P == 2) != (a_neg_interval is not None):
+        raise ValueError(f"{P} planes: 1, or 2 with a_neg_interval")
+    if window is not None:
+        ws, res = window
+        if len(lead) != 2 or lead[1] != ws * ws or res % ws or \
+                lead[0] % ((res // ws) ** 2):
+            raise ValueError(f"acc {tuple(acc.shape)} is not the window "
+                             f"layout of {res} x {res} in windows of {ws}")
+    if not acc.is_cuda:
+        return q8_postnorm_ref(acc, w_scale, b, a_interval, a_neg_interval,
+                               ln, residual, window=window)
+    from .build import load
+    lib = load("serve_kernels")
+    dev = acc.device
+    if residual.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"unsupported residual dtype {residual.dtype}")
+    acc = acc.contiguous()
+    _check(acc, "acc", torch.int32, tuple(acc.shape), dev)
+    M = acc[0].numel() // N if N else 0
+    wsc = w_scale.float().contiguous()
+    _check(wsc, "w_scale", torch.float32, (N,), dev)
+    bias = b.float().contiguous() if b is not None else None
+    if bias is not None:
+        _check(bias, "b", torch.float32, (N,), dev)
+    lnw, lnb = ln[0].float().contiguous(), ln[1].float().contiguous()
+    _check(lnw, "ln weight", torch.float32, (N,), dev)
+    _check(lnb, "ln bias", torch.float32, (N,), dev)
+    oshape = (tuple(lead) + (N,) if window is None
+              else (lead[0] // (res // ws) ** 2, res, res, N))
+    residual = residual.contiguous()
+    _check(residual, "residual", residual.dtype, oshape, dev)
+    out = torch.empty_like(residual)
+    if M:
+        win, img = window if window is not None else (0, 0)
+        _launch(lib.ptq_q8_postnorm, _ptr(acc), P, _ptr(wsc), _ptr(bias),
+                _ptr(lnw), _ptr(lnb), _ptr(residual), _ptr(out),
+                _KINDS[out.dtype],
+                _ptr(_scalars(dev, a_interval, a_neg_interval)),
+                float(ln[2]), M, N, win, img, _stream())
+    q8_postnorm.launches += 1
+    return out
+
+
 KERNELS = (q8_linear, fused_attention_qkv, fused_attention,
-           fused_window_attention_qkv, q8_win_qkv, q8_win_proj, q8_epilogue)
+           fused_window_attention_qkv, q8_win_qkv, q8_win_proj, q8_epilogue,
+           q8_postnorm)
 # the wrappers whose kernel has a relaxed variant (counted apart, as
 # "<name>_relaxed")
 RELAXED = (q8_linear, fused_attention_qkv, fused_attention,
@@ -1084,12 +1227,16 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for fn in RELAXED:
         fn.relaxed_launches = 0
+    q8_win_qkv.norm_launches = 0
 
 
 def launch_counts() -> dict:
+    """Launches by wrapper since the last reset; a relaxed variant as
+    "<name>_relaxed", Swin V2's normalizing B10 as "q8_win_qkv_norm"."""
     return {**{fn.__name__: fn.launches for fn in KERNELS},
             **{f"{fn.__name__}_relaxed": fn.relaxed_launches
-               for fn in RELAXED}}
+               for fn in RELAXED},
+            "q8_win_qkv_norm": q8_win_qkv.norm_launches}
 
 
 reset_launch_counts()
@@ -1402,3 +1549,77 @@ def fused_swin_block(x, blk, qps, pks, heads: int, ws: int, shift: int,
         y4 = torch.roll(y4, (shift, shift), dims=(1, 2))
     return _fused_mlp(y4.reshape(B, T, C), blk, qp_fc1, qp_fc2, w_fc1, w_fc2,
                       ln_eps, reduce, relaxed)
+
+
+def fused_swinv2_block(x, blk, qps, pks, heads: int, ws: int, shift: int,
+                       res: int, bias, tau, mask, ln_eps, term=None):
+    """One Swin V2 block with int8 handoffs, in seven launches and two
+    rolls (a shifted block rolls and rolls back as in
+    :func:`fused_swin_block`):
+
+      * B10 with no LayerNorm: the raw (rolled) stream quantized, the qkv
+        product rescaled with its bias ([q_bias, 0, v_bias]), q and k
+        L2-normalized per head in the epilogue, requantized per column at
+        (a1, b1, b2) in the window layout -- matmul1 quantizes q̂ and k̂,
+        unscaled;
+      * B9: window attention with the per-head τ folded into the q scale
+        and the position bias and shifted mask (``term``, or ``bias`` (H,
+        N, N) and ``mask`` (nW, N, N) or None), context int8 at the proj
+        scale;
+      * B11's int32 sums, then ``q8_postnorm``: residual + LN1(proj), in
+        the image layout;
+      * fc1 on the raw stream (no LayerNorm) with GELU, twin-packed int8;
+        fc2's int32 sums; ``q8_postnorm``: residual + LN2(fc2).
+
+    x: (B, res·res, C).  Returns the new residual stream, or None when a
+    piece is out of scope, or the head width does not divide 32 (the
+    caller runs the generic per-op path)."""
+    qs = _block_scope(qps, heads)
+    if qs is None:
+        return None
+    qp_qkv, qp1, qp2, qp_proj, qp_fc1, qp_fc2 = qs
+    B, T, C = x.shape
+    w_qkv, w_proj, w_fc1, w_fc2 = _block_weights(blk, qs, pks)
+    hd = _head_dim(w_qkv, heads)
+    if 32 % hd:
+        return None
+    attn, mlp = blk["attn"], blk["mlp"]
+    x4 = x.reshape(B, res, res, C)
+    if shift:
+        x4 = torch.roll(x4, (-shift, -shift), dims=(1, 2))
+    a_qkv = qp_qkv.a_interval[0, 0]
+    qkv_q = q8_win_qkv(x4, w_qkv.w_intT, w_qkv.w_scale, attn["qkv"]["bias"],
+                       a_qkv, None, ws,
+                       _col_scales(head_scalar(qp1.A_interval, heads), qp1,
+                                   qp2, heads, hd),
+                       a_qmax=qp_qkv.a_qmax, out_qmax=qp1.A_qmax,
+                       w_kmaj=w_qkv.w_kmaj, norm_heads=heads)
+    y_q = fused_window_attention_qkv(
+        qkv_q, heads, (res // ws) ** 2 if shift else 1, qp1, qp2, 1.0, bias,
+        mask, in_q8=True, out_scale=qp_proj.a_interval[0, 0],
+        out_qmax=qp_proj.a_qmax, term=term, tau=tau)
+    acc = q8_win_proj(y_q, w_proj.w_intT, w_proj.w_scale, None,
+                      qp_proj.a_interval[0, 0], ws, res, None,
+                      a_qmax=qp_proj.a_qmax, w_kmaj=w_proj.w_kmaj,
+                      out_q="acc")
+    y4 = q8_postnorm(acc, w_proj.w_scale, attn["proj"]["bias"],
+                     qp_proj.a_interval[0, 0], None,
+                     (blk["norm1"]["weight"], blk["norm1"]["bias"], ln_eps),
+                     x4, window=(ws, res))
+    if shift:
+        y4 = torch.roll(y4, (shift, shift), dims=(1, 2))
+    x = y4.reshape(B, T, C)
+    z_q = q8_linear(x, w_fc1.w_intT, w_fc1.w_scale, mlp["fc1"]["bias"],
+                    qp_fc1.a_interval[0, 0], None, a_qmax=qp_fc1.a_qmax,
+                    postgelu=False, epilogue="gelu", out_q="twin",
+                    out_scale=(qp_fc2.a_interval[0, 0],
+                               qp_fc2.a_neg_interval),
+                    out_qmax=qp_fc2.a_qmax, w_kmaj=w_fc1.w_kmaj)
+    acc = q8_linear(z_q, w_fc2.w_intT, w_fc2.w_scale, None,
+                    qp_fc2.a_interval[0, 0], qp_fc2.a_neg_interval,
+                    a_qmax=qp_fc2.a_qmax, postgelu=True, in_q="q8twin",
+                    out_q="acc", w_kmaj=w_fc2.w_kmaj)
+    return q8_postnorm(acc, w_fc2.w_scale, mlp["fc2"]["bias"],
+                       qp_fc2.a_interval[0, 0], qp_fc2.a_neg_interval,
+                       (blk["norm2"]["weight"], blk["norm2"]["bias"], ln_eps),
+                       x)

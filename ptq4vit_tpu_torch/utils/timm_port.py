@@ -113,6 +113,9 @@ def params_from_state_dict(name: str, sd: Dict[str, Any]):
     from ..models.registry import MODEL_ZOO, model_config
     cfg = model_config(name)
     sd = {k: np.asarray(v) for k, v in sd.items()}
+    if MODEL_ZOO[name]["kind"] == "swinv2":
+        raise NotImplementedError(f"{name}: no timm checkpoint conversion "
+                                  "for Swin V2 (random weights only)")
     if MODEL_ZOO[name]["kind"] == "swin":
         return swin_params_from_state_dict(sd, cfg)
     return vit_params_from_state_dict(sd, cfg)

@@ -56,7 +56,10 @@ def chip_smoke():
 
 
 def test_the_registry_has_21_rows():
-    assert len(NAMES) == 21
+    """The JAX package's 21 rows and the port's own Swin V2 row."""
+    assert len(NAMES) == 22
+    assert [n for n in NAMES if MODEL_ZOO[n]["kind"] == "swinv2"] == [
+        "swinv2_base_window12to24_192to384"]
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -121,8 +124,12 @@ def test_serving_plans_at_full_width(name):
         ap = V.attn_plan(N, hd)
         assert ap.keys >= N and ap.hdp >= hd and ap.smem <= K.SMEM_LIMIT
     if isinstance(cfg, SwinConfig):
-        # window 7 at 224 px: N = 49 keys padded to 64, parked logits
-        assert {N for N, _ in attn} == {cfg.window_size ** 2}
+        # each stage's window, clamped to its map (Swin V2's last stage:
+        # 12 of 24); window 7 at 224 px: N = 49 keys padded to 64, parked
+        # logits
+        assert {N for N, _ in attn} == {
+            min(cfg.window_size, cfg.layer_resolution(i)) ** 2
+            for i in range(cfg.num_layers)}
         if cfg.window_size == 7:
             assert V.attn_plan(49, 32)[:6] == (32, 64, 48, 80, True, 4)
 
@@ -133,8 +140,9 @@ def test_plan_scratch_on_the_card_at_32_and_128(name, config):
     """plan_scratch at 32 and 128 images within 85% of 79.1 GiB: no
     MemoryError, every op's search needs and its caches within the room
     (with its chunk bound where it has one), nothing chunked at 32
-    images; at 128 images only the /384 models' BasePTQ and Swin-L/384
-    chunk (tests/test_torch_scratch.py's rows)."""
+    images but Swin V2's stage-1 matmul2 under BasePTQ; at 128 images
+    only the /384 models' BasePTQ and Swin-L/384 chunk
+    (tests/test_torch_scratch.py's rows)."""
     cfg = ptq4vit() if config == "PTQ4ViT" else base_ptq()
     _, shapes, inv = zoo(name)
     policies = {n: cfg.op_policy(tp) for n, tp in inv}
@@ -149,10 +157,15 @@ def test_plan_scratch_on_the_card_at_32_and_128(name, config):
             assert needs[op] + caches[op] <= ROOM, op
             assert needs[op] == work[op] + fixed + kernel_scratch_bytes(
                 shapes[op], n_img, pol, bounds.get(op))
+        v2 = MODEL_ZOO[name]["kind"] == "swinv2"
         if n_img == 32:
-            assert not bounds
+            # Swin V2's stage-1 windows of 576 keys: BasePTQ's matmul2
+            # (per-head intervals, no SoS split) chunks at 32 images too
+            assert not bounds or (v2 and config == "BasePTQ" and set(
+                bounds) == {f"layers.0.blocks.{j}.attn.matmul2"
+                            for j in range(2)})
         elif bounds:
-            assert name.endswith("_384") and (
+            assert (name.endswith("_384") or v2) and (
                 config == "BasePTQ" or name.startswith("swin_large"))
 
 
