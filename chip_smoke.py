@@ -229,6 +229,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import math
@@ -1840,6 +1841,11 @@ def serving_phase(sk, sv, name, qcpu, requests=SERVE_REQUESTS,
     launches = {**sk.launch_counts(), **sv.launch_counts()}
     check_exact_launches(path, launches, {
         k: requests * n for k, n in serve_launches(name).items()})
+    # two checkouts' engines serve the same logits where these agree
+    sha1 = hashlib.sha1(outs[0].contiguous().cpu().view(-1).view(
+        torch.uint8).numpy().tobytes()).hexdigest()
+    log(f"[serve] {path}: logits of request 0 (images seed 10), SHA-1 "
+        f"{sha1}")
     for o in outs:
         if o.shape != (SERVE_BATCH, classes) or not torch.isfinite(
                 o.float()).all():
@@ -1886,7 +1892,7 @@ def serving_phase(sk, sv, name, qcpu, requests=SERVE_REQUESTS,
     summary = {"path": path, "requests": requests,
                "batch": SERVE_BATCH, "wall_s": wall, "pack_s": pack_s,
                "img_per_s": ips, "min_cosine": cos, "launches": launches,
-               "relaxed": relaxed,
+               "logits_sha1": sha1, "relaxed": relaxed,
                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     log(f"[serve] {path}: {requests} requests x {SERVE_BATCH} images "
         f"in {wall:.3f} s, pack_weights {pack_s:.3f} s, launches {launches}")
@@ -2005,7 +2011,9 @@ def layout_path(sk, sv, net, qstate, x):
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = {**sk.launch_counts(), **sv.launch_counts()}
-        check_exact_launches(path, launches, {kernel: depth})
+        team = sv.attn_plan(*qkv[0][0].shape[-2:]).team
+        check_exact_launches(path, launches, {kernel: depth, **(
+            {"attention_team": depth} if team else {})})
         cos = min(float(torch.nn.functional.cosine_similarity(
             o.reshape(-1).double(), r.reshape(-1).double(), dim=0))
             for o, r in zip(outs, refs))
@@ -2145,31 +2153,46 @@ def serve_launches(name, relaxed=False):
     reductions and the heads (float outputs without GELU, the same
     function) the exact kernels -- B6 as many a request in all.  Swin V2
     (no relaxed engine): B10's normalizing instance in place of B10, and
-    q8_postnorm twice a block after B11's and fc2's sums."""
+    q8_postnorm twice a block after B11's and fc2's sums.  Each block
+    whose attention ``attn_plan`` puts in the team mode counts again as
+    ``attention_team``, where there is one (SwinV2-B/384: the 22 blocks of
+    stages 1-3, 576 keys)."""
     from ptq4vit_tpu_torch.models import model_config, swin, swinv2
+    from ptq4vit_tpu_torch.ops.int8_serve import attn_plan
     cfg = model_config(name)
+    if isinstance(cfg, swin.SwinConfig):
+        team = sum(d for i, d in enumerate(cfg.depths) if attn_plan(
+            min(cfg.window_size, cfg.layer_resolution(i)) ** 2,
+            cfg.layer_dim(i) // cfg.num_heads[i]).team)
+    else:
+        tokens = (cfg.img_size // cfg.patch_size) ** 2 + (
+            2 if cfg.distilled else 1)
+        team = cfg.depth * attn_plan(
+            tokens, cfg.embed_dim // cfg.num_heads).team
+    team = {"attention_team": team} if team else {}
     if isinstance(cfg, swinv2.SwinV2Config):
         blocks = sum(cfg.depths)
         return {"q8_linear": 2 * blocks + cfg.num_layers,
                 "fused_window_attention_qkv": blocks,
                 "q8_win_qkv_norm": blocks, "q8_win_proj": blocks,
-                "q8_postnorm": 2 * blocks}
+                "q8_postnorm": 2 * blocks, **team}
     if isinstance(cfg, swin.SwinConfig):
         blocks, tail = sum(cfg.depths), cfg.num_layers
         if relaxed:
             return {"q8_linear": blocks + tail, "q8_linear_relaxed": blocks,
                     "fused_window_attention_qkv_relaxed": blocks,
-                    "q8_win_qkv_relaxed": blocks, "q8_win_proj": blocks}
+                    "q8_win_qkv_relaxed": blocks, "q8_win_proj": blocks,
+                    **team}
         return {"q8_linear": 2 * blocks + tail,
                 "fused_window_attention_qkv": blocks, "q8_win_qkv": blocks,
-                "q8_win_proj": blocks}
+                "q8_win_proj": blocks, **team}
     heads = 2 if cfg.distilled else 1
     if relaxed:
         return {"q8_linear": 2 * cfg.depth + heads,
                 "q8_linear_relaxed": 2 * cfg.depth,
-                "fused_attention_qkv_relaxed": cfg.depth}
+                "fused_attention_qkv_relaxed": cfg.depth, **team}
     return {"q8_linear": 4 * cfg.depth + heads,
-            "fused_attention_qkv": cfg.depth}
+            "fused_attention_qkv": cfg.depth, **team}
 
 
 def slot_diff(a, b):
@@ -3139,6 +3162,9 @@ def swinv2_phase(sk, sv):
     (quantize, serve, the bf16 engine; no relaxed engine).  Returns (the
     kernels' stats, {path: launches}, the summaries)."""
     t_phase = time.time()
+    for stage, res, C, H, ws in SWINV2_STAGES:
+        log(f"[plan] V2 B9 stage {stage} ({ws * ws} keys, {H} heads): "
+            f"{sv.attn_plan(ws * ws, C // H)}")
     stats = measure_serving(swinv2_kernel_cases(sv, torch.device("cuda")))
     by_path, summaries = {}, []
     model_paths(sk, sv, (SWINV2,), by_path, summaries)

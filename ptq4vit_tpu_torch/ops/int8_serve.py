@@ -47,7 +47,8 @@ and ``q8_epilogue_kernel`` does its epilogue on summed partial sums;
 ``q8_plan`` sizes it on the host, and it reads the weight levels K-major
 (``w_kmaj``, ops/pack.kmajor_levels).  B7, B8 and B9 are one kernel
 (``attention_kernel``) with q·kᵀ and p·v on the int8 tensor cores;
-``attn_plan`` gives its padding, warps and shared memory.
+``attn_plan`` gives its padding, mode (streaming, parked, team), warps and
+shared memory.
 
 Scope (the JAX rules about semantics): LinearQP with n_H == 1, n_a == 1 and
 bits <= 8; matmul QPs with per-head scales and no operand block grids; the
@@ -734,7 +735,19 @@ AT_ROWS, AT_KEYS = 16, 32     # query rows of a warp's strip, keys of a chunk
 AT_PARK_CHUNKS = 5            # N <= 160: a strip's logits parked in shared
                               # memory between the passes
 AT_WARPS, AT_PARK_WARPS = 8, 4  # warps a block at most
+AT_TEAM_WARPS = 16            # a team's warps at most (one block)
+AT_TEAM_CHUNKS = 3            # the most chunks a team lane holds (hdp 32)
 AT_MAX_HD = 64
+
+
+def at_team_smem(warps: int, keys: int) -> int:
+    """A team's shared buffers beyond k and vT (csrc ``at_team_smem``):
+    the partial sums handed down the team (16 floats a lane), p.v's sums
+    (32 ints a lane), the row sums and each warp's row maxima (16 floats
+    each), and the strip's 16 rows of the additive term (keys + 8 floats
+    apart)."""
+    return (16 * 32 * 4 + 32 * 32 * 4 + 16 * 4 + warps * 16 * 4
+            + 16 * (keys + 8) * 4)
 
 
 class AttnPlan(NamedTuple):
@@ -748,8 +761,13 @@ class AttnPlan(NamedTuple):
     distinct banks; parked: a strip's logits wait in shared memory between
     the passes, each lane's in its own places (N <= 160), instead of being
     recomputed; strips: 16-row query strips, which a block's warps take
-    in turn; warps: a block's; smem: a block's shared memory (k, the
-    transposed v, and parked: 64 bytes a key and warp)."""
+    in turn (a team: together); warps: a block's; smem: a block's shared
+    memory (k, the transposed v, and parked: 64 bytes a key and warp, a
+    team: ``at_team_smem``); team: the block's warps share each strip,
+    each holding the logits of its run of 32-key chunks in registers
+    between the passes (N > 160 at hdp 32, where at most 16 warps of 3
+    chunks hold them, N <= 1536, and their buffers fit); chunks: a team
+    warp's most chunks (0 unless team)."""
     hdp: int
     keys: int
     kstr: int
@@ -758,16 +776,23 @@ class AttnPlan(NamedTuple):
     strips: int
     warps: int
     smem: int
+    team: bool = False
+    chunks: int = 0
 
 
 @functools.lru_cache(maxsize=None)
 def attn_plan(N: int, hd: int) -> AttnPlan:
     """The plan of an attention over N keys with head dim ``hd`` (csrc
-    ``attn_plan`` computes the same): one block an (image or window, head),
-    whose warps are the most the variant takes (8, or 4 with the logits
-    parked) with the fewest idle strip slots, down to half of that.
-    A head dim past 64 or k and v beyond a block's shared memory raise
-    ValueError: there is no other kernel."""
+    ``attn_plan`` computes the same): one block an (image or window, head).
+    Up to N = 160 the logits are parked, the block's warps the most the
+    mode takes (4) with the fewest idle strip slots, down to half of that;
+    past it, at hdp 32, a team holds them where the fewest warps that hold
+    every chunk at 3 a lane are at most 16 (N <= 1536) and its buffers
+    fit; else they are
+    recomputed, on up to 8 warps by the parked rule (at hdp 64 p.v's SoS
+    sums leave no registers for a team's chunks).  A head dim past 64 or
+    k and v beyond a block's shared memory raise ValueError: there is no
+    other kernel."""
     if N < 1 or not 1 <= hd <= AT_MAX_HD:
         raise ValueError(f"attention of {N} keys, head dim {hd}: the kernel "
                          f"takes 1 to {AT_MAX_HD} head dims")
@@ -775,19 +800,28 @@ def attn_plan(N: int, hd: int) -> AttnPlan:
     keys = -(-N // AT_KEYS) * AT_KEYS
     parked = N <= AT_KEYS * AT_PARK_CHUNKS
     strips = -(-N // AT_ROWS)
-    wmax = AT_PARK_WARPS if parked else AT_WARPS
-    hi, lo = min(strips, wmax), max(1, min(strips, wmax // 2))
-    warps = hi
-    for w in range(hi - 1, lo - 1, -1):
-        if -(-strips // w) * w < -(-strips // warps) * warps:
-            warps = w
-    smem = (keys * (hdp + 16) + hdp * (keys + 16)
-            + (warps * keys * AT_ROWS * 4 if parked else 0))
+    nc = keys // AT_KEYS
+    width = -(-nc // AT_TEAM_CHUNKS)
+    smem = keys * (hdp + 16) + hdp * (keys + 16)
+    team = (not parked and hdp == 32 and width <= AT_TEAM_WARPS
+            and smem + at_team_smem(width, keys) <= SMEM_LIMIT)
+    if team:
+        warps, chunks = width, -(-nc // width)
+        smem += at_team_smem(warps, keys)
+    else:
+        wmax = AT_PARK_WARPS if parked else AT_WARPS
+        hi, lo = min(strips, wmax), max(1, min(strips, wmax // 2))
+        warps, chunks = hi, 0
+        for w in range(hi - 1, lo - 1, -1):
+            if -(-strips // w) * w < -(-strips // warps) * warps:
+                warps = w
+        if parked:
+            smem += warps * keys * AT_ROWS * 4
     if smem > SMEM_LIMIT:
         raise ValueError(f"attention of {N} keys: k and v take {smem} bytes "
                          f"of shared memory, more than {SMEM_LIMIT}")
     return AttnPlan(hdp, keys, hdp + 16, keys + 16, parked, strips, warps,
-                    smem)
+                    smem, team, chunks)
 
 
 def _attn_launch(q, k, v, strides, out, ostrides, ph, split, scale, a_out,
@@ -797,9 +831,10 @@ def _attn_launch(q, k, v, strides, out, ostrides, ph, split, scale, a_out,
     N) or (nW, H, N, N), ``window_term``'s, and nW); q, k, v are element
     addresses;
     ``relaxed``: its relaxed variant.  The library plans the call as
-    ``attn_plan`` does; a shape it refuses raises here first."""
+    ``attn_plan`` does; a shape it refuses raises here first.  A launch
+    in the team mode is counted as ``attention_team`` too."""
     from .build import load
-    attn_plan(N, hd)
+    team = attn_plan(N, hd).team
     lib = load("serve_kernels")
     dev = out.device
     ph = ph.float().contiguous()
@@ -813,13 +848,15 @@ def _attn_launch(q, k, v, strides, out, ostrides, ph, split, scale, a_out,
     tail = (B, H, N, hd, int(sos), *qmaxes, int(bool(relaxed)), _stream())
     if window is None:
         _launch(lib.ptq_fused_attention, *head, *tail)
-        return
-    term, nW = window
-    # one float a logit: the kernel reads term[w % period][h]
-    _check(term, "window term", torch.float32, (nW, H, N, N)[-term.ndim:],
-           dev)
-    period = nW if term.ndim == 4 else 1
-    _launch(lib.ptq_window_attention, *head, _ptr(term), period, *tail)
+    else:
+        term, nW = window
+        # one float a logit: the kernel reads term[w % period][h]
+        _check(term, "window term", torch.float32,
+               (nW, H, N, N)[-term.ndim:], dev)
+        period = nW if term.ndim == 4 else 1
+        _launch(lib.ptq_window_attention, *head, _ptr(term), period, *tail)
+    if team:
+        _attn_launch.team_launches += 1
 
 
 @spanned("ptq.kernel.fused_attention_qkv")
@@ -1228,15 +1265,19 @@ def reset_launch_counts() -> None:
     for fn in RELAXED:
         fn.relaxed_launches = 0
     q8_win_qkv.norm_launches = 0
+    _attn_launch.team_launches = 0
 
 
 def launch_counts() -> dict:
     """Launches by wrapper since the last reset; a relaxed variant as
-    "<name>_relaxed", Swin V2's normalizing B10 as "q8_win_qkv_norm"."""
+    "<name>_relaxed", Swin V2's normalizing B10 as "q8_win_qkv_norm"; the
+    attention launches (B7 / B8 / B9, either variant) in the team mode
+    again as "attention_team"."""
     return {**{fn.__name__: fn.launches for fn in KERNELS},
             **{f"{fn.__name__}_relaxed": fn.relaxed_launches
                for fn in RELAXED},
-            "q8_win_qkv_norm": q8_win_qkv.norm_launches}
+            "q8_win_qkv_norm": q8_win_qkv.norm_launches,
+            "attention_team": _attn_launch.team_launches}
 
 
 reset_launch_counts()

@@ -36,7 +36,7 @@ is imported; each command prints JSON lines.
            builds -- B3 / B3f ``mm_tc_kernel<W, SOS, FAST, KL>``, B4
            ``fp32_scored_kernel<KIND>`` (0 B4w, 1 B4a, 2 B4a post-GELU),
            B6 / B10 / B11 ``q8_tc_kernel<TWIN>``, B7 / B8 / B9
-           ``attention_kernel<WINDOW=, HDP=, SOS=, PARK=, RELAXED=>``, ...
+           ``attention_kernel<WINDOW=, HDP=, SOS=, MODE=, RELAXED=>``, ...
            --, with the count in each kernel's SASS (cuobjdump) of IGMMA
            (int8 wgmma), IMMA (int8 mma.sync), IDP.4A (dp4a), its
            WARPGROUP.DEPBAR waits, the conversions (F2F, F2FP, F2I, I2F,
@@ -264,7 +264,7 @@ SASS_OPS = {"igmma": "IGMMA", "imma": "IMMA", "idp4a": "IDP.4A",
             "hfma2_bf16": "HFMA2.BF16_V2"}
 # template parameter names of the kernels whose instances the probe names
 TEMPLATE_PARAMS = {
-    "attention_kernel": ("WINDOW", "HDP", "SOS", "PARK", "RELAXED"),
+    "attention_kernel": ("WINDOW", "HDP", "SOS", "MODE", "RELAXED"),
     "q8_tc_kernel": ("TWIN", "OUTQ", "GELU", "RELAXED"),
     "q8_levels_kernel": ("KIND",), "q8_epilogue_kernel": ("NA",),
     "linear_tc_kernel": ("KIND",)}
@@ -299,7 +299,7 @@ def kernel_name(mangled):
     """A readable name of a mangled kernel: ``fp32_scored_kernel<1>``,
     ``mm_tc_kernel<64, 1, 0, 2>``, and for the kernels in TEMPLATE_PARAMS
     each parameter by name (``attention_kernel<WINDOW=0, HDP=64, SOS=1,
-    PARK=0, RELAXED=1>``); else the name its length prefix gives with the
+    MODE=2, RELAXED=1>``); else the name its length prefix gives with the
     parameters' values, or the mangled name."""
     k = re.search(r"fp32_scored_kernelILi(\d)E", mangled)
     if k:

@@ -16,26 +16,28 @@ command prints JSON lines.
            change / change / parent (the first of each kept), then
            ``compare`` of the four.  OUT_DIR (about 1 GB of kept outputs)
            defaults to _scratch/serve_probe.
-  prepare  PTQ4ViT W8A8 calibration of ViT-B/384 and Swin-B/384 on 8
-           images with this tree (chip_smoke.py's seeds: weights seed 0,
-           images seed 1), each qstate saved as a directory under OUT_DIR
-           (calib/calibrator.save_qstate).
+  prepare  PTQ4ViT W8A8 calibration of ViT-B/384, Swin-B/384 and
+           SwinV2-B/384 on 8 images with this tree (chip_smoke.py's seeds:
+           weights seed 0, images seed 1), each qstate saved as a
+           directory under OUT_DIR (calib/calibrator.save_qstate).
   run      with ROOT's package: B6 at chip_smoke.py's seven ViT-B/384 cases
            (B6_CASES), B10 / B11 at its Swin-B/384 stages (WINDOW_STAGES),
            and its attention cases (vit_attention_cases: B7 int8 and
            float, SoS and per-head, B8; window_attention_cases: B9 at
-           stages 1 and 4), 32 images, the relaxed variants of these
-           cases (RELAXED_B6, B10 at stage 1, B7 / B8 / B9) and the
-           adversarial relaxed cases (adversarial_cases) where ROOT's
-           wrappers take ``relaxed``, inputs from fixed seeds: each
+           stages 1 and 4; swinv2_kernel_cases: V2's B10, B9 and
+           q8_postnorm at its four stages), 32 images, the relaxed
+           variants of these cases (RELAXED_B6, B10 at stage 1, B7 / B8 /
+           B9) and the adversarial relaxed cases (adversarial_cases) where
+           ROOT's wrappers take ``relaxed``, inputs from fixed seeds: each
            kernel's ms (CUDA events over at least 100 ms of launches) and
            the SHA-1 of its output's bytes; then the bf16 ServingEngine on
-           ViT-B/384 and Swin-B/384 (weights seed 0, the prepared
-           qstates): the SHA-1 of one request's logits (32 images, seed
-           10), img/s over 4 requests (host numpy in, logits out), and one
-           request's device busy time, kernel span and wall time under
-           torch.profiler.  The summary also goes to OUT_DIR/TAG.json; with
-           --keep the outputs and logits go to OUT_DIR/TAG.pt.
+           ViT-B/384, Swin-B/384 and SwinV2-B/384 (weights seed 0, the
+           prepared qstates): the SHA-1 of one request's logits (32
+           images, seed 10), img/s over 4 requests (host numpy in, logits
+           out), and one request's device busy time, kernel span and wall
+           time under torch.profiler.  The summary also goes to
+           OUT_DIR/TAG.json; with --keep the outputs and logits go to
+           OUT_DIR/TAG.pt.
   compare  per case: each run's ms, the mean of each ROOT's runs and
            their ratio; whether every run's output hashes agree; for two
            kept runs of different ROOTs, the count of elements that differ.
@@ -59,7 +61,8 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-MODELS = ("vit_base_patch16_384", "swin_base_patch4_window12_384")
+MODELS = ("vit_base_patch16_384", "swin_base_patch4_window12_384",
+          "swinv2_base_window12to24_192to384")
 REQUESTS = 4
 
 
@@ -161,6 +164,10 @@ def _kernel_cases(torch, sv, cs):
     for build_cases in (cs.vit_attention_cases, cs.window_attention_cases):
         for case in build_cases(sv, "cuda", rng):
             yield case[0], case[1], case[2]
+    # Swin V2's cases at SwinV2-B/384's four stages (chip_smoke.py phase
+    # 14: B10 normalizing q and k, B9 at 576 keys with tau, q8_postnorm)
+    for case in cs.swinv2_kernel_cases(sv, "cuda"):
+        yield case[0], case[1], case[2]
     for case in cs.adversarial_cases(sv, "cuda") if has_relaxed else ():
         yield case[0], case[1], case[2]
 

@@ -725,7 +725,9 @@ def test_fused_attention_matches_plain_version_on_the_card(H, N, hd):
     last ones (the logits parked in shared memory); hd = 24 is not a
     multiple of 16 (the head dim padded to 32); N = 577, hd = 64 is a
     full-width ViT-B/384 head (37 strips, the last of one row; 19 chunks,
-    the last of one key; logits recomputed per pass)."""
+    the last of one key; past the parked logits, in the mode attn_plan
+    gives it, its launches counted as ``attention_team`` in the team
+    mode)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     from ptq4vit_tpu_torch.ops import int8_serve as sv
@@ -783,7 +785,8 @@ def test_fused_attention_matches_plain_version_on_the_card(H, N, hd):
         assert_float_close(got, ref, 1e-5, step.reshape(1, H, 1, 1))
     counts = sv.launch_counts()
     assert counts == {**{k: 0 for k in counts}, "fused_attention_qkv": 24,
-                      "fused_attention": 4}
+                      "fused_attention": 4,
+                      "attention_team": 28 * sv.attn_plan(N, hd).team}
 
 
 # ---------------------------------------------------------------------------
@@ -848,7 +851,8 @@ def test_window_attention_matches_plain_version_on_the_card(nW, N, hd,
     a mask -- random, or ``shifted``: Swin's shifted-window mask of a
     24 x 24 grid of 12 x 12 windows (N = 144, hd = 32, four windows) --;
     N = 196 (a 14 x 14 window) is past the logits parked in shared memory,
-    so the bias and mask are read in each pass --
+    so a team of warps holds them in registers, each term value read once
+    a strip --
     against the plain version, under B7's rules: float outputs rtol 1e-5
     (bf16: one bf16 step), atol 2e-5 of max |ref|, except in at most 0.5%
     of the elements, off by at most one probability level's contribution
@@ -1262,14 +1266,19 @@ def test_q8_partial_sums_and_epilogue_on_the_card(dtype):
 def attention_shapes(name):
     """(N, hd, heads) of each attention a served forward of ``name``
     runs: ViT / DeiT one (tokens, with the class and distillation tokens),
-    Swin one a stage (window tokens)."""
+    Swin one a stage (window tokens, the window clamped to the stage's
+    map)."""
     from ptq4vit_tpu_torch.models import model_config
     cfg = model_config(name)
     if name.startswith("swin"):
-        return [(cfg.window_size ** 2, cfg.embed_dim * 2 ** i // h, h)
+        return [(min(cfg.window_size, cfg.layer_resolution(i)) ** 2,
+                 cfg.embed_dim * 2 ** i // h, h)
                 for i, h in enumerate(cfg.num_heads)]
     n = (cfg.img_size // cfg.patch_size) ** 2 + (2 if cfg.distilled else 1)
     return [(n, cfg.embed_dim // cfg.num_heads, cfg.num_heads)]
+
+
+SWINV2_B384 = "swinv2_base_window12to24_192to384"
 
 
 @pytest.mark.parametrize("name,stage", [
@@ -1277,58 +1286,98 @@ def attention_shapes(name):
     ("swin_base_patch4_window12_384", 0),
     ("swin_base_patch4_window12_384", 1),
     ("swin_base_patch4_window12_384", 2),
-    ("swin_base_patch4_window12_384", 3)])
+    ("swin_base_patch4_window12_384", 3),
+    (SWINV2_B384, 0), (SWINV2_B384, 1), (SWINV2_B384, 2),
+    (SWINV2_B384, 3)])
 def test_attn_plans_fit_at_serving_shapes(name, stage):
     """B7 / B8 / B9's plan at each serving attention: ViT-B/384 (N = 577,
-    hd = 64), DeiT-S/224 (N = 197, hd = 64) and Swin-B/384's four stages
-    (N = 144, hd = 32; 4, 8, 16 and 32 heads).  k and the transposed v fit
-    232,448 bytes of shared memory, and two blocks an SM at these shapes;
-    the head dim is padded with zero levels to 32 or 64 and the keys to a
-    multiple of 32, both by less than one step; the row strides are 16
-    bytes times an odd number (ldmatrix's 8 rows on distinct banks); the
-    16-row strips fill a block's warps (one block an image or window and
-    head) with fewer idle slots than a warp, 8 warps at most (4 where the
-    logits are parked in shared memory, which they are at N <= 160:
-    Swin's windows, 10 KB a warp); the 32-image grid of (image or window,
-    head) blocks stays within 2^31 - 1."""
+    hd = 64), DeiT-S/224 (N = 197, hd = 64), Swin-B/384's four stages
+    (N = 144, hd = 32; 4, 8, 16 and 32 heads) and SwinV2-B/384's (N =
+    576 at stages 1-3, 4, 8 and 16 heads of 32, with 16, 4 and 1 windows
+    of 24; N = 144 at stage 4, its one window clamped to 12).  k and the
+    transposed v (and a team's buffers) fit 232,448 bytes of shared
+    memory, and two blocks an SM at these shapes; the head dim is padded
+    with zero levels to 32 or 64 and the keys to a multiple of 32, both
+    by less than one step; the row strides are 16 bytes times an odd
+    number (ldmatrix's 8 rows on distinct banks); the logits are parked in
+    shared memory at N <= 160 (Swin's windows, 10 KB a warp), the 16-row
+    strips filling 4 warps at most with fewer idle slots than a warp; past
+    it, at hd 32, a team of warps holds them in registers, the fewest
+    warps that hold every 32-key chunk at 3 chunks a lane, each warp at
+    most that many (V2's 576 keys: 6 warps of 3); at hd 64 (ViT, DeiT)
+    they are recomputed in each pass, the strips filling 8 warps at most
+    as above; the 32-image grid of (image or window, head) blocks stays
+    within 2^31 - 1."""
+    from ptq4vit_tpu_torch.models import model_config
     from ptq4vit_tpu_torch.ops import int8_serve as sv
     N, hd, heads = attention_shapes(name)[stage]
     p = sv.attn_plan(N, hd)
+    team = (16 * 32 * 4 + 32 * 32 * 4 + 16 * 4 + p.warps * 16 * 4
+            + 16 * (p.keys + 8) * 4 if p.team else 0)
     assert p.smem == p.keys * p.kstr + p.hdp * p.vstr + (
-        p.warps * p.keys * 16 * 4 if p.parked else 0)
+        p.warps * p.keys * 16 * 4 if p.parked else 0) + team
     assert p.smem <= sk.SM_SMEM // 2 - 1024 < sk.SMEM_LIMIT == 232448
     assert p.hdp in (32, 64) and hd <= p.hdp < hd + 32
     assert p.keys % 32 == 0 and N <= p.keys < N + 32
     assert (p.kstr, p.vstr) == (p.hdp + 16, p.keys + 16)
     assert p.kstr // 16 % 2 == 1 and p.vstr // 16 % 2 == 1
     assert p.strips == -(-N // 16)
-    assert p.parked == (N <= 160)
-    assert 1 <= p.warps <= (4 if p.parked else 8)
-    assert -(-p.strips // p.warps) * p.warps - p.strips < p.warps
-    windows = (32 * (384 // 4 // 2 ** stage // 12) ** 2
-               if name.startswith("swin") else 32)
+    assert p.parked == (N <= 160) and not (p.parked and p.team)
+    chunks = p.keys // 32
+    assert p.team == (160 < N <= 1536 and p.hdp == 32)
+    if p.team:
+        assert p.warps == -(-chunks // 3) <= 16
+        assert p.chunks == -(-chunks // p.warps) <= 3
+    else:
+        assert p.chunks == 0
+        assert 1 <= p.warps <= (4 if p.parked else 8)
+        assert -(-p.strips // p.warps) * p.warps - p.strips < p.warps
+    cfg = model_config(name)
+    if name.startswith("swin"):
+        res = cfg.layer_resolution(stage)
+        windows = 32 * (res // min(cfg.window_size, res)) ** 2
+    else:
+        windows = 32
     assert windows * heads < 2 ** 31 - 1
-    expect = {"vit_base_patch16_384": (64, 608, False, 8, 88576),
-              "deit_small_patch16_224": (64, 224, False, 7, 33280),
-              "swin_base_patch4_window12_384": (32, 160, True, 3, 44032)}
-    assert (p.hdp, p.keys, p.parked, p.warps, p.smem) == expect[name]
+    expect = {"vit_base_patch16_384": (64, 608, False, 8, 88576, False, 0),
+              "deit_small_patch16_224": (64, 224, False, 7, 33280, False,
+                                         0),
+              "swin_base_patch4_window12_384":
+                  (32, 160, True, 3, 44032, False, 0),
+              SWINV2_B384: (32, 576, False, 6, 90560, True, 3)}[name]
+    if name == SWINV2_B384 and stage == 3:
+        expect = (32, 160, True, 3, 44032, False, 0)
+    assert (p.hdp, p.keys, p.parked, p.warps, p.smem, p.team,
+            p.chunks) == expect
 
 
 def test_attn_plan_pads_keys_and_head_dim():
     """Head dims 1-32 pad to 32 and 33-64 to 64; keys to the next multiple
     of 32 (1 -> 32, 32 -> 32, 33 -> 64, 577 -> 608); the logits are
-    parked up to N = 160 (five 32-key chunks), at any head dim; one 16-row
-    strip runs one warp."""
+    parked up to N = 160 (five 32-key chunks), at any head dim, and, at
+    hd 32, held by a team of warps from N = 161 on (161: 6 chunks on 2
+    warps; 576: 18 on 6, 3 a lane) while at most 16 warps of 3 chunks
+    hold them: to 1536 keys (16 warps; the team's buffers fit a block's
+    shared memory), past which they are recomputed in each pass, as they
+    are at hd 64 past 160; one 16-row strip runs one warp."""
     from ptq4vit_tpu_torch.ops import int8_serve as sv
     assert [sv.attn_plan(50, hd).hdp for hd in (1, 24, 32, 33, 64)] == \
         [32, 32, 32, 64, 64]
     assert [sv.attn_plan(n, 32).keys for n in (1, 32, 33, 577)] == \
         [32, 32, 64, 608]
-    assert sv.attn_plan(160, 32).parked
+    assert sv.attn_plan(160, 32).parked and not sv.attn_plan(160, 32).team
     assert not sv.attn_plan(161, 32).parked
     assert sv.attn_plan(50, 64).parked
     assert sv.attn_plan(16, 24).warps == 1
     assert sv.attn_plan(49, 32).warps == 4
+    def mode(n, hd):
+        p = sv.attn_plan(n, hd)
+        return p.warps, p.team, p.chunks
+    modes = {n: mode(n, 32) for n in (161, 576, 1536, 1537)}
+    assert modes == {161: (2, True, 3), 576: (6, True, 3),
+                     1536: (16, True, 3), 1537: (7, False, 0)}
+    assert mode(577, 64) == (8, False, 0)
+    assert mode(161, 64) == (6, False, 0)
 
 
 def test_attn_plan_refuses_what_does_not_fit():
@@ -1373,15 +1422,17 @@ def test_ctypes_signatures_match_the_c_entries(library):
 @pytest.mark.cuda
 def test_attn_plan_matches_the_library_on_the_card():
     """The library plans an attention as attn_plan does (padded head dim
-    and keys, row strides, parking, warps, shared memory) and refuses what
-    it refuses."""
+    and keys, row strides, the mode -- 0 recomputed, 1 parked, 2 team --,
+    warps, shared memory, a team warp's most chunks) and refuses what it
+    refuses."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     from ptq4vit_tpu_torch.ops import int8_serve as sv
     from ptq4vit_tpu_torch.ops.build import load
     lib = load("serve_kernels")
-    out = torch.zeros(7, dtype=torch.int32)
-    for N in (1, 16, 37, 49, 130, 144, 160, 161, 197, 577, 1600, 1601):
+    out = torch.zeros(8, dtype=torch.int32)
+    for N in (1, 16, 37, 49, 130, 144, 160, 161, 196, 197, 576, 577, 1536,
+              1537, 1600, 1601):
         for hd in (24, 32, 64, 65):
             err = lib.ptq_attn_plan(N, hd, out.data_ptr())
             try:
@@ -1390,8 +1441,9 @@ def test_attn_plan_matches_the_library_on_the_card():
                 assert err != 0, (N, hd)
                 continue
             assert err == 0, (N, hd)
-            assert out.tolist() == [p.hdp, p.keys, p.kstr, p.vstr,
-                                    int(p.parked), p.warps, p.smem]
+            mode = 2 if p.team else int(p.parked)
+            assert out.tolist() == [p.hdp, p.keys, p.kstr, p.vstr, mode,
+                                    p.warps, p.smem, p.chunks]
 
 
 def test_fast_division_is_the_ieee_quotient():
@@ -1619,13 +1671,15 @@ def test_relaxed_attention_matches_plain_version_on_the_card(H, N, hd):
     counts = sv.launch_counts()
     assert counts == {**{k: 0 for k in counts},
                       "fused_attention_qkv_relaxed": n,
-                      "fused_attention_relaxed": 3}
+                      "fused_attention_relaxed": 3,
+                      "attention_team": (n + 3) * sv.attn_plan(N, hd).team}
 
 
 @pytest.mark.cuda
 def test_relaxed_window_kernels_match_plain_versions_on_the_card():
     """B9's relaxed variant on Swin's shifted 12 x 12 windows (the logits
-    parked) and on 14 x 14 windows (recomputed), against its relaxed plain
+    parked) and on 14 x 14 windows (held by a team of three warps: four
+    launches count as ``attention_team``), against its relaxed plain
     version under B7's rules, and B10's on a grid of 2 x 2 windows of 7
     with K = 72, bitwise its relaxed plain version with the LayerNorm in
     the kernel's order."""
@@ -1705,7 +1759,7 @@ def test_relaxed_window_kernels_match_plain_versions_on_the_card():
     counts = sv.launch_counts()
     assert counts == {**{k: 0 for k in counts},
                       "fused_window_attention_qkv_relaxed": 8,
-                      "q8_win_qkv_relaxed": 2}
+                      "q8_win_qkv_relaxed": 2, "attention_team": 4}
 
 
 def _chip_smoke():

@@ -22,7 +22,7 @@ def _probe(name, where="scripts"):
     return mod
 
 
-ATTN = "_ZN12_GLOBAL__N_116attention_kernelILb0ELi64ELb1ELb0ELb1EEEvNS_8AttnArgsE"
+ATTN = "_ZN12_GLOBAL__N_116attention_kernelILb0ELi64ELb1ELi2ELb1EEEvNS_8AttnArgsE"
 Q8 = ("_ZN12_GLOBAL__N_112q8_tc_kernelILb0ELi1ELb1ELb1EEEv14CUtensorMap_stS1_"
       "NS_6Q8ArgsE")
 SASS = f"""
@@ -75,7 +75,7 @@ def test_sass_counts_of_a_canned_excerpt():
 
 
 @pytest.mark.parametrize("mangled,name", [
-    (ATTN, "attention_kernel<WINDOW=0, HDP=64, SOS=1, PARK=0, RELAXED=1>"),
+    (ATTN, "attention_kernel<WINDOW=0, HDP=64, SOS=1, MODE=2, RELAXED=1>"),
     (Q8, "q8_tc_kernel<TWIN=0, OUTQ=1, GELU=1, RELAXED=1>"),
     ("_ZN12_GLOBAL__N_118fp32_scored_kernelILi2EEEvNS_6FArgsE",
      "fp32_scored_kernel<2>"),

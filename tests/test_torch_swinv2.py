@@ -484,10 +484,38 @@ def _linear_qp(w, a, dev):
                                                  (144, 32, 1, False)])
 def test_b9_per_head_tau_on_the_card(N, heads, nw, shifted):
     """B9 on int8 q̂, k̂, v with a per-head τ folded into the q scale and a
-    held term, at SwinV2-B/384's windows (576 keys: the unparked path):
-    its context levels against the plain version, each within one level
-    (the softmax sum is reduced in another order)."""
-    dev = _card()
+    held term, at SwinV2-B/384's windows (576 keys: the team mode; 144
+    parked): its context levels against the plain version, each within
+    one level (the softmax sum is reduced in another order)."""
+    _card()
+    out, want = _b9_case(N, heads, nw, shifted)
+    d = (out.float() - want.float()).abs()
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 1e-3
+
+
+@pytest.mark.cuda
+def test_b9_team_mode_counts_its_launches_on_the_card():
+    """B9 int8 SoS at SwinV2-B/384's stage 2 (576 keys, 8 heads, 4
+    shifted windows) runs in the team mode: ``attention_team`` counts the
+    launch beside ``fused_window_attention_qkv``, and its context levels
+    keep the one-level class against the plain version."""
+    _card()
+    assert sv.attn_plan(576, 32).team
+    sv.reset_launch_counts()
+    out, want = _b9_case(576, 8, 4, True)
+    counts = sv.launch_counts()
+    assert counts["attention_team"] == counts[
+        "fused_window_attention_qkv"] == 1
+    d = (out.float() - want.float()).abs()
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 1e-3
+
+
+def _b9_case(N, heads, nw, shifted):
+    """B9 int8 SoS on random int8 q̂, k̂, v (2 images of ``nw`` windows of
+    N tokens, ``heads`` heads of 32), a sigmoid bias (+ the shifted mask),
+    τ per head; returns (the kernel's context levels, the plain
+    version's)."""
+    dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(N + heads)
     hd, B = 32, 2 * nw
     qkv = torch.randint(-128, 128, (B, N, 3 * heads * hd), generator=g,
@@ -498,8 +526,8 @@ def test_b9_per_head_tau_on_the_card(N, heads, nw, shifted):
     mask = None
     if shifted:
         from ptq4vit_tpu_torch.models.swin import device_shifted_window_mask
-        mask = device_shifted_window_mask(ws * 4, ws, ws // 2, dev,
-                                          torch.float32)
+        mask = device_shifted_window_mask(ws * round(nw ** 0.5), ws,
+                                          ws // 2, dev, torch.float32)
     term = sv.window_term(bias, mask)
     tau = torch.exp(torch.rand(heads, generator=g, device=dev) * 4.6)
     qp1, qp2 = _attn_qps(heads, dev)
@@ -514,8 +542,7 @@ def test_b9_per_head_tau_on_the_card(N, heads, nw, shifted):
         torch.tensor(0.02, device=dev), sos=sos, in_q8=True,
         qmaxes=sv.attn_qmaxes(qp1, qp2, 128), out_dtype=torch.float32,
         term=term)
-    d = (out.float() - want.float()).abs()
-    assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 1e-3
+    return out, want
 
 
 def _attn_qps(heads, dev):

@@ -206,7 +206,8 @@ def test_serve_launches_equal_a_hand_count():
     once, plus B6 for the head (both heads when distilled); a Swin block
     runs B10, B9, B11 and B6 twice (fc1, fc2), plus B6 for each patch
     merge and the head.  Relaxed: qkv (B10), fc1 and the attention take
-    the relaxed variants, the rest the exact kernels."""
+    the relaxed variants, the rest the exact kernels.  Swin V2 counts its
+    team-mode attentions again as ``attention_team``."""
     cs = chip_smoke()
     assert cs.serve_launches("vit_base_patch16_384") == {
         "q8_linear": 49, "fused_attention_qkv": 12}
@@ -227,6 +228,12 @@ def test_serve_launches_equal_a_hand_count():
     assert cs.serve_launches("deit_small_distilled_patch16_224", True) == {
         "q8_linear": 2 * 12 + 2, "q8_linear_relaxed": 24,
         "fused_attention_qkv_relaxed": 12}
+    # Swin V2: B10's normalizing instance and two post-norms a block; the
+    # 22 blocks of stages 1-3 (576 keys) run B9 in the team mode
+    assert cs.serve_launches("swinv2_base_window12to24_192to384") == {
+        "q8_linear": 52, "fused_window_attention_qkv": 24,
+        "q8_win_qkv_norm": 24, "q8_win_proj": 24, "q8_postnorm": 48,
+        "attention_team": 22}
     assert cs.serve_launches("swin_tiny_patch4_window7_224") == {
         "q8_linear": 2 * 12 + 3 + 1, "fused_window_attention_qkv": 12,
         "q8_win_qkv": 12, "q8_win_proj": 12}
